@@ -7,6 +7,7 @@ and a config file or `args.txt` means the same to both:
 - ModelConfig:    network architecture + encoding (fixed for an experiment)
 - RenderSettings: sampling/compositing knobs that differ train vs. test
 - EditConfig:     test-time scene-editing controls
+- TrainConfig:    optimization settings
 
 `fused_kernel` keeps its modes. "auto" runs the canonical MLP as the CUDA
 kernel whenever the render device is a GPU and the architecture and edits
@@ -111,6 +112,21 @@ class EditConfig:
     render_canonical: bool = False
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization settings (reference: train.py:1016-1060,1631-1643)."""
+
+    lrate: float = 5e-4
+    lrate_decay: int = 250000
+    N_iters: int = 200000
+    N_rand: int = 1024
+    warmup_steps: int = 1000
+    offsets_loss_weight: float = 0.0
+    divergence_loss_weight: float = 0.0
+    rigidity_loss_weight: float = 0.0
+    seed: int = 0
+
+
 # ---------------------------------------------------------------------------
 # File-based experiment config: the reference's "key = value" files.
 # ---------------------------------------------------------------------------
@@ -148,6 +164,9 @@ DEFAULTS = {
     "N_samples": 64, "N_importance": 0, "perturb": 1.0,
     "use_viewdirs": False, "i_embed": 0, "multires": 10, "multires_views": 4,
     "raw_noise_std": 0.0,
+    "N_iters": 200000, "N_rand": 4096, "lrate": 5e-4, "lrate_decay": 250000,
+    "offsets_loss_weight": 0.0, "divergence_loss_weight": 0.0,
+    "rigidity_loss_weight": 0.0, "seed": -1,
 }
 
 
@@ -218,6 +237,22 @@ def model_config_from_args(args: Args) -> ModelConfig:
         time_conditioned_baseline=args.time_conditioned_baseline,
         N_samples=args.N_samples, N_importance=args.N_importance,
         compute_dtype=args.compute_dtype, fused_kernel=args.fused_kernel,
+    )
+
+
+def train_config_from_args(args: Args) -> TrainConfig:
+    """seed = -1 means unseeded: a fresh random seed is drawn."""
+    seed = args.seed
+    if seed is None or seed < 0:
+        import secrets
+        seed = secrets.randbelow(2 ** 31)
+    return TrainConfig(
+        lrate=args.lrate, lrate_decay=args.lrate_decay, N_iters=args.N_iters,
+        N_rand=args.N_rand,
+        offsets_loss_weight=args.offsets_loss_weight,
+        divergence_loss_weight=args.divergence_loss_weight,
+        rigidity_loss_weight=args.rigidity_loss_weight,
+        seed=seed,
     )
 
 

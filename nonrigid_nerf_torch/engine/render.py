@@ -5,13 +5,14 @@
 samples' stage-1 results (bend + encode), runs stage 1 on the importance
 samples only, runs the fine MLP on the UNSORTED union [coarse..., new...]
 (the MLP is pointwise), and sorts only the compact raw outputs by depth for
-compositing. `make_ray_renderer` streams any number of rays through
+compositing; with `stage1_reuse=False` it sorts the depths first and queries
+all of them again, as the reference does. `make_ray_renderer` streams any number of rays through
 `render_rays` in fixed `chunk`-sized blocks.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 
@@ -19,81 +20,144 @@ from nonrigid_nerf_torch.config import EditConfig, ModelConfig, RenderSettings
 from nonrigid_nerf_torch.device import DeviceLike, resolve_device
 from nonrigid_nerf_torch.engine.query import (bend_encode_stage,
                                               canonical_mlp_stage,
-                                              use_fused_kernel)
+                                              query_points, use_fused_kernel)
 from nonrigid_nerf_torch.models.nerf import check_nerf_supported
 from nonrigid_nerf_torch.ops.compositing import raw2outputs
 from nonrigid_nerf_torch.ops.sampling import sample_pdf, stratified_z_vals
 
 
-def sort_merge(z, raw):
-    """Sort z (R, S) ascending and permute raw (R, S, C) alike. Stable, so
-    equal depths keep their [coarse..., new...] order, as in the JAX
-    variadic sort."""
+DRAW_KEYS = ("t_rand", "noise0", "u", "noise1")
+
+
+def sort_merge(z, *payloads):
+    """Sort z (R, S) ascending and permute every payload (R, S, C) alike.
+    Stable, so equal depths keep their [coarse..., new...] order, as in the
+    JAX variadic sort. Returns (z_sorted, *sorted_payloads)."""
     z_sorted, perm = torch.sort(z, dim=-1, stable=True)
-    raw_sorted = torch.gather(
-        raw, -2, perm[..., None].expand(perm.shape + (raw.shape[-1],)))
-    return z_sorted, raw_sorted
-
-
-def check_render_supported(cfg: ModelConfig) -> None:
-    check_nerf_supported(cfg)
-    if not cfg.stage1_reuse:
-        raise NotImplementedError("stage1_reuse=False is not ported yet")
+    return (z_sorted,) + tuple(
+        torch.gather(p, -2, perm[..., None].expand(perm.shape + (p.shape[-1],)))
+        for p in payloads)
 
 
 def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
                 latents, generator: Optional[torch.Generator] = None,
-                edit: EditConfig = EditConfig()):
+                edit: EditConfig = EditConfig(), detailed: bool = False,
+                retraw: bool = False, fine_detailed: Optional[bool] = None,
+                draws: Optional[Mapping[str, torch.Tensor]] = None):
     """Render a block of rays: rays_o, rays_d (R, 3); latents (R, L).
 
     Stratified jitter, density noise and importance draws (when rs asks for
-    them) come from `generator`. Returns a dict of per-ray outputs: rgb_map,
-    disp_map, acc_map, depth_map, and with importance sampling also the
-    coarse rgb0/disp0/acc0 and z_std."""
-    check_render_supported(cfg)
+    them) come from `generator`, or from `draws`: a dict of tensors
+    `t_rand` (R, N_samples) uniform, `noise0` (R, N_samples) normal, `u`
+    (R, N_importance) uniform, `noise1` (R, N_samples + N_importance)
+    normal, in the order of the JAX key split (stratified, coarse noise,
+    importance, fine noise). A key that is absent falls back to the
+    generator.
+
+    Returns a dict of per-ray outputs: rgb_map, disp_map, acc_map,
+    depth_map, and with importance sampling also the coarse rgb0/disp0/acc0
+    and z_std. `retraw` adds the last pass's `raw`. `detailed` adds the
+    coarse pass's visibility_weights, opacity_alpha and stage-1 details (the
+    training losses read them); `fine_detailed` (default: follow `detailed`)
+    also the fine pass's, under `fine_*` keys."""
+    check_nerf_supported(cfg)
+    draws = {} if draws is None else draws
+    unknown = set(draws) - set(DRAW_KEYS)
+    if unknown:
+        raise ValueError(f"unknown draws {sorted(unknown)}; known: {DRAW_KEYS}")
     R = rays_o.shape[0]
     fused = use_fused_kernel(cfg, edit, rays_o.device)
+    reuse = cfg.stage1_reuse
+    fine_detailed = detailed if fine_detailed is None \
+        else (fine_detailed and detailed)
 
     z_vals = stratified_z_vals(rs.near, rs.far, R, rs.N_samples,
                                lindisp=rs.lindisp, perturb=rs.perturb,
-                               generator=generator, dtype=rays_o.dtype,
-                               device=rays_o.device)
+                               generator=generator, t_rand=draws.get("t_rand"),
+                               dtype=rays_o.dtype, device=rays_o.device)
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-    st = bend_encode_stage(model, cfg, pts, latents, edit, fused)
-    raw = canonical_mlp_stage(model, cfg, "coarse", st, edit, fused)
+    if reuse:
+        st = bend_encode_stage(model, cfg, pts, latents, edit, fused, detailed)
+        raw = canonical_mlp_stage(model, cfg, "coarse", st, edit, fused)
+        details = st["details"]
+    else:
+        out = query_points(model, cfg, pts, latents, edit, "coarse", detailed)
+        raw, details = out if detailed else (out, None)
     coarse = raw2outputs(raw, z_vals, rays_d, rs.raw_noise_std,
-                         rs.white_bkgd, generator=generator)
+                         rs.white_bkgd, generator=generator,
+                         noise=draws.get("noise0"))
 
-    if rs.N_importance <= 0:
-        return dict(rgb_map=coarse.rgb_map, disp_map=coarse.disp_map,
-                    acc_map=coarse.acc_map, depth_map=coarse.depth_map)
+    if rs.N_importance > 0:
+        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        z_samples = sample_pdf(z_mid, coarse.visibility_weights[..., 1:-1],
+                               rs.N_importance, det=(rs.perturb == 0.0),
+                               generator=generator, u=draws.get("u"))
+        z_cat = torch.cat([z_vals, z_samples], -1)
+        fine_details = None
+        if reuse:
+            # stage 1 runs on the new samples only; the fine MLP runs on the
+            # UNSORTED union [coarse..., new...] (it is pointwise), and only
+            # its compact outputs (and the detail channels, when asked for)
+            # are sorted by depth for compositing
+            pts_new = rays_o[:, None, :] + rays_d[:, None, :] * z_samples[..., None]
+            st_new = bend_encode_stage(model, cfg, pts_new, latents, edit,
+                                       fused, fine_detailed)
 
-    z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-    z_samples = sample_pdf(z_mid, coarse.visibility_weights[..., 1:-1],
-                           rs.N_importance, det=(rs.perturb == 0.0),
-                           generator=generator)
-    pts_new = rays_o[:, None, :] + rays_d[:, None, :] * z_samples[..., None]
-    st_new = bend_encode_stage(model, cfg, pts_new, latents, edit, fused)
+            def cat(a, b):
+                return torch.cat([a, b], dim=-2)
 
-    def cat(a, b):
-        return torch.cat([a, b], dim=-2)
+            st_cat = {
+                "embedded": cat(st["embedded"], st_new["embedded"]),
+                "bent_pts": cat(st["bent_pts"], st_new["bent_pts"]),
+                "rigidity": (cat(st["rigidity"], st_new["rigidity"])
+                             if st["rigidity"] is not None else None),
+            }
+            raw_cat = canonical_mlp_stage(model, cfg, "fine", st_cat, edit,
+                                          fused)
+            if fine_detailed:
+                keys = sorted(st_new["details"])
+                merged = sort_merge(
+                    z_cat, raw_cat,
+                    *(cat(details[k], st_new["details"][k]) for k in keys))
+                z_all, raw_fine = merged[0], merged[1]
+                fine_details = dict(zip(keys, merged[2:]))
+            else:
+                z_all, raw_fine = sort_merge(z_cat, raw_cat)
+        else:
+            # the reference's way: sort the depths, then bend and encode the
+            # coarse samples a second time with the new ones
+            z_all = torch.sort(z_cat, dim=-1).values
+            pts_fine = rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]
+            out = query_points(model, cfg, pts_fine, latents, edit, "fine",
+                               fine_detailed)
+            raw_fine, fine_details = out if fine_detailed else (out, None)
+        fine = raw2outputs(raw_fine, z_all, rays_d, rs.raw_noise_std,
+                           rs.white_bkgd, generator=generator,
+                           noise=draws.get("noise1"))
+        ret = dict(rgb_map=fine.rgb_map, disp_map=fine.disp_map,
+                   acc_map=fine.acc_map, depth_map=fine.depth_map,
+                   rgb0=coarse.rgb_map, disp0=coarse.disp_map,
+                   acc0=coarse.acc_map,
+                   z_std=torch.std(z_samples, dim=-1, correction=0))
+        if retraw:
+            ret["raw"] = raw_fine
+        if fine_detailed:
+            ret["fine_visibility_weights"] = fine.visibility_weights
+            ret["fine_opacity_alpha"] = fine.opacity_alpha
+            for k, v in fine_details.items():
+                ret["fine_" + k] = v
+    else:
+        ret = dict(rgb_map=coarse.rgb_map, disp_map=coarse.disp_map,
+                   acc_map=coarse.acc_map, depth_map=coarse.depth_map)
+        if retraw:
+            ret["raw"] = raw
 
-    st_cat = {
-        "embedded": cat(st["embedded"], st_new["embedded"]),
-        "bent_pts": cat(st["bent_pts"], st_new["bent_pts"]),
-        "rigidity": (cat(st["rigidity"], st_new["rigidity"])
-                     if st["rigidity"] is not None else None),
-    }
-    raw_cat = canonical_mlp_stage(model, cfg, "fine", st_cat, edit, fused)
-    z_all, raw_fine = sort_merge(torch.cat([z_vals, z_samples], -1), raw_cat)
-    fine = raw2outputs(raw_fine, z_all, rays_d, rs.raw_noise_std,
-                       rs.white_bkgd, generator=generator)
-
-    return dict(rgb_map=fine.rgb_map, disp_map=fine.disp_map,
-                acc_map=fine.acc_map, depth_map=fine.depth_map,
-                rgb0=coarse.rgb_map, disp0=coarse.disp_map,
-                acc0=coarse.acc_map,
-                z_std=torch.std(z_samples, dim=-1, correction=0))
+    if detailed:
+        # coarse-pass internals, read by the offsets and divergence losses
+        ret["visibility_weights"] = coarse.visibility_weights
+        ret["opacity_alpha"] = coarse.opacity_alpha
+        ret.update(details)
+    return ret
 
 
 def make_ray_renderer(cfg: ModelConfig, rs: RenderSettings,
@@ -110,7 +174,7 @@ def make_ray_renderer(cfg: ModelConfig, rs: RenderSettings,
     Returns fn(model, rays_o (N, 3), rays_d (N, 3), latents (N, L),
     generator=None) -> dict of (N, ...) tensors."""
     device = resolve_device(device)
-    check_render_supported(cfg)
+    check_nerf_supported(cfg)
     use_fused_kernel(cfg, edit, device)   # raises now on an unsupported mode
 
     def render(model, rays_o, rays_d, latents,

@@ -5,7 +5,8 @@ with nvcc for `sm_90a` into a shared library under `nonrigid_nerf_torch/_build/`
 (git-ignored) and loaded with ctypes. The library's file name carries a hash
 of the source and the flags, so an edited source is rebuilt and an unchanged
 one is loaded as it is. Nothing here runs at import time: `load_kernel_library`
-is called by a wrapper the first time it launches on a CUDA tensor.
+is called by a wrapper the first time it launches on a CUDA tensor, and
+`load_kernel_libraries` builds several sources side by side.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, List, Sequence
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -42,27 +43,48 @@ def find_nvcc() -> str:
         "PATH); the port's CUDA kernels are built with it at first use")
 
 
-def load_kernel_library(source: str) -> ctypes.CDLL:
-    """Compile `csrc/<source>` (if not built yet) and load it."""
-    if source in _LIBS:
-        return _LIBS[source]
-    src_path = os.path.join(CSRC_DIR, source)
-    with open(src_path, "rb") as f:
+def _library_path(source: str) -> str:
+    with open(os.path.join(CSRC_DIR, source), "rb") as f:
         digest = hashlib.sha1(f.read() + repr(NVCC_FLAGS).encode()).hexdigest()
     stem = os.path.splitext(source)[0]
-    lib_path = os.path.join(BUILD_DIR, f"lib{stem}_{digest[:12]}.so")
-    info = {"seconds": 0.0, "log": "", "path": lib_path}
-    if not os.path.exists(lib_path):
+    return os.path.join(BUILD_DIR, f"lib{stem}_{digest[:12]}.so")
+
+
+def load_kernel_libraries(sources: Sequence[str]) -> List[ctypes.CDLL]:
+    """Compile each `csrc/<source>` that is not built yet, one nvcc per
+    source and all started together, and load them."""
+    running = []
+    for source in sources:
+        if source in _LIBS:
+            continue
+        lib_path = _library_path(source)
+        info = {"seconds": 0.0, "log": "", "path": lib_path}
+        BUILD_INFO[source] = info
+        if os.path.exists(lib_path):
+            continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib_path}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src_path],
-                              capture_output=True, text=True)
+        src_path = os.path.join(CSRC_DIR, source)
+        proc = subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src_path],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((info, proc, tmp, src_path, time.perf_counter()))
+    failed = []
+    for info, proc, tmp, src_path, t0 in running:
+        info["log"] = proc.communicate()[0]
         info["seconds"] = time.perf_counter() - t0
-        info["log"] = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src_path}:\n{info['log']}")
-        os.replace(tmp, lib_path)
-    BUILD_INFO[source] = info
-    _LIBS[source] = ctypes.CDLL(lib_path)
-    return _LIBS[source]
+            failed.append(f"nvcc failed on {src_path}:\n{info['log']}")
+        else:
+            os.replace(tmp, info["path"])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for source in sources:
+        if source not in _LIBS:
+            _LIBS[source] = ctypes.CDLL(BUILD_INFO[source]["path"])
+    return [_LIBS[source] for source in sources]
+
+
+def load_kernel_library(source: str) -> ctypes.CDLL:
+    """Compile `csrc/<source>` (if not built yet) and load it."""
+    return load_kernel_libraries([source])[0]

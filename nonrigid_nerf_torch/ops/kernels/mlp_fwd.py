@@ -63,22 +63,23 @@ def pack_mlp_weights(nerf) -> Tuple[torch.Tensor, ...]:
     tensors, equal to the JAX `pack_mlp_weights` (fan_in, fan_out layout):
     n0w n0b n1w n1b n2w n2b n3w n3b n4w n4b n5e n5h n5b n6w n6b n7w n7b ow ob.
     The skip layer's weight splits into its input rows (n5e) and its hidden
-    rows (n5h), so the concat becomes a sum of two products."""
+    rows (n5h), so the concat becomes a sum of two products. Differentiable:
+    padding, transposing and slicing carry a gradient of the packed tensors
+    back to the `nn.Linear` parameters and drop the pad rows."""
     pts = nerf.pts
     in_ch = pts[0].in_features
     emb_pad = pad_lanes(in_ch)
-    with torch.no_grad():
-        ws = [_pad_w(pts[0].weight.t(), emb_pad, NW), _pad_b(pts[0].bias, NW)]
-        for i in (1, 2, 3, 4):
-            ws += [pts[i].weight.t(), _pad_b(pts[i].bias, NW)]
-        w5 = pts[5].weight.t()
-        ws += [_pad_w(w5[:in_ch], emb_pad, NW), w5[in_ch:],
-               _pad_b(pts[5].bias, NW)]
-        for i in (6, 7):
-            ws += [pts[i].weight.t(), _pad_b(pts[i].bias, NW)]
-        ws += [_pad_w(nerf.output.weight.t()[:, :4], NW, OUT_PAD),
-               _pad_b(nerf.output.bias[:4], OUT_PAD)]
-    return tuple(w.detach().float().contiguous() for w in ws)
+    ws = [_pad_w(pts[0].weight.t(), emb_pad, NW), _pad_b(pts[0].bias, NW)]
+    for i in (1, 2, 3, 4):
+        ws += [pts[i].weight.t(), _pad_b(pts[i].bias, NW)]
+    w5 = pts[5].weight.t()
+    ws += [_pad_w(w5[:in_ch], emb_pad, NW), w5[in_ch:],
+           _pad_b(pts[5].bias, NW)]
+    for i in (6, 7):
+        ws += [pts[i].weight.t(), _pad_b(pts[i].bias, NW)]
+    ws += [_pad_w(nerf.output.weight.t()[:, :4], NW, OUT_PAD),
+           _pad_b(nerf.output.bias[:4], OUT_PAD)]
+    return tuple(w.float().contiguous() for w in ws)
 
 
 def cast_mlp_weights(packed: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:

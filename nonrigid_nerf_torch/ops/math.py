@@ -31,3 +31,12 @@ def safe_norm(v, dim=-1, keepdim=False, eps=0.0):
     is_zero = sq <= eps
     sq_safe = torch.where(is_zero, torch.ones_like(sq), sq)
     return torch.where(is_zero, torch.zeros_like(sq), torch.sqrt(sq_safe))
+
+
+def safe_pow(base, exponent, eps: float = 1e-9):
+    """base**exponent with a finite gradient for base >= 0, base = 0
+    included. The offsets loss takes ||offset||^(2 - rigidity): the exponent
+    is learnable and d/dp x^p = x^p ln(x) diverges at x = 0. Clamping the
+    base to eps keeps the exponent's gradient near its true limit 0 there
+    and leaves values for base >= eps untouched."""
+    return torch.pow(torch.clamp(base, min=eps), exponent)

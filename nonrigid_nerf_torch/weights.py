@@ -1,4 +1,4 @@
-"""Carry a JAX parameter tree into the port's modules.
+"""Carry a JAX parameter tree into the port's modules, and back.
 
 The JAX tree (nonrigid_nerf_tpu/engine/train_state.py:init_params) is
 {"coarse", "fine"?, "bender"?, "latents"} with {"w", "b"} dense leaves,
@@ -68,3 +68,64 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
                              "bender.rigidity")
         model.latents.copy_(torch.from_numpy(latents))
     return model
+
+
+def _jax_path(name: str):
+    """"coarse.pts.3.weight" -> ("coarse", "pts", 3, "w"): the place of a
+    parameter of `NRNeRF` in the JAX tree."""
+    parts = name.split(".")
+    if parts == ["latents"]:
+        return ("latents",)
+    leaf = {"weight": "w", "bias": "b"}[parts[-1]]
+    return tuple(int(p) if p.isdigit() else p for p in parts[:-1]) + (leaf,)
+
+
+def tree_from_named(named: Mapping[str, torch.Tensor]):
+    """Tensors keyed by `NRNeRF` parameter name (the parameters, or Adam's
+    moments) as a JAX-layout tree of numpy arrays: nested dicts and lists,
+    `w` stored (fan_in, fan_out)."""
+    root: dict = {}
+    for name, t in named.items():
+        path = _jax_path(name)
+        a = t.detach().cpu().numpy()
+        if path[-1] == "w":
+            a = a.T
+        node = root
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.array(a)       # an own, contiguous copy
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(isinstance(k, int) for k in node):
+            return [lists(node[i]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(root)
+
+
+def named_from_tree(tree: Mapping[str, Any], model: NRNeRF):
+    """The inverse of `tree_from_named` for the parameter names of `model`:
+    tensors on the model's device and in its parameters' dtypes."""
+    out = {}
+    for name, p in model.named_parameters():
+        node = tree
+        for key in _jax_path(name):
+            node = node[key]
+        a = np.asarray(node)
+        if name.endswith(".weight"):
+            a = a.T
+        t = torch.as_tensor(np.ascontiguousarray(a), dtype=p.dtype,
+                            device=p.device)
+        if t.shape != p.shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} in the tree, "
+                             f"{tuple(p.shape)} in the model")
+        out[name] = t
+    return out
+
+
+def params_to_jax(model: NRNeRF):
+    """The model's parameters as the JAX tree (numpy leaves): the inverse of
+    `params_from_jax`."""
+    return tree_from_named(dict(model.named_parameters()))

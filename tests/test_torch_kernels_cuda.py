@@ -16,6 +16,7 @@ import torch
 from nonrigid_nerf_torch.config import ModelConfig, RenderSettings
 from nonrigid_nerf_torch.engine.render import make_ray_renderer
 from nonrigid_nerf_torch.models.model import NRNeRF
+from nonrigid_nerf_torch.ops.kernels import mlp_bwd as KB
 from nonrigid_nerf_torch.ops.kernels import mlp_fwd as K
 
 CFG = ModelConfig()          # the flagship: 8 x 256 coarse and fine, bending
@@ -55,7 +56,7 @@ def _emb(n, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [0, 1, 127, 129, 4096 + 5])
 def test_kernel_matches_plain_on_cuda(model, cuda_device, n):
-    mw = tuple(w.to(cuda_device) for w in
+    mw = tuple(w.detach().to(cuda_device) for w in
                K.cast_mlp_weights(K.pack_mlp_weights(model.coarse)))
     emb = torch.from_numpy(_emb(n, 3)).to(cuda_device)
     before = K.mlp_fwd.launches
@@ -69,6 +70,99 @@ def test_kernel_matches_plain_on_cuda(model, cuda_device, n):
         assert err.mean().item() <= K.BF16_TOL_MEAN
     # deterministic: no atomics
     assert torch.equal(out, K.mlp_fwd(emb, mw))
+
+
+def _assert_bwd_close(got, ref):
+    """demb and the 19 gradients within the tolerances `mlp_bwd.py` states."""
+    for a, b in zip([got[0], *got[1]], [ref[0], *ref[1]]):
+        assert a.shape == b.shape and a.dtype == torch.float32
+    stats = KB.bwd_agreement(got, ref)
+    assert stats["ok"], stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 127, 129, 4096 + 5])
+def test_bwd_kernel_matches_plain_on_cuda(model, cuda_device, n):
+    mw = tuple(w.detach().to(cuda_device) for w in
+               K.cast_mlp_weights(K.pack_mlp_weights(model.fine)))
+    embb = torch.from_numpy(_emb(n, 5)).to(cuda_device).to(torch.bfloat16)
+    draw = torch.from_numpy(np.random.RandomState(6).randn(n, 8).astype(
+        np.float32)).to(cuda_device)
+    before = KB.mlp_bwd.launches
+    got = KB.mlp_bwd(embb, mw, draw)
+    torch.cuda.synchronize()
+    assert KB.mlp_bwd.launches == before + (n > 0)
+    _assert_bwd_close(got, KB.mlp_bwd_plain(embb, mw, draw))
+    # deterministic: fixed-order reduction, no atomics
+    again = KB.mlp_bwd(embb, mw, draw)
+    assert torch.equal(got[0], again[0])
+    for a, b in zip(got[1], again[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_refuses_more_points_than_one_launch_takes(
+        model, cuda_device, monkeypatch):
+    """One call is one launch: more points than its scratch allows raise,
+    and nothing is launched or counted."""
+    mw = tuple(w.detach().to(cuda_device) for w in
+               K.cast_mlp_weights(K.pack_mlp_weights(model.coarse)))
+    embb = torch.from_numpy(_emb(700, 7)).to(cuda_device).to(torch.bfloat16)
+    draw = torch.from_numpy(np.random.RandomState(8).randn(700, 8).astype(
+        np.float32)).to(cuda_device)
+    monkeypatch.setattr(KB, "MAX_POINTS_PER_LAUNCH", 256)
+    before = KB.mlp_bwd.launches
+    with pytest.raises(ValueError, match="at most 256 points"):
+        KB.mlp_bwd(embb, mw, draw)
+    assert KB.mlp_bwd.launches == before
+
+
+class _PlainCore(torch.autograd.Function):
+    """MLPCore with both kernels replaced by their plain versions."""
+
+    @staticmethod
+    def forward(ctx, emb, *packed):
+        embb = emb.to(torch.bfloat16)
+        ctx.save_for_backward(embb, *packed)
+        return K.mlp_fwd_plain(embb, K.cast_mlp_weights(packed))
+
+    @staticmethod
+    def backward(ctx, draw):
+        embb, *packed = ctx.saved_tensors
+        demb, grads = KB.mlp_bwd_plain(embb, K.cast_mlp_weights(packed), draw)
+        return (demb, *grads)
+
+
+@pytest.mark.cuda
+def test_mlp_core_gradients_match_plain_function_on_cuda(model, cuda_device):
+    """`MLPCore` through torch.autograd.grad, twice over one graph (as the
+    training step does), against the same Function built from the plain
+    versions: gradients reach the nn.Linear parameters through
+    pack_mlp_weights."""
+    gpu_model = NRNeRF(CFG, num_timesteps=1, device=cuda_device)
+    gpu_model.load_state_dict(model.state_dict())
+    net = gpu_model.coarse
+    params = list(net.parameters())
+    emb = torch.from_numpy(_emb(777, 9)).to(cuda_device).requires_grad_(True)
+    cots = [torch.from_numpy(np.random.RandomState(s).randn(777, 8).astype(
+        np.float32)).to(cuda_device) for s in (10, 11)]
+    fwd0, bwd0 = K.mlp_fwd.launches, KB.mlp_bwd.launches
+    out = KB.MLPCore.apply(emb, *K.pack_mlp_weights(net))
+    ref = _PlainCore.apply(emb, *K.pack_mlp_weights(net))
+    for k, cot in enumerate(cots):
+        got = torch.autograd.grad(out, [emb] + params, cot, retain_graph=True)
+        want = torch.autograd.grad(ref, [emb] + params, cot, retain_graph=True)
+        assert KB.mlp_bwd.launches == bwd0 + k + 1
+        for i, (a, b) in enumerate(zip(got, want)):
+            l2 = (torch.linalg.vector_norm(a - b)
+                  / torch.linalg.vector_norm(b)).item()
+            assert l2 <= KB.BWD_TOL_L2, (k, i, l2)
+            if i:       # parameters sum over the points; emb has gate flips
+                scale = b.abs().max().item()
+                assert (a - b).abs().max().item() <= KB.grad_max_tol(777) * scale
+    assert K.mlp_fwd.launches == fwd0 + 1
+    # the unused fifth output channel gets an exactly zero gradient
+    assert got[-2][4:].abs().max().item() == 0.0
 
 
 @pytest.mark.cuda

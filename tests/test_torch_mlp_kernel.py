@@ -41,6 +41,14 @@ def weights():
     return tree, model
 
 
+def _packed(net):
+    """The packed weights as plain values: `pack_mlp_weights` is
+    differentiable (training sends gradients through it), these tests
+    compare values."""
+    with torch.no_grad():
+        return K.pack_mlp_weights(net)
+
+
 def _emb(n, seed=0):
     emb = np.random.RandomState(seed).uniform(-1, 1, (n, 64)).astype(np.float32)
     emb[:, 63] = 0.0          # the pad lane
@@ -57,7 +65,7 @@ def assert_bf16_close(out, ref):
 def test_pack_mlp_weights_equals_jax(weights, network):
     tree, model = weights
     jp = fq.pack_mlp_weights(tree, network)
-    tp = K.pack_mlp_weights(model.network(network))
+    tp = _packed(model.network(network))
     assert len(tp) == K.N_MLP_W == len(jp)
     for i, (a, b) in enumerate(zip(jp, tp)):
         assert b.dtype == torch.float32 and b.shape == K._expected_shape(i)
@@ -67,7 +75,7 @@ def test_pack_mlp_weights_equals_jax(weights, network):
 def test_cast_mlp_weights_equals_jax(weights):
     tree, model = weights
     jc = fq._cast_matmul_weights(fq.pack_mlp_weights(tree))
-    tc = K.cast_mlp_weights(K.pack_mlp_weights(model.coarse))
+    tc = K.cast_mlp_weights(_packed(model.coarse))
     for a, b in zip(jc, tc):
         assert str(a.dtype) == str(b.dtype).replace("torch.", "")
         np.testing.assert_array_equal(np.asarray(a.astype(jnp.float32)),
@@ -78,7 +86,7 @@ def test_cast_mlp_weights_equals_jax(weights):
 def test_plain_matches_jax_math(weights, seed):
     tree, model = weights
     jc = fq._cast_matmul_weights(fq.pack_mlp_weights(tree))
-    tc = K.cast_mlp_weights(K.pack_mlp_weights(model.coarse))
+    tc = K.cast_mlp_weights(_packed(model.coarse))
     emb = _emb(700, seed)
     ref = fq._mlp_fwd_math(jnp.asarray(emb), jc)
     out = K.mlp_fwd_plain(torch.from_numpy(emb), tc)
@@ -94,13 +102,13 @@ def test_plain_matches_pallas_interpret(weights, interpret_pallas):
     ref = np.asarray(fq._mlp_core(jnp.asarray(padded),
                                   fq.pack_mlp_weights(tree), block))[:700]
     out = K.mlp_fwd(torch.from_numpy(emb),
-                    K.cast_mlp_weights(K.pack_mlp_weights(model.coarse)))
+                    K.cast_mlp_weights(_packed(model.coarse)))
     assert_bf16_close(out.numpy(), ref)
 
 
 def test_cpu_tensor_takes_plain_version_without_launch(weights):
     _, model = weights
-    mw = K.cast_mlp_weights(K.pack_mlp_weights(model.coarse))
+    mw = K.cast_mlp_weights(_packed(model.coarse))
     emb = torch.from_numpy(_emb(33))
     before = K.mlp_fwd.launches
     out = K.mlp_fwd(emb, mw)
@@ -110,12 +118,12 @@ def test_cpu_tensor_takes_plain_version_without_launch(weights):
 
 def test_mlp_fwd_rejects_bad_arguments(weights):
     _, model = weights
-    mw = K.cast_mlp_weights(K.pack_mlp_weights(model.coarse))
+    mw = K.cast_mlp_weights(_packed(model.coarse))
     with pytest.raises(ValueError, match="emb must be"):
         K.mlp_fwd(torch.zeros(4, 63), mw)
     with pytest.raises(ValueError, match="packed weights"):
         K.mlp_fwd(torch.zeros(4, 64), mw[:-1])
-    f32 = K.pack_mlp_weights(model.coarse)
+    f32 = _packed(model.coarse)
     with pytest.raises(ValueError, match="bfloat16"):
         K.mlp_fwd(torch.zeros(4, 64), f32)
 

@@ -26,11 +26,13 @@ from nonrigid_nerf_torch import config as t_config
 from nonrigid_nerf_torch.apps.render_path import render_path as t_render_path
 from nonrigid_nerf_torch.engine import query as t_query
 from nonrigid_nerf_torch.engine.render import make_ray_renderer as t_renderer
+from nonrigid_nerf_torch.engine.render import render_rays as t_render_rays
 from nonrigid_nerf_torch.ops.kernels.mlp_fwd import mlp_fwd
 from nonrigid_nerf_torch.weights import params_from_jax
 from nonrigid_nerf_tpu.apps.render_path import render_path as j_render_path
 from nonrigid_nerf_tpu.config import EditConfig, ModelConfig, RenderSettings
 from nonrigid_nerf_tpu.engine.render import make_ray_renderer as j_renderer
+from nonrigid_nerf_tpu.engine.render import render_rays as j_render_rays
 from tests.torch_parity import jax_params, torch_cfg
 
 NARROW = ModelConfig(netwidth=32, netwidth_fine=32, bending_width=16,
@@ -234,3 +236,124 @@ def test_config_file_reads_like_jax(name):
     assert (dataclasses.asdict(t_config.render_settings_from_args(t_args, 0.1, 2.0))
             == dataclasses.asdict(j_config.render_settings_from_args(j_args, 0.1, 2.0)))
     assert t_args.chunk == j_args.chunk
+
+
+def _render_rays_both(cfg, rs, n=12, key=None, **flags):
+    """`render_rays` of both packages on the same rays; with a key, the
+    port gets the JAX draws as tensors (the key split of render.py:121-124
+    and the jax.random calls of the JAX ops)."""
+    tree = jax_params(cfg)
+    model = params_from_jax(tree, torch_cfg(cfg), device="cpu")
+    o, d, lat = _rays(n, cfg.ray_bending_latent_size, seed=5)
+    draws = None
+    if key is not None:
+        k_strat, k_noise0, k_pdf, k_noise1 = jax.random.split(key, 4)
+        S, I = rs.N_samples, rs.N_importance
+        draws = {"t_rand": jax.random.uniform(k_strat, (n, S)),
+                 "noise0": jax.random.normal(k_noise0, (n, S)),
+                 "u": jax.random.uniform(k_pdf, (n, I)),
+                 "noise1": jax.random.normal(k_noise1, (n, S + I))}
+        draws = {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
+    with torch.no_grad():
+        out = t_render_rays(model, torch_cfg(cfg), _t_rs(rs),
+                            torch.from_numpy(o), torch.from_numpy(d),
+                            torch.from_numpy(lat), draws=draws, **flags)
+    ref = j_render_rays(tree, cfg, rs, jnp.asarray(o), jnp.asarray(d),
+                        jnp.asarray(lat), key=key, **flags)
+    return out, ref
+
+
+DETAIL_KEYS = {"initial_input_pts", "input_pts", "unmasked_offsets",
+               "rigidity_mask", "masked_offsets"}
+
+
+@pytest.mark.parametrize("fine_detailed", [None, False],
+                         ids=["fine-detailed", "coarse-only"])
+def test_detailed_and_retraw_match_jax(fine_detailed):
+    """The per-sample internals the training losses read, with the training
+    draws (jitter, density noise, importance samples) passed in."""
+    rs = dataclasses.replace(RS, perturb=1.0, raw_noise_std=1.0)
+    out, ref = _render_rays_both(NARROW, rs, key=jax.random.PRNGKey(4),
+                                 detailed=True, retraw=True,
+                                 fine_detailed=fine_detailed)
+    assert_outputs_close(out, ref, 1e-5)
+    want = DETAIL_KEYS | {"visibility_weights", "opacity_alpha", "raw"}
+    assert want <= set(out)
+    has_fine = {k for k in out if k.startswith("fine_")}
+    if fine_detailed is None:
+        assert has_fine == {"fine_" + k for k in DETAIL_KEYS} | {
+            "fine_visibility_weights", "fine_opacity_alpha"}
+        assert out["fine_unmasked_offsets"].shape == (12, 16, 3)
+    else:
+        assert not has_fine
+    assert out["raw"].shape == (12, 16, 4)
+    assert out["unmasked_offsets"].shape == (12, 8, 3)
+
+
+def test_detailed_without_bending_or_importance_matches_jax():
+    cfg = dataclasses.replace(NARROW, ray_bending=None, N_importance=0)
+    rs = dataclasses.replace(RS, N_importance=0).test_mode()
+    out, ref = _render_rays_both(cfg, rs, detailed=True, retraw=True)
+    assert_outputs_close(out, ref, 1e-5)
+    assert {"initial_input_pts", "input_pts", "raw"} <= set(out)
+    assert "unmasked_offsets" not in out
+
+
+@pytest.mark.parametrize("detailed", [False, True])
+def test_stage1_reuse_off_matches_jax(detailed):
+    """The reference's way: the sorted union is bent and encoded again."""
+    cfg = dataclasses.replace(NARROW, stage1_reuse=False)
+    rs = dataclasses.replace(RS, perturb=1.0, raw_noise_std=1.0)
+    out, ref = _render_rays_both(cfg, rs, key=jax.random.PRNGKey(5),
+                                 detailed=detailed, retraw=True)
+    assert_outputs_close(out, ref, 1e-5)
+    # and it renders what the reuse path renders, up to f32 rounding
+    reuse, _ = _render_rays_both(NARROW, rs, key=jax.random.PRNGKey(5))
+    np.testing.assert_allclose(out["rgb_map"].numpy(), reuse["rgb_map"].numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_draws_replace_the_generator_and_unknown_keys_raise():
+    cfg = NARROW
+    model = params_from_jax(jax_params(cfg), torch_cfg(cfg), device="cpu")
+    o, d, lat = (torch.from_numpy(a) for a in _rays(5, 8))
+    rs = dataclasses.replace(_t_rs(RS), perturb=1.0, raw_noise_std=1.0)
+    rng = np.random.RandomState(0)
+    draws = {"t_rand": torch.from_numpy(rng.uniform(size=(5, 8)).astype(np.float32)),
+             "noise0": torch.from_numpy(rng.randn(5, 8).astype(np.float32)),
+             "u": torch.from_numpy(rng.uniform(size=(5, 8)).astype(np.float32)),
+             "noise1": torch.from_numpy(rng.randn(5, 16).astype(np.float32))}
+    with torch.no_grad():
+        a = t_render_rays(model, torch_cfg(cfg), rs, o, d, lat, draws=draws,
+                          generator=torch.Generator().manual_seed(1))
+        b = t_render_rays(model, torch_cfg(cfg), rs, o, d, lat, draws=draws,
+                          generator=torch.Generator().manual_seed(2))
+    assert torch.equal(a["rgb_map"], b["rgb_map"])     # nothing left to draw
+    with pytest.raises(ValueError, match="unknown draws"):
+        t_render_rays(model, torch_cfg(cfg), rs, o, d, lat,
+                      draws={"noise": draws["noise0"]})
+
+
+def test_fused_training_render_goes_through_mlp_core(monkeypatch):
+    """Under autograd the fused path calls `MLPCore` (f32 encoding in), with
+    no gradient recorded it calls `mlp_fwd` (bf16 encoding in)."""
+    from nonrigid_nerf_torch.ops.kernels.mlp_bwd import MLPCore
+    seen = []
+    orig_apply = MLPCore.apply
+    monkeypatch.setattr(t_query.MLPCore, "apply", staticmethod(
+        lambda emb, *w: seen.append(("core", emb.dtype)) or orig_apply(emb, *w)))
+    monkeypatch.setattr(t_query, "mlp_fwd", lambda emb, mw: seen.append(
+        ("fwd", emb.dtype)) or mlp_fwd(emb, mw))
+    tree = jax_params(FLAGSHIP)
+    model = params_from_jax(tree, torch_cfg(FLAGSHIP), device="cpu")
+    o, d, lat = (torch.from_numpy(a) for a in _rays(3, 32))
+    args = (model, torch_cfg(FLAGSHIP), _t_rs(RS).test_mode(), o, d, lat)
+    out = t_render_rays(*args)
+    assert seen == [("core", torch.float32)] * 2
+    (g,) = torch.autograd.grad(out["rgb_map"].sum(),
+                               [model.fine.pts[0].weight])
+    assert torch.isfinite(g).all() and float(g.abs().max()) > 0
+    seen.clear()
+    with torch.no_grad():
+        t_render_rays(*args)
+    assert seen == [("fwd", torch.bfloat16)] * 2

@@ -42,3 +42,40 @@ def jax_params(cfg: ModelConfig, seed: int = 0, num_timesteps: int = 3,
         if net in tree:
             tree[net]["output"]["b"][3] += density_shift
     return tree
+
+
+def jax_step_draws(key, step, n_rays, n_samples, n_importance,
+                   dtype=np.float32):
+    """The random numbers that one JAX training step draws, as numpy arrays
+    keyed as the port's `draws`: the key splits of
+    engine/train_step.py:56-57 and engine/render.py:121-124, and the
+    `jax.random` calls of stratified_z_vals, raw2outputs (twice),
+    sample_pdf and divergence_loss."""
+    _, k_render, k_loss = jax.random.split(jax.random.fold_in(key, step), 3)
+    k_strat, k_noise0, k_pdf, k_noise1 = jax.random.split(k_render, 4)
+    draws = {
+        "t_rand": jax.random.uniform(k_strat, (n_rays, n_samples), dtype=dtype),
+        "noise0": jax.random.normal(k_noise0, (n_rays, n_samples), dtype=dtype),
+        "u": jax.random.uniform(k_pdf, (n_rays, n_importance), dtype=dtype),
+        "noise1": jax.random.normal(
+            k_noise1, (n_rays, n_samples + n_importance), dtype=dtype),
+        "e": jax.random.normal(k_loss, (n_rays, n_samples, 3), dtype=dtype),
+    }
+    return {k: np.asarray(v) for k, v in draws.items()}
+
+
+def ray_batch(n_rays, num_timesteps, seed=0, dtype=np.float32):
+    """A fixed training batch from a numpy seed: rays towards -z, targets,
+    timestep ids and a train/test indicator (every third ray is a test
+    ray)."""
+    rng = np.random.RandomState(seed)
+    test = (np.arange(n_rays) % 3 == 2).astype(dtype)
+    return {
+        "rays_o": (0.1 * rng.randn(n_rays, 3)).astype(dtype),
+        "rays_d": np.concatenate([0.4 * rng.randn(n_rays, 2),
+                                  -np.ones((n_rays, 1))], 1).astype(dtype),
+        "target_rgb": rng.uniform(0, 1, (n_rays, 3)).astype(dtype),
+        "timestep_ids": rng.randint(0, num_timesteps, n_rays).astype(np.int32),
+        "train_indicator": 1.0 - test,
+        "test_indicator": test,
+    }
