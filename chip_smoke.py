@@ -3,6 +3,10 @@
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
+Two model families run, each through its own pair of kernels: the flagship
+config (configs/example_sequence.txt) as it is (`mlp_fwd`, `mlp_bwd`), and
+the same config with use_viewdirs=True (`mlpv_fwd`, `mlpv_bwd`).
+
 Phases (each raises on failure; the exit code is then non-zero and no
 result line is printed):
 
@@ -13,27 +17,31 @@ result line is printed):
    shapes the main paths give it, within the tolerance the CPU tests pin,
    and relaunch it to see bit-equal outputs; time kernel, plain version and
    a chain of bf16 torch.matmul calls (a yardstick only); compute the
-   roofline bound. `mlp_fwd`: chunk x N_samples and chunk x (N_samples +
-   N_importance) points of a render block, and N_rand x N_samples and
-   N_rand x (N_samples + N_importance) points of a training step.
-   `mlp_bwd`: the training step's two sizes.
-3. Render frames at 384 x 512 with the flagship config
-   (configs/example_sequence.txt) through `render_path`, parameters from a
-   seed, with the launch counts set to 0 just before and read just after.
-   Render the same frames with fused_kernel="off" (plain f32 MLP) and
-   require a PSNR of at least 40 dB between the two; hold a block of rays
-   rendered on the card against the same rays rendered on the CPU. Profile
-   one frame: device time by kernel and the device's idle share.
-4. Train the flagship configuration (1024 rays, 64 + 64 samples, all three
-   regularizers, a test split) with `apps.train.train` on a synthetic image
-   stack built in memory, launch counts set to 0 just before and read just
-   after: 2 `mlp_fwd` and 4 `mlp_bwd` launches per step, everything finite,
-   the loss lower at the end than at the start; steps and rays per second
-   over all steps after the first window of 25.
-   Then, from the trained state: one step's losses and gradients with the
-   kernels against fused_kernel="off" on the same draws; a checkpoint saved,
-   loaded and stepped once, bit-equal to the step without the round trip;
-   a profile of a few steps.
+   roofline bound. Forward kernels: chunk x N_samples and chunk x (N_samples
+   + N_importance) points of a render block, and N_rand x N_samples and
+   N_rand x (N_samples + N_importance) points of a training step. Backward
+   kernels: the training step's two sizes.
+3. Per family, render frames at 384 x 512 through `render_path`, parameters
+   from a seed, with the launch counts set to 0 just before and read just
+   after (12 launches of the family's forward kernel per frame, none of the
+   other's). Render the same frames with fused_kernel="off" (plain f32 MLP)
+   and require a PSNR of at least 40 dB between the two. Without view
+   directions: a block of rays on the card against the same rays on the
+   CPU. With them: the frames use finite-difference directions, and a block
+   of rays is rendered with exact directions (a jvp through the bender),
+   kernel against "off". Profile one frame: device time by kernel and the
+   device's idle share.
+4. Per family, train (1024 rays, 64 + 64 samples, all three regularizers, a
+   test split) with `apps.train.train` on a synthetic image stack built in
+   memory, launch counts set to 0 just before and read just after: 2
+   forward and 4 backward launches per step, everything finite, the loss
+   lower at the end than at the start; steps and rays per second over all
+   steps after the first window of 25. Then, from the trained state: one
+   step's losses and gradients with the kernels against fused_kernel="off"
+   and against the kernels' plain versions on the same draws (the bender's
+   and the latents' gradients included; with view directions in both
+   direction modes); a checkpoint saved, loaded and stepped once, bit-equal
+   to the step without the round trip; a profile of a few steps.
 5. Print the kernels JSON line and, last, the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -61,7 +69,8 @@ PEAK_HBM_BYTES = 3.35e12
 MIN_PSNR_DB = 40.0
 TRAIN_FRAMES = 8                 # synthetic stack: 6 training + 2 test images
 TRAIN_TEST_IDS = (3, 7)
-TRAIN_STEPS = 300
+TRAIN_STEPS = 150                # training steps without view directions
+TRAIN_STEPS_VIEWDIRS = 200       # ... and with them
 TRAIN_PRINT = 25
 PROFILE_STEPS = 5
 # one training step with the kernels against fused_kernel="off" on the same
@@ -70,6 +79,18 @@ PROFILE_STEPS = 5
 # gradient's max magnitude.
 STEP_LOSS_TOL_REL = 2e-2
 STEP_GRAD_MIN_COSINE = 0.98
+# ... and against the kernels' plain versions in the same step (the same
+# arithmetic up to the order of the f32 sums): measured 0.9999 or more.
+STEP_PLAIN_MIN_COSINE = 0.999
+# With finite-difference view directions the gradient of the view encoding
+# reaches the bent points through diffs / (|diffs| + 1e-6) of neighbouring
+# samples, and the sorted union of a fine pass holds near-duplicate depths:
+# the bf16 rounding of that gradient is amplified by 1 / |diffs| and the two
+# terms of each point nearly cancel. Against the f32 step the bender's and
+# the latents' gradients then keep their direction only roughly (measured
+# here after 200 steps: 0.81, against 0.998 with exact directions), while
+# they agree with the plain versions to 0.9999. Held to this floor there.
+STEP_FD_DEFORMATION_MIN_COSINE = 0.5
 
 
 def log(*args):
@@ -114,7 +135,10 @@ def flagship_model(cfg, device, frames=FRAMES):
         model.latents.copy_(0.1 * torch.randn(model.latents.shape,
                                               generator=gen))
         for net in (model.coarse, model.fine):
-            net.output.bias[3] += 1.0
+            if cfg.use_viewdirs:
+                net.alpha.bias += 1.0
+            else:
+                net.output.bias[3] += 1.0
     return model.to(device)
 
 
@@ -159,100 +183,97 @@ def synthetic_dataset(device):
                              device=device)
 
 
-def check_mlp_fwd(model, n_points, device, network="coarse"):
-    """mlp_fwd against mlp_fwd_plain at n_points, with timings."""
-    from nonrigid_nerf_torch.ops.kernels import mlp_fwd as K
-    mw = tuple(w.detach().to(device) for w in
-               K.cast_mlp_weights(K.pack_mlp_weights(model.network(network))))
-    gen = torch.Generator(device=device).manual_seed(SEED + n_points)
-    emb = (torch.rand((n_points, K.EMB), generator=gen, device=device) * 2
-           - 1).to(torch.bfloat16)
-    emb[:, 63] = 0          # the pad lane of the 63-channel encoding
-    out = K.mlp_fwd(emb, mw)
-    ref = K.mlp_fwd_plain(emb, mw)
-    torch.cuda.synchronize()
-    err = (out - ref).abs()
-    max_err, mean_err = err.max().item(), err.mean().item()
-    log(f"mlp_fwd n={n_points}: max abs err {max_err:.3e} (tol "
-        f"{K.BF16_TOL_MAX:.0e}), mean {mean_err:.3e} (tol "
-        f"{K.BF16_TOL_MEAN:.0e}), max |ref| {ref.abs().max().item():.3f}")
-    if not (torch.isfinite(out).all() and max_err <= K.BF16_TOL_MAX
-            and mean_err <= K.BF16_TOL_MEAN):
-        raise AssertionError("mlp_fwd disagrees with mlp_fwd_plain")
-    if not torch.equal(out, K.mlp_fwd(emb, mw)):
-        raise AssertionError("mlp_fwd is not deterministic")
+class Family:
+    """One model family's pair of kernels behind one interface: `inputs` are
+    (emb,) without view directions and (emb, embv) with them."""
 
-    bf16 = torch.bfloat16
+    def __init__(self, viewdirs: bool):
+        self.viewdirs = viewdirs
+        if viewdirs:
+            from nonrigid_nerf_torch.ops.kernels import mlpv_bwd as KB
+            from nonrigid_nerf_torch.ops.kernels import mlpv_fwd as K
+            self.fwd, self.fwd_plain = K.mlpv_fwd, K.mlpv_fwd_plain
+            self.bwd, self.bwd_plain = KB.mlpv_bwd, KB.mlpv_bwd_plain
+            self.pack, self.cast = K.pack_viewdirs_mlp_weights, K.cast_mlpv_weights
+            self.replaces = ("nonrigid_nerf_tpu/ops/pallas/fused_query.py:1183",
+                             "nonrigid_nerf_tpu/ops/pallas/fused_query.py:1224")
+        else:
+            from nonrigid_nerf_torch.ops.kernels import mlp_bwd as KB
+            from nonrigid_nerf_torch.ops.kernels import mlp_fwd as K
+            self.fwd, self.fwd_plain = K.mlp_fwd, K.mlp_fwd_plain
+            self.bwd, self.bwd_plain = KB.mlp_bwd, KB.mlp_bwd_plain
+            self.pack, self.cast = K.pack_mlp_weights, K.cast_mlp_weights
+            self.replaces = ("nonrigid_nerf_tpu/ops/pallas/fused_query.py:807",
+                             "nonrigid_nerf_tpu/ops/pallas/fused_query.py:842")
+        self.K, self.KB = K, KB
+        self.fwd_name, self.bwd_name = self.fwd.__name__, self.bwd.__name__
+        self.n_grads = len(KB.BWD_NAMES) - (2 if viewdirs else 1)
 
-    def matmul_chain():   # the same MLP as cuBLAS bf16 products (yardstick)
-        h = torch.relu(emb @ mw[0] + mw[1]).to(bf16)
-        for i in (2, 4, 6, 8):
-            h = torch.relu(h @ mw[i] + mw[i + 1]).to(bf16)
-        h = torch.relu(h @ mw[11] + emb @ mw[10] + mw[12]).to(bf16)
-        for i in (13, 15):
-            h = torch.relu(h @ mw[i] + mw[i + 1]).to(bf16)
-        return h.float() @ mw[17].float() + mw[18]
+    def reset_counts(self):
+        self.fwd.launches = self.bwd.launches = 0
 
-    ms = cuda_time_ms(lambda: K.mlp_fwd(emb, mw), 10)
-    plain_ms = cuda_time_ms(lambda: K.mlp_fwd_plain(emb, mw), 3, warmup=1)
-    chain_ms = cuda_time_ms(matmul_chain, 10)
-    flops = 2.0 * K.MACS_PER_POINT * n_points
-    nbytes = (emb.numel() * emb.element_size() + out.numel() * out.element_size()
-              + sum(w.numel() * w.element_size() for w in mw))
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    log(f"mlp_fwd n={n_points}: kernel {ms:.4f} ms "
-        f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-        f"bf16 matmul chain {chain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-        f"({'operations' if t_ops >= t_bytes else 'bytes'})")
-    return dict(max_abs_err=max_err, mean_abs_err=mean_err, ms=ms,
-                plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                matmul_chain_bf16_ms=chain_ms)
+    def counts(self):
+        return {self.fwd_name: self.fwd.launches,
+                self.bwd_name: self.bwd.launches}
 
+    def weights(self, net, device):
+        return tuple(w.detach().to(device)
+                     for w in self.cast(self.pack(net)))
 
-def check_mlp_bwd(model, n_points, device):
-    """mlp_bwd against mlp_bwd_plain at n_points, with timings."""
-    from nonrigid_nerf_torch.ops.kernels import mlp_bwd as KB
-    from nonrigid_nerf_torch.ops.kernels import mlp_fwd as K
-    mw = tuple(w.detach().to(device) for w in
-               K.cast_mlp_weights(K.pack_mlp_weights(model.fine)))
-    gen = torch.Generator(device=device).manual_seed(SEED + n_points + 1)
-    emb = (torch.rand((n_points, K.EMB), generator=gen, device=device) * 2
-           - 1).to(torch.bfloat16)
-    emb[:, 63] = 0          # the pad lane of the 63-channel encoding
-    draw = torch.randn((n_points, K.OUT_PAD), generator=gen, device=device)
-    got = KB.mlp_bwd(emb, mw, draw)
-    ref = KB.mlp_bwd_plain(emb, mw, draw)
-    torch.cuda.synchronize()
-    stats = KB.bwd_agreement(got, ref)
-    log(f"mlp_bwd n={n_points}: 19 gradients max err "
-        f"{stats['grad_max_rel']:.3e} of max magnitude (tol "
-        f"{KB.grad_max_tol(n_points):.0e}), L2 {stats['grad_l2_rel']:.3e} (tol "
-        f"{KB.BWD_TOL_L2:.0e}); demb L2 {stats['demb_l2_rel']:.3e}, entries "
-        f"off by over {KB.BWD_TOL_ENTRY:.0e} of max "
-        f"{stats['demb_outliers']:.3e} (tol {KB.BWD_TOL_OUTLIERS:.0e}), worst "
-        f"{stats['demb_max_rel']:.3e} (tol {KB.BWD_TOL_DEMB_MAX:.0e})")
-    log("mlp_bwd max abs err of each array over its max magnitude: "
-        + " ".join(f"{k}={v:.2e}" for k, v in stats["max_rel"].items()))
-    if not stats["ok"]:
-        raise AssertionError(f"mlp_bwd disagrees with mlp_bwd_plain: {stats}")
-    again = KB.mlp_bwd(emb, mw, draw)
-    if not (torch.equal(got[0], again[0])
-            and all(torch.equal(a, b) for a, b in zip(got[1], again[1]))):
-        raise AssertionError("mlp_bwd is not deterministic")
+    def inputs(self, n_points, device, seed):
+        """bf16 encodings from a seed, the pad lanes zero."""
+        gen = torch.Generator(device=device).manual_seed(seed)
+        emb = (torch.rand((n_points, 64), generator=gen, device=device) * 2
+               - 1).to(torch.bfloat16)
+        emb[:, 63] = 0          # the pad lane of the 63-channel encoding
+        if not self.viewdirs:
+            return (emb,), gen
+        embv = (torch.rand((n_points, 32), generator=gen, device=device) * 2
+                - 1).to(torch.bfloat16)
+        embv[:, 27:] = 0        # the pad lanes of the 27-channel encoding
+        return (emb, embv), gen
 
-    bf16 = torch.bfloat16
-    drawb = draw.to(bf16)
-
-    def matmul_chain():   # the same backward as cuBLAS bf16 products (yardstick)
+    def acts_bf16(self, inputs, mw):
+        """[emb, nh1 .. nh8] as cuBLAS bf16 products (the yardstick)."""
+        bf16 = torch.bfloat16
+        emb = inputs[0]
         acts = [emb, torch.relu(emb @ mw[0] + mw[1]).to(bf16)]
         for i in (2, 4, 6, 8):
             acts.append(torch.relu(acts[-1] @ mw[i] + mw[i + 1]).to(bf16))
         acts.append(torch.relu(acts[-1] @ mw[11] + emb @ mw[10] + mw[12]).to(bf16))
         for i in (13, 15):
             acts.append(torch.relu(acts[-1] @ mw[i] + mw[i + 1]).to(bf16))
-        grads = [acts[8].t() @ drawb]
-        dh = (drawb @ mw[17].t()) * (acts[8] > 0)
+        return acts
+
+    def heads_bf16(self, inputs, nh8, mw):
+        """(feat, hv, raw) with view directions, (None, None, raw) without."""
+        bf16 = torch.bfloat16
+        if not self.viewdirs:
+            return None, None, nh8.float() @ mw[17].float() + mw[18]
+        feat = (nh8 @ mw[17] + mw[18]).to(bf16)
+        hv = torch.relu(feat @ mw[21] + inputs[1] @ mw[22] + mw[23]).to(bf16)
+        raw = (hv.float() @ mw[24].float() + mw[25]
+               + nh8.float() @ mw[19].float() + mw[20])
+        return feat, hv, raw
+
+    def fwd_chain_bf16(self, inputs, mw):
+        return self.heads_bf16(inputs, self.acts_bf16(inputs, mw)[8], mw)[2]
+
+    def bwd_chain_bf16(self, inputs, mw, drawb):
+        """The same backward as cuBLAS bf16 products (the yardstick)."""
+        emb = inputs[0]
+        acts = self.acts_bf16(inputs, mw)
+        feat, hv, _ = self.heads_bf16(inputs, acts[8], mw)
+        if self.viewdirs:
+            grads = [hv.t() @ drawb, acts[8].t() @ drawb]
+            dhv = (drawb @ mw[24].t()) * (hv > 0)
+            grads += [feat.t() @ dhv, inputs[1].t() @ dhv]
+            dfeat, dembv = dhv @ mw[21].t(), dhv @ mw[22].t()
+            grads.append(acts[8].t() @ dfeat)
+            dh = (dfeat @ mw[17].t() + drawb @ mw[19].t()) * (acts[8] > 0)
+        else:
+            grads, dembv = [acts[8].t() @ drawb], None
+            dh = (drawb @ mw[17].t()) * (acts[8] > 0)
         demb = None
         for layer, i in ((7, 15), (6, 13), (5, 11), (4, 8), (3, 6), (2, 4),
                          (1, 2), (0, 0)):
@@ -262,28 +283,121 @@ def check_mlp_bwd(model, n_points, device):
                 demb = dh @ mw[10].t()
             nxt = dh @ mw[i].t()
             if layer == 0:
-                return demb + nxt, grads
+                return demb + nxt, dembv, grads
             dh = nxt * (acts[layer] > 0)
 
-    ms = cuda_time_ms(lambda: KB.mlp_bwd(emb, mw, draw), 10)
-    plain_ms = cuda_time_ms(lambda: KB.mlp_bwd_plain(emb, mw, draw), 3, warmup=1)
-    chain_ms = cuda_time_ms(matmul_chain, 10)
-    flops = 2.0 * KB.BWD_MACS_PER_POINT * n_points
-    nbytes = (emb.numel() * emb.element_size()
-              + draw.numel() * draw.element_size()
-              + got[0].numel() * got[0].element_size()
-              + sum(w.numel() * w.element_size() for w in mw)
-              + sum(g.numel() * g.element_size() for g in got[1]))
+
+    def plain_core(self):
+        """The family's autograd function (`MLPCore` / `MLPVCore`) with both
+        kernels replaced by their plain versions."""
+        fam, n_in = self, 2 if self.viewdirs else 1
+
+        class PlainCore(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, *args):
+                inputs = [a.to(torch.bfloat16) for a in args[:n_in]]
+                ctx.save_for_backward(*inputs, *args[n_in:])
+                return fam.fwd_plain(*inputs, fam.cast(args[n_in:]))
+
+            @staticmethod
+            def backward(ctx, draw):
+                saved = ctx.saved_tensors
+                got = fam.bwd_plain(*saved[:n_in], fam.cast(saved[n_in:]), draw)
+                return (*got[:-1], *got[-1])
+
+        return PlainCore
+
+
+def roofline(flops, nbytes):
+    """(bound ms, what bounds): operations at the bf16 peak against bytes at
+    the memory rate."""
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    log(f"mlp_bwd n={n_points}: kernel {ms:.4f} ms "
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def tensor_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def check_fwd(fam, model, n_points, device, network="coarse"):
+    """The family's forward kernel against its plain version at n_points,
+    with timings."""
+    K, name = fam.K, fam.fwd_name
+    mw = fam.weights(model.network(network), device)
+    inputs, _ = fam.inputs(n_points, device, SEED + n_points)
+    out = fam.fwd(*inputs, mw)
+    ref = fam.fwd_plain(*inputs, mw)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    max_err, mean_err = err.max().item(), err.mean().item()
+    log(f"{name} n={n_points}: max abs err {max_err:.3e} (tol "
+        f"{K.BF16_TOL_MAX:.0e}), mean {mean_err:.3e} (tol "
+        f"{K.BF16_TOL_MEAN:.0e}), max |ref| {ref.abs().max().item():.3f}")
+    if not (torch.isfinite(out).all() and max_err <= K.BF16_TOL_MAX
+            and mean_err <= K.BF16_TOL_MEAN):
+        raise AssertionError(f"{name} disagrees with its plain version")
+    if not torch.equal(out, fam.fwd(*inputs, mw)):
+        raise AssertionError(f"{name} is not deterministic")
+
+    ms = cuda_time_ms(lambda: fam.fwd(*inputs, mw), 10)
+    plain_ms = cuda_time_ms(lambda: fam.fwd_plain(*inputs, mw), 3, warmup=1)
+    chain_ms = cuda_time_ms(lambda: fam.fwd_chain_bf16(inputs, mw), 10)
+    flops = 2.0 * K.MACS_PER_POINT * n_points
+    bound_ms, bound_by = roofline(flops, tensor_bytes(*inputs, out, *mw))
+    log(f"{name} n={n_points}: kernel {ms:.4f} ms "
         f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-        f"bf16 matmul chain {chain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-        f"({'operations' if t_ops >= t_bytes else 'bytes'})")
-    return dict(max_abs_err=stats["grad_max_rel"], agreement=stats, ms=ms,
-                plain_ms=plain_ms,
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+        f"bf16 matmul chain {chain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by})")
+    return dict(max_abs_err=max_err, mean_abs_err=mean_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 matmul_chain_bf16_ms=chain_ms)
+
+
+def check_bwd(fam, model, n_points, device):
+    """The family's backward kernel against its plain version at n_points,
+    with timings."""
+    KB, name = fam.KB, fam.bwd_name
+    mw = fam.weights(model.fine, device)
+    inputs, gen = fam.inputs(n_points, device, SEED + n_points + 1)
+    draw = torch.randn((n_points, 8), generator=gen, device=device)
+    got = fam.bwd(*inputs, mw, draw)
+    ref = fam.bwd_plain(*inputs, mw, draw)
+    torch.cuda.synchronize()
+    stats = KB.bwd_agreement(got, ref)
+    log(f"{name} n={n_points}: {fam.n_grads} gradients max err "
+        f"{stats['grad_max_rel']:.3e} of max magnitude (tol "
+        f"{KB.grad_max_tol(n_points):.0e}), L2 {stats['grad_l2_rel']:.3e} (tol "
+        f"{KB.BWD_TOL_L2:.0e}); per-point outputs L2 {stats['demb_l2_rel']:.3e}, "
+        f"entries off by over {KB.BWD_TOL_ENTRY:.0e} of max "
+        f"{stats['demb_outliers']:.3e} (tol {KB.BWD_TOL_OUTLIERS:.0e}), worst "
+        f"{stats['demb_max_rel']:.3e} (tol {KB.BWD_TOL_DEMB_MAX:.0e})")
+    log(f"{name} max abs err of each array over its max magnitude: "
+        + " ".join(f"{k}={v:.2e}" for k, v in stats["max_rel"].items()))
+    if not stats["ok"]:
+        raise AssertionError(f"{name} disagrees with its plain version: {stats}")
+    again = fam.bwd(*inputs, mw, draw)
+    flat, flat_again = [*got[:-1], *got[-1]], [*again[:-1], *again[-1]]
+    if not all(torch.equal(a, b) for a, b in zip(flat, flat_again)):
+        raise AssertionError(f"{name} is not deterministic")
+
+    drawb = draw.to(torch.bfloat16)
+    ms = cuda_time_ms(lambda: fam.bwd(*inputs, mw, draw), 10)
+    plain_ms = cuda_time_ms(lambda: fam.bwd_plain(*inputs, mw, draw), 3, warmup=1)
+    chain_ms = cuda_time_ms(lambda: fam.bwd_chain_bf16(inputs, mw, drawb), 10)
+    flops = 2.0 * KB.BWD_MACS_PER_POINT * n_points
+    bound_ms, bound_by = roofline(flops, tensor_bytes(*inputs, draw, *flat, *mw))
+    log(f"{name} n={n_points}: kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+        f"bf16 matmul chain {chain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by})")
+    return dict(max_abs_err=stats["grad_max_rel"], agreement=stats, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                matmul_chain_bf16_ms=chain_ms)
+
+
+# the device kernels of one backward call (csrc/mlp_tile.cuh)
+BWD_KERNEL_NAMES = ("_bwd_chain_kernel", "mlp_dw_kernel", "mlp_small_kernel",
+                    "mlp_reduce_kernel")
 
 
 def profile_run(run, what):
@@ -322,26 +436,159 @@ def profile_run(run, what):
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "idle_share": 1 - busy_us / wall_us,
             "kernel_launches": sum(e.count for e in events),
-            "mlp_fwd_share": share("mlp_fwd_kernel"),
-            "mlp_bwd_share": share("mlp_bwd_"),
+            "fwd_share": share("_fwd_kernel"),
+            "bwd_share": sum(share(k) for k in BWD_KERNEL_NAMES),
             "top": [[e.key[:60], e.self_device_time_total / 1e3]
                     for e in top[:12]]}
 
 
-def train_phase(args, cfg, device, smi):
-    """Phase 4: train, compare with fused_kernel="off", round-trip a
-    checkpoint, profile. Returns (results dict, launch counts)."""
+def psnr(a, b) -> float:
+    mse = float(np.mean((np.asarray(a, np.float64) - b) ** 2))
+    return float("inf") if mse == 0 else -10.0 * math.log10(mse)
+
+
+def render_phase(fam, other, cfg, args, device, smi, kernel_ms):
+    """Phase 3 for one family: frames through `render_path` with the kernel
+    and with fused_kernel="off", launch counts, PSNR, a block of rays against
+    a second rendering of it, a profile of one frame. `kernel_ms`: the
+    isolated timings of the coarse and the fine launch. Returns (results
+    dict, launches of the family's forward kernel)."""
+    from nonrigid_nerf_torch.apps.render_path import render_path
+    from nonrigid_nerf_torch.config import render_settings_from_args
+    from nonrigid_nerf_torch.engine.render import make_ray_renderer
+    from nonrigid_nerf_torch.ops.rays import get_rays
+
+    name = fam.fwd_name
+    model = flagship_model(cfg, device)
+    poses, intrinsics = synthetic_poses()
+    rs = render_settings_from_args(args, near=0.1, far=1.6)
+    latents = model.latents.detach().cpu().numpy()
+    with torch.no_grad():                 # warm-up: cuBLAS, allocator
+        render_path(model, cfg, rs, poses[:1], intrinsics[:1], latents[:1],
+                    chunk=CHUNK, render_factor=8, verbose=False, device=device)
+    torch.cuda.synchronize()
+
+    fam.reset_counts()
+    other.reset_counts()
+    t0 = time.perf_counter()
+    rgbs, disps = render_path(model, cfg, rs, poses, intrinsics, latents,
+                              chunk=CHUNK, verbose=True, device=device)
+    t_kernel = time.perf_counter() - t0
+    launches = fam.fwd.launches
+    blocks = -(-H * W // CHUNK)
+    log(f"render ({name}, fused_kernel=auto): {FRAMES} frames in "
+        f"{t_kernel:.3f} s, {t_kernel / FRAMES:.4f} s/frame, {name} launches "
+        f"{launches} (expected {FRAMES * blocks * 2}), {other.fwd_name} "
+        f"launches {other.fwd.launches} (expected 0)")
+    if launches != FRAMES * blocks * 2 or other.fwd.launches != 0:
+        raise AssertionError(f"the render path did not run {name}, and only "
+                             "it, once per pass and block")
+    if rgbs.shape != (FRAMES, H, W, 3) or disps.shape != (FRAMES, H, W):
+        raise AssertionError(f"bad shapes {rgbs.shape} {disps.shape}")
+    if not (np.isfinite(rgbs).all() and np.isfinite(disps).all()):
+        raise AssertionError("non-finite pixels")
+    if rgbs.min() < 0 or rgbs.max() > 1 or rgbs.std() < 1e-3:
+        raise AssertionError(f"implausible frames: min {rgbs.min()} max "
+                             f"{rgbs.max()} std {rgbs.std()}")
+    kernel_s = FRAMES * blocks * sum(kernel_ms) / 1e3
+    log(f"{name} share of render time (from the isolated kernel timings): "
+        f"{kernel_s / t_kernel:.3f}")
+
+    cfg_off = dataclasses.replace(cfg, fused_kernel="off")
+    t0 = time.perf_counter()
+    rgbs_off, _ = render_path(model, cfg_off, rs, poses, intrinsics, latents,
+                              chunk=CHUNK, verbose=True, device=device)
+    t_off = time.perf_counter() - t0
+    if fam.fwd.launches != launches:
+        raise AssertionError(f"fused_kernel=off launched {name}")
+    frame_psnr = [psnr(rgbs[i], rgbs_off[i]) for i in range(FRAMES)]
+    log(f"render ({name}, fused_kernel=off): {t_off / FRAMES:.4f} s/frame; "
+        f"PSNR kernel vs off per frame {['%.2f' % p for p in frame_psnr]} dB "
+        f"(need >= {MIN_PSNR_DB})")
+    if min(frame_psnr) < MIN_PSNR_DB:
+        raise AssertionError("kernel render disagrees with the f32 render")
+
+    rs_test = rs.test_mode()
+    rays_o, rays_d = get_rays(torch.as_tensor(poses[0], device=device),
+                              intrinsics[0])
+    results = {}
+    if not cfg.use_viewdirs:
+        # the card against the CPU on a block of frame 0's rays (f32 path)
+        sel = torch.arange(0, H * W, (H * W) // 512, device=device)[:512]
+        ro, rd = rays_o.reshape(-1, 3)[sel], rays_d.reshape(-1, 3)[sel]
+        lat = model.latents[:1].detach().expand(ro.shape[0], -1)
+        gpu = make_ray_renderer(cfg_off, rs_test, device=device)(model, ro, rd, lat)
+        model_cpu = flagship_model(cfg, "cpu")
+        cpu = make_ray_renderer(cfg_off, rs_test, device="cpu")(
+            model_cpu, ro.cpu(), rd.cpu(), lat.cpu())
+        gap = (gpu["rgb_map"].cpu() - cpu["rgb_map"]).abs().max().item()
+        log(f"card vs CPU, 512 rays, fused_kernel=off: max |rgb| gap {gap:.3e}")
+        if gap > 1e-4:
+            raise AssertionError("the card's render disagrees with the CPU's")
+        results["card_vs_cpu_max_rgb_gap"] = gap
+    else:
+        # exact directions (one jvp through the bender per pass) on a block
+        # of frame 0's rays: kernel against "off"
+        n_rays = 4096
+        sel = torch.arange(0, H * W, (H * W) // n_rays, device=device)[:n_rays]
+        ro, rd = rays_o.reshape(-1, 3)[sel], rays_d.reshape(-1, 3)[sel]
+        lat = model.latents[:1].detach().expand(n_rays, -1)
+        cfg_exact = dataclasses.replace(cfg, approx_nonrigid_viewdirs=False)
+        before = fam.fwd.launches
+        exact = make_ray_renderer(cfg_exact, rs_test, chunk=n_rays,
+                                  device=device)(model, ro, rd, lat)
+        if fam.fwd.launches != before + 2:
+            raise AssertionError(f"exact directions did not run {name} twice")
+        exact_off = make_ray_renderer(
+            dataclasses.replace(cfg_exact, fused_kernel="off"), rs_test,
+            chunk=n_rays, device=device)(model, ro, rd, lat)
+        fd = make_ray_renderer(cfg, rs_test, chunk=n_rays, device=device)(
+            model, ro, rd, lat)
+        torch.cuda.synchronize()
+        p_exact = psnr(exact["rgb_map"].cpu().numpy(),
+                       exact_off["rgb_map"].cpu().numpy())
+        fd_gap = (exact["rgb_map"] - fd["rgb_map"]).abs().max().item()
+        log(f"exact directions, {n_rays} rays: PSNR kernel vs off "
+            f"{p_exact:.2f} dB (need >= {MIN_PSNR_DB}); max |rgb| gap to the "
+            f"finite-difference directions {fd_gap:.3e}")
+        if not torch.isfinite(exact["rgb_map"]).all() or p_exact < MIN_PSNR_DB:
+            raise AssertionError("exact-direction kernel render disagrees "
+                                 "with the f32 render")
+        if fd_gap == 0.0:
+            raise AssertionError("exact and finite-difference directions "
+                                 "rendered the same pixels")
+        results.update(exact_psnr_kernel_vs_off_db=p_exact,
+                       exact_vs_fd_max_rgb_gap=fd_gap)
+
+    prof = profile_run(lambda: render_path(
+        model, cfg, rs, poses[:1], intrinsics[:1], latents[:1], chunk=CHUNK,
+        verbose=False, device=device), f"one frame ({name})")
+    log(f"{name} share of device time (profiler): {prof['fwd_share']:.3f}")
+    results.update(frames=FRAMES, height=H, width=W, chunk=CHUNK,
+                   use_viewdirs=cfg.use_viewdirs,
+                   s_per_frame_kernel=t_kernel / FRAMES,
+                   s_per_frame_off=t_off / FRAMES,
+                   psnr_kernel_vs_off_db=frame_psnr,
+                   rays_per_s_kernel=H * W * FRAMES / t_kernel,
+                   fwd_share_est=kernel_s / t_kernel, profile=prof, gpu=smi)
+    return results, launches
+
+
+def train_phase(fam, other, args, cfg, device, smi, steps):
+    """Phase 4 for one family: train, compare with fused_kernel="off",
+    round-trip a checkpoint, profile. Returns (results dict, launch
+    counts)."""
     from nonrigid_nerf_torch.apps.train import step_generator, train
     from nonrigid_nerf_torch.checkpoints import (load_train_state,
                                                  save_checkpoint)
     from nonrigid_nerf_torch.config import (render_settings_from_args,
                                             train_config_from_args)
     from nonrigid_nerf_torch.data.dataset import sample_ray_batch
+    from nonrigid_nerf_torch.engine import query
     from nonrigid_nerf_torch.engine.train_step import (losses_and_grads,
                                                        make_train_step)
-    from nonrigid_nerf_torch.ops.kernels.mlp_bwd import mlp_bwd
-    from nonrigid_nerf_torch.ops.kernels.mlp_fwd import mlp_fwd
 
+    what = "viewdirs" if cfg.use_viewdirs else "no viewdirs"
     ds = synthetic_dataset(device)
     args.seed = SEED
     tc = train_config_from_args(args)
@@ -354,25 +601,25 @@ def train_phase(args, cfg, device, smi):
         raise AssertionError(f"unexpected flagship training setup {tc} {rs}")
 
     with tempfile.TemporaryDirectory() as logdir:
-        mlp_fwd.launches = mlp_bwd.launches = 0
+        fam.reset_counts()
+        other.reset_counts()
         t0 = time.perf_counter()
         state = train(cfg, tc, rs, ds, logdir, device=device,
-                      i_print=TRAIN_PRINT, i_weights=TRAIN_STEPS,
-                      max_steps=TRAIN_STEPS)
+                      i_print=TRAIN_PRINT, i_weights=steps, max_steps=steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {"mlp_fwd": mlp_fwd.launches, "mlp_bwd": mlp_bwd.launches}
+        counts = fam.counts()
         with open(os.path.join(logdir, "metrics.jsonl")) as f:
             rows = [json.loads(line) for line in f]
         if not os.path.exists(os.path.join(logdir, "latest.npz")):
             raise AssertionError("train() saved no checkpoint")
-    log(f"train: {TRAIN_STEPS} steps in {wall:.2f} s (first step's warm-up "
-        f"and the checkpoint included); launches {counts} (expected "
-        f"{2 * TRAIN_STEPS} and {4 * TRAIN_STEPS})")
-    if state.step != TRAIN_STEPS or counts != {"mlp_fwd": 2 * TRAIN_STEPS,
-                                               "mlp_bwd": 4 * TRAIN_STEPS}:
-        raise AssertionError("a training step must launch mlp_fwd twice and "
-                             "mlp_bwd four times")
+    want = {fam.fwd_name: 2 * steps, fam.bwd_name: 4 * steps}
+    log(f"train ({what}): {steps} steps in {wall:.2f} s (first step's warm-up "
+        f"and the checkpoint included); launches {counts} (expected {want}), "
+        f"of the other family {other.counts()} (expected 0)")
+    if state.step != steps or counts != want or any(other.counts().values()):
+        raise AssertionError(f"a training step must launch {fam.fwd_name} "
+                             f"twice and {fam.bwd_name} four times")
     for row in rows:
         if not all(math.isfinite(v) for v in row.values()):
             raise AssertionError(f"non-finite metrics {row}")
@@ -381,8 +628,8 @@ def train_phase(args, cfg, device, smi):
         if not torch.isfinite(t).all():
             raise AssertionError(f"non-finite values in {name}")
     first, last = rows[0], rows[-1]
-    log(f"train: loss {first['loss']:.5f} (steps 1-{TRAIN_PRINT} end) -> "
-        f"{last['loss']:.5f} (step {last['step']}); img_loss "
+    log(f"train ({what}): loss {first['loss']:.5f} (steps 1-{TRAIN_PRINT} end) "
+        f"-> {last['loss']:.5f} (step {last['step']}); img_loss "
         f"{first['img_loss']:.5f} -> {last['img_loss']:.5f}; psnr "
         f"{first['psnr']:.2f} -> {last['psnr']:.2f}")
     if not (last["loss"] < first["loss"]
@@ -393,40 +640,92 @@ def train_phase(args, cfg, device, smi):
     rates = sorted(r["it_per_sec"] for r in rows[1:])
     timed_steps = TRAIN_PRINT * len(rates)
     steps_per_s = timed_steps / sum(TRAIN_PRINT / r for r in rates)
-    log(f"train: {steps_per_s:.2f} steps/s, {steps_per_s * tc.N_rand:.0f} "
-        f"rays/s over steps {TRAIN_PRINT + 1}-{TRAIN_STEPS} ({timed_steps} "
-        f"steps, all their time); windows of {TRAIN_PRINT} steps: median "
-        f"{rates[len(rates) // 2]:.2f}, min {rates[0]:.2f}, max "
-        f"{rates[-1]:.2f} steps/s; {smi}")
+    log(f"train ({what}): {steps_per_s:.2f} steps/s, "
+        f"{steps_per_s * tc.N_rand:.0f} rays/s over steps {TRAIN_PRINT + 1}-"
+        f"{steps} ({timed_steps} steps, all their time); windows of "
+        f"{TRAIN_PRINT} steps: median {rates[len(rates) // 2]:.2f}, min "
+        f"{rates[0]:.2f}, max {rates[-1]:.2f} steps/s; {smi}")
 
-    # one step's losses and gradients: kernels against fused_kernel="off",
-    # same state, same draws
+    # one step's losses and gradients, same state, same draws: the kernels
+    # against fused_kernel="off" and against their plain versions; with view
+    # directions in both direction modes
     step_args = dict(tc=tc, rs=rs, has_test_split=True, n_rand=tc.N_rand)
+    core_name = "MLPVCore" if cfg.use_viewdirs else "MLPCore"
 
-    def one(cfg_x):
-        gen = step_generator(tc.seed, state.step, device)
-        batch = sample_ray_batch(ds, tc.N_rand, generator=gen)
-        return losses_and_grads(state.model, state.step, batch, cfg=cfg_x,
-                                generator=gen, **step_args)
+    def one(cfg_x, plain=False):
+        kernel_core = getattr(query, core_name)
+        if plain:
+            setattr(query, core_name, fam.plain_core())
+        try:
+            gen = step_generator(tc.seed, state.step, device)
+            batch = sample_ray_batch(ds, tc.N_rand, generator=gen)
+            return losses_and_grads(state.model, state.step, batch, cfg=cfg_x,
+                                    generator=gen, **step_args)
+        finally:
+            setattr(query, core_name, kernel_core)
 
-    cfg_off = dataclasses.replace(cfg, fused_kernel="off")
-    (loss_k, _, grads_k), (loss_o, _, grads_o) = one(cfg), one(cfg_off)
-    loss_gap = (abs(loss_k.mean().item() - loss_o.mean().item())
-                / abs(loss_o.mean().item()))
-    cosines = {}
-    for name in grads_k:
-        a, b = grads_k[name].flatten().double(), grads_o[name].flatten().double()
-        if a.norm().item() == 0.0 and b.norm().item() == 0.0:
-            continue
-        cosines[name] = (torch.dot(a, b) / (a.norm() * b.norm())).item()
-    worst = min(cosines, key=cosines.get)
-    log(f"step with kernels vs fused_kernel=off: mean loss {loss_k.mean().item():.6f} "
-        f"vs {loss_o.mean().item():.6f} (gap {loss_gap:.3e}, tol "
-        f"{STEP_LOSS_TOL_REL:.0e}); gradient cosine min {cosines[worst]:.5f} "
-        f"({worst}) over {len(cosines)} parameters (need >= "
-        f"{STEP_GRAD_MIN_COSINE})")
-    if loss_gap > STEP_LOSS_TOL_REL or cosines[worst] < STEP_GRAD_MIN_COSINE:
-        raise AssertionError("the kernel step disagrees with the f32 step")
+    def cosines(grads_a, grads_b):
+        out = {}
+        for name in grads_a:
+            a = grads_a[name].flatten().double()
+            b = grads_b[name].flatten().double()
+            if a.norm().item() == 0.0 and b.norm().item() == 0.0:
+                continue
+            out[name] = (torch.dot(a, b) / (a.norm() * b.norm())).item()
+        return out
+
+    def is_deformation(name):
+        return name.startswith("bender.") or name == "latents"
+
+    modes = [("finite-difference directions", cfg),
+             ("exact directions",
+              dataclasses.replace(cfg, approx_nonrigid_viewdirs=False))] \
+        if cfg.use_viewdirs else [(what, cfg)]
+    step_checks = {}
+    for mode, cfg_m in modes:
+        fd = cfg_m.use_viewdirs and cfg_m.approx_nonrigid_viewdirs
+        launched = fam.counts()
+        loss_k, _, grads_k = one(cfg_m)
+        if fam.counts() != {fam.fwd_name: launched[fam.fwd_name] + 2,
+                            fam.bwd_name: launched[fam.bwd_name] + 4}:
+            raise AssertionError(f"the step ({mode}) did not launch the kernels")
+        loss_o, _, grads_o = one(dataclasses.replace(cfg_m, fused_kernel="off"))
+        _, _, grads_p = one(cfg_m, plain=True)
+        if fam.counts()[fam.bwd_name] != launched[fam.bwd_name] + 4:
+            raise AssertionError("the plain-version step launched a kernel")
+        loss_gap = (abs(loss_k.mean().item() - loss_o.mean().item())
+                    / abs(loss_o.mean().item()))
+        cos_off, cos_plain = cosines(grads_k, grads_o), cosines(grads_k, grads_p)
+        deform = {n: c for n, c in cos_off.items() if is_deformation(n)}
+        mlp = {n: c for n, c in cos_off.items() if not is_deformation(n)}
+        if "latents" not in deform or len(deform) < 2:
+            raise AssertionError("the bender and the latents got no gradient")
+        worst_mlp, worst_def = min(mlp, key=mlp.get), min(deform, key=deform.get)
+        worst_plain = min(cos_plain, key=cos_plain.get)
+        deform_floor = STEP_FD_DEFORMATION_MIN_COSINE if fd \
+            else STEP_GRAD_MIN_COSINE
+        log(f"step with kernels vs fused_kernel=off ({mode}): mean loss "
+            f"{loss_k.mean().item():.6f} vs {loss_o.mean().item():.6f} (gap "
+            f"{loss_gap:.3e}, tol {STEP_LOSS_TOL_REL:.0e}); gradient cosine "
+            f"min {mlp[worst_mlp]:.5f} ({worst_mlp}) over the canonical "
+            f"MLPs' {len(mlp)} parameters (need >= {STEP_GRAD_MIN_COSINE}), "
+            f"{deform[worst_def]:.5f} ({worst_def}) over the bender's and "
+            f"the latents' {len(deform)} (need >= {deform_floor}); vs the "
+            f"plain versions: min {cos_plain[worst_plain]:.5f} "
+            f"({worst_plain}) over {len(cos_plain)} (need >= "
+            f"{STEP_PLAIN_MIN_COSINE})")
+        if (loss_gap > STEP_LOSS_TOL_REL
+                or mlp[worst_mlp] < STEP_GRAD_MIN_COSINE
+                or deform[worst_def] < deform_floor):
+            raise AssertionError("the kernel step disagrees with the f32 step")
+        if cos_plain[worst_plain] < STEP_PLAIN_MIN_COSINE \
+                or set(cos_plain) != set(cos_off):
+            raise AssertionError("the kernel step disagrees with the step "
+                                 "through the plain versions")
+        step_checks[mode] = {
+            "loss_gap": loss_gap, "min_mlp_grad_cosine": mlp[worst_mlp],
+            "min_deformation_grad_cosine": deform[worst_def],
+            "min_grad_cosine_vs_plain": cos_plain[worst_plain]}
 
     # a checkpoint saved, loaded, one more step: bit-equal to the step taken
     # without the round trip
@@ -440,13 +739,13 @@ def train_phase(args, cfg, device, smi):
     for st in (direct, loaded):
         step_fn(st, ds, step_generator(tc.seed, st.step, device))
     torch.cuda.synchronize()
-    same = loaded.step == direct.step == TRAIN_STEPS + 1 and all(
+    same = loaded.step == direct.step == steps + 1 and all(
         torch.equal(a, b) for a, b in zip(
             list(direct.model.parameters()) + list(direct.mu.values())
             + list(direct.nu.values()),
             list(loaded.model.parameters()) + list(loaded.mu.values())
             + list(loaded.nu.values())))
-    log(f"checkpoint round trip, then one step: bit-equal = {same}")
+    log(f"checkpoint round trip, then one step ({what}): bit-equal = {same}")
     if not same:
         raise AssertionError("resume does not reproduce the next step")
 
@@ -454,10 +753,11 @@ def train_phase(args, cfg, device, smi):
         for _ in range(PROFILE_STEPS):
             step_fn(direct, ds, step_generator(tc.seed, direct.step, device))
 
-    prof = profile_run(few_steps, f"{PROFILE_STEPS} training steps")
-    log(f"training-step shares of device time (profiler): mlp_fwd "
-        f"{prof['mlp_fwd_share']:.3f}, mlp_bwd {prof['mlp_bwd_share']:.3f}")
-    return {"steps": TRAIN_STEPS, "n_rand": tc.N_rand,
+    prof = profile_run(few_steps, f"{PROFILE_STEPS} training steps ({what})")
+    log(f"training-step shares of device time (profiler, {what}): "
+        f"{fam.fwd_name} {prof['fwd_share']:.3f}, {fam.bwd_name} "
+        f"{prof['bwd_share']:.3f}")
+    return {"steps": steps, "n_rand": tc.N_rand, "use_viewdirs": cfg.use_viewdirs,
             "frames": TRAIN_FRAMES, "height": H, "width": W,
             "wall_s": wall, "steps_per_s": steps_per_s,
             "rays_per_s": steps_per_s * tc.N_rand,
@@ -467,14 +767,49 @@ def train_phase(args, cfg, device, smi):
             "window_steps_per_s_max": rates[-1],
             "loss_first": first["loss"], "loss_last": last["loss"],
             "psnr_first": first["psnr"], "psnr_last": last["psnr"],
-            "kernel_vs_off_loss_gap": loss_gap,
-            "kernel_vs_off_min_grad_cosine": cosines[worst],
-            "resume_bit_equal": same, "profile": prof, "gpu": smi}, counts
+            "kernel_vs_off": step_checks, "resume_bit_equal": same, "profile": prof, "gpu": smi}, counts
 
 
-def psnr(a, b) -> float:
-    mse = float(np.mean((np.asarray(a, np.float64) - b) ** 2))
-    return float("inf") if mse == 0 else -10.0 * math.log10(mse)
+def kernel_rows(fam, sizes, fwd_checks, bwd_checks, render_launches,
+                train_counts):
+    """The family's two rows of the kernels line. Launches: the render
+    path's and the training path's, each counted from 0 over its own run. A
+    backward row's max_abs_err is the largest of its gradients' max abs
+    errors, each over its array's max magnitude (the arrays differ in scale
+    by orders of magnitude); "agreement" has every array's."""
+    n_coarse, n_fine, n_bwd_coarse, n_bwd_fine = sizes
+    coarse_k, fine_k, train_coarse_k, train_fine_k = fwd_checks
+    coarse_b, fine_b = bwd_checks
+    src = "nonrigid_nerf_torch/ops/kernels/csrc/"
+    fwd_row = {"name": fam.fwd_name, "route": "cuda",
+               "source": f"{src}{fam.fwd_name}.cu",
+               "replaces": fam.replaces[0],
+               "launches": render_launches + train_counts[fam.fwd_name],
+               "launches_render": render_launches,
+               "launches_train": train_counts[fam.fwd_name],
+               "max_abs_err": max(k["max_abs_err"] for k in fwd_checks),
+               "ms": coarse_k["ms"], "plain_ms": coarse_k["plain_ms"],
+               "bound_ms": coarse_k["bound_ms"],
+               "bound_by": coarse_k["bound_by"], "library_ms": None,
+               "points": n_coarse,
+               "matmul_chain_bf16_ms": coarse_k["matmul_chain_bf16_ms"],
+               "fine_pass": {"points": n_fine, **fine_k},
+               "train_pass": {"points": n_bwd_coarse, **train_coarse_k},
+               "train_fine_pass": {"points": n_bwd_fine, **train_fine_k}}
+    bwd_row = {"name": fam.bwd_name, "route": "cuda",
+               "source": f"{src}{fam.bwd_name}.cu",
+               "replaces": fam.replaces[1],
+               "launches": train_counts[fam.bwd_name],
+               "max_abs_err": max(coarse_b["max_abs_err"],
+                                  fine_b["max_abs_err"]),
+               "ms": coarse_b["ms"], "plain_ms": coarse_b["plain_ms"],
+               "bound_ms": coarse_b["bound_ms"],
+               "bound_by": coarse_b["bound_by"], "library_ms": None,
+               "points": n_bwd_coarse,
+               "matmul_chain_bf16_ms": coarse_b["matmul_chain_bf16_ms"],
+               "agreement": coarse_b["agreement"],
+               "fine_pass": {"points": n_bwd_fine, **fine_b}}
+    return [fwd_row, bwd_row]
 
 
 def main() -> int:
@@ -488,13 +823,8 @@ def main() -> int:
               "(nonrigid_nerf_torch/ is missing beside it)", file=sys.stderr)
         return 1
     sys.path.insert(0, root)
-    from nonrigid_nerf_torch.apps.render_path import render_path
-    from nonrigid_nerf_torch.config import (load_args, model_config_from_args,
-                                            render_settings_from_args)
-    from nonrigid_nerf_torch.engine.render import make_ray_renderer
+    from nonrigid_nerf_torch.config import load_args, model_config_from_args
     from nonrigid_nerf_torch.ops.kernels import build
-    from nonrigid_nerf_torch.ops.kernels.mlp_fwd import mlp_fwd
-    from nonrigid_nerf_torch.ops.rays import get_rays
 
     # f32 products stay full f32 (the "off" reference), never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -504,9 +834,10 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
+    t_start = time.perf_counter()
 
     # ---- phase 1: build, one nvcc per source, side by side
-    sources = ("mlp_fwd.cu", "mlp_bwd.cu")
+    sources = ("mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpv_bwd.cu")
     t0 = time.perf_counter()
     build.load_kernel_libraries(sources)
     log(f"build {', '.join(sources)}: {time.perf_counter() - t0:.2f} s in all")
@@ -517,140 +848,54 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log("  ptxas:", line.strip())
 
-    # ---- phase 2: kernel vs plain at the render and training paths' shapes
     args = load_args(os.path.join(root, "configs", "example_sequence.txt"))
-    cfg = model_config_from_args(args)
-    if cfg.fused_kernel != "auto" or cfg.netwidth != 256:
-        raise AssertionError(f"unexpected flagship config {cfg}")
-    model = flagship_model(cfg, device)
-    n_coarse = CHUNK * cfg.N_samples
-    n_fine = CHUNK * (cfg.N_samples + cfg.N_importance)
-    n_bwd_coarse = args.N_rand * cfg.N_samples
-    n_bwd_fine = args.N_rand * (cfg.N_samples + cfg.N_importance)
-    with torch.no_grad():       # the plain versions must not record a graph
-        coarse_k = check_mlp_fwd(model, n_coarse, device)
-        fine_k = check_mlp_fwd(model, n_fine, device)
-        train_coarse_k = check_mlp_fwd(model, n_bwd_coarse, device)
-        train_fine_k = check_mlp_fwd(model, n_bwd_fine, device, "fine")
-        coarse_b = check_mlp_bwd(model, n_bwd_coarse, device)
-        fine_b = check_mlp_bwd(model, n_bwd_fine, device)
+    cfg_plain = model_config_from_args(args)
+    if cfg_plain.fused_kernel != "auto" or cfg_plain.netwidth != 256 \
+            or cfg_plain.use_viewdirs or not cfg_plain.approx_nonrigid_viewdirs:
+        raise AssertionError(f"unexpected flagship config {cfg_plain}")
+    cfg_views = dataclasses.replace(cfg_plain, use_viewdirs=True)
+    if cfg_views.multires_views != 4 or cfg_views.input_ch_views != 27:
+        raise AssertionError(f"unexpected view encoding {cfg_views}")
+    families = [(Family(False), cfg_plain, TRAIN_STEPS),
+                (Family(True), cfg_views, TRAIN_STEPS_VIEWDIRS)]
+    n_coarse = CHUNK * cfg_plain.N_samples
+    n_fine = CHUNK * (cfg_plain.N_samples + cfg_plain.N_importance)
+    n_bwd_coarse = args.N_rand * cfg_plain.N_samples
+    n_bwd_fine = args.N_rand * (cfg_plain.N_samples + cfg_plain.N_importance)
+    sizes = (n_coarse, n_fine, n_bwd_coarse, n_bwd_fine)
 
-    # ---- phase 3: render through render_path, kernel vs off
-    poses, intrinsics = synthetic_poses()
-    rs = render_settings_from_args(args, near=0.1, far=1.6)
-    latents = model.latents.detach().cpu().numpy()
-    with torch.no_grad():                 # warm-up: cuBLAS, allocator
-        render_path(model, cfg, rs, poses[:1], intrinsics[:1], latents[:1],
-                    chunk=CHUNK, render_factor=8, verbose=False, device=device)
-    torch.cuda.synchronize()
+    rows, renders, trains = [], [], []
+    for i, (fam, cfg, steps) in enumerate(families):
+        other = families[1 - i][0]
+        # ---- phase 2: kernel vs plain at the render and training shapes
+        model = flagship_model(cfg, device)
+        with torch.no_grad():   # the plain versions must not record a graph
+            fwd_checks = [check_fwd(fam, model, n_coarse, device),
+                          check_fwd(fam, model, n_fine, device),
+                          check_fwd(fam, model, n_bwd_coarse, device),
+                          check_fwd(fam, model, n_bwd_fine, device, "fine")]
+            bwd_checks = [check_bwd(fam, model, n_bwd_coarse, device),
+                          check_bwd(fam, model, n_bwd_fine, device)]
+        del model
+        # ---- phase 3: render through render_path, kernel vs off
+        render, render_launches = render_phase(
+            fam, other, cfg, args, device, smi,
+            (fwd_checks[0]["ms"], fwd_checks[1]["ms"]))
+        # ---- phase 4: training
+        train_results, train_counts = train_phase(fam, other, args, cfg,
+                                                  device, smi, steps)
+        renders.append(render)
+        trains.append(train_results)
+        rows += kernel_rows(fam, sizes, fwd_checks, bwd_checks,
+                            render_launches, train_counts)
+        log(f"family done ({'viewdirs' if cfg.use_viewdirs else 'no viewdirs'})"
+            f": {time.perf_counter() - t_start:.1f} s since the start")
 
-    mlp_fwd.launches = 0
-    t0 = time.perf_counter()
-    rgbs, disps = render_path(model, cfg, rs, poses, intrinsics, latents,
-                              chunk=CHUNK, verbose=True, device=device)
-    t_kernel = time.perf_counter() - t0
-    launches = mlp_fwd.launches
-    blocks = -(-H * W // CHUNK)
-    log(f"render (fused_kernel=auto): {FRAMES} frames in {t_kernel:.3f} s, "
-        f"{t_kernel / FRAMES:.4f} s/frame, mlp_fwd launches {launches} "
-        f"(expected {FRAMES * blocks * 2})")
-    if launches != FRAMES * blocks * 2:
-        raise AssertionError("the render path did not run mlp_fwd once per "
-                             "pass and block")
-    if rgbs.shape != (FRAMES, H, W, 3) or disps.shape != (FRAMES, H, W):
-        raise AssertionError(f"bad shapes {rgbs.shape} {disps.shape}")
-    if not (np.isfinite(rgbs).all() and np.isfinite(disps).all()):
-        raise AssertionError("non-finite pixels")
-    if rgbs.min() < 0 or rgbs.max() > 1 or rgbs.std() < 1e-3:
-        raise AssertionError(f"implausible frames: min {rgbs.min()} max "
-                             f"{rgbs.max()} std {rgbs.std()}")
-    kernel_s = (FRAMES * blocks * (coarse_k["ms"] + fine_k["ms"])) / 1e3
-    log(f"mlp_fwd share of render time (from the isolated kernel timings): "
-        f"{kernel_s / t_kernel:.3f}")
-
-    cfg_off = dataclasses.replace(cfg, fused_kernel="off")
-    t0 = time.perf_counter()
-    rgbs_off, _ = render_path(model, cfg_off, rs, poses, intrinsics, latents,
-                              chunk=CHUNK, verbose=True, device=device)
-    t_off = time.perf_counter() - t0
-    if mlp_fwd.launches != launches:
-        raise AssertionError("fused_kernel=off launched mlp_fwd")
-    frame_psnr = [psnr(rgbs[i], rgbs_off[i]) for i in range(FRAMES)]
-    log(f"render (fused_kernel=off): {t_off / FRAMES:.4f} s/frame; PSNR "
-        f"kernel vs off per frame {['%.2f' % p for p in frame_psnr]} dB "
-        f"(need >= {MIN_PSNR_DB})")
-    if min(frame_psnr) < MIN_PSNR_DB:
-        raise AssertionError("kernel render disagrees with the f32 render")
-
-    # the card against the CPU on a block of frame 0's rays (plain f32 path)
-    rs_test = rs.test_mode()
-    rays_o, rays_d = get_rays(torch.as_tensor(poses[0], device=device),
-                              intrinsics[0])
-    sel = torch.arange(0, H * W, (H * W) // 512, device=device)[:512]
-    ro, rd = rays_o.reshape(-1, 3)[sel], rays_d.reshape(-1, 3)[sel]
-    lat = model.latents[:1].detach().expand(ro.shape[0], -1)
-    gpu = make_ray_renderer(cfg_off, rs_test, device=device)(model, ro, rd, lat)
-    model_cpu = flagship_model(cfg, "cpu")
-    cpu = make_ray_renderer(cfg_off, rs_test, device="cpu")(
-        model_cpu, ro.cpu(), rd.cpu(), lat.cpu())
-    gap = (gpu["rgb_map"].cpu() - cpu["rgb_map"]).abs().max().item()
-    log(f"card vs CPU, 512 rays, fused_kernel=off: max |rgb| gap {gap:.3e}")
-    if gap > 1e-4:
-        raise AssertionError("the card's render disagrees with the CPU's")
-
-    prof = profile_run(lambda: render_path(
-        model, cfg, rs, poses[:1], intrinsics[:1], latents[:1], chunk=CHUNK,
-        verbose=False, device=device), "one frame")
-    log(f"mlp_fwd share of device time (profiler): {prof['mlp_fwd_share']:.3f}")
-
-    # ---- phase 4: training
-    del model
-    train_results, train_counts = train_phase(args, cfg, device, smi)
-
-    # ---- phase 5: results. Launches: the render path's and the training
-    # path's, each counted from 0 over its own run. mlp_bwd's max_abs_err is
-    # the largest of its 19 gradients' max abs errors, each over its array's
-    # max magnitude (the arrays differ in scale by orders of magnitude);
-    # "agreement" has every array's, demb's too
-    bwd_row = {"name": "mlp_bwd", "route": "cuda",
-               "source": "nonrigid_nerf_torch/ops/kernels/csrc/mlp_bwd.cu",
-               "replaces": "nonrigid_nerf_tpu/ops/pallas/fused_query.py:842",
-               "launches": train_counts["mlp_bwd"],
-               "max_abs_err": max(coarse_b["max_abs_err"],
-                                  fine_b["max_abs_err"]),
-               "ms": coarse_b["ms"], "plain_ms": coarse_b["plain_ms"],
-               "bound_ms": coarse_b["bound_ms"],
-               "bound_by": coarse_b["bound_by"], "library_ms": None,
-               "points": n_bwd_coarse,
-               "matmul_chain_bf16_ms": coarse_b["matmul_chain_bf16_ms"],
-               "agreement": coarse_b["agreement"],
-               "fine_pass": {"points": n_bwd_fine, **fine_b}}
-    row = {"name": "mlp_fwd", "route": "cuda",
-           "source": "nonrigid_nerf_torch/ops/kernels/csrc/mlp_fwd.cu",
-           "replaces": "nonrigid_nerf_tpu/ops/pallas/fused_query.py:807",
-           "launches": launches + train_counts["mlp_fwd"],
-           "launches_render": launches,
-           "launches_train": train_counts["mlp_fwd"],
-           "max_abs_err": max(k["max_abs_err"] for k in (
-               coarse_k, fine_k, train_coarse_k, train_fine_k)),
-           "ms": coarse_k["ms"], "plain_ms": coarse_k["plain_ms"],
-           "bound_ms": coarse_k["bound_ms"], "bound_by": coarse_k["bound_by"],
-           "library_ms": None,
-           "points": n_coarse,
-           "matmul_chain_bf16_ms": coarse_k["matmul_chain_bf16_ms"],
-           "fine_pass": {"points": n_fine, **fine_k},
-           "train_pass": {"points": n_bwd_coarse, **train_coarse_k},
-           "train_fine_pass": {"points": n_bwd_fine, **train_fine_k}}
-    log(json.dumps({"render": {"frames": FRAMES, "height": H, "width": W,
-                               "chunk": CHUNK,
-                               "s_per_frame_kernel": t_kernel / FRAMES,
-                               "s_per_frame_off": t_off / FRAMES,
-                               "psnr_kernel_vs_off_db": frame_psnr,
-                               "rays_per_s_kernel": H * W * FRAMES / t_kernel,
-                               "mlp_fwd_share_est": kernel_s / t_kernel,
-                               "profile": prof, "gpu": smi}}))
-    log(json.dumps({"train": train_results}))
-    log(json.dumps({"kernels": [row, bwd_row]}))
+    # ---- phase 5: results
+    log(json.dumps({"render": renders}))
+    log(json.dumps({"train": trains}))
+    log(smi)
+    log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,9 +10,10 @@ and a config file or `args.txt` means the same to both:
 - TrainConfig:    optimization settings
 
 `fused_kernel` keeps its modes. "auto" runs the canonical MLP as the CUDA
-kernel whenever the render device is a GPU and the architecture and edits
-allow it, "on" forces it (the plain version on a CPU tensor), "off" runs the
-plain f32 MLP. "pts" and "int8" are not ported yet and raise.
+kernels (with `use_viewdirs` the view-direction pair) whenever the render
+device is a GPU and the architecture and edits allow it, "on" forces it (the
+plain version on a CPU tensor), "off" runs the plain f32 MLP. "pts" and
+"int8" are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -74,6 +75,16 @@ class ModelConfig:
         if self.i_embed == -1:
             return 3
         return 3 + 3 * 2 * self.multires
+
+    @property
+    def input_ch_views(self) -> int:
+        """Channels of the encoded view direction (0 without view
+        directions)."""
+        if not self.use_viewdirs:
+            return 0
+        if self.i_embed == -1:
+            return 3
+        return 3 + 3 * 2 * self.multires_views
 
     @property
     def output_ch(self) -> int:

@@ -15,7 +15,8 @@ The divergence estimate e^T J e is a forward-mode jvp of the bender at
 detached points (`torch.func.jvp` over `torch.func.functional_call`), built
 inside the autograd graph, so the outer backward differentiates through it
 into the bender's parameters and the latents. It never runs through the
-canonical MLP or its kernels.
+canonical MLP or its kernels. (The exact view directions are a second jvp
+of the same kind, in `engine/query.py:sample_viewdirs`.)
 """
 
 from __future__ import annotations

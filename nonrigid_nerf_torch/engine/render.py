@@ -5,9 +5,12 @@
 samples' stage-1 results (bend + encode), runs stage 1 on the importance
 samples only, runs the fine MLP on the UNSORTED union [coarse..., new...]
 (the MLP is pointwise), and sorts only the compact raw outputs by depth for
-compositing; with `stage1_reuse=False` it sorts the depths first and queries
-all of them again, as the reference does. `make_ray_renderer` streams any number of rays through
-`render_rays` in fixed `chunk`-sized blocks.
+compositing. Finite-difference view directions depend on the sample order,
+so that fine pass sorts the bent points first and encodes and runs the MLP
+in sorted order. With `stage1_reuse=False` the depths are sorted first and
+all of them queried again, as the reference does. `make_ray_renderer`
+streams any number of rays through `render_rays` in fixed `chunk`-sized
+blocks.
 """
 
 from __future__ import annotations
@@ -18,9 +21,11 @@ import torch
 
 from nonrigid_nerf_torch.config import EditConfig, ModelConfig, RenderSettings
 from nonrigid_nerf_torch.device import DeviceLike, resolve_device
-from nonrigid_nerf_torch.engine.query import (bend_encode_stage,
+from nonrigid_nerf_torch.engine.query import (_embed_views, bend_encode_stage,
                                               canonical_mlp_stage,
-                                              query_points, use_fused_kernel)
+                                              embed_for_mlp, query_points,
+                                              sample_viewdirs,
+                                              use_fused_kernel)
 from nonrigid_nerf_torch.models.nerf import check_nerf_supported
 from nonrigid_nerf_torch.ops.compositing import raw2outputs
 from nonrigid_nerf_torch.ops.sampling import sample_pdf, stratified_z_vals
@@ -66,8 +71,17 @@ def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
     if unknown:
         raise ValueError(f"unknown draws {sorted(unknown)}; known: {DRAW_KEYS}")
     R = rays_o.shape[0]
+    viewdirs = None
+    if cfg.use_viewdirs:
+        viewdirs = rays_d / torch.linalg.vector_norm(rays_d, dim=-1,
+                                                     keepdim=True)
     fused = use_fused_kernel(cfg, edit, rays_o.device)
     reuse = cfg.stage1_reuse
+    # finite-difference directions of bent rays depend on the sample ORDER:
+    # that fine pass sorts bent points before the MLP instead of sorting raw
+    # outputs after it
+    fd_nonrigid = (cfg.use_viewdirs and cfg.approx_nonrigid_viewdirs
+                   and model.bender is not None and not edit.render_canonical)
     fine_detailed = detailed if fine_detailed is None \
         else (fine_detailed and detailed)
 
@@ -78,10 +92,18 @@ def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
     if reuse:
         st = bend_encode_stage(model, cfg, pts, latents, edit, fused, detailed)
-        raw = canonical_mlp_stage(model, cfg, "coarse", st, edit, fused)
+        dirs_coarse = ev_coarse = None
+        if cfg.use_viewdirs:
+            # the coarse depths ascend by construction, so the
+            # finite-difference variant holds on the coarse bent points
+            dirs_coarse = sample_viewdirs(model, cfg, pts, st, viewdirs, edit)
+            ev_coarse = _embed_views(cfg, dirs_coarse)
+        raw = canonical_mlp_stage(model, cfg, "coarse", st, ev_coarse, edit,
+                                  fused)
         details = st["details"]
     else:
-        out = query_points(model, cfg, pts, latents, edit, "coarse", detailed)
+        out = query_points(model, cfg, pts, viewdirs, latents, edit, "coarse",
+                           detailed)
         raw, details = out if detailed else (out, None)
     coarse = raw2outputs(raw, z_vals, rays_d, rs.raw_noise_std,
                          rs.white_bkgd, generator=generator,
@@ -95,41 +117,70 @@ def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
         z_cat = torch.cat([z_vals, z_samples], -1)
         fine_details = None
         if reuse:
-            # stage 1 runs on the new samples only; the fine MLP runs on the
-            # UNSORTED union [coarse..., new...] (it is pointwise), and only
-            # its compact outputs (and the detail channels, when asked for)
-            # are sorted by depth for compositing
+            # stage 1 runs on the new samples only (without the encoding
+            # where it is made after the sort, below)
             pts_new = rays_o[:, None, :] + rays_d[:, None, :] * z_samples[..., None]
             st_new = bend_encode_stage(model, cfg, pts_new, latents, edit,
-                                       fused, fine_detailed)
+                                       fused, fine_detailed,
+                                       embed=not fd_nonrigid)
 
             def cat(a, b):
                 return torch.cat([a, b], dim=-2)
 
-            st_cat = {
-                "embedded": cat(st["embedded"], st_new["embedded"]),
-                "bent_pts": cat(st["bent_pts"], st_new["bent_pts"]),
-                "rigidity": (cat(st["rigidity"], st_new["rigidity"])
-                             if st["rigidity"] is not None else None),
-            }
-            raw_cat = canonical_mlp_stage(model, cfg, "fine", st_cat, edit,
-                                          fused)
-            if fine_detailed:
-                keys = sorted(st_new["details"])
-                merged = sort_merge(
-                    z_cat, raw_cat,
-                    *(cat(details[k], st_new["details"][k]) for k in keys))
-                z_all, raw_fine = merged[0], merged[1]
-                fine_details = dict(zip(keys, merged[2:]))
+            bent_cat = cat(st["bent_pts"], st_new["bent_pts"])
+            rigidity_cat = (cat(st["rigidity"], st_new["rigidity"])
+                            if st["rigidity"] is not None else None)
+            keys = sorted(st_new["details"]) if fine_detailed else []
+            det_cat = [cat(details[k], st_new["details"][k]) for k in keys]
+
+            if fd_nonrigid:
+                # the SORT comes first: bent points, rigidity and any detail
+                # channels ride it; directions, encoding and the MLP then
+                # run in sorted order and raw needs no further permutation.
+                # The coarse samples are still bent only once.
+                payloads = [bent_cat] + (
+                    [rigidity_cat] if rigidity_cat is not None else [])
+                merged = sort_merge(z_cat, *payloads, *det_cat)
+                z_all, bent_sorted = merged[0], merged[1]
+                rest = list(merged[2:])
+                rigidity_sorted = rest.pop(0) if rigidity_cat is not None \
+                    else None
+                if fine_detailed:
+                    fine_details = dict(zip(keys, rest))
+                st_sorted = {"embedded": embed_for_mlp(cfg, bent_sorted, fused),
+                             "bent_pts": bent_sorted,
+                             "rigidity": rigidity_sorted}
+                dirs = sample_viewdirs(model, cfg, bent_sorted, st_sorted,
+                                       viewdirs, edit)
+                raw_fine = canonical_mlp_stage(model, cfg, "fine", st_sorted,
+                                               _embed_views(cfg, dirs), edit,
+                                               fused)
             else:
-                z_all, raw_fine = sort_merge(z_cat, raw_cat)
+                # the fine MLP runs on the UNSORTED union [coarse..., new...]
+                # (it is pointwise, and exact or straight view directions
+                # are per point), and only its compact outputs (and the
+                # detail channels, when asked for) are sorted by depth for
+                # compositing
+                ev_cat = None
+                if cfg.use_viewdirs:
+                    dirs_new = sample_viewdirs(model, cfg, pts_new, st_new,
+                                               viewdirs, edit)
+                    ev_cat = _embed_views(cfg, cat(dirs_coarse, dirs_new))
+                st_cat = {"embedded": cat(st["embedded"], st_new["embedded"]),
+                          "bent_pts": bent_cat, "rigidity": rigidity_cat}
+                raw_cat = canonical_mlp_stage(model, cfg, "fine", st_cat,
+                                              ev_cat, edit, fused)
+                merged = sort_merge(z_cat, raw_cat, *det_cat)
+                z_all, raw_fine = merged[0], merged[1]
+                if fine_detailed:
+                    fine_details = dict(zip(keys, merged[2:]))
         else:
             # the reference's way: sort the depths, then bend and encode the
             # coarse samples a second time with the new ones
             z_all = torch.sort(z_cat, dim=-1).values
             pts_fine = rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]
-            out = query_points(model, cfg, pts_fine, latents, edit, "fine",
-                               fine_detailed)
+            out = query_points(model, cfg, pts_fine, viewdirs, latents, edit,
+                               "fine", fine_detailed)
             raw_fine, fine_details = out if fine_detailed else (out, None)
         fine = raw2outputs(raw_fine, z_all, rays_d, rs.raw_noise_std,
                            rs.white_bkgd, generator=generator,

@@ -2,10 +2,13 @@
 
 D hidden ReLU layers of width W; after layer i in `skips` the encoded input
 is concatenated in front of the activation, [mlp_input, h]
-(reference: run_nerf_helpers.py:295-302). A single output head gives
-`output_ch` channels (5 with importance sampling, of which 4 are used).
-The view-direction heads and the time-conditioned input come with later
-slices of the port.
+(reference: run_nerf_helpers.py:295-302). Without view directions a single
+output head gives `output_ch` channels (5 with importance sampling, of which
+4 are used). With them (reference: run_nerf_helpers.py:283-304) a density
+head `alpha` (W -> 1), a `feature` head (W -> W, no activation), one
+view-conditioned ReLU layer `views[0]` (W + view_ch -> W / 2) and an `rgb`
+head (W / 2 -> 3). The time-conditioned input comes with a later slice of
+the port.
 """
 
 from __future__ import annotations
@@ -20,9 +23,7 @@ from nonrigid_nerf_torch.models.mlp import dense
 
 
 def check_nerf_supported(cfg: ModelConfig) -> None:
-    """Raise on the canonical-MLP variants this slice does not port."""
-    if cfg.use_viewdirs:
-        raise NotImplementedError("use_viewdirs is not ported yet")
+    """Raise on the canonical-MLP variants that are not ported yet."""
     if cfg.time_conditioned_baseline:
         raise NotImplementedError("time_conditioned_baseline is not ported yet")
     if cfg.compute_dtype != "float32":
@@ -45,15 +46,36 @@ class NeRF(nn.Module):
             in_dim = W + input_ch if i in self.skips else W
             layers.append(dense(in_dim, W, generator=generator, device=device))
         self.pts = nn.ModuleList(layers)
-        self.output = dense(W, cfg.output_ch, generator=generator,
-                            device=device)
+        self.use_viewdirs = cfg.use_viewdirs
+        if cfg.use_viewdirs:
+            # a list of one layer, so that names map to the JAX tree's
+            # params[net]["views"][0]
+            self.feature = dense(W, W, generator=generator, device=device)
+            self.alpha = dense(W, 1, generator=generator, device=device)
+            self.views = nn.ModuleList([dense(cfg.input_ch_views + W, W // 2,
+                                              generator=generator,
+                                              device=device)])
+            self.rgb = dense(W // 2, 3, generator=generator, device=device)
+        else:
+            self.output = dense(W, cfg.output_ch, generator=generator,
+                                device=device)
 
-    def forward(self, embedded_pts: torch.Tensor) -> torch.Tensor:
-        """(..., input_ch) encoded (bent) points -> raw (..., 4) f32:
-        rgb logits and density."""
+    def forward(self, embedded_pts: torch.Tensor,
+                embedded_views: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(..., input_ch) encoded (bent) points, and with view directions
+        (..., input_ch_views) encoded directions -> raw (..., 4) f32: rgb
+        logits and density."""
         h = embedded_pts
         for i, layer in enumerate(self.pts):
             h = torch.relu(layer(h))
             if i in self.skips:
                 h = torch.cat([embedded_pts, h], dim=-1)
-        return self.output(h)[..., :4]
+        if not self.use_viewdirs:
+            return self.output(h)[..., :4]
+        if embedded_views is None:
+            raise ValueError("a view-direction NeRF needs embedded_views")
+        alpha = self.alpha(h)
+        hv = torch.cat([self.feature(h), embedded_views], dim=-1)
+        for layer in self.views:
+            hv = torch.relu(layer(hv))
+        return torch.cat([self.rgb(hv), alpha], dim=-1)

@@ -3,8 +3,8 @@
 Each kernel source under `csrc/` has a plain C interface. It is compiled
 with nvcc for `sm_90a` into a shared library under `nonrigid_nerf_torch/_build/`
 (git-ignored) and loaded with ctypes. The library's file name carries a hash
-of the source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is. Nothing here runs at import time: `load_kernel_library`
+of the source, of the headers beside it (`csrc/*.cuh`) and of the flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is. Nothing here runs at import time: `load_kernel_library`
 is called by a wrapper the first time it launches on a CUDA tensor, and
 `load_kernel_libraries` builds several sources side by side.
 """
@@ -44,8 +44,12 @@ def find_nvcc() -> str:
 
 
 def _library_path(source: str) -> str:
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha1(f.read() + repr(NVCC_FLAGS).encode()).hexdigest()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    sha = hashlib.sha1(repr(NVCC_FLAGS).encode())
+    for name in [source] + headers:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            sha.update(f.read())
+    digest = sha.hexdigest()
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest[:12]}.so")
 

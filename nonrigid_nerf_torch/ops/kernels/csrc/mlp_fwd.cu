@@ -18,7 +18,9 @@
 // (128 B of bf16 encoding in, 32 B of f32 raw out), about 6,200 FLOP per
 // byte, so the tensor cores bound it, never the memory.
 //
-// Design (simple and correct first; wgmma/TMA/persistent CTAs come later):
+// Design (simple and correct first; wgmma/TMA/persistent CTAs come later).
+// The tile, the weight ring and the chain are mlp_tile.cuh's, shared with
+// the other canonical-MLP kernels:
 // - one CTA of 8 warps owns a tile of 128 points for all 9 layers;
 // - the 128 x 256 bf16 activation tile stays in shared memory the whole
 //   time. Each layer's accumulators live in registers, so the layer's
@@ -35,70 +37,19 @@
 //
 // Plain C interface, bound with ctypes (see ../mlp_fwd.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "mlp_tile.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-using namespace nvcuda;
-
-constexpr int TM = 128;        // points per CTA
-constexpr int NW = 256;        // hidden width
-constexpr int EMB = 64;        // encoding width (63 channels + 1 zero lane)
-constexpr int OUT = 8;         // head width (4 lanes used)
-constexpr int KC = 64;         // weight rows per staged chunk
-constexpr int THREADS = 256;   // 8 warps: 2 (rows) x 4 (cols) of 64 x 64
-constexpr int LDA = NW + 8;    // padded shared-memory row strides (halves)
-constexpr int LDE = EMB + 8;
-constexpr int LDW = NW + 8;
-constexpr int N_LAYERS = 8;
-constexpr int N_CHUNKS = 30;   // 1 + 4*4 + (4 + 1) + 2*4
-
-constexpr size_t ACT_BYTES = size_t(TM) * LDA * sizeof(bf16);
-constexpr size_t EMB_BYTES = size_t(TM) * LDE * sizeof(bf16);
-constexpr size_t STAGE_BYTES = size_t(KC) * LDW * sizeof(bf16);
-constexpr size_t SCRATCH_BYTES = size_t(THREADS / 32) * 16 * 16 * sizeof(float);
-constexpr size_t SMEM_BYTES = ACT_BYTES + EMB_BYTES + 2 * STAGE_BYTES + SCRATCH_BYTES;
-
-static_assert(ACT_BYTES % 128 == 0 && EMB_BYTES % 128 == 0 &&
-              STAGE_BYTES % 128 == 0, "shared-memory regions stay aligned");
-static_assert(SMEM_BYTES <= 232448, "fits one Hopper CTA");
+constexpr size_t SMEM_BYTES = ACT_BYTES + EMB_BYTES + 2 * STAGE_BYTES + WSCR_BYTES;
+static_assert(SMEM_BYTES <= SMEM_LIMIT, "fits one Hopper CTA");
 
 struct Params {
-  const bf16* chunk[N_CHUNKS];   // source of each 64-row weight chunk
-  const float* bias[N_LAYERS];   // (256,) f32 per hidden layer
-  const bf16* ow;                // (256, 8) bf16
-  const float* ob;               // (8,) f32
+  const bf16* chunk[N_FWD_CHUNKS];   // source of each 64-row weight chunk
+  const float* bias[N_LAYERS];       // (256,) f32 per hidden layer
+  const bf16* ow;                    // (256, 8) bf16
+  const float* ob;                   // (8,) f32
 };
-
-// chunks per layer; layer 5 reads 4 chunks of n5h, then n5e against emb
-__constant__ int kLayerChunks[N_LAYERS] = {1, 4, 4, 4, 4, 5, 4, 4};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// one 64 x 256 bf16 chunk (32 KB) = 2048 16-byte pieces, 8 per thread
-__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src, int tid) {
-#pragma unroll
-  for (int i = tid; i < KC * NW / 8; i += THREADS) {
-    const int r = i / (NW / 8);
-    const int c = (i % (NW / 8)) * 8;
-    cp_async16(dst + r * LDW + c, src + r * NW + c);
-  }
-}
 
 __global__ void __launch_bounds__(THREADS, 1)
 mlp_fwd_kernel(const bf16* __restrict__ emb, int n, Params p,
@@ -113,89 +64,18 @@ mlp_fwd_kernel(const bf16* __restrict__ emb, int n, Params p,
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int row0 = blockIdx.x * TM;
+  const long row0 = long(blockIdx.x) * TM;
 
-  load_chunk(stage, p.chunk[0], tid);
+  auto prefetch = [&](int g) {
+    if (g < N_FWD_CHUNKS) load_chunk(stage_of(stage, g), p.chunk[g], tid);
+  };
+  prefetch(0);
   cp_async_commit();
+  load_points<EMB, LDE>(embs, emb, row0, n, tid, nullptr);
 
-  // emb tile: 128 rows x 128 B, 16-byte pieces, rows past n are zero
-  for (int i = tid; i < TM * EMB / 8; i += THREADS) {
-    const int r = i / (EMB / 8);
-    const int c = (i % (EMB / 8)) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n) {
-      v = *reinterpret_cast<const uint4*>(emb + size_t(row0 + r) * EMB + c);
-    }
-    *reinterpret_cast<uint4*>(embs + r * LDE + c) = v;
-  }
-
-  const int wm = warp / 4;   // rows wm*64 .. +64
-  const int wn = warp % 4;   // cols wn*64 .. +64
-  float* wscr = scratch + warp * 256;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][4];
   int g = 0;
-  for (int layer = 0; layer < N_LAYERS; ++layer) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-    const int n_chunks = kLayerChunks[layer];
-    for (int c = 0; c < n_chunks; ++c, ++g) {
-      if (g + 1 < N_CHUNKS) {
-        load_chunk(stage + ((g + 1) & 1) * KC * LDW, p.chunk[g + 1], tid);
-      }
-      cp_async_commit();   // an empty group at the end keeps the count even
-      cp_async_wait_1();   // chunk g has landed
-      __syncthreads();     // ... for every thread, and so has the emb tile
-
-      const bool from_emb = (layer == 0) || (layer == 5 && c == 4);
-      const bf16* a_src = from_emb ? embs : act;
-      const int lda = from_emb ? LDE : LDA;
-      const int k0 = from_emb ? 0 : c * KC;
-      const bf16* b_src = stage + (g & 1) * KC * LDW;
-
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          wmma::load_matrix_sync(a[i], a_src + (wm * 64 + i * 16) * lda + k0 + kk, lda);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, b_src + kk * LDW + wn * 64 + j * 16, LDW);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-        }
-      }
-      __syncthreads();   // all reads of this stage and of act are done
-    }
-
-    // epilogue: act = bf16(relu(acc + bias)), in place (reads finished above)
-    const float* bias = p.bias[layer];
-    const int r = lane / 2;
-    const int c0 = (lane % 2) * 8;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::store_matrix_sync(wscr, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int grow = wm * 64 + i * 16 + r;
-        const int gcol = wn * 64 + j * 16 + c0;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float v = wscr[r * 16 + c0 + e] + __ldg(bias + gcol + e);
-          act[grow * LDA + gcol + e] = __float2bfloat16(fmaxf(v, 0.0f));
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-  }
+  chain_forward(act, embs, stage, scratch + warp * 256, p.bias, g, prefetch, nullptr,
+                0, warp, lane);
 
   // head: raw[p, o] = sum_k nh8[p, k] * ow[k, o] + ob[o], in f32
   const int pt = tid / 2;
@@ -225,14 +105,9 @@ extern "C" int nrnerf_mlp_fwd(const void* emb, int n, const void* const* mats,
   Params p;
   const bf16* m[10];
   for (int i = 0; i < 10; ++i) m[i] = static_cast<const bf16*>(mats[i]);
-  int g = 0;
-  p.chunk[g++] = m[0];
-  for (int layer = 1; layer <= 4; ++layer)
-    for (int c = 0; c < 4; ++c) p.chunk[g++] = m[layer] + c * KC * NW;
-  for (int c = 0; c < 4; ++c) p.chunk[g++] = m[6] + c * KC * NW;   // n5h
-  p.chunk[g++] = m[5];                                               // n5e
-  for (int layer = 7; layer <= 8; ++layer)
-    for (int c = 0; c < 4; ++c) p.chunk[g++] = m[layer] + c * KC * NW;
+  if (fill_forward_chunks(m, p.chunk, 0) != N_FWD_CHUNKS) {
+    return int(cudaErrorInvalidValue);
+  }
   for (int i = 0; i < N_LAYERS; ++i) p.bias[i] = static_cast<const float*>(biases[i]);
   p.ow = m[9];
   p.ob = static_cast<const float*>(biases[8]);

@@ -1,0 +1,682 @@
+// Shared device code of the canonical-MLP kernels for Hopper (sm_90a):
+// mlp_fwd.cu, mlp_bwd.cu, mlpv_fwd.cu and mlpv_bwd.cu. What they share:
+//
+// - the tile: one CTA of 8 warps owns 128 points; a 128 x 256 bf16 activation
+//   tile stays in shared memory and each layer's accumulators live in
+//   registers, so a layer's output overwrites its own input after a barrier;
+// - the weight ring: weights stream from global memory (L2-resident) through
+//   a double-buffered pair of shared-memory stages filled with cp.async, one
+//   schedule of chunks (64 weight rows as a rule) across all layers of a
+//   kernel, so the next chunk is in flight while the current one is used;
+// - the chain: nh1 .. nh8 of the 8 x 256 MLP with the skip at layer 4 as a
+//   split weight (n5h on the hidden tile, n5e on the encoding tile);
+// - the transposed step `cur @ W^T` of the backward's dh chain, which reads
+//   the same row chunks of W as col-major B operands;
+// - the backward's second pass: split-K dW products, column sums and the
+//   8-lane head products, and the fixed-order reduction over the splits.
+//
+// Products use warp-level bf16 tensor-core MMA (nvcuda::wmma 16x16x16) with
+// f32 accumulators. No atomics anywhere: the same inputs give bit-equal
+// outputs.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace nvcuda;
+
+constexpr int TM = 128;        // points per CTA
+constexpr int NW = 256;        // hidden width
+constexpr int EMB = 64;        // encoding width (63 channels + 1 zero lane)
+constexpr int VEMB = 32;       // view-encoding width (27 channels + 5 zero lanes)
+constexpr int VW = 128;        // width of the view-conditioned layer
+constexpr int OUT = 8;         // head width (4 lanes used)
+constexpr int KC = 64;         // weight rows per staged chunk
+constexpr int THREADS = 256;   // 8 warps
+constexpr int LDA = NW + 8;    // padded shared-memory row strides (halves)
+constexpr int LDE = EMB + 8;
+constexpr int LDV = VEMB + 8;
+constexpr int LDW = NW + 8;
+constexpr int N_LAYERS = 8;
+constexpr int N_FWD_CHUNKS = 30;   // 1 + 4*4 + (4 + 1) + 2*4
+constexpr int N_BWD_STEPS = 9;     // n7w n6w n5e n5h n4w n3w n2w n1w n0w
+constexpr int N_BWD_CHUNKS = 30;   // 4*7 + 2
+constexpr int SPLIT_ROWS = 2048;   // points per split of the dW products
+constexpr int RK = 64;             // points per staged chunk of the dW kernel
+constexpr int SMALL_GROUPS = 4;    // row groups per block of the small kernel
+constexpr int MAX_DW_TILES = 48;
+constexpr int MAX_SMALL_JOBS = 12;
+
+constexpr size_t ACT_BYTES = size_t(TM) * LDA * sizeof(bf16);
+constexpr size_t EMB_BYTES = size_t(TM) * LDE * sizeof(bf16);
+constexpr size_t VEMB_BYTES = size_t(TM) * LDV * sizeof(bf16);
+constexpr size_t STAGE_BYTES = size_t(KC) * LDW * sizeof(bf16);
+constexpr size_t WSCR_BYTES = size_t(THREADS / 32) * 16 * 16 * sizeof(float);
+constexpr size_t DRAW_BYTES = size_t(TM) * OUT * sizeof(float);
+constexpr size_t SMEM_LIMIT = 232448;   // what one Hopper CTA can use
+
+constexpr int LDAS = EMB + 8;      // dW kernel: act chunk (RK x 64)
+constexpr int LDBS = NW + 8;       //            dh chunk  (RK x 256)
+constexpr size_t DW_A_BYTES = size_t(RK) * LDAS * sizeof(bf16);
+constexpr size_t DW_B_BYTES = size_t(RK) * LDBS * sizeof(bf16);
+constexpr size_t DW_SMEM_BYTES = 2 * (DW_A_BYTES + DW_B_BYTES);
+
+static_assert(ACT_BYTES % 128 == 0 && EMB_BYTES % 128 == 0 &&
+              VEMB_BYTES % 128 == 0 && STAGE_BYTES % 128 == 0 &&
+              WSCR_BYTES % 128 == 0 && DRAW_BYTES % 128 == 0 &&
+              DW_A_BYTES % 128 == 0 && DW_B_BYTES % 128 == 0,
+              "shared-memory regions stay aligned");
+static_assert(VEMB_BYTES + DRAW_BYTES <= EMB_BYTES,
+              "the view-encoding and draw tiles fit where the encoding tile was");
+
+using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// ROWS x COLS bf16 weight rows (contiguous, row stride COLS) into a stage
+// (row stride LDW), in 16-byte pieces
+template <int ROWS, int COLS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int tid) {
+#pragma unroll
+  for (int i = tid; i < ROWS * COLS / 8; i += THREADS) {
+    const int r = i / (COLS / 8);
+    const int c = (i % (COLS / 8)) * 8;
+    cp_async16(dst + r * LDW + c, src + r * COLS + c);
+  }
+}
+
+// one 64 x 256 bf16 chunk (32 KB) = 2048 16-byte pieces, 8 per thread
+__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src, int tid) {
+  load_rows<KC, NW>(dst, src, tid);
+}
+
+__device__ __forceinline__ bf16* stage_of(bf16* stage, int g) {
+  return stage + (g & 1) * KC * LDW;
+}
+
+// a 128-point tile of a (n, COLS) bf16 input into shared memory (row stride
+// LD); rows past n are zero. With `copy`, the tile also goes to a row-padded
+// global copy that the dW products read.
+template <int COLS, int LD>
+__device__ __forceinline__ void load_points(bf16* dst, const bf16* __restrict__ src,
+                                            long row0, int n, int tid, bf16* copy) {
+  for (int i = tid; i < TM * COLS / 8; i += THREADS) {
+    const int r = i / (COLS / 8);
+    const int c = (i % (COLS / 8)) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (row0 + r < n) {
+      v = *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * COLS + c);
+    }
+    *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
+    if (copy != nullptr) {
+      *reinterpret_cast<uint4*>(copy + size_t(row0 + r) * COLS + c) = v;
+    }
+  }
+}
+
+// Wait for chunk g of the schedule, with chunk g + 1 put in flight first.
+// `prefetch(g)` starts the cp.async loads of chunk g into its stage, and
+// nothing past the schedule's end.
+template <class Prefetch>
+__device__ __forceinline__ void ring_next(Prefetch& prefetch, int g) {
+  prefetch(g + 1);
+  cp_async_commit();   // an empty group at the end keeps the count even
+  cp_async_wait_1();   // chunk g has landed
+  __syncthreads();     // ... for every thread, and so have the input tiles
+}
+
+__device__ __forceinline__ void zero_acc(AccFrag (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+}
+
+// acc (this warp's 64 x 64 block of the 128 x 256 output: rows wm*64,
+// cols wn*64) += A[:, k0 : k0 + 64] @ (the staged 64 x 256 chunk)
+__device__ __forceinline__ void mma_chunk(AccFrag (&acc)[4][4], const bf16* a_src,
+                                          int lda, int k0, const bf16* b_src,
+                                          int wm, int wn) {
+#pragma unroll
+  for (int kk = 0; kk < KC; kk += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      wmma::load_matrix_sync(a[i], a_src + (wm * 64 + i * 16) * lda + k0 + kk, lda);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+      wmma::load_matrix_sync(b, b_src + kk * LDW + wn * 64 + j * 16, LDW);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
+    }
+  }
+}
+
+// A layer's epilogue: dst = bf16(act(acc + bias)) for this warp's 64 x 64
+// block, RELU or no activation; with `gdst` (row row0 of a row-padded
+// (n_pad, 256) global array) the block is stored there too. All reads of
+// `dst` by the layer's products must have finished (a barrier) before.
+template <bool RELU>
+__device__ __forceinline__ void store_layer(AccFrag (&acc)[4][4], float* wscr,
+                                            const float* __restrict__ bias,
+                                            bf16* dst, bf16* gdst, int wm, int wn,
+                                            int lane) {
+  const int er = lane / 2;          // row within a 16 x 16 fragment
+  const int ec = (lane % 2) * 8;    // first of this lane's 8 columns
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wmma::store_matrix_sync(wscr, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int grow = wm * 64 + i * 16 + er;
+      const int gcol = wn * 64 + j * 16 + ec;
+      __align__(16) bf16 ov[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float v = wscr[er * 16 + ec + e] + __ldg(bias + gcol + e);
+        ov[e] = __float2bfloat16(RELU ? fmaxf(v, 0.0f) : v);
+      }
+      const uint4 pk = *reinterpret_cast<const uint4*>(ov);
+      *reinterpret_cast<uint4*>(dst + grow * LDA + gcol) = pk;
+      if (gdst != nullptr) {
+        *reinterpret_cast<uint4*>(gdst + size_t(grow) * NW + gcol) = pk;
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// forward chunks of layer l; layer 5 reads 4 chunks of n5h, then n5e on emb
+__device__ __forceinline__ int layer_chunks(int layer) {
+  return layer == 0 ? 1 : (layer == 5 ? 5 : 4);
+}
+
+// nh1 .. nh8 of the tile: chunks g .. g + 29 of the schedule. `act` ends as
+// nh8. With `nh` (the row-padded (8, n_pad, 256) global scratch, offset to
+// the tile's first row) every layer is stored there too.
+//   nh1 = bf16(relu(emb @ n0w + n0b));  nh2..nh5, nh7, nh8 alike;
+//   nh6 = bf16(relu(nh5 @ n5h + emb @ n5e + n5b))
+template <class Prefetch>
+__device__ __forceinline__ void chain_forward(bf16* act, const bf16* embs, bf16* stage,
+                                              float* wscr, const float* const* bias,
+                                              int& g, Prefetch& prefetch, bf16* nh,
+                                              size_t layer_stride, int warp, int lane) {
+  const int wm = warp / 4;   // rows wm*64 .. +64
+  const int wn = warp % 4;   // cols wn*64 .. +64
+  AccFrag acc[4][4];
+  for (int layer = 0; layer < N_LAYERS; ++layer) {
+    zero_acc(acc);
+    const int n_chunks = layer_chunks(layer);
+    for (int c = 0; c < n_chunks; ++c, ++g) {
+      ring_next(prefetch, g);
+      const bool from_emb = (layer == 0) || (layer == 5 && c == 4);
+      mma_chunk(acc, from_emb ? embs : act, from_emb ? LDE : LDA,
+                from_emb ? 0 : c * KC, stage_of(stage, g), wm, wn);
+      __syncthreads();   // all reads of this stage and of act are done
+    }
+    store_layer<true>(acc, wscr, bias[layer], act,
+                      nh != nullptr ? nh + size_t(layer) * layer_stride : nullptr,
+                      wm, wn, lane);
+    __syncthreads();
+  }
+}
+
+// dst = bf16(src @ W + bias) with no activation, W (256, 256) as chunks
+// g .. g + 3 of the schedule (the feature head of the view-direction MLP).
+// `dst` may be `src`.
+template <class Prefetch>
+__device__ __forceinline__ void linear_256(const bf16* src, bf16* dst, bf16* stage,
+                                           float* wscr, const float* bias, int& g,
+                                           Prefetch& prefetch, bf16* gdst, int warp,
+                                           int lane) {
+  const int wm = warp / 4;
+  const int wn = warp % 4;
+  AccFrag acc[4][4];
+  zero_acc(acc);
+  for (int c = 0; c < NW / KC; ++c, ++g) {
+    ring_next(prefetch, g);
+    mma_chunk(acc, src, LDA, c * KC, stage_of(stage, g), wm, wn);
+    __syncthreads();
+  }
+  store_layer<false>(acc, wscr, bias, dst, gdst, wm, wn, lane);
+  __syncthreads();
+}
+
+// hv = bf16(relu(feat @ vwf + embv @ vwv + vb)), 128 wide, into columns
+// 0 .. 127 of `dst` (which may be `feat`): chunks g .. g + 4 of the schedule,
+// four 64 x 128 chunks of vwf and the 32 x 128 vwv. Each warp owns a 64 x 32
+// block. With `ghv` (row row0 of a row-padded (n_pad, 128) global array) hv
+// is stored there too.
+template <class Prefetch>
+__device__ __forceinline__ void views_forward(const bf16* feat, const bf16* embvs,
+                                              bf16* dst, bf16* stage, float* wscr,
+                                              const float* __restrict__ vb, int& g,
+                                              Prefetch& prefetch, bf16* ghv, int warp,
+                                              int lane) {
+  const int wm = warp / 4;   // rows wm*64 .. +64
+  const int wn = warp % 4;   // cols wn*32 .. +32
+  AccFrag acc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  for (int c = 0; c < NW / KC + 1; ++c, ++g) {
+    ring_next(prefetch, g);
+    const bool from_v = (c == NW / KC);
+    const bf16* a_src = from_v ? embvs : feat;
+    const int lda = from_v ? LDV : LDA;
+    const int k0 = from_v ? 0 : c * KC;
+    const int k_len = from_v ? VEMB : KC;
+    const bf16* b_src = stage_of(stage, g);
+    for (int kk = 0; kk < k_len; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        wmma::load_matrix_sync(a[i], a_src + (wm * 64 + i * 16) * lda + k0 + kk, lda);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+        wmma::load_matrix_sync(b, b_src + kk * LDW + wn * 32 + j * 16, LDW);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+  const int er = lane / 2;
+  const int ec = (lane % 2) * 8;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(wscr, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int grow = wm * 64 + i * 16 + er;
+      const int gcol = wn * 32 + j * 16 + ec;
+      __align__(16) bf16 ov[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float v = wscr[er * 16 + ec + e] + __ldg(vb + gcol + e);
+        ov[e] = __float2bfloat16(fmaxf(v, 0.0f));
+      }
+      const uint4 pk = *reinterpret_cast<const uint4*>(ov);
+      *reinterpret_cast<uint4*>(dst + grow * LDA + gcol) = pk;
+      if (ghv != nullptr) {
+        *reinterpret_cast<uint4*>(ghv + size_t(grow) * VW + gcol) = pk;
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+}
+
+// acc (16 rows of this warp x 16*NJ columns) = cur[:, 0:K] @ Wc^T for the
+// staged chunk Wc of 16*NJ weight rows x K columns: the chunk holds
+// W[i0 : i0 + 16*NJ, :], which is the col-major B operand of output columns
+// i0 .. (the wmma fragment is loaded with the col_major tag; nothing is
+// transposed in memory). Warp w owns rows w*16 .. +16.
+template <int K, int NJ>
+__device__ __forceinline__ void mma_nt(AccFrag (&acc)[NJ], const bf16* cur,
+                                       const bf16* b_src, int warp) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) wmma::fill_fragment(acc[j], 0.0f);
+#pragma unroll 4
+  for (int kk = 0; kk < K; kk += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+    wmma::load_matrix_sync(a, cur + (warp * 16) * LDA + kk, LDA);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+      wmma::load_matrix_sync(b, b_src + (j * 16) * LDW + kk, LDW);
+      wmma::mma_sync(acc[j], a, b, acc[j]);
+    }
+  }
+}
+
+// Hand the warp's fragments out in runs of 8 values: f(row, col, v) gets the
+// row within the tile, the first of 8 consecutive columns within the
+// chunk's 16*NJ output columns, and the 8 f32 values.
+template <int NJ, class F>
+__device__ __forceinline__ void for_each_run(AccFrag (&acc)[NJ], float* wscr, int warp,
+                                             int lane, F&& f) {
+  const int er = lane / 2;
+  const int ec = (lane % 2) * 8;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    wmma::store_matrix_sync(wscr, acc[j], 16, wmma::mem_row_major);
+    __syncwarp();
+    f(warp * 16 + er, j * 16 + ec, wscr + er * 16 + ec);
+    __syncwarp();
+  }
+}
+
+// 8 values -> bf16, masked by the recomputed activation where `mask` is
+// given (the ReLU gate: act > 0), to a shared-memory tile and to global
+__device__ __forceinline__ void store_run(const float* v, const bf16* mask, bf16* sdst,
+                                          bf16* gdst) {
+  __align__(16) bf16 ov[8];
+  if (mask != nullptr) {
+    const uint4 mk = *reinterpret_cast<const uint4*>(mask);
+    const bf16* mv = reinterpret_cast<const bf16*>(&mk);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const bool on = __bfloat162float(mv[e]) > 0.0f;
+      ov[e] = __float2bfloat16(on ? v[e] : 0.0f);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) ov[e] = __float2bfloat16(v[e]);
+  }
+  const uint4 pk = *reinterpret_cast<const uint4*>(ov);
+  *reinterpret_cast<uint4*>(sdst) = pk;
+  *reinterpret_cast<uint4*>(gdst) = pk;
+}
+
+// backward steps of the chain: the layer l whose dh_l the step produces (its
+// mask is nh_l), or 0 for the two products that give demb
+__device__ __forceinline__ int bwd_layer(int step) {
+  return step == 0 ? 7 : step == 1 ? 6 : step == 2 ? 0 : step == 8 ? 0 : 8 - step;
+}
+
+// The dh chain from dh8 (in `cur`) down: chunks g .. g + 29 of the schedule
+// (n7w n6w n5e n5h n4w n3w n2w n1w n0w).
+//   dh_l = bf16((dh_{l+1} @ W_l^T) * (nh_l > 0))   l = 7 .. 1
+//   demb = dh6 @ n5e^T + dh1 @ n0w^T               (f32, no mask)
+// nh, dh: the tile's rows of the row-padded (8, n_pad, 256) scratch arrays;
+// demb: the tile's rows of the (n, 64) output; rows_left = n - row0.
+template <class Prefetch>
+__device__ __forceinline__ void dh_chain(bf16* cur, bf16* oth, bf16* stage, float* wscr,
+                                         int& g, Prefetch& prefetch, const bf16* nh,
+                                         bf16* dh, size_t layer_stride, float* demb,
+                                         long rows_left, int warp, int lane) {
+  AccFrag acc[4];
+  for (int step = 0; step < N_BWD_STEPS; ++step) {
+    const int layer = bwd_layer(step);          // 0: a demb product
+    const int n_chunks = layer ? NW / KC : 1;
+    for (int c = 0; c < n_chunks; ++c, ++g) {
+      ring_next(prefetch, g);
+      mma_nt<NW, 4>(acc, cur, stage_of(stage, g), warp);
+      for_each_run<4>(acc, wscr, warp, lane, [&](int row, int col, const float* v) {
+        const int gcol = c * KC + col;
+        if (layer) {
+          const size_t goff = size_t(layer - 1) * layer_stride + size_t(row) * NW + gcol;
+          store_run(v, nh + goff, oth + row * LDA + gcol, dh + goff);
+        } else if (row < rows_left) {
+          // the same lane owns the same elements in step 2 and in step 8
+          float* dst = demb + size_t(row) * EMB + gcol;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) dst[e] = (step == 2) ? v[e] : dst[e] + v[e];
+        }
+      });
+      __syncthreads();   // this stage and `cur` are read, `oth` is written
+    }
+    if (layer) {
+      bf16* t = cur;
+      cur = oth;
+      oth = t;
+    }
+  }
+}
+
+// The 30 forward chunks of the chain from the matrices n0w, n1w..n4w, n5e,
+// n5h, n6w, n7w (m[0..8]); returns the next free slot.
+inline int fill_forward_chunks(const bf16* const* m, const bf16** chunk, int g) {
+  chunk[g++] = m[0];
+  for (int layer = 1; layer <= 4; ++layer)
+    for (int c = 0; c < 4; ++c) chunk[g++] = m[layer] + c * KC * NW;
+  for (int c = 0; c < 4; ++c) chunk[g++] = m[6] + c * KC * NW;   // n5h
+  chunk[g++] = m[5];                                               // n5e
+  for (int layer = 7; layer <= 8; ++layer)
+    for (int c = 0; c < 4; ++c) chunk[g++] = m[layer] + c * KC * NW;
+  return g;
+}
+
+// The 30 backward chunks: n7w n6w n5e n5h n4w n3w n2w n1w n0w.
+inline int fill_backward_chunks(const bf16* const* m, const bf16** chunk, int g) {
+  const int bwd_mat[N_BWD_STEPS] = {8, 7, 5, 6, 4, 3, 2, 1, 0};
+  for (int s = 0; s < N_BWD_STEPS; ++s) {
+    const int n_chunks = (bwd_mat[s] == 5 || bwd_mat[s] == 0) ? 1 : 4;
+    for (int c = 0; c < n_chunks; ++c) chunk[g++] = m[bwd_mat[s]] + c * KC * NW;
+  }
+  return g;
+}
+
+// ---- the backward's second pass
+
+struct DwTile {
+  const bf16* a;     // activations, row-major (n_pad, lda)
+  const bf16* b;     // dh, row-major (n_pad, b_cols)
+  int lda;           // 32, 64 or 256
+  int a_col;         // first of the a_rows activation columns of this tile
+  int a_rows;        // 64, or 32 for the view encoding
+  int b_cols;        // 256, or 128 for the view-conditioned layer
+  int out_off;       // offset of the tile's a_rows x b_cols block in the grads
+};
+
+struct DwParams {
+  DwTile tile[MAX_DW_TILES];
+};
+
+// dW partials: CTA (tile, split) forms the a_rows x b_cols block
+//   act[rows, a_col : a_col + a_rows]^T @ dh[rows, :]  over the split's rows
+// (act^T is the col-major A operand of the row-major scratch) and writes it
+// to its own slot of the partials buffer. Warps outside a narrow block idle.
+__global__ void __launch_bounds__(THREADS)
+mlp_dw_kernel(DwParams p, long n_pad, int grad_floats, float* __restrict__ partials) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* as = reinterpret_cast<bf16*>(smem);                       // 2 stages
+  bf16* bs = reinterpret_cast<bf16*>(smem + 2 * DW_A_BYTES);      // 2 stages
+
+  const DwTile t = p.tile[blockIdx.x];
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int wm = warp / 4;   // output rows wm*32 .. +32
+  const int wn = warp % 4;   // output cols wn*64 .. +64
+  const bool active = wm * 32 < t.a_rows && wn * 64 < t.b_cols;
+  const long r_begin = long(blockIdx.y) * SPLIT_ROWS;
+  const long r_end = (r_begin + SPLIT_ROWS < n_pad) ? r_begin + SPLIT_ROWS : n_pad;
+  const int n_k = int((r_end - r_begin) / RK);
+
+  auto load_stage = [&](int s, int k) {
+    const long r0 = r_begin + long(k) * RK;
+    bf16* a_dst = as + s * RK * LDAS;
+    bf16* b_dst = bs + s * RK * LDBS;
+    const int a_pieces = t.a_rows / 8;
+    const int b_pieces = t.b_cols / 8;
+    for (int i = tid; i < RK * a_pieces; i += THREADS) {
+      const int r = i / a_pieces;
+      const int c = (i % a_pieces) * 8;
+      cp_async16(a_dst + r * LDAS + c, t.a + size_t(r0 + r) * t.lda + t.a_col + c);
+    }
+    for (int i = tid; i < RK * b_pieces; i += THREADS) {
+      const int r = i / b_pieces;
+      const int c = (i % b_pieces) * 8;
+      cp_async16(b_dst + r * LDBS + c, t.b + size_t(r0 + r) * t.b_cols + c);
+    }
+  };
+
+  AccFrag acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  load_stage(0, 0);
+  cp_async_commit();
+  for (int k = 0; k < n_k; ++k) {
+    if (k + 1 < n_k) load_stage((k + 1) & 1, k + 1);
+    cp_async_commit();
+    cp_async_wait_1();
+    __syncthreads();
+    if (active) {
+      const bf16* a_src = as + (k & 1) * RK * LDAS;
+      const bf16* b_src = bs + (k & 1) * RK * LDBS;
+#pragma unroll
+      for (int kk = 0; kk < RK; kk += 16) {
+        // act^T: element (m, k) sits at a_src[k * LDAS + m], so col_major
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          wmma::load_matrix_sync(a[i], a_src + kk * LDAS + wm * 32 + i * 16, LDAS);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+          wmma::load_matrix_sync(b, b_src + kk * LDBS + wn * 64 + j * 16, LDBS);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (!active) return;
+  float* out = partials + size_t(blockIdx.y) * grad_floats + t.out_off;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wmma::store_matrix_sync(out + (wm * 32 + i * 16) * t.b_cols + wn * 64 + j * 16,
+                              acc[i][j], t.b_cols, wmma::mem_row_major);
+    }
+}
+
+struct SmallJob {
+  const bf16* src;    // row-major (n_pad, width)
+  int width;          // 256 or 128 columns
+  int out_off;        // where the job's result goes in the flat grads
+  int draw_sum_off;   // -1: the job sums src's columns over the points.
+                      // else: the job forms src^T @ bf16(draw) (width x 8),
+                      // and columns 0..7 also sum the UNCAST draw to here
+};
+
+struct SmallParams {
+  SmallJob job[MAX_SMALL_JOBS];
+};
+
+// Bias sums and the 8-lane head products of one split, on the CUDA cores:
+// block (split, job). The block's SMALL_GROUPS row groups each take every
+// SMALL_GROUPS-th row of the split and are added in ascending order.
+__global__ void __launch_bounds__(SMALL_GROUPS * NW)
+mlp_small_kernel(SmallParams p, const float* __restrict__ draw, int n, long n_pad,
+             int grad_floats, float* __restrict__ partials) {
+  __shared__ float red[SMALL_GROUPS][NW][OUT + 1];
+  const SmallJob job = p.job[blockIdx.y];
+  const int col = threadIdx.x % NW;
+  const int grp = threadIdx.x / NW;
+  const bool in_width = col < job.width;
+  const long r_begin = long(blockIdx.x) * SPLIT_ROWS;
+  const long r_end = (r_begin + SPLIT_ROWS < n_pad) ? r_begin + SPLIT_ROWS : n_pad;
+  float* out = partials + size_t(blockIdx.x) * grad_floats;
+  if (job.draw_sum_off < 0) {
+    float s = 0.0f;
+    if (in_width) {
+      for (long r = r_begin + grp; r < r_end; r += SMALL_GROUPS) {
+        s += __bfloat162float(job.src[size_t(r) * job.width + col]);
+      }
+    }
+    red[grp][col][0] = s;
+    __syncthreads();
+    if (grp == 0 && in_width) {
+      float t = red[0][col][0];
+#pragma unroll
+      for (int q = 1; q < SMALL_GROUPS; ++q) t += red[q][col][0];
+      out[job.out_off + col] = t;
+    }
+    return;
+  }
+  float acc[OUT + 1];   // 8 lanes of the product's row `col`, then sum(draw)[col]
+#pragma unroll
+  for (int o = 0; o <= OUT; ++o) acc[o] = 0.0f;
+  const long r_last = (r_end < n) ? r_end : n;   // rows past n have draw = 0
+  if (in_width) {
+    for (long r = r_begin + grp; r < r_last; r += SMALL_GROUPS) {
+      const float a = __bfloat162float(job.src[size_t(r) * job.width + col]);
+#pragma unroll
+      for (int o = 0; o < OUT; ++o) {
+        const float d = __ldg(draw + size_t(r) * OUT + o);   // one address per warp
+        acc[o] += a * __bfloat162float(__float2bfloat16(d));
+      }
+      if (col < OUT) acc[OUT] += __ldg(draw + size_t(r) * OUT + col);
+    }
+  }
+#pragma unroll
+  for (int o = 0; o <= OUT; ++o) red[grp][col][o] = acc[o];
+  __syncthreads();
+  if (grp == 0 && in_width) {
+#pragma unroll
+    for (int o = 0; o <= OUT; ++o) {
+      float t = red[0][col][o];
+#pragma unroll
+      for (int q = 1; q < SMALL_GROUPS; ++q) t += red[q][col][o];
+      if (o < OUT) {
+        out[job.out_off + col * OUT + o] = t;
+      } else if (col < OUT) {
+        out[job.draw_sum_off + col] = t;
+      }
+    }
+  }
+}
+
+// grads[i] = sum over the splits, in ascending order, of partials[s][i]
+__global__ void __launch_bounds__(THREADS)
+mlp_reduce_kernel(const float* __restrict__ partials, int n_splits, int grad_floats,
+              float* __restrict__ grads) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= grad_floats) return;
+  float s = 0.0f;
+  for (int k = 0; k < n_splits; ++k) s += partials[size_t(k) * grad_floats + i];
+  grads[i] = s;
+}
+
+inline long padded_rows(int n) { return (long(n) + TM - 1) / TM * TM; }
+inline int split_count(int n) {
+  return int((padded_rows(n) + SPLIT_ROWS - 1) / SPLIT_ROWS);
+}
+
+// The second pass on `stream`: dW products, small jobs, reduction. Returns
+// the CUDA error code of the first failing call (0 on success).
+inline int launch_second_pass(const DwParams& dp, int n_tiles, const SmallParams& sp,
+                              int n_jobs, const float* draw, int n, int grad_floats,
+                              float* partials, float* grads, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(DW_SMEM_BYTES));
+  if (err != cudaSuccess) return int(err);
+  const long n_pad = padded_rows(n);
+  const int n_splits = split_count(n);
+  mlp_dw_kernel<<<dim3(n_tiles, n_splits), THREADS, DW_SMEM_BYTES, stream>>>(
+      dp, n_pad, grad_floats, partials);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  mlp_small_kernel<<<dim3(n_splits, n_jobs), SMALL_GROUPS * NW, 0, stream>>>(
+      sp, draw, n, n_pad, grad_floats, partials);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  mlp_reduce_kernel<<<dim3((grad_floats + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+      partials, n_splits, grad_floats, grads);
+  return int(cudaGetLastError());
+}
+
+}  // namespace

@@ -29,7 +29,8 @@ import torch
 from nonrigid_nerf_torch.ops.kernels.build import load_kernel_library
 from nonrigid_nerf_torch.ops.kernels.mlp_fwd import (
     EMB, MACS_PER_POINT, N_MLP_W, OUT_PAD, _BIAS_IDX, _MATRIX_IDX, _check_args,
-    _expected_shape, cast_mlp_weights, mlp_fwd)
+    _expected_shape, cast_mlp_weights, chain_plain, check_kernel_weights,
+    mlp_fwd, weight_pointers)
 
 # recompute + the dh chain + the dW products, each as many MACs as the forward
 BWD_MACS_PER_POINT = 3 * MACS_PER_POINT
@@ -78,10 +79,13 @@ def grad_max_tol(n: int) -> float:
     return max(BWD_TOL_MAX, 1.0 / max(n, 1) ** 0.5)
 
 
-def bwd_agreement(got, ref) -> dict:
-    """Error statistics of (demb, grads) against a reference pair, and
-    `ok`: whether they are within the tolerances above. `max_rel` holds
-    each array's max abs error over its max magnitude, by name."""
+def agreement(per_point, per_point_ref, grads, grads_ref, names) -> dict:
+    """Error statistics of per-point arrays (demb, and dembv where there is
+    one) and weight gradients against references, and `ok`: whether they are
+    within the tolerances above. `names` are the per-point arrays' names,
+    then the gradients'; `max_rel` holds each array's max abs error over its
+    max magnitude, by name. The `demb_*` entries are the worst over the
+    per-point arrays."""
     def rel(a, b):
         a, b = a.detach().double(), b.detach().double()
         if b.numel() == 0:
@@ -93,67 +97,56 @@ def bwd_agreement(got, ref) -> dict:
         return (err.max().item() / scale, l2,
                 (err > BWD_TOL_ENTRY * scale).double().mean().item())
 
-    (demb, grads), (rdemb, rgrads) = got, ref
-    stats = [rel(a, b) for a, b in zip(grads, rgrads)]
-    demb_max, demb_l2, demb_out = rel(demb, rdemb)
-    finite = all(bool(torch.isfinite(t).all()) for t in (demb, *grads))
+    stats = [rel(a, b) for a, b in zip(grads, grads_ref)]
+    pp = [rel(a, b) for a, b in zip(per_point, per_point_ref)]
+    finite = all(bool(torch.isfinite(t).all()) for t in (*per_point, *grads))
     out = {"grad_max_rel": max(s[0] for s in stats),
            "grad_l2_rel": max(s[1] for s in stats),
-           "demb_max_rel": demb_max, "demb_l2_rel": demb_l2,
-           "demb_outliers": demb_out, "finite": finite,
-           "max_rel": dict(zip(BWD_NAMES,
-                               [demb_max] + [s[0] for s in stats]))}
-    out["ok"] = (finite and len(grads) == len(rgrads) == N_MLP_W
-                 and out["grad_max_rel"] <= grad_max_tol(demb.shape[0])
+           "demb_max_rel": max(s[0] for s in pp),
+           "demb_l2_rel": max(s[1] for s in pp),
+           "demb_outliers": max(s[2] for s in pp), "finite": finite,
+           "max_rel": dict(zip(names, [s[0] for s in pp + stats]))}
+    out["ok"] = (finite and len(per_point) == len(per_point_ref)
+                 and len(grads) == len(grads_ref) == len(names) - len(per_point)
+                 and out["grad_max_rel"] <= grad_max_tol(per_point[0].shape[0])
                  and out["grad_l2_rel"] <= BWD_TOL_L2
-                 and demb_l2 <= BWD_TOL_L2 and demb_out <= BWD_TOL_OUTLIERS
-                 and demb_max <= BWD_TOL_DEMB_MAX)
+                 and out["demb_l2_rel"] <= BWD_TOL_L2
+                 and out["demb_outliers"] <= BWD_TOL_OUTLIERS
+                 and out["demb_max_rel"] <= BWD_TOL_DEMB_MAX)
     return out
 
 
-def mlp_bwd_plain(embb: torch.Tensor, mw: Sequence[torch.Tensor],
-                  draw: torch.Tensor
-                  ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """Plain PyTorch version of the kernel: `_mlp_bwd_math` line for line.
+def bwd_agreement(got, ref) -> dict:
+    """`agreement` of (demb, grads) against a reference pair."""
+    return agreement([got[0]], [ref[0]], got[1], ref[1], BWD_NAMES)
 
-    embb (n, 64) (cast to bf16), mw from `cast_mlp_weights`, draw (n, 8) f32.
-    bf16 x bf16 products are exact in f32, so an f32 matmul of the bf16
-    values is the kernel's arithmetic up to the order of the f32 sums.
-    Returns demb (n, 64) f32 and the 19 f32 gradients in pack order."""
-    (n0w, n0b, n1w, n1b, n2w, n2b, n3w, n3b, n4w, n4b,
-     n5e, n5h, n5b, n6w, n6b, n7w, n7b, ow, ob) = mw
-    bf16 = torch.bfloat16
 
-    def mm(a, w):              # a @ w
-        return a.float() @ w.float()
+def mm_nt(x, w):
+    """x @ w^T with x rounded to bf16: reads the weight's other axis."""
+    return x.to(torch.bfloat16).float() @ w.float().t()
 
-    def mm_nt(x, w):           # x @ w^T: reads the weight's other axis
-        return x.to(bf16).float() @ w.float().t()
 
-    def mm_tn(act, g):         # act^T @ g: contracts over the points
-        return act.float().t() @ g.to(bf16).float()
+def mm_tn(act, g):
+    """act^T @ g with g rounded to bf16: contracts over the points."""
+    return act.float().t() @ g.to(torch.bfloat16).float()
 
-    def bsum(g):
-        return g.float().sum(dim=0, keepdim=True)
 
-    def masked(g, nh):         # rounded to bf16 before any further use
-        return (g * (nh.float() > 0)).to(bf16)
+def bsum(g):
+    return g.float().sum(dim=0, keepdim=True)
 
-    # the forward activations, recomputed in bf16 from embb as in mlp_fwd
-    embb = embb.to(bf16)
-    nh1 = torch.relu(mm(embb, n0w) + n0b).to(bf16)
-    nh2 = torch.relu(mm(nh1, n1w) + n1b).to(bf16)
-    nh3 = torch.relu(mm(nh2, n2w) + n2b).to(bf16)
-    nh4 = torch.relu(mm(nh3, n3w) + n3b).to(bf16)
-    nh5 = torch.relu(mm(nh4, n4w) + n4b).to(bf16)
-    nh6 = torch.relu(mm(nh5, n5h) + mm(embb, n5e) + n5b).to(bf16)
-    nh7 = torch.relu(mm(nh6, n6w) + n6b).to(bf16)
-    nh8 = torch.relu(mm(nh7, n7w) + n7b).to(bf16)
 
-    drawb = draw.to(bf16)
-    g_ow = mm_tn(nh8, drawb)
-    g_ob = bsum(draw)                      # the f32 sum of the UNCAST draw
-    dh8 = masked(mm_nt(drawb, ow), nh8)
+def masked(g, nh):
+    """The ReLU gate of the recomputed activation; rounded to bf16 before
+    any further use."""
+    return (g * (nh.float() > 0)).to(torch.bfloat16)
+
+
+def chain_bwd_plain(embb, nh, mw, dh8):
+    """The dh chain from dh8 down: demb (n, 64) f32 and the chain's 17
+    gradients in pack order. nh = [nh1 .. nh8] from `chain_plain`."""
+    (n0w, _, n1w, _, n2w, _, n3w, _, n4w, _, n5e, n5h, _, n6w, _, n7w,
+     _) = mw[:17]
+    nh1, nh2, nh3, nh4, nh5, nh6, nh7, nh8 = nh
     g_n7w, g_n7b = mm_tn(nh7, dh8), bsum(dh8)
     dh7 = masked(mm_nt(dh8, n7w), nh7)
     g_n6w, g_n6b = mm_tn(nh6, dh7), bsum(dh7)
@@ -171,20 +164,42 @@ def mlp_bwd_plain(embb: torch.Tensor, mw: Sequence[torch.Tensor],
     dh1 = masked(mm_nt(dh2, n1w), nh1)
     g_n0w, g_n0b = mm_tn(embb, dh1), bsum(dh1)
     demb = demb + mm_nt(dh1, n0w)
-
     return demb, [g_n0w, g_n0b, g_n1w, g_n1b, g_n2w, g_n2b, g_n3w, g_n3b,
                   g_n4w, g_n4b, g_n5e, g_n5h, g_n5b, g_n6w, g_n6b, g_n7w,
-                  g_n7b, g_ow, g_ob]
+                  g_n7b]
 
 
-def _split_grads(flat: torch.Tensor) -> List[torch.Tensor]:
-    """The 19 gradients as views of one flat pack-order buffer."""
+def mlp_bwd_plain(embb: torch.Tensor, mw: Sequence[torch.Tensor],
+                  draw: torch.Tensor
+                  ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Plain PyTorch version of the kernel: `_mlp_bwd_math` line for line.
+
+    embb (n, 64) (cast to bf16), mw from `cast_mlp_weights`, draw (n, 8) f32.
+    bf16 x bf16 products are exact in f32, so an f32 matmul of the bf16
+    values is the kernel's arithmetic up to the order of the f32 sums.
+    Returns demb (n, 64) f32 and the 19 f32 gradients in pack order."""
+    ow = mw[17]
+    # the forward activations, recomputed in bf16 from embb as in mlp_fwd
+    embb = embb.to(torch.bfloat16)
+    nh = chain_plain(embb, mw)
+    drawb = draw.to(torch.bfloat16)
+    g_ow = mm_tn(nh[7], drawb)
+    g_ob = bsum(draw)                      # the f32 sum of the UNCAST draw
+    dh8 = masked(mm_nt(drawb, ow), nh[7])
+    demb, grads = chain_bwd_plain(embb, nh, mw, dh8)
+    return demb, grads + [g_ow, g_ob]
+
+
+def split_grads(flat: torch.Tensor, shapes) -> List[torch.Tensor]:
+    """The gradients as views of one flat pack-order buffer."""
     out, off = [], 0
-    for i in range(N_MLP_W):
-        shape = _expected_shape(i)
+    for shape in shapes:
         out.append(flat[off:off + shape.numel()].view(shape))
         off += shape.numel()
     return out
+
+
+_SHAPES = tuple(_expected_shape(i) for i in range(N_MLP_W))
 
 
 def mlp_bwd(embb: torch.Tensor, mw: Sequence[torch.Tensor],
@@ -207,10 +222,7 @@ def mlp_bwd(embb: torch.Tensor, mw: Sequence[torch.Tensor],
         raise ValueError(f"mlp_bwd runs on cpu or cuda, not {embb.device}")
     embb = embb.to(torch.bfloat16).contiguous()
     draw = draw.float().contiguous()
-    for i, w in enumerate(mw):
-        if w.shape != _expected_shape(i) or not w.is_contiguous():
-            raise ValueError(f"packed weight {i} must be contiguous "
-                             f"{_expected_shape(i)}, got {tuple(w.shape)}")
+    check_kernel_weights(mw, _expected_shape, "mlp_bwd")
     n = embb.shape[0]
     device = embb.device
     if n > MAX_POINTS_PER_LAUNCH:
@@ -218,10 +230,10 @@ def mlp_bwd(embb: torch.Tensor, mw: Sequence[torch.Tensor],
                          f"points per call, got {n}")
     demb = torch.empty((n, EMB), dtype=torch.float32, device=device)
     if n == 0:      # nothing to launch, nothing to count
-        return demb, _split_grads(torch.zeros(GRAD_FLOATS, device=device))
+        return demb, split_grads(torch.zeros(GRAD_FLOATS, device=device),
+                                 _SHAPES)
     lib = _library()
-    mats = (ctypes.c_void_p * 10)(*(mw[i].data_ptr() for i in _MATRIX_IDX))
-    biases = (ctypes.c_void_p * 9)(*(mw[i].data_ptr() for i in _BIAS_IDX))
+    mats, biases = weight_pointers(mw, _MATRIX_IDX, _BIAS_IDX)
     scratch_elems, partial_floats = ctypes.c_longlong(), ctypes.c_longlong()
     lib.nrnerf_mlp_bwd_sizes(n, ctypes.byref(scratch_elems),
                              ctypes.byref(partial_floats))
@@ -242,7 +254,7 @@ def mlp_bwd(embb: torch.Tensor, mw: Sequence[torch.Tensor],
     if err != 0:
         raise RuntimeError(f"mlp_bwd kernel launch failed: CUDA error {err}")
     mlp_bwd.launches += 1
-    return demb, _split_grads(grads)
+    return demb, split_grads(grads, _SHAPES)
 
 
 mlp_bwd.launches = 0

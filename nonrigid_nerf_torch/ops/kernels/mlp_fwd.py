@@ -58,15 +58,12 @@ def _pad_b(b, cols):
     return F.pad(b, (0, cols - b.shape[0])).reshape(1, cols)
 
 
-def pack_mlp_weights(nerf) -> Tuple[torch.Tensor, ...]:
-    """The canonical chain + raw head of a `NeRF` module as 19 padded f32
-    tensors, equal to the JAX `pack_mlp_weights` (fan_in, fan_out layout):
-    n0w n0b n1w n1b n2w n2b n3w n3b n4w n4b n5e n5h n5b n6w n6b n7w n7b ow ob.
-    The skip layer's weight splits into its input rows (n5e) and its hidden
-    rows (n5h), so the concat becomes a sum of two products. Differentiable:
-    padding, transposing and slicing carry a gradient of the packed tensors
-    back to the `nn.Linear` parameters and drop the pad rows."""
-    pts = nerf.pts
+def pack_chain_weights(pts) -> list:
+    """The 8 x 256 chain of a `NeRF` module's `pts` layers as the first 17
+    packed tensors: n0w n0b n1w n1b n2w n2b n3w n3b n4w n4b n5e n5h n5b n6w
+    n6b n7w n7b, in the JAX (fan_in, fan_out) layout. The skip layer's weight
+    splits into its input rows (n5e) and its hidden rows (n5h), so the concat
+    becomes a sum of two products."""
     in_ch = pts[0].in_features
     emb_pad = pad_lanes(in_ch)
     ws = [_pad_w(pts[0].weight.t(), emb_pad, NW), _pad_b(pts[0].bias, NW)]
@@ -77,6 +74,16 @@ def pack_mlp_weights(nerf) -> Tuple[torch.Tensor, ...]:
            _pad_b(pts[5].bias, NW)]
     for i in (6, 7):
         ws += [pts[i].weight.t(), _pad_b(pts[i].bias, NW)]
+    return ws
+
+
+def pack_mlp_weights(nerf) -> Tuple[torch.Tensor, ...]:
+    """The canonical chain + raw head of a `NeRF` module as 19 padded f32
+    tensors, equal to the JAX `pack_mlp_weights` (fan_in, fan_out layout):
+    the 17 of `pack_chain_weights`, then ow ob. Differentiable: padding,
+    transposing and slicing carry a gradient of the packed tensors back to
+    the `nn.Linear` parameters and drop the pad rows."""
+    ws = pack_chain_weights(nerf.pts)
     ws += [_pad_w(nerf.output.weight.t()[:, :4], NW, OUT_PAD),
            _pad_b(nerf.output.bias[:4], OUT_PAD)]
     return tuple(w.float().contiguous() for w in ws)
@@ -88,28 +95,36 @@ def cast_mlp_weights(packed: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]
                  else w.float().contiguous() for i, w in enumerate(packed))
 
 
+def mm_bf16(a, w):
+    """a @ w for bf16 values, summed in f32: bf16 x bf16 products are exact
+    in f32, so an f32 matmul of the bf16 values is the kernels' arithmetic up
+    to the order of the f32 sums."""
+    return a.float() @ w.float()
+
+
+def chain_plain(embb: torch.Tensor, mw: Sequence[torch.Tensor]):
+    """[nh1 .. nh8] of the chain in bf16 from the bf16 encoding and the first
+    17 cast weights."""
+    (n0w, n0b, n1w, n1b, n2w, n2b, n3w, n3b, n4w, n4b,
+     n5e, n5h, n5b, n6w, n6b, n7w, n7b) = mw[:17]
+    bf16 = torch.bfloat16
+    nh = [torch.relu(mm_bf16(embb, n0w) + n0b).to(bf16)]
+    for w, b in ((n1w, n1b), (n2w, n2b), (n3w, n3b), (n4w, n4b)):
+        nh.append(torch.relu(mm_bf16(nh[-1], w) + b).to(bf16))
+    nh.append(torch.relu(mm_bf16(nh[-1], n5h) + mm_bf16(embb, n5e)
+                         + n5b).to(bf16))
+    for w, b in ((n6w, n6b), (n7w, n7b)):
+        nh.append(torch.relu(mm_bf16(nh[-1], w) + b).to(bf16))
+    return nh
+
+
 def mlp_fwd_plain(emb: torch.Tensor, mw: Sequence[torch.Tensor]) -> torch.Tensor:
     """Plain PyTorch version of the kernel, with the same bf16 casts.
 
-    emb (n, 64) (cast to bf16), mw from `cast_mlp_weights`. bf16 x bf16
-    products are exact in f32, so an f32 matmul of the bf16 values is the
-    kernel's arithmetic up to the order of the f32 sums. Returns (n, 8) f32.
-    """
-    (n0w, n0b, n1w, n1b, n2w, n2b, n3w, n3b, n4w, n4b,
-     n5e, n5h, n5b, n6w, n6b, n7w, n7b, ow, ob) = mw
-    bf16 = torch.bfloat16
-
-    def mm(a, w):
-        return a.float() @ w.float()
-
-    embb = emb.to(bf16)
-    nh = torch.relu(mm(embb, n0w) + n0b).to(bf16)
-    for w, b in ((n1w, n1b), (n2w, n2b), (n3w, n3b), (n4w, n4b)):
-        nh = torch.relu(mm(nh, w) + b).to(bf16)
-    nh = torch.relu(mm(nh, n5h) + mm(embb, n5e) + n5b).to(bf16)
-    for w, b in ((n6w, n6b), (n7w, n7b)):
-        nh = torch.relu(mm(nh, w) + b).to(bf16)
-    return mm(nh, ow) + ob
+    emb (n, 64) (cast to bf16), mw from `cast_mlp_weights`. Returns (n, 8)
+    f32."""
+    nh8 = chain_plain(emb.to(torch.bfloat16), mw)[-1]
+    return mm_bf16(nh8, mw[17]) + mw[18]
 
 
 def _check_args(emb, mw):
@@ -124,6 +139,25 @@ def _check_args(emb, mw):
                              f"{emb.device}, got {w.dtype} on {w.device}")
 
 
+def check_kernel_weights(mw, expected_shape, what: str):
+    """What the CUDA kernels read: contiguous tensors of the packed shapes
+    (`expected_shape(i)` of weight i)."""
+    for i, w in enumerate(mw):
+        if w.shape != expected_shape(i) or not w.is_contiguous():
+            raise ValueError(f"{what}: packed weight {i} must be contiguous "
+                             f"{tuple(expected_shape(i))}, got "
+                             f"{tuple(w.shape)}")
+
+
+def weight_pointers(mw, matrix_idx, bias_idx):
+    """The ctypes arrays of matrix and bias pointers of the C interfaces."""
+    mats = (ctypes.c_void_p * len(matrix_idx))(
+        *(mw[i].data_ptr() for i in matrix_idx))
+    biases = (ctypes.c_void_p * len(bias_idx))(
+        *(mw[i].data_ptr() for i in bias_idx))
+    return mats, biases
+
+
 def mlp_fwd(emb: torch.Tensor, mw: Sequence[torch.Tensor]) -> torch.Tensor:
     """raw (n, 8) f32 = the canonical MLP on emb (n, 64).
 
@@ -136,10 +170,7 @@ def mlp_fwd(emb: torch.Tensor, mw: Sequence[torch.Tensor]) -> torch.Tensor:
     if emb.device.type != "cuda":
         raise ValueError(f"mlp_fwd runs on cpu or cuda, not {emb.device}")
     embb = emb.to(torch.bfloat16).contiguous()
-    for i, w in enumerate(mw):
-        if w.shape != _expected_shape(i) or not w.is_contiguous():
-            raise ValueError(f"packed weight {i} must be contiguous "
-                             f"{_expected_shape(i)}, got {tuple(w.shape)}")
+    check_kernel_weights(mw, _expected_shape, "mlp_fwd")
     for t in (embb, *mw):
         if t.data_ptr() % 16:
             raise ValueError("mlp_fwd needs 16-byte aligned tensors")
@@ -150,8 +181,7 @@ def mlp_fwd(emb: torch.Tensor, mw: Sequence[torch.Tensor]) -> torch.Tensor:
     if n == 0:      # nothing to launch, nothing to count
         return out
     lib = _library()
-    mats = (ctypes.c_void_p * 10)(*(mw[i].data_ptr() for i in _MATRIX_IDX))
-    biases = (ctypes.c_void_p * 9)(*(mw[i].data_ptr() for i in _BIAS_IDX))
+    mats, biases = weight_pointers(mw, _MATRIX_IDX, _BIAS_IDX)
     with torch.cuda.device(emb.device):
         stream = torch.cuda.current_stream(emb.device).cuda_stream
         err = lib.nrnerf_mlp_fwd(embb.data_ptr(), n, mats, biases,

@@ -54,7 +54,19 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
                                  "the model's configuration")
             if net is not None:
                 _copy_layers(net.pts, tree[name]["pts"], f"{name}.pts")
-                _copy_dense(net.output, tree[name]["output"], f"{name}.output")
+                if ("output" in tree[name]) == cfg.use_viewdirs:
+                    raise ValueError(
+                        f"'{name}' has the single output head in only one of "
+                        "the tree and the model's configuration")
+                if cfg.use_viewdirs:
+                    for head in ("feature", "alpha", "rgb"):
+                        _copy_dense(getattr(net, head), tree[name][head],
+                                    f"{name}.{head}")
+                    _copy_layers(net.views, tree[name]["views"],
+                                 f"{name}.views")
+                else:
+                    _copy_dense(net.output, tree[name]["output"],
+                                f"{name}.output")
         if (model.bender is None) != ("bender" not in tree):
             raise ValueError("'bender' is in only one of the tree and the "
                              "model's configuration")

@@ -37,6 +37,9 @@ TRAINING_FILES = ["apps/train.py", "checkpoints.py", "data/__init__.py",
                   "data/dataset.py", "engine/losses.py",
                   "engine/train_state.py", "engine/train_step.py",
                   "ops/kernels/mlp_bwd.py"]
+VIEWDIRS_FILES = ["ops/kernels/mlpv_fwd.py", "ops/kernels/mlpv_bwd.py"]
+KERNEL_SOURCES = ["mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpv_bwd.cu",
+                  "mlp_tile.cuh"]
 FORBIDDEN = ("jax", "jaxlib", "nonrigid_nerf_tpu")
 
 
@@ -69,6 +72,41 @@ def test_training_files_are_under_the_import_rule():
     assert set(TRAINING_FILES) <= covered
     assert (REPO / "nonrigid_nerf_torch" / "ops" / "kernels" / "csrc"
             / "mlp_bwd.cu").exists()
+
+
+def test_viewdirs_files_are_under_the_import_rule():
+    covered = {str(p.relative_to(REPO / "nonrigid_nerf_torch"))
+               for p in PACKAGE_FILES}
+    assert set(VIEWDIRS_FILES) <= covered
+    csrc = REPO / "nonrigid_nerf_torch" / "ops" / "kernels" / "csrc"
+    assert sorted(p.name for p in csrc.iterdir()) == sorted(KERNEL_SOURCES)
+    for name in KERNEL_SOURCES:
+        text = (csrc / name).read_text()
+        assert "torch/extension.h" not in text       # plain C interfaces
+        if name.endswith(".cu"):
+            assert '#include "mlp_tile.cuh"' in text and 'extern "C"' in text
+
+
+def test_library_name_follows_the_source_and_the_shared_header(monkeypatch,
+                                                               tmp_path):
+    """An edit of a kernel's source or of the header they share gives the
+    built library another name, so it is built again."""
+    import shutil
+
+    from nonrigid_nerf_torch.ops.kernels import build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    before = {s: build._library_path(s) for s in KERNEL_SOURCES[:4]}
+    assert len(set(before.values())) == 4
+    assert all(p.startswith(build.BUILD_DIR) for p in before.values())
+    with open(csrc / "mlpv_fwd.cu", "a") as f:
+        f.write("// edited\n")
+    assert build._library_path("mlpv_fwd.cu") != before["mlpv_fwd.cu"]
+    assert build._library_path("mlp_fwd.cu") == before["mlp_fwd.cu"]
+    with open(csrc / "mlp_tile.cuh", "a") as f:
+        f.write("// edited\n")
+    assert all(build._library_path(s) != before[s] for s in before)
 
 
 def test_package_imports_without_jax_or_kernels():

@@ -18,8 +18,11 @@ from nonrigid_nerf_torch.engine.render import make_ray_renderer
 from nonrigid_nerf_torch.models.model import NRNeRF
 from nonrigid_nerf_torch.ops.kernels import mlp_bwd as KB
 from nonrigid_nerf_torch.ops.kernels import mlp_fwd as K
+from nonrigid_nerf_torch.ops.kernels import mlpv_bwd as KVB
+from nonrigid_nerf_torch.ops.kernels import mlpv_fwd as KV
 
 CFG = ModelConfig()          # the flagship: 8 x 256 coarse and fine, bending
+CFG_V = ModelConfig(use_viewdirs=True)     # ... with view directions
 
 
 @pytest.fixture
@@ -45,6 +48,28 @@ def model():
         for net in (m.coarse, m.fine):
             net.output.bias[3] += 1.0
     return m
+
+
+@pytest.fixture(scope="module")
+def model_v():
+    """The view-direction model from a seed, perturbed like `model`."""
+    gen = torch.Generator().manual_seed(1)
+    m = NRNeRF(CFG_V, num_timesteps=1, generator=gen, device="cpu")
+    with torch.no_grad():
+        for layer, scale in ((m.bender.bend[-1], 0.05),
+                             (m.bender.rigidity[-1], 0.3)):
+            layer.weight.copy_(scale * torch.randn(layer.weight.shape,
+                                                   generator=gen))
+        m.latents.copy_(0.1 * torch.randn(m.latents.shape, generator=gen))
+        for net in (m.coarse, m.fine):
+            net.alpha.bias += 1.0
+    return m
+
+
+def _embv(n, seed=0):
+    embv = np.random.RandomState(seed).uniform(-1, 1, (n, 32)).astype(np.float32)
+    embv[:, 27:] = 0.0        # the pad lanes
+    return embv
 
 
 def _emb(n, seed=0):
@@ -191,3 +216,123 @@ def test_renderer_on_cuda_runs_kernel_and_matches_cpu(model, cuda_device):
     for key in ("rgb_map", "disp_map", "acc_map"):
         np.testing.assert_allclose(gpu[key].cpu().numpy(), cpu[key].numpy(),
                                    rtol=1e-3, atol=1e-3, err_msg=key)
+
+
+def _mlpv_weights(net, device):
+    return tuple(w.detach().to(device) for w in
+                 KV.cast_mlpv_weights(KV.pack_viewdirs_mlp_weights(net)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 127, 129, 4096 + 5])
+def test_mlpv_kernel_matches_plain_on_cuda(model_v, cuda_device, n):
+    mw = _mlpv_weights(model_v.coarse, cuda_device)
+    emb = torch.from_numpy(_emb(n, 3)).to(cuda_device)
+    embv = torch.from_numpy(_embv(n, 4)).to(cuda_device)
+    before = KV.mlpv_fwd.launches
+    out = KV.mlpv_fwd(emb, embv, mw)
+    torch.cuda.synchronize()
+    assert KV.mlpv_fwd.launches == before + (n > 0)
+    assert out.shape == (n, K.OUT_PAD) and out.dtype == torch.float32
+    err = (out - KV.mlpv_fwd_plain(emb, embv, mw)).abs()
+    if n:
+        assert err.max().item() <= KV.BF16_TOL_MAX
+        assert err.mean().item() <= KV.BF16_TOL_MEAN
+    # deterministic: no atomics
+    assert torch.equal(out, KV.mlpv_fwd(emb, embv, mw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 127, 129, 4096 + 5])
+def test_mlpv_bwd_kernel_matches_plain_on_cuda(model_v, cuda_device, n):
+    mw = _mlpv_weights(model_v.fine, cuda_device)
+    embb = torch.from_numpy(_emb(n, 5)).to(cuda_device).to(torch.bfloat16)
+    embvb = torch.from_numpy(_embv(n, 6)).to(cuda_device).to(torch.bfloat16)
+    draw = torch.from_numpy(np.random.RandomState(7).randn(n, 8).astype(
+        np.float32)).to(cuda_device)
+    before = KVB.mlpv_bwd.launches
+    got = KVB.mlpv_bwd(embb, embvb, mw, draw)
+    torch.cuda.synchronize()
+    assert KVB.mlpv_bwd.launches == before + (n > 0)
+    ref = KVB.mlpv_bwd_plain(embb, embvb, mw, draw)
+    for a, b in zip([*got[:2], *got[2]], [*ref[:2], *ref[2]]):
+        assert a.shape == b.shape and a.dtype == torch.float32
+    if n:
+        stats = KVB.bwd_agreement(got, ref)
+        assert stats["ok"], stats
+    # deterministic: fixed-order reduction, no atomics
+    again = KVB.mlpv_bwd(embb, embvb, mw, draw)
+    for a, b in zip([*got[:2], *got[2]], [*again[:2], *again[2]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mlpv_bwd_kernel_refuses_more_points_than_one_launch_takes(
+        model_v, cuda_device, monkeypatch):
+    """One call is one launch: more points than its scratch allows raise,
+    and nothing is launched or counted. The limit keeps the scratch (9,920 B
+    per point) at 2.42 GiB."""
+    assert KVB.MAX_POINTS_PER_LAUNCH == 1 << 18
+    assert KVB.SCRATCH_PER_POINT * 2 == 9920
+    mw = _mlpv_weights(model_v.coarse, cuda_device)
+    embb = torch.from_numpy(_emb(700, 7)).to(cuda_device).to(torch.bfloat16)
+    embvb = torch.from_numpy(_embv(700, 8)).to(cuda_device).to(torch.bfloat16)
+    draw = torch.from_numpy(np.random.RandomState(8).randn(700, 8).astype(
+        np.float32)).to(cuda_device)
+    monkeypatch.setattr(KVB, "MAX_POINTS_PER_LAUNCH", 256)
+    before = KVB.mlpv_bwd.launches
+    with pytest.raises(ValueError, match="at most 256 points"):
+        KVB.mlpv_bwd(embb, embvb, mw, draw)
+    assert KVB.mlpv_bwd.launches == before
+
+
+class _PlainVCore(torch.autograd.Function):
+    """MLPVCore with both kernels replaced by their plain versions."""
+
+    @staticmethod
+    def forward(ctx, emb, embv, *packed):
+        embb, embvb = emb.to(torch.bfloat16), embv.to(torch.bfloat16)
+        ctx.save_for_backward(embb, embvb, *packed)
+        return KV.mlpv_fwd_plain(embb, embvb, KV.cast_mlpv_weights(packed))
+
+    @staticmethod
+    def backward(ctx, draw):
+        embb, embvb, *packed = ctx.saved_tensors
+        demb, dembv, grads = KVB.mlpv_bwd_plain(
+            embb, embvb, KV.cast_mlpv_weights(packed), draw)
+        return (demb, dembv, *grads)
+
+
+@pytest.mark.cuda
+def test_mlpv_core_gradients_match_plain_function_on_cuda(model_v, cuda_device):
+    """`MLPVCore` through torch.autograd.grad, twice over one graph (as the
+    training step does), against the same Function built from the plain
+    versions: gradients reach both encodings and, through
+    pack_viewdirs_mlp_weights, the nn.Linear parameters of the chain and of
+    the four heads."""
+    gpu_model = NRNeRF(CFG_V, num_timesteps=1, device=cuda_device)
+    gpu_model.load_state_dict(model_v.state_dict())
+    net = gpu_model.coarse
+    params = list(net.parameters())
+    emb = torch.from_numpy(_emb(777, 9)).to(cuda_device).requires_grad_(True)
+    embv = torch.from_numpy(_embv(777, 10)).to(cuda_device).requires_grad_(True)
+    cots = [torch.from_numpy(np.random.RandomState(s).randn(777, 8).astype(
+        np.float32)).to(cuda_device) for s in (10, 11)]
+    fwd0, bwd0 = KV.mlpv_fwd.launches, KVB.mlpv_bwd.launches
+    out = KVB.MLPVCore.apply(emb, embv, *KV.pack_viewdirs_mlp_weights(net))
+    ref = _PlainVCore.apply(emb, embv, *KV.pack_viewdirs_mlp_weights(net))
+    for k, cot in enumerate(cots):
+        got = torch.autograd.grad(out, [emb, embv] + params, cot,
+                                  retain_graph=True)
+        want = torch.autograd.grad(ref, [emb, embv] + params, cot,
+                                   retain_graph=True)
+        assert KVB.mlpv_bwd.launches == bwd0 + k + 1
+        for i, (a, b) in enumerate(zip(got, want)):
+            l2 = (torch.linalg.vector_norm(a - b)
+                  / torch.linalg.vector_norm(b)).item()
+            assert l2 <= KB.BWD_TOL_L2, (k, i, l2)
+            if i > 1:   # parameters sum over the points; inputs have gate flips
+                scale = b.abs().max().item()
+                assert (a - b).abs().max().item() <= KB.grad_max_tol(777) * scale
+    assert KV.mlpv_fwd.launches == fwd0 + 1
+    assert len(got) == 2 + 16 + 8       # chain 8 x (w, b), heads 4 x (w, b)

@@ -26,8 +26,8 @@ RS = RenderSettings(N_samples=8, N_importance=8, near=2.0, far=6.0,
                     raw_noise_std=1.0)
 
 
-@pytest.fixture(scope="module")
-def dataset():
+def make_dataset():
+    """Four 10 x 12 frames of one smooth image, two of them test images."""
     n, h, w = 4, 10, 12
     yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w),
                          indexing="ij")
@@ -42,6 +42,11 @@ def dataset():
         images, poses, {0: dict(focal_x=12.0, focal_y=12.0, center_x=6.0,
                                 center_y=5.0)},
         extras, [0, 2], [1, 3], 2.0, 6.0, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def dataset():
+    return make_dataset()
 
 
 def _params(state):

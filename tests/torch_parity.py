@@ -39,7 +39,9 @@ def jax_params(cfg: ModelConfig, seed: int = 0, num_timesteps: int = 3,
         ks[5], (num_timesteps, cfg.ray_bending_latent_size))
     tree = jax.tree_util.tree_map(lambda x: np.array(x, np.float32), params)
     for net in ("coarse", "fine"):
-        if net in tree:
+        if net in tree and cfg.use_viewdirs:
+            tree[net]["alpha"]["b"][0] += density_shift
+        elif net in tree:
             tree[net]["output"]["b"][3] += density_shift
     return tree
 
