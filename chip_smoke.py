@@ -5,7 +5,11 @@
 
 Two model families run, each through its own pair of kernels: the flagship
 config (configs/example_sequence.txt) as it is (`mlp_fwd`, `mlp_bwd`), and
-the same config with use_viewdirs=True (`mlpv_fwd`, `mlpv_bwd`).
+the same config with use_viewdirs=True (`mlpv_fwd`, `mlpv_bwd`). Then the
+flagship's two opt-in kernel modes: fused_kernel="pts" (`mlpe_fwd`,
+`mlpe_bwd`: the Fourier encoding computed inside the kernels; rendered and
+trained) and fused_kernel="int8" (`mlp_i8`; rendered, after
+`quantize_for_inference` on the first pose's rays).
 
 Phases (each raises on failure; the exit code is then non-zero and no
 result line is printed):
@@ -16,22 +20,27 @@ result line is printed):
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, within the tolerance the CPU tests pin,
    and relaunch it to see bit-equal outputs; time kernel, plain version and
-   a chain of bf16 torch.matmul calls (a yardstick only); compute the
-   roofline bound. Forward kernels: chunk x N_samples and chunk x (N_samples
+   a chain of bf16 torch.matmul calls (a yardstick only; for "pts" with the
+   encoding in PyTorch before it, for "int8" a chain of torch._int_mm calls
+   with elementwise requantization); compute the roofline bound. Points for
+   `mlpe_fwd` / `mlpe_bwd` lie where the synthetic scene's bent points lie,
+   so the sines' arguments reach hundreds of radians. Forward kernels: chunk x N_samples and chunk x (N_samples
    + N_importance) points of a render block, and N_rand x N_samples and
    N_rand x (N_samples + N_importance) points of a training step. Backward
-   kernels: the training step's two sizes.
-3. Per family, render frames at 384 x 512 through `render_path`, parameters
+   kernels: the training step's two sizes (`mlp_i8`: the render sizes only).
+3. Per family and mode, render frames at 384 x 512 through `render_path`, parameters
    from a seed, with the launch counts set to 0 just before and read just
    after (12 launches of the family's forward kernel per frame, none of the
    other's). Render the same frames with fused_kernel="off" (plain f32 MLP)
-   and require a PSNR of at least 40 dB between the two. Without view
+   and require a PSNR of at least 40 dB between the two ("pts" and "int8"
+   are held against the first family's "off" frames, the same parameters:
+   40 dB and 30 dB). Without view
    directions: a block of rays on the card against the same rays on the
    CPU. With them: the frames use finite-difference directions, and a block
    of rays is rendered with exact directions (a jvp through the bender),
    kernel against "off". Profile one frame: device time by kernel and the
    device's idle share.
-4. Per family, train (1024 rays, 64 + 64 samples, all three regularizers, a
+4. Per family, and in "pts" mode, train (1024 rays, 64 + 64 samples, all three regularizers, a
    test split) with `apps.train.train` on a synthetic image stack built in
    memory, launch counts set to 0 just before and read just after: 2
    forward and 4 backward launches per step, everything finite, the loss
@@ -65,12 +74,15 @@ H, W = 384, 512                  # the example sequence's frame size
 CHUNK = 32768                    # render_path's default ray block
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 MIN_PSNR_DB = 40.0
+MIN_PSNR_INT8_DB = 30.0          # int8 activations against the f32 render
 TRAIN_FRAMES = 8                 # synthetic stack: 6 training + 2 test images
 TRAIN_TEST_IDS = (3, 7)
 TRAIN_STEPS = 150                # training steps without view directions
 TRAIN_STEPS_VIEWDIRS = 200       # ... and with them
+TRAIN_STEPS_PTS = 150            # ... and in fused_kernel="pts" mode
 TRAIN_PRINT = 25
 PROFILE_STEPS = 5
 # one training step with the kernels against fused_kernel="off" on the same
@@ -183,34 +195,71 @@ def synthetic_dataset(device):
                              device=device)
 
 
-class Family:
-    """One model family's pair of kernels behind one interface: `inputs` are
-    (emb,) without view directions and (emb, embv) with them."""
+def kernel_wrappers():
+    """Every kernel's wrapper by name: each counts its launches."""
+    from nonrigid_nerf_torch.ops.kernels import (mlp_bwd, mlp_fwd, mlpe_bwd,
+                                                 mlpe_fwd, mlpv_bwd, mlpv_fwd,
+                                                 quant_mlp)
+    wrappers = (mlp_fwd.mlp_fwd, mlp_bwd.mlp_bwd, mlpv_fwd.mlpv_fwd,
+                mlpv_bwd.mlpv_bwd, mlpe_fwd.mlpe_fwd, mlpe_bwd.mlpe_bwd,
+                quant_mlp.mlp_i8)
+    return {w.__name__: w for w in wrappers}
 
-    def __init__(self, viewdirs: bool):
-        self.viewdirs = viewdirs
-        if viewdirs:
+
+def reset_launch_counts():
+    for wrapper in kernel_wrappers().values():
+        wrapper.launches = 0
+
+
+def launch_counts(without=()):
+    """Launches by kernel name, the kernels named in `without` left out."""
+    return {name: w.launches for name, w in kernel_wrappers().items()
+            if name not in without}
+
+
+class Family:
+    """One pair of kernels behind one interface. `inputs` are (emb,) for the
+    flagship ("plain"), (emb, embv) with view directions ("viewdirs") and
+    (pts,) where the kernels compute the encoding themselves ("pts")."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self.viewdirs = kind == "viewdirs"
+        if kind == "viewdirs":
             from nonrigid_nerf_torch.ops.kernels import mlpv_bwd as KB
             from nonrigid_nerf_torch.ops.kernels import mlpv_fwd as K
             self.fwd, self.fwd_plain = K.mlpv_fwd, K.mlpv_fwd_plain
             self.bwd, self.bwd_plain = KB.mlpv_bwd, KB.mlpv_bwd_plain
             self.pack, self.cast = K.pack_viewdirs_mlp_weights, K.cast_mlpv_weights
+            self.core_name = "MLPVCore"
             self.replaces = ("nonrigid_nerf_tpu/ops/pallas/fused_query.py:1183",
                              "nonrigid_nerf_tpu/ops/pallas/fused_query.py:1224")
-        else:
+        elif kind == "pts":
+            from nonrigid_nerf_torch.ops.kernels import mlp_fwd
+            from nonrigid_nerf_torch.ops.kernels import mlpe_bwd as KB
+            from nonrigid_nerf_torch.ops.kernels import mlpe_fwd as K
+            self.fwd, self.fwd_plain = K.mlpe_fwd, K.mlpe_fwd_plain
+            self.bwd, self.bwd_plain = KB.mlpe_bwd, KB.mlpe_bwd_plain
+            self.pack, self.cast = mlp_fwd.pack_mlp_weights, mlp_fwd.cast_mlp_weights
+            self.core_name = "MLPECore"
+            self.replaces = ("nonrigid_nerf_tpu/ops/pallas/fused_query.py:932",
+                             "nonrigid_nerf_tpu/ops/pallas/fused_query.py:970")
+        elif kind == "plain":
             from nonrigid_nerf_torch.ops.kernels import mlp_bwd as KB
             from nonrigid_nerf_torch.ops.kernels import mlp_fwd as K
             self.fwd, self.fwd_plain = K.mlp_fwd, K.mlp_fwd_plain
             self.bwd, self.bwd_plain = KB.mlp_bwd, KB.mlp_bwd_plain
             self.pack, self.cast = K.pack_mlp_weights, K.cast_mlp_weights
+            self.core_name = "MLPCore"
             self.replaces = ("nonrigid_nerf_tpu/ops/pallas/fused_query.py:807",
                              "nonrigid_nerf_tpu/ops/pallas/fused_query.py:842")
+        else:
+            raise ValueError(f"unknown family {kind!r}")
         self.K, self.KB = K, KB
         self.fwd_name, self.bwd_name = self.fwd.__name__, self.bwd.__name__
-        self.n_grads = len(KB.BWD_NAMES) - (2 if viewdirs else 1)
-
-    def reset_counts(self):
-        self.fwd.launches = self.bwd.launches = 0
+        self.n_grads = len(KB.BWD_NAMES) - (2 if self.viewdirs else 1)
+        self.what = {"plain": "no viewdirs", "viewdirs": "viewdirs",
+                     "pts": "no viewdirs, fused_kernel=pts"}[kind]
 
     def counts(self):
         return {self.fwd_name: self.fwd.launches,
@@ -221,8 +270,15 @@ class Family:
                      for w in self.cast(self.pack(net)))
 
     def inputs(self, n_points, device, seed):
-        """bf16 encodings from a seed, the pad lanes zero."""
+        """bf16 encodings from a seed, the pad lanes zero; for "pts" f32
+        points where the synthetic scene's bent points lie (x, y within 0.8
+        of the axis, z from -1 to 0.5 before the cameras at z = 0.6)."""
         gen = torch.Generator(device=device).manual_seed(seed)
+        if self.kind == "pts":
+            u = torch.rand((n_points, 3), generator=gen, device=device)
+            lo = torch.tensor([-0.8, -0.8, -1.0], device=device)
+            hi = torch.tensor([0.8, 0.8, 0.5], device=device)
+            return (lo + (hi - lo) * u,), gen
         emb = (torch.rand((n_points, 64), generator=gen, device=device) * 2
                - 1).to(torch.bfloat16)
         emb[:, 63] = 0          # the pad lane of the 63-channel encoding
@@ -237,6 +293,10 @@ class Family:
         """[emb, nh1 .. nh8] as cuBLAS bf16 products (the yardstick)."""
         bf16 = torch.bfloat16
         emb = inputs[0]
+        if self.kind == "pts":      # the encoding in PyTorch, as stage 1 makes it
+            from nonrigid_nerf_torch.ops.embedding import fourier_embed
+            emb = torch.nn.functional.pad(fourier_embed(emb, 10),
+                                          (0, 1)).to(bf16)
         acts = [emb, torch.relu(emb @ mw[0] + mw[1]).to(bf16)]
         for i in (2, 4, 6, 8):
             acts.append(torch.relu(acts[-1] @ mw[i] + mw[i + 1]).to(bf16))
@@ -261,8 +321,8 @@ class Family:
 
     def bwd_chain_bf16(self, inputs, mw, drawb):
         """The same backward as cuBLAS bf16 products (the yardstick)."""
-        emb = inputs[0]
         acts = self.acts_bf16(inputs, mw)
+        emb = acts[0]
         feat, hv, _ = self.heads_bf16(inputs, acts[8], mw)
         if self.viewdirs:
             grads = [hv.t() @ drawb, acts[8].t() @ drawb]
@@ -283,19 +343,27 @@ class Family:
                 demb = dh @ mw[10].t()
             nxt = dh @ mw[i].t()
             if layer == 0:
-                return demb + nxt, dembv, grads
+                demb = demb + nxt
+                if self.kind == "pts":      # fold onto the coordinates
+                    pre, _ = self.K.embed_ew(inputs[0])
+                    P, phase = self.K._projection_on(inputs[0].device)
+                    lane = torch.arange(64, device=pre.device)
+                    dpre = torch.where(lane < 3, demb.float(),
+                                       demb.float() * torch.cos(pre + phase))
+                    demb = dpre @ P.t()
+                return demb, dembv, grads
             dh = nxt * (acts[layer] > 0)
 
-
     def plain_core(self):
-        """The family's autograd function (`MLPCore` / `MLPVCore`) with both
-        kernels replaced by their plain versions."""
+        """The family's autograd function (`MLPCore` / `MLPVCore` /
+        `MLPECore`) with both kernels replaced by their plain versions."""
         fam, n_in = self, 2 if self.viewdirs else 1
+        kept = torch.float32 if self.kind == "pts" else torch.bfloat16
 
         class PlainCore(torch.autograd.Function):
             @staticmethod
             def forward(ctx, *args):
-                inputs = [a.to(torch.bfloat16) for a in args[:n_in]]
+                inputs = [a.to(kept) for a in args[:n_in]]
                 ctx.save_for_backward(*inputs, *args[n_in:])
                 return fam.fwd_plain(*inputs, fam.cast(args[n_in:]))
 
@@ -436,7 +504,8 @@ def profile_run(run, what):
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "idle_share": 1 - busy_us / wall_us,
             "kernel_launches": sum(e.count for e in events),
-            "fwd_share": share("_fwd_kernel"),
+            "fwd_share": share("_fwd_kernel") + share("mlp_i8_kernel"),
+            "cat_share": share("CatArrayBatchedCopy"),
             "bwd_share": sum(share(k) for k in BWD_KERNEL_NAMES),
             "top": [[e.key[:60], e.self_device_time_total / 1e3]
                     for e in top[:12]]}
@@ -447,12 +516,14 @@ def psnr(a, b) -> float:
     return float("inf") if mse == 0 else -10.0 * math.log10(mse)
 
 
-def render_phase(fam, other, cfg, args, device, smi, kernel_ms):
+def render_phase(fam, cfg, args, device, smi, kernel_ms, off_frames=None):
     """Phase 3 for one family: frames through `render_path` with the kernel
-    and with fused_kernel="off", launch counts, PSNR, a block of rays against
-    a second rendering of it, a profile of one frame. `kernel_ms`: the
-    isolated timings of the coarse and the fine launch. Returns (results
-    dict, launches of the family's forward kernel)."""
+    and with fused_kernel="off" (or held against `off_frames`, another
+    family's "off" frames from the same parameters), launch counts, PSNR, a
+    block of rays against a second rendering of it, a profile of one frame.
+    `kernel_ms`: the isolated timings of the coarse and the fine launch.
+    Returns (results dict, launches of the family's forward kernel, the
+    "off" frames)."""
     from nonrigid_nerf_torch.apps.render_path import render_path
     from nonrigid_nerf_torch.config import render_settings_from_args
     from nonrigid_nerf_torch.engine.render import make_ray_renderer
@@ -468,19 +539,19 @@ def render_phase(fam, other, cfg, args, device, smi, kernel_ms):
                     chunk=CHUNK, render_factor=8, verbose=False, device=device)
     torch.cuda.synchronize()
 
-    fam.reset_counts()
-    other.reset_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     rgbs, disps = render_path(model, cfg, rs, poses, intrinsics, latents,
                               chunk=CHUNK, verbose=True, device=device)
     t_kernel = time.perf_counter() - t0
     launches = fam.fwd.launches
+    others = launch_counts(without=(name,))
     blocks = -(-H * W // CHUNK)
-    log(f"render ({name}, fused_kernel=auto): {FRAMES} frames in "
-        f"{t_kernel:.3f} s, {t_kernel / FRAMES:.4f} s/frame, {name} launches "
-        f"{launches} (expected {FRAMES * blocks * 2}), {other.fwd_name} "
-        f"launches {other.fwd.launches} (expected 0)")
-    if launches != FRAMES * blocks * 2 or other.fwd.launches != 0:
+    log(f"render ({name}, fused_kernel={cfg.fused_kernel}): {FRAMES} frames "
+        f"in {t_kernel:.3f} s, {t_kernel / FRAMES:.4f} s/frame, {name} "
+        f"launches {launches} (expected {FRAMES * blocks * 2}), of the other "
+        f"kernels {others} (expected 0)")
+    if launches != FRAMES * blocks * 2 or any(others.values()):
         raise AssertionError(f"the render path did not run {name}, and only "
                              "it, once per pass and block")
     if rgbs.shape != (FRAMES, H, W, 3) or disps.shape != (FRAMES, H, W):
@@ -495,16 +566,20 @@ def render_phase(fam, other, cfg, args, device, smi, kernel_ms):
         f"{kernel_s / t_kernel:.3f}")
 
     cfg_off = dataclasses.replace(cfg, fused_kernel="off")
-    t0 = time.perf_counter()
-    rgbs_off, _ = render_path(model, cfg_off, rs, poses, intrinsics, latents,
-                              chunk=CHUNK, verbose=True, device=device)
-    t_off = time.perf_counter() - t0
-    if fam.fwd.launches != launches:
-        raise AssertionError(f"fused_kernel=off launched {name}")
+    t_off = None
+    if off_frames is None:
+        t0 = time.perf_counter()
+        off_frames, _ = render_path(model, cfg_off, rs, poses, intrinsics,
+                                    latents, chunk=CHUNK, verbose=True,
+                                    device=device)
+        t_off = time.perf_counter() - t0
+        if fam.fwd.launches != launches:
+            raise AssertionError(f"fused_kernel=off launched {name}")
+        log(f"render ({name}, fused_kernel=off): {t_off / FRAMES:.4f} s/frame")
+    rgbs_off = off_frames
     frame_psnr = [psnr(rgbs[i], rgbs_off[i]) for i in range(FRAMES)]
-    log(f"render ({name}, fused_kernel=off): {t_off / FRAMES:.4f} s/frame; "
-        f"PSNR kernel vs off per frame {['%.2f' % p for p in frame_psnr]} dB "
-        f"(need >= {MIN_PSNR_DB})")
+    log(f"render ({name}): PSNR kernel vs off per frame "
+        f"{['%.2f' % p for p in frame_psnr]} dB (need >= {MIN_PSNR_DB})")
     if min(frame_psnr) < MIN_PSNR_DB:
         raise AssertionError("kernel render disagrees with the f32 render")
 
@@ -512,7 +587,7 @@ def render_phase(fam, other, cfg, args, device, smi, kernel_ms):
     rays_o, rays_d = get_rays(torch.as_tensor(poses[0], device=device),
                               intrinsics[0])
     results = {}
-    if not cfg.use_viewdirs:
+    if fam.kind == "plain":
         # the card against the CPU on a block of frame 0's rays (f32 path)
         sel = torch.arange(0, H * W, (H * W) // 512, device=device)[:512]
         ro, rd = rays_o.reshape(-1, 3)[sel], rays_d.reshape(-1, 3)[sel]
@@ -526,7 +601,7 @@ def render_phase(fam, other, cfg, args, device, smi, kernel_ms):
         if gap > 1e-4:
             raise AssertionError("the card's render disagrees with the CPU's")
         results["card_vs_cpu_max_rgb_gap"] = gap
-    else:
+    elif fam.kind == "viewdirs":
         # exact directions (one jvp through the bender per pass) on a block
         # of frame 0's rays: kernel against "off"
         n_rays = 4096
@@ -563,18 +638,19 @@ def render_phase(fam, other, cfg, args, device, smi, kernel_ms):
     prof = profile_run(lambda: render_path(
         model, cfg, rs, poses[:1], intrinsics[:1], latents[:1], chunk=CHUNK,
         verbose=False, device=device), f"one frame ({name})")
-    log(f"{name} share of device time (profiler): {prof['fwd_share']:.3f}")
+    log(f"{name} share of device time (profiler): {prof['fwd_share']:.3f}; "
+        f"CatArrayBatchedCopy's: {prof['cat_share']:.3f}")
     results.update(frames=FRAMES, height=H, width=W, chunk=CHUNK,
-                   use_viewdirs=cfg.use_viewdirs,
+                   use_viewdirs=cfg.use_viewdirs, fused_kernel=cfg.fused_kernel,
                    s_per_frame_kernel=t_kernel / FRAMES,
-                   s_per_frame_off=t_off / FRAMES,
+                   s_per_frame_off=None if t_off is None else t_off / FRAMES,
                    psnr_kernel_vs_off_db=frame_psnr,
                    rays_per_s_kernel=H * W * FRAMES / t_kernel,
                    fwd_share_est=kernel_s / t_kernel, profile=prof, gpu=smi)
-    return results, launches
+    return results, launches, off_frames
 
 
-def train_phase(fam, other, args, cfg, device, smi, steps):
+def train_phase(fam, args, cfg, device, smi, steps):
     """Phase 4 for one family: train, compare with fused_kernel="off",
     round-trip a checkpoint, profile. Returns (results dict, launch
     counts)."""
@@ -588,7 +664,7 @@ def train_phase(fam, other, args, cfg, device, smi, steps):
     from nonrigid_nerf_torch.engine.train_step import (losses_and_grads,
                                                        make_train_step)
 
-    what = "viewdirs" if cfg.use_viewdirs else "no viewdirs"
+    what = fam.what
     ds = synthetic_dataset(device)
     args.seed = SEED
     tc = train_config_from_args(args)
@@ -601,14 +677,14 @@ def train_phase(fam, other, args, cfg, device, smi, steps):
         raise AssertionError(f"unexpected flagship training setup {tc} {rs}")
 
     with tempfile.TemporaryDirectory() as logdir:
-        fam.reset_counts()
-        other.reset_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         state = train(cfg, tc, rs, ds, logdir, device=device,
                       i_print=TRAIN_PRINT, i_weights=steps, max_steps=steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = fam.counts()
+        others = launch_counts(without=tuple(counts))
         with open(os.path.join(logdir, "metrics.jsonl")) as f:
             rows = [json.loads(line) for line in f]
         if not os.path.exists(os.path.join(logdir, "latest.npz")):
@@ -616,8 +692,8 @@ def train_phase(fam, other, args, cfg, device, smi, steps):
     want = {fam.fwd_name: 2 * steps, fam.bwd_name: 4 * steps}
     log(f"train ({what}): {steps} steps in {wall:.2f} s (first step's warm-up "
         f"and the checkpoint included); launches {counts} (expected {want}), "
-        f"of the other family {other.counts()} (expected 0)")
-    if state.step != steps or counts != want or any(other.counts().values()):
+        f"of the other kernels {others} (expected 0)")
+    if state.step != steps or counts != want or any(others.values()):
         raise AssertionError(f"a training step must launch {fam.fwd_name} "
                              f"twice and {fam.bwd_name} four times")
     for row in rows:
@@ -650,7 +726,7 @@ def train_phase(fam, other, args, cfg, device, smi, steps):
     # against fused_kernel="off" and against their plain versions; with view
     # directions in both direction modes
     step_args = dict(tc=tc, rs=rs, has_test_split=True, n_rand=tc.N_rand)
-    core_name = "MLPVCore" if cfg.use_viewdirs else "MLPCore"
+    core_name = fam.core_name
 
     def one(cfg_x, plain=False):
         kernel_core = getattr(query, core_name)
@@ -758,6 +834,7 @@ def train_phase(fam, other, args, cfg, device, smi, steps):
         f"{fam.fwd_name} {prof['fwd_share']:.3f}, {fam.bwd_name} "
         f"{prof['bwd_share']:.3f}")
     return {"steps": steps, "n_rand": tc.N_rand, "use_viewdirs": cfg.use_viewdirs,
+            "fused_kernel": cfg.fused_kernel,
             "frames": TRAIN_FRAMES, "height": H, "width": W,
             "wall_s": wall, "steps_per_s": steps_per_s,
             "rays_per_s": steps_per_s * tc.N_rand,
@@ -768,6 +845,163 @@ def train_phase(fam, other, args, cfg, device, smi, steps):
             "loss_first": first["loss"], "loss_last": last["loss"],
             "psnr_first": first["psnr"], "psnr_last": last["psnr"],
             "kernel_vs_off": step_checks, "resume_bit_equal": same, "profile": prof, "gpu": smi}, counts
+
+
+def int_mm_chain(emb, qw):
+    """The int8 chain as torch._int_mm calls with elementwise
+    requantization between them (a yardstick only: the port never calls
+    it)."""
+    (qw0, d0, b0, qw1, d1, b1, qw2, d2, b2, qw3, d3, b3, qw4, d4, b4,
+     qw5h, d5h, b5, qw5e, d5e, qw6, d6, b6, qw7, d7, b7, owb, ob, qm) = qw
+
+    def requant(h, m):
+        return (torch.round(torch.clamp(h * m, 0.0, 254.0)) - 127.0).to(torch.int8)
+
+    qemb = torch.round(torch.clamp(emb.float() * qm[0, 0], -127.0, 127.0)).to(
+        torch.int8)
+    h = torch.relu(torch._int_mm(qemb, qw0).float() * d0 + b0)
+    for l, (w, d, b) in enumerate(((qw1, d1, b1), (qw2, d2, b2), (qw3, d3, b3),
+                                   (qw4, d4, b4)), start=1):
+        h = torch.relu(torch._int_mm(requant(h, qm[0, l]), w).float() * d + b)
+    h = torch.relu(torch._int_mm(requant(h, qm[0, 5]), qw5h).float() * d5h
+                   + torch._int_mm(qemb, qw5e).float() * d5e + b5)
+    for l, (w, d, b) in enumerate(((qw6, d6, b6), (qw7, d7, b7)), start=6):
+        h = torch.relu(torch._int_mm(requant(h, qm[0, l]), w).float() * d + b)
+    return h.to(torch.bfloat16).float() @ owb.float() + ob
+
+
+def check_i8(fam_plain, model, n_points, device, network="coarse"):
+    """`mlp_i8` against its plain version at n_points, with timings. The
+    encodings are the first family's; the scales are calibrated on the first
+    65,536 of them."""
+    from nonrigid_nerf_torch.ops.kernels import quant_mlp as KQ
+    name = "mlp_i8"
+    net = model.network(network)
+    (emb,), _ = fam_plain.inputs(n_points, device, SEED + n_points)
+    scales = KQ.calibrate_act_scales(net, emb[:65536])
+    qw = KQ.pack_int8_mlp_weights(net, scales)
+    out = KQ.mlp_i8(emb, qw)
+    ref = KQ.mlp_i8_plain(emb, qw)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    max_err, mean_err = err.max().item(), err.mean().item()
+    mw = fam_plain.weights(net, device)
+    bf16_gap = ((out - fam_plain.fwd_plain(emb, mw)).abs().mean()
+                / ref.abs().mean()).item()
+    log(f"{name} n={n_points}: max abs err {max_err:.3e} (tol "
+        f"{KQ.I8_TOL_MAX:.0e}), mean {mean_err:.3e}, max |ref| "
+        f"{ref.abs().max().item():.3f}; mean gap to the bf16 plain version "
+        f"{bf16_gap:.3e} of mean |raw| (need < 2e-2)")
+    if not (torch.isfinite(out).all() and max_err <= KQ.I8_TOL_MAX
+            and bf16_gap < 2e-2):
+        raise AssertionError(f"{name} disagrees with its plain version")
+    if not torch.equal(out, KQ.mlp_i8(emb, qw)):
+        raise AssertionError(f"{name} is not deterministic")
+
+    ms = cuda_time_ms(lambda: KQ.mlp_i8(emb, qw), 10)
+    plain_ms = cuda_time_ms(lambda: KQ.mlp_i8_plain(emb, qw), 3, warmup=1)
+    chain_ms = cuda_time_ms(lambda: int_mm_chain(emb, qw), 10)
+    ops = 2.0 * KQ.MACS_PER_POINT * n_points
+    t_ops = ops / PEAK_INT8_OPS * 1e3
+    t_bytes = tensor_bytes(emb, out, *qw) / PEAK_HBM_BYTES * 1e3
+    bound_ms, bound_by = max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
+    log(f"{name} n={n_points}: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), "
+        f"plain {plain_ms:.4f} ms, torch._int_mm chain {chain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}, int8 peak)")
+    return dict(max_abs_err=max_err, mean_abs_err=mean_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                int_mm_chain_ms=chain_ms, mean_gap_to_bf16=bf16_gap)
+
+
+def int8_render_phase(cfg_plain, args, device, smi, kernel_ms, off_frames):
+    """Phase 3 for fused_kernel="int8": calibrate on the first pose's rays
+    (`quantize_for_inference`), render the frames through `render_path`,
+    launch counts, PSNR against the first family's "off" frames, a profile
+    of one frame. Returns (results dict, launches of `mlp_i8`)."""
+    from nonrigid_nerf_torch.apps.render_path import render_path
+    from nonrigid_nerf_torch.config import render_settings_from_args
+    from nonrigid_nerf_torch.ops.kernels import quant_mlp as KQ
+    from nonrigid_nerf_torch.ops.rays import get_rays
+
+    name = "mlp_i8"
+    cfg = dataclasses.replace(cfg_plain, fused_kernel="int8")
+    model = flagship_model(cfg_plain, device)
+    poses, intrinsics = synthetic_poses()
+    rs = render_settings_from_args(args, near=0.1, far=1.6)
+    latents = model.latents.detach().cpu().numpy()
+    rays_o, rays_d = get_rays(torch.as_tensor(poses[0], device=device),
+                              intrinsics[0])
+    t0 = time.perf_counter()
+    model_q = KQ.quantize_for_inference(
+        model, cfg_plain, rays_o, rays_d,
+        model.latents[:1].detach().expand(H * W, -1), rs.near, rs.far)
+    torch.cuda.synchronize()
+    t_calibrate = time.perf_counter() - t0
+    if model.quant is not None or set(model_q.quant) != {"coarse", "fine"}:
+        raise AssertionError("quantize_for_inference must return a new model "
+                             "with the state of both networks")
+    log(f"quantize_for_inference: {t_calibrate:.3f} s; activation maxima "
+        f"coarse {[round(v, 3) for v in model_q.quant['coarse'].scales.tolist()]}")
+    with torch.no_grad():                 # warm-up
+        render_path(model_q, cfg, rs, poses[:1], intrinsics[:1], latents[:1],
+                    chunk=CHUNK, render_factor=8, verbose=False, device=device)
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rgbs, disps = render_path(model_q, cfg, rs, poses, intrinsics, latents,
+                              chunk=CHUNK, verbose=True, device=device)
+    t_kernel = time.perf_counter() - t0
+    counts = launch_counts()
+    launches = counts.pop(name)
+    blocks = -(-H * W // CHUNK)
+    log(f"render ({name}, fused_kernel=int8): {FRAMES} frames in "
+        f"{t_kernel:.3f} s, {t_kernel / FRAMES:.4f} s/frame, {name} launches "
+        f"{launches} (expected {FRAMES * blocks * 2}), of the other kernels "
+        f"{counts} (expected 0)")
+    if launches != FRAMES * blocks * 2 or any(counts.values()):
+        raise AssertionError(f"the render path did not run {name}, and only "
+                             "it, once per pass and block")
+    if rgbs.shape != (FRAMES, H, W, 3) or disps.shape != (FRAMES, H, W):
+        raise AssertionError(f"bad shapes {rgbs.shape} {disps.shape}")
+    if not (np.isfinite(rgbs).all() and np.isfinite(disps).all()):
+        raise AssertionError("non-finite pixels")
+    frame_psnr = [psnr(rgbs[i], off_frames[i]) for i in range(FRAMES)]
+    log(f"render ({name}): PSNR int8 vs off per frame "
+        f"{['%.2f' % p for p in frame_psnr]} dB (need >= {MIN_PSNR_INT8_DB})")
+    if min(frame_psnr) < MIN_PSNR_INT8_DB:
+        raise AssertionError("int8 render disagrees with the f32 render")
+    kernel_s = FRAMES * blocks * sum(kernel_ms) / 1e3
+    prof = profile_run(lambda: render_path(
+        model_q, cfg, rs, poses[:1], intrinsics[:1], latents[:1], chunk=CHUNK,
+        verbose=False, device=device), f"one frame ({name})")
+    log(f"{name} share of device time (profiler): {prof['fwd_share']:.3f}; "
+        f"CatArrayBatchedCopy's: {prof['cat_share']:.3f}")
+    return dict(frames=FRAMES, height=H, width=W, chunk=CHUNK,
+                use_viewdirs=False, fused_kernel="int8",
+                s_per_frame_kernel=t_kernel / FRAMES, s_per_frame_off=None,
+                calibrate_s=t_calibrate, psnr_kernel_vs_off_db=frame_psnr,
+                rays_per_s_kernel=H * W * FRAMES / t_kernel,
+                fwd_share_est=kernel_s / t_kernel, profile=prof,
+                gpu=smi), launches
+
+
+def int8_row(sizes, checks, render_launches):
+    """The kernels line's row of `mlp_i8` (rendering only: no training
+    launches, no backward)."""
+    coarse_k, fine_k = checks
+    return {"name": "mlp_i8", "route": "cuda",
+            "source": "nonrigid_nerf_torch/ops/kernels/csrc/mlp_i8.cu",
+            "replaces": "nonrigid_nerf_tpu/ops/pallas/quant_mlp.py:249",
+            "launches": render_launches, "launches_render": render_launches,
+            "launches_train": 0,
+            "max_abs_err": max(k["max_abs_err"] for k in checks),
+            "ms": coarse_k["ms"], "plain_ms": coarse_k["plain_ms"],
+            "bound_ms": coarse_k["bound_ms"], "bound_by": coarse_k["bound_by"],
+            "library_ms": None, "points": sizes[0],
+            "int_mm_chain_ms": coarse_k["int_mm_chain_ms"],
+            "fine_pass": {"points": sizes[1], **fine_k}}
 
 
 def kernel_rows(fam, sizes, fwd_checks, bwd_checks, render_launches,
@@ -837,7 +1071,8 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # ---- phase 1: build, one nvcc per source, side by side
-    sources = ("mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpv_bwd.cu")
+    sources = ("mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpv_bwd.cu",
+               "mlpe_fwd.cu", "mlpe_bwd.cu", "mlp_i8.cu")
     t0 = time.perf_counter()
     build.load_kernel_libraries(sources)
     log(f"build {', '.join(sources)}: {time.perf_counter() - t0:.2f} s in all")
@@ -856,8 +1091,10 @@ def main() -> int:
     cfg_views = dataclasses.replace(cfg_plain, use_viewdirs=True)
     if cfg_views.multires_views != 4 or cfg_views.input_ch_views != 27:
         raise AssertionError(f"unexpected view encoding {cfg_views}")
-    families = [(Family(False), cfg_plain, TRAIN_STEPS),
-                (Family(True), cfg_views, TRAIN_STEPS_VIEWDIRS)]
+    cfg_pts = dataclasses.replace(cfg_plain, fused_kernel="pts")
+    families = [(Family("plain"), cfg_plain, TRAIN_STEPS),
+                (Family("viewdirs"), cfg_views, TRAIN_STEPS_VIEWDIRS),
+                (Family("pts"), cfg_pts, TRAIN_STEPS_PTS)]
     n_coarse = CHUNK * cfg_plain.N_samples
     n_fine = CHUNK * (cfg_plain.N_samples + cfg_plain.N_importance)
     n_bwd_coarse = args.N_rand * cfg_plain.N_samples
@@ -865,8 +1102,8 @@ def main() -> int:
     sizes = (n_coarse, n_fine, n_bwd_coarse, n_bwd_fine)
 
     rows, renders, trains = [], [], []
-    for i, (fam, cfg, steps) in enumerate(families):
-        other = families[1 - i][0]
+    off_frames_plain = None
+    for fam, cfg, steps in families:
         # ---- phase 2: kernel vs plain at the render and training shapes
         model = flagship_model(cfg, device)
         with torch.no_grad():   # the plain versions must not record a graph
@@ -877,19 +1114,53 @@ def main() -> int:
             bwd_checks = [check_bwd(fam, model, n_bwd_coarse, device),
                           check_bwd(fam, model, n_bwd_fine, device)]
         del model
-        # ---- phase 3: render through render_path, kernel vs off
-        render, render_launches = render_phase(
-            fam, other, cfg, args, device, smi,
-            (fwd_checks[0]["ms"], fwd_checks[1]["ms"]))
+        # ---- phase 3: render through render_path, kernel vs off ("pts"
+        # against the first family's "off" frames: the same parameters)
+        render, render_launches, off_frames = render_phase(
+            fam, cfg, args, device, smi,
+            (fwd_checks[0]["ms"], fwd_checks[1]["ms"]),
+            off_frames_plain if fam.kind == "pts" else None)
+        if fam.kind == "plain":
+            off_frames_plain = off_frames
         # ---- phase 4: training
-        train_results, train_counts = train_phase(fam, other, args, cfg,
-                                                  device, smi, steps)
+        train_results, train_counts = train_phase(fam, args, cfg, device, smi,
+                                                  steps)
         renders.append(render)
         trains.append(train_results)
         rows += kernel_rows(fam, sizes, fwd_checks, bwd_checks,
                             render_launches, train_counts)
-        log(f"family done ({'viewdirs' if cfg.use_viewdirs else 'no viewdirs'})"
-            f": {time.perf_counter() - t_start:.1f} s since the start")
+        log(f"family done ({fam.what}): "
+            f"{time.perf_counter() - t_start:.1f} s since the start")
+
+    # ---- fused_kernel="int8": phases 2 and 3 (it does not train)
+    fam_plain = families[0][0]
+    model = flagship_model(cfg_plain, device)
+    with torch.no_grad():
+        i8_checks = [check_i8(fam_plain, model, n_coarse, device),
+                     check_i8(fam_plain, model, n_fine, device, "fine")]
+    del model
+    render_i8, i8_launches = int8_render_phase(
+        cfg_plain, args, device, smi, (i8_checks[0]["ms"], i8_checks[1]["ms"]),
+        off_frames_plain)
+    renders.append(render_i8)
+    rows.append(int8_row(sizes, i8_checks, i8_launches))
+    log(f"int8 done: {time.perf_counter() - t_start:.1f} s since the start")
+
+    # the three modes of the flagship side by side, from this run
+    by_mode = {r["fused_kernel"]: r for r in renders if not r["use_viewdirs"]}
+    log("flagship frame, s/frame: " + ", ".join(
+        f"{mode} {by_mode[mode]['s_per_frame_kernel']:.4f}"
+        for mode in ("auto", "pts", "int8"))
+        + f", off {by_mode['auto']['s_per_frame_off']:.4f}; CatArrayBatchedCopy's "
+        "share of a frame's device time: " + ", ".join(
+            f"{mode} {by_mode[mode]['profile']['cat_share']:.3f}"
+            for mode in ("auto", "pts", "int8")) + f"; {smi}")
+    log("flagship training, steps/s: " + ", ".join(
+        f"{t['fused_kernel']} {t['steps_per_s']:.2f} (device "
+        f"{t['profile']['device_busy_ms'] / PROFILE_STEPS:.2f} ms/step)"
+        for t in trains if not t["use_viewdirs"]) + f"; {smi}")
+    if len(rows) != 7:
+        raise AssertionError(f"{len(rows)} kernel rows, 7 kernels")
 
     # ---- phase 5: results
     log(json.dumps({"render": renders}))

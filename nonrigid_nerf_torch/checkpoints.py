@@ -11,8 +11,10 @@ The optimizer state is optax's for `optax.adam` with a schedule:
 `(ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count))`, mu and nu
 shaped like the params tree. The port's Adam state is (mu, nu) by parameter
 name plus the step; both counts equal the step. A checkpoint written here
-resumes in the JAX package and the other way round. `latest.npz` is
-rewritten at every save; the Orbax format is not read or written.
+resumes in the JAX package and the other way round. A model's int8
+calibration state is the params tree's "quant" leaf (`weights.py`), so a
+calibrated model survives the round trip. `latest.npz` is rewritten at every
+save; the Orbax format is not read or written.
 """
 
 from __future__ import annotations

@@ -12,8 +12,11 @@ and a config file or `args.txt` means the same to both:
 `fused_kernel` keeps its modes. "auto" runs the canonical MLP as the CUDA
 kernels (with `use_viewdirs` the view-direction pair) whenever the render
 device is a GPU and the architecture and edits allow it, "on" forces it (the
-plain version on a CPU tensor), "off" runs the plain f32 MLP. "pts" and
-"int8" are not ported yet and raise.
+plain version on a CPU tensor), "off" runs the plain f32 MLP. Two opt-in
+modes: "pts" is "on" with the Fourier encoding computed inside the kernel
+(single-head MLP only; rendering and training), and "int8" runs the int8
+inference kernel on a model calibrated by
+`ops/kernels/quant_mlp.py:quantize_for_inference` (rendering only).
 """
 
 from __future__ import annotations

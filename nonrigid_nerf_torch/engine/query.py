@@ -9,6 +9,12 @@ coarse or fine MLP, as the CUDA kernels when `use_fused_kernel` says so:
 `mlp_fwd` (with view directions `mlpv_fwd`) alone where no gradient is
 recorded (rendering), and the autograd function `MLPCore` (`MLPVCore`),
 whose backward is `mlp_bwd` (`mlpv_bwd`), where one is (training).
+
+Two opt-in modes of `fused_kernel` take other kernels. "pts": stage 1 hands
+over the f32 bent points in place of the encoding, and `mlpe_fwd` /
+`MLPECore` compute the encoding on the chip, so no encoding tensor lies
+between the stages (`encode_in_kernel`). "int8": `mlp_i8` on the calibration
+state that `quantize_for_inference` left in the model; rendering only.
 """
 
 from __future__ import annotations
@@ -24,10 +30,16 @@ from nonrigid_nerf_torch.ops.embedding import fourier_embed
 from nonrigid_nerf_torch.ops.kernels.mlp_bwd import MLPCore
 from nonrigid_nerf_torch.ops.kernels.mlp_fwd import (
     OUT_PAD, cast_mlp_weights, mlp_fwd, pack_mlp_weights, pad_lanes)
+from nonrigid_nerf_torch.ops.kernels.mlpe_bwd import MLPECore
+from nonrigid_nerf_torch.ops.kernels.mlpe_fwd import MULTIRES, mlpe_fwd
 from nonrigid_nerf_torch.ops.kernels.mlpv_bwd import MLPVCore
 from nonrigid_nerf_torch.ops.kernels.mlpv_fwd import (
     VEMB, cast_mlpv_weights, mlpv_fwd, pack_viewdirs_mlp_weights)
+from nonrigid_nerf_torch.ops.kernels.quant_mlp import (mlp_i8,
+                                                       packed_int8_weights)
 from nonrigid_nerf_torch.ops.math import safe_norm
+
+FUSED_KERNEL_MODES = ("auto", "on", "off", "pts", "int8")
 
 
 def supports_fused_query(cfg: ModelConfig) -> bool:
@@ -52,29 +64,46 @@ def edits_active(edit: EditConfig) -> bool:
             or edit.render_canonical)
 
 
+def encode_in_kernel(cfg: ModelConfig) -> bool:
+    """Whether the fused path computes the Fourier encoding INSIDE the MLP
+    kernel: stage 1 then hands over the raw bent points, 3 f32 per point in
+    place of 63 encoding channels, in both directions of the hop between the
+    stages. Opt-in (`fused_kernel="pts"`); the kernel computes the 10-octave
+    encoding of the single-head MLP and nothing else."""
+    return (cfg.fused_kernel == "pts" and not cfg.use_viewdirs
+            and not cfg.time_conditioned_baseline
+            and cfg.i_embed == 0 and cfg.multires == MULTIRES)
+
+
 def use_fused_kernel(cfg: ModelConfig, edit: EditConfig,
                      device: torch.device) -> bool:
     """Whether stage 2 runs through the kernels' wrappers.
 
     "off": never. "on": always, and an error where the configuration or a
     scene edit is outside the kernel's support (on a CPU device the wrappers
-    run their plain versions). "auto": on a CUDA device whenever "on" would
-    be allowed; a scene edit turns it off. The JAX package turns "auto" off
-    for rendering from a TPU v5e timing; that timing says nothing about
-    this card, so here "auto" takes the kernel."""
+    run their plain versions). "pts": as "on", with the encoding computed in
+    the kernel; also an error with view directions, which that kernel does
+    not take. "auto": on a CUDA device whenever "on" would be allowed; a
+    scene edit turns it off. "int8": inference only; the int8 kernel covers
+    the single-head MLP, and anything outside that (view directions, another
+    architecture, a scene edit) takes the plain f32 MLP without an error."""
     mode = cfg.fused_kernel
+    if mode not in FUSED_KERNEL_MODES:
+        raise ValueError(f"unknown fused_kernel={mode!r}; known: "
+                         f"{FUSED_KERNEL_MODES}")
     if mode == "off":
         return False
-    if mode not in ("auto", "on"):
-        raise NotImplementedError(f"fused_kernel={mode!r} is not ported yet")
-    if not supports_fused_query(cfg) or edits_active(edit):
-        if mode == "on":
+    supported = supports_fused_query(cfg) and not edits_active(edit)
+    if mode == "int8":
+        return supported and not cfg.use_viewdirs
+    if not supported or (mode == "pts" and not encode_in_kernel(cfg)):
+        if mode in ("on", "pts"):
             raise ValueError(
                 f"fused_kernel={mode!r} but the configuration (architecture, "
                 "viewdirs, or scene edits) is outside the kernel's support; "
                 "use fused_kernel='auto'")
         return False
-    return mode == "on" or torch.device(device).type == "cuda"
+    return mode in ("on", "pts") or torch.device(device).type == "cuda"
 
 
 def _embed_views(cfg: ModelConfig, dirs):
@@ -147,8 +176,10 @@ def bend_encode_stage(model, cfg: ModelConfig, pts, latents,
     """Stage 1: deformation field + positional encoding.
 
     pts (R, S, 3); latents (R, L) per ray. Returns a dict with
-    embedded (R, S, input_ch) as `embed_for_mlp` gives it, or None with
-    `embed=False` (for a caller that encodes in another sample order),
+    embedded (R, S, input_ch) as `embed_for_mlp` gives it (with `fused` in
+    "pts" mode: the f32 bent points (R, S, 3), which the kernel encodes), or
+    None with `embed=False` (for a caller that encodes in another sample
+    order),
     bent_pts (R, S, 3), rigidity (R, S, 1) or None, latents_per_pt (R, S, L)
     or None without bending, and details: None, or with `detailed` the
     internals the regularizers read (initial_input_pts and input_pts, both
@@ -172,7 +203,14 @@ def bend_encode_stage(model, cfg: ModelConfig, pts, latents,
         bent_pts = pts
     if detailed:
         details["input_pts"] = bent_pts.detach()
-    embedded = embed_for_mlp(cfg, bent_pts, fused) if embed else None
+    if not embed:
+        embedded = None
+    elif fused and encode_in_kernel(cfg):
+        # the MLP kernel encodes on the chip: the bent points go over as
+        # they are, and no (R, S, 63) encoding is ever written
+        embedded = bent_pts
+    else:
+        embedded = embed_for_mlp(cfg, bent_pts, fused)
     return {"embedded": embedded, "bent_pts": bent_pts, "rigidity": rigidity,
             "latents_per_pt": latents_per_pt, "details": details}
 
@@ -180,17 +218,36 @@ def bend_encode_stage(model, cfg: ModelConfig, pts, latents,
 def canonical_mlp_stage(model, cfg: ModelConfig, network: str, stage1,
                         embedded_views=None, edit: EditConfig = EditConfig(),
                         fused: bool = False):
-    """Stage 2: the coarse or fine canonical MLP on stage 1's encoding (and,
-    with view directions, on embedded_views (R, S, input_ch_views)), then
-    the foreground-removal edit. Returns raw (R, S, 4) f32."""
+    """Stage 2: the coarse or fine canonical MLP on stage 1's encoding (in
+    "pts" mode: on its bent points) and, with view directions, on
+    embedded_views (R, S, input_ch_views), then the foreground-removal edit.
+    Returns raw (R, S, 4) f32."""
     embedded = stage1["embedded"]
     net = model.network(network)
-    if fused:
+    if fused and encode_in_kernel(cfg):
+        # stage 1 handed over the raw bent points (see bend_encode_stage)
+        R, S, _ = embedded.shape
+        pts_flat = embedded.reshape(R * S, 3)
+        packed = pack_mlp_weights(net)
+        if torch.is_grad_enabled():
+            raw = MLPECore.apply(pts_flat, *packed)
+        else:
+            raw = mlpe_fwd(pts_flat, cast_mlp_weights(packed))
+        raw = raw.reshape(R, S, OUT_PAD)[..., :4]
+    elif fused:
         R, S, in_ch = embedded.shape
         emb_flat = F.pad(embedded.reshape(R * S, in_ch),
                          (0, pad_lanes(in_ch) - in_ch))
         grad = torch.is_grad_enabled()
-        if cfg.use_viewdirs:
+        if cfg.fused_kernel == "int8":
+            key = "fine" if network == "fine" and model.fine is not None \
+                else "coarse"
+            if model.quant is None or key not in model.quant:
+                raise ValueError(
+                    "fused_kernel='int8' needs calibration state in the "
+                    "model; run quantize_for_inference() first")
+            raw = mlp_i8(emb_flat, packed_int8_weights(model.quant[key], net))
+        elif cfg.use_viewdirs:
             if not grad:      # as the point encoding: bf16 between the stages
                 embedded_views = embedded_views.to(torch.bfloat16)
             v_ch = embedded_views.shape[-1]

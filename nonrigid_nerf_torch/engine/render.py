@@ -219,8 +219,9 @@ def make_ray_renderer(cfg: ModelConfig, rs: RenderSettings,
 
     Rays are padded with copies of the first ray to a multiple of `chunk`
     and rendered block by block without autograd. The stage-2 MLP runs as
-    the CUDA kernel under fused_kernel "auto" or "on" on a GPU (see
-    `use_fused_kernel`).
+    the CUDA kernel under fused_kernel "auto" or "on" on a GPU, and under the
+    opt-in modes "pts" and "int8" (the latter on a model that
+    `quantize_for_inference` calibrated; see `use_fused_kernel`).
 
     Returns fn(model, rays_o (N, 3), rays_d (N, 3), latents (N, L),
     generator=None) -> dict of (N, ...) tensors."""

@@ -10,8 +10,9 @@ everything. Both phases share one forward pass: `torch.autograd.grad` runs
 over the one graph with two cotangent vectors (the first call retains the
 graph). With `fused_kernel` on, the backward of each canonical MLP is the
 CUDA kernel `mlp_bwd` (with view directions `mlpv_bwd`, whose gradient of
-the view encoding flows on into the bender and the latents), launched once
-per network and cotangent.
+the view encoding flows on into the bender and the latents; with
+`fused_kernel="pts"` `mlpe_bwd`, whose gradient of the bent points does),
+launched once per network and cotangent.
 """
 
 from __future__ import annotations

@@ -55,44 +55,11 @@
 
 namespace {
 
-constexpr int N_CHUNKS = N_FWD_CHUNKS + N_BWD_CHUNKS;
-constexpr int N_DW_TILES = 30;     // 64-row blocks of the 9 weight gradients
-constexpr int GRAD_FLOATS = 495624;
+using namespace single_head;   // the gradient layout, ChainParams, dh8, pass 2
 
 constexpr size_t SMEM_BYTES =
     2 * ACT_BYTES + EMB_BYTES + 2 * STAGE_BYTES + WSCR_BYTES;
 static_assert(SMEM_BYTES <= SMEM_LIMIT, "fits one Hopper CTA");
-static_assert(WSCR_BYTES >= DRAW_BYTES, "the draw tile borrows the warp scratch");
-
-// offsets (in floats) of the 19 gradients in one flat pack-order buffer:
-// n0w n0b n1w n1b n2w n2b n3w n3b n4w n4b n5e n5h n5b n6w n6b n7w n7b ow ob
-constexpr int WW = NW * NW, EW = EMB * NW;
-constexpr int OFF_N0W = 0;
-constexpr int OFF_N0B = OFF_N0W + EW;
-constexpr int OFF_N1W = OFF_N0B + NW;
-constexpr int OFF_N1B = OFF_N1W + WW;
-constexpr int OFF_N2W = OFF_N1B + NW;
-constexpr int OFF_N2B = OFF_N2W + WW;
-constexpr int OFF_N3W = OFF_N2B + NW;
-constexpr int OFF_N3B = OFF_N3W + WW;
-constexpr int OFF_N4W = OFF_N3B + NW;
-constexpr int OFF_N4B = OFF_N4W + WW;
-constexpr int OFF_N5E = OFF_N4B + NW;
-constexpr int OFF_N5H = OFF_N5E + EW;
-constexpr int OFF_N5B = OFF_N5H + WW;
-constexpr int OFF_N6W = OFF_N5B + NW;
-constexpr int OFF_N6B = OFF_N6W + WW;
-constexpr int OFF_N7W = OFF_N6B + NW;
-constexpr int OFF_N7B = OFF_N7W + WW;
-constexpr int OFF_OW = OFF_N7B + NW;
-constexpr int OFF_OB = OFF_OW + NW * OUT;
-static_assert(OFF_OB + OUT == GRAD_FLOATS, "pack-order layout");
-
-struct ChainParams {
-  const bf16* chunk[N_CHUNKS];   // source of each 64-row weight chunk
-  const float* bias[N_LAYERS];   // (256,) f32 per hidden layer
-  const bf16* ow;                // (256, 8) bf16
-};
 
 __global__ void __launch_bounds__(THREADS, 1)
 mlp_bwd_chain_kernel(const bf16* __restrict__ emb, const float* __restrict__ draw,
@@ -115,7 +82,7 @@ mlp_bwd_chain_kernel(const bf16* __restrict__ emb, const float* __restrict__ dra
   bf16* dh_t = dh + size_t(row0) * NW;
 
   auto prefetch = [&](int g) {
-    if (g < N_CHUNKS) load_chunk(stage_of(stage, g), p.chunk[g], tid);
+    if (g < N_CHAIN_CHUNKS) load_chunk(stage_of(stage, g), p.chunk[g], tid);
   };
   prefetch(0);
   cp_async_commit();
@@ -129,34 +96,14 @@ mlp_bwd_chain_kernel(const bf16* __restrict__ emb, const float* __restrict__ dra
   chain_forward(buf_a, embs, stage, wscr, p.bias, g, prefetch, nh_t, layer_stride,
                 warp, lane);
 
-  // ---- dh8 = bf16((bf16(draw) @ ow^T) * (nh8 > 0)); K = 8, on the CUDA cores
-  {
-    float* drs = scratch;   // (128, 8) draw tile, rounded to bf16, rows past n zero
-    for (int i = tid; i < TM * OUT; i += THREADS) {
-      const long r = row0 + i / OUT;
-      drs[i] = (r < n) ? __bfloat162float(__float2bfloat16(draw[size_t(r) * OUT + i % OUT]))
-                       : 0.0f;
-    }
-    float w8[OUT];
-#pragma unroll
-    for (int o = 0; o < OUT; ++o) w8[o] = __bfloat162float(p.ow[tid * OUT + o]);
-    __syncthreads();
-    bf16* dh8 = dh_t + size_t(7) * layer_stride;
-    for (int r = 0; r < TM; ++r) {
-      float s = 0.0f;
-#pragma unroll
-      for (int o = 0; o < OUT; ++o) s += drs[r * OUT + o] * w8[o];
-      const bool on = __bfloat162float(buf_a[r * LDA + tid]) > 0.0f;
-      const bf16 v = __float2bfloat16(on ? s : 0.0f);
-      buf_b[r * LDA + tid] = v;
-      dh8[size_t(r) * NW + tid] = v;
-    }
-    __syncthreads();
-  }
+  // ---- dh8 = bf16((bf16(draw) @ ow^T) * (nh8 > 0)); the draw tile borrows
+  // the warp scratch
+  dh8_from_draw(draw, row0, n, p.ow, scratch, buf_a, buf_b,
+                dh_t + size_t(7) * layer_stride, tid);
 
   // ---- the dh chain: each step takes the 128 x 256 tile `cur` times W^T
   dh_chain(buf_b, buf_a, stage, wscr, g, prefetch, nh_t, dh_t, layer_stride,
-           demb + size_t(row0) * EMB, long(n) - row0, warp, lane);
+           DembToGlobal{demb + size_t(row0) * EMB, long(n) - row0}, warp, lane);
 }
 
 }  // namespace
@@ -166,8 +113,7 @@ mlp_bwd_chain_kernel(const bf16* __restrict__ emb, const float* __restrict__ dra
 // f32 partials (one flat pack-order gradient per 2048-point split) in floats.
 extern "C" void nrnerf_mlp_bwd_sizes(int n, long long* scratch_elems,
                                      long long* partial_floats) {
-  *scratch_elems = (long long)padded_rows(n) * (EMB + 2 * N_LAYERS * NW);
-  *partial_floats = (long long)split_count(n) * GRAD_FLOATS;
+  chain_bwd_sizes(n, scratch_elems, partial_floats);
 }
 
 // emb (n, 64) bf16, draw (n, 8) f32; mats and biases as in nrnerf_mlp_fwd:
@@ -182,15 +128,8 @@ extern "C" int nrnerf_mlp_bwd(const void* emb, const void* draw, int n,
                               void* scratch, void* partials, void* demb,
                               void* grads, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const bf16* m[10];
-  for (int i = 0; i < 10; ++i) m[i] = static_cast<const bf16*>(mats[i]);
-
   ChainParams p;
-  int g = fill_forward_chunks(m, p.chunk, 0);
-  g = fill_backward_chunks(m, p.chunk, g);
-  if (g != N_CHUNKS) return int(cudaErrorInvalidValue);
-  for (int i = 0; i < N_LAYERS; ++i) p.bias[i] = static_cast<const float*>(biases[i]);
-  p.ow = m[9];
+  if (!fill_chain_params(mats, biases, p)) return int(cudaErrorInvalidValue);
 
   cudaError_t err = cudaFuncSetAttribute(
       mlp_bwd_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
@@ -198,10 +137,9 @@ extern "C" int nrnerf_mlp_bwd(const void* emb, const void* draw, int n,
   if (n <= 0) return int(cudaErrorInvalidValue);
 
   const long n_pad = padded_rows(n);
-  const size_t layer_stride = size_t(n_pad) * NW;
   bf16* embp = static_cast<bf16*>(scratch);
   bf16* nh = embp + size_t(n_pad) * EMB;
-  bf16* dh = nh + N_LAYERS * layer_stride;
+  bf16* dh = nh + N_LAYERS * size_t(n_pad) * NW;
 
   mlp_bwd_chain_kernel<<<dim3(unsigned(n_pad / TM)), THREADS, SMEM_BYTES, stream>>>(
       static_cast<const bf16*>(emb), static_cast<const float*>(draw), n, n_pad, p,
@@ -209,34 +147,7 @@ extern "C" int nrnerf_mlp_bwd(const void* emb, const void* draw, int n,
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 
-  // g_W = act^T @ dh: (act, dh, offset) per weight, in 64-row tiles
-  DwParams dp;
-  struct Prod { const bf16* a; int lda; const bf16* b; int off; };
-  auto nh_l = [&](int l) { return nh + size_t(l - 1) * layer_stride; };
-  auto dh_l = [&](int l) { return dh + size_t(l - 1) * layer_stride; };
-  const Prod prods[9] = {
-      {embp, EMB, dh_l(1), OFF_N0W},  {nh_l(1), NW, dh_l(2), OFF_N1W},
-      {nh_l(2), NW, dh_l(3), OFF_N2W}, {nh_l(3), NW, dh_l(4), OFF_N3W},
-      {nh_l(4), NW, dh_l(5), OFF_N4W}, {embp, EMB, dh_l(6), OFF_N5E},
-      {nh_l(5), NW, dh_l(6), OFF_N5H}, {nh_l(6), NW, dh_l(7), OFF_N6W},
-      {nh_l(7), NW, dh_l(8), OFF_N7W}};
-  int t = 0;
-  for (const Prod& pr : prods) {
-    for (int c = 0; c < pr.lda; c += EMB) {
-      dp.tile[t++] = DwTile{pr.a, pr.b, pr.lda, c, EMB, NW, pr.off + c * NW};
-    }
-  }
-  if (t != N_DW_TILES) return int(cudaErrorInvalidValue);
-
-  // bias sums of dh1 .. dh8, then g_ow = nh8^T @ bf16(draw) with g_ob
-  SmallParams sp;
-  const int bias_off[N_LAYERS] = {OFF_N0B, OFF_N1B, OFF_N2B, OFF_N3B,
-                                  OFF_N4B, OFF_N5B, OFF_N6B, OFF_N7B};
-  for (int l = 0; l < N_LAYERS; ++l) sp.job[l] = SmallJob{dh_l(l + 1), NW, bias_off[l], -1};
-  sp.job[N_LAYERS] = SmallJob{nh_l(8), NW, OFF_OW, OFF_OB};
-
-  return launch_second_pass(dp, N_DW_TILES, sp, N_LAYERS + 1,
-                            static_cast<const float*>(draw), n, GRAD_FLOATS,
-                            static_cast<float*>(partials),
-                            static_cast<float*>(grads), stream);
+  return launch_chain_second_pass(embp, static_cast<const float*>(draw), n,
+                                  static_cast<float*>(partials),
+                                  static_cast<float*>(grads), stream);
 }

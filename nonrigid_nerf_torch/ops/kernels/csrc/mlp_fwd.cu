@@ -41,18 +41,8 @@
 
 namespace {
 
-constexpr size_t SMEM_BYTES = ACT_BYTES + EMB_BYTES + 2 * STAGE_BYTES + WSCR_BYTES;
-static_assert(SMEM_BYTES <= SMEM_LIMIT, "fits one Hopper CTA");
-
-struct Params {
-  const bf16* chunk[N_FWD_CHUNKS];   // source of each 64-row weight chunk
-  const float* bias[N_LAYERS];       // (256,) f32 per hidden layer
-  const bf16* ow;                    // (256, 8) bf16
-  const float* ob;                   // (8,) f32
-};
-
 __global__ void __launch_bounds__(THREADS, 1)
-mlp_fwd_kernel(const bf16* __restrict__ emb, int n, Params p,
+mlp_fwd_kernel(const bf16* __restrict__ emb, int n, FwdParams p,
                float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* act = reinterpret_cast<bf16*>(smem);
@@ -78,46 +68,26 @@ mlp_fwd_kernel(const bf16* __restrict__ emb, int n, Params p,
                 0, warp, lane);
 
   // head: raw[p, o] = sum_k nh8[p, k] * ow[k, o] + ob[o], in f32
-  const int pt = tid / 2;
-  const int o0 = (tid % 2) * 4;
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int k = 0; k < NW; ++k) {
-    const float a = __bfloat162float(act[pt * LDA + k]);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) s[q] += a * __bfloat162float(p.ow[k * OUT + o0 + q]);
-  }
-  if (row0 + pt < n) {
-    float* dst = out + size_t(row0 + pt) * OUT + o0;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) dst[q] = s[q] + __ldg(p.ob + o0 + q);
-  }
+  raw_head(act, p.ow, p.ob, out, row0, n, tid);
 }
 
 }  // namespace
 
-// mats: n0w (64x256), n1w, n2w, n3w, n4w (256x256), n5e (64x256),
-//       n5h, n6w, n7w (256x256), ow (256x8), all bf16 row-major (in, out);
-// biases: n0b .. n4b, n5b, n6b, n7b (256 f32 each), ob (8 f32).
+// emb (n, 64) bf16, out (n, 8) f32; mats and biases as `fill_fwd_params`
+// (mlp_tile.cuh) lists them.
 // Returns the CUDA error code of the launch (0 on success).
 extern "C" int nrnerf_mlp_fwd(const void* emb, int n, const void* const* mats,
                               const void* const* biases, void* out,
                               void* stream) {
-  Params p;
-  const bf16* m[10];
-  for (int i = 0; i < 10; ++i) m[i] = static_cast<const bf16*>(mats[i]);
-  if (fill_forward_chunks(m, p.chunk, 0) != N_FWD_CHUNKS) {
-    return int(cudaErrorInvalidValue);
-  }
-  for (int i = 0; i < N_LAYERS; ++i) p.bias[i] = static_cast<const float*>(biases[i]);
-  p.ow = m[9];
-  p.ob = static_cast<const float*>(biases[8]);
+  FwdParams p;
+  if (!fill_fwd_params(mats, biases, p)) return int(cudaErrorInvalidValue);
 
   cudaError_t err = cudaFuncSetAttribute(
-      mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
+      mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(FWD_SMEM_BYTES));
   if (err != cudaSuccess) return int(err);
   if (n <= 0) return 0;
   const dim3 grid((n + TM - 1) / TM);
-  mlp_fwd_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  mlp_fwd_kernel<<<grid, THREADS, FWD_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(emb), n, p, static_cast<float*>(out));
   return int(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 // Shared device code of the canonical-MLP kernels for Hopper (sm_90a):
-// mlp_fwd.cu, mlp_bwd.cu, mlpv_fwd.cu and mlpv_bwd.cu. What they share:
+// mlp_fwd.cu, mlp_bwd.cu, mlpv_fwd.cu, mlpv_bwd.cu, mlpe_fwd.cu, mlpe_bwd.cu
+// and (the cp.async ring only) mlp_i8.cu. What they share:
 //
 // - the tile: one CTA of 8 warps owns 128 points; a 128 x 256 bf16 activation
 //   tile stays in shared memory and each layer's accumulators live in
@@ -13,7 +14,10 @@
 // - the transposed step `cur @ W^T` of the backward's dh chain, which reads
 //   the same row chunks of W as col-major B operands;
 // - the backward's second pass: split-K dW products, column sums and the
-//   8-lane head products, and the fixed-order reduction over the splits.
+//   8-lane head products, and the fixed-order reduction over the splits;
+// - the in-kernel Fourier encoding of mlpe_fwd.cu and mlpe_bwd.cu;
+// - what mlp_bwd.cu and mlpe_bwd.cu have in common: the gradient layout, the
+//   dh8 step and the second pass's job list.
 //
 // Products use warp-level bf16 tensor-core MMA (nvcuda::wmma 16x16x16) with
 // f32 accumulators. No atomics anywhere: the same inputs give bit-equal
@@ -399,17 +403,33 @@ __device__ __forceinline__ int bwd_layer(int step) {
   return step == 0 ? 7 : step == 1 ? 6 : step == 2 ? 0 : step == 8 ? 0 : 8 - step;
 }
 
+// dh_chain's sink that writes demb to the tile's rows of the (n, 64) f32
+// output: step 2 stores, step 8 adds. rows_left = n - row0.
+struct DembToGlobal {
+  float* demb;
+  long rows_left;
+  __device__ __forceinline__ void operator()(int step, int row, int col,
+                                             const float* v) const {
+    if (row >= rows_left) return;
+    float* dst = demb + size_t(row) * EMB + col;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dst[e] = (step == 2) ? v[e] : dst[e] + v[e];
+  }
+};
+
 // The dh chain from dh8 (in `cur`) down: chunks g .. g + 29 of the schedule
 // (n7w n6w n5e n5h n4w n3w n2w n1w n0w).
 //   dh_l = bf16((dh_{l+1} @ W_l^T) * (nh_l > 0))   l = 7 .. 1
 //   demb = dh6 @ n5e^T + dh1 @ n0w^T               (f32, no mask)
-// nh, dh: the tile's rows of the row-padded (8, n_pad, 256) scratch arrays;
-// demb: the tile's rows of the (n, 64) output; rows_left = n - row0.
-template <class Prefetch>
+// nh, dh: the tile's rows of the row-padded (8, n_pad, 256) scratch arrays.
+// The two products of demb (step 2, then step 8) are handed to
+// `demb_run(step, row, col, v)` in runs of 8 columns; the same lane gets the
+// same elements in both steps.
+template <class Prefetch, class DembRun>
 __device__ __forceinline__ void dh_chain(bf16* cur, bf16* oth, bf16* stage, float* wscr,
                                          int& g, Prefetch& prefetch, const bf16* nh,
-                                         bf16* dh, size_t layer_stride, float* demb,
-                                         long rows_left, int warp, int lane) {
+                                         bf16* dh, size_t layer_stride,
+                                         DembRun&& demb_run, int warp, int lane) {
   AccFrag acc[4];
   for (int step = 0; step < N_BWD_STEPS; ++step) {
     const int layer = bwd_layer(step);          // 0: a demb product
@@ -422,11 +442,8 @@ __device__ __forceinline__ void dh_chain(bf16* cur, bf16* oth, bf16* stage, floa
         if (layer) {
           const size_t goff = size_t(layer - 1) * layer_stride + size_t(row) * NW + gcol;
           store_run(v, nh + goff, oth + row * LDA + gcol, dh + goff);
-        } else if (row < rows_left) {
-          // the same lane owns the same elements in step 2 and in step 8
-          float* dst = demb + size_t(row) * EMB + gcol;
-#pragma unroll
-          for (int e = 0; e < 8; ++e) dst[e] = (step == 2) ? v[e] : dst[e] + v[e];
+        } else {
+          demb_run(step, row, gcol, v);
         }
       });
       __syncthreads();   // this stage and `cur` are read, `oth` is written
@@ -678,5 +695,250 @@ inline int launch_second_pass(const DwParams& dp, int n_tiles, const SmallParams
       partials, n_splits, grad_floats, grads);
   return int(cudaGetLastError());
 }
+
+
+// ---- the single-head forward kernels (mlp_fwd.cu, mlpe_fwd.cu)
+
+constexpr size_t FWD_SMEM_BYTES = ACT_BYTES + EMB_BYTES + 2 * STAGE_BYTES + WSCR_BYTES;
+static_assert(FWD_SMEM_BYTES <= SMEM_LIMIT, "fits one Hopper CTA");
+
+struct FwdParams {
+  const bf16* chunk[N_FWD_CHUNKS];   // source of each 64-row weight chunk
+  const float* bias[N_LAYERS];       // (256,) f32 per hidden layer
+  const bf16* ow;                    // (256, 8) bf16
+  const float* ob;                   // (8,) f32
+};
+
+// mats: n0w (64x256), n1w, n2w, n3w, n4w (256x256), n5e (64x256),
+//       n5h, n6w, n7w (256x256), ow (256x8), all bf16 row-major (in, out);
+// biases: n0b .. n4b, n5b, n6b, n7b (256 f32 each), ob (8 f32).
+inline bool fill_fwd_params(const void* const* mats, const void* const* biases,
+                            FwdParams& p) {
+  const bf16* m[10];
+  for (int i = 0; i < 10; ++i) m[i] = static_cast<const bf16*>(mats[i]);
+  const int g = fill_forward_chunks(m, p.chunk, 0);
+  for (int i = 0; i < N_LAYERS; ++i) p.bias[i] = static_cast<const float*>(biases[i]);
+  p.ow = m[9];
+  p.ob = static_cast<const float*>(biases[8]);
+  return g == N_FWD_CHUNKS;
+}
+
+
+// raw[p, o] = sum_k nh8[p, k] * ow[k, o] + ob[o] in f32, a per-thread dot
+// product (1/256 of the work): two threads per point, 4 lanes each. Rows
+// past n are not stored.
+__device__ __forceinline__ void raw_head(const bf16* act, const bf16* __restrict__ ow,
+                                         const float* __restrict__ ob,
+                                         float* __restrict__ out, long row0, int n,
+                                         int tid) {
+  const int pt = tid / 2;
+  const int o0 = (tid % 2) * 4;
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int k = 0; k < NW; ++k) {
+    const float a = __bfloat162float(act[pt * LDA + k]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) s[q] += a * __bfloat162float(ow[k * OUT + o0 + q]);
+  }
+  if (row0 + pt < n) {
+    float* dst = out + size_t(row0 + pt) * OUT + o0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dst[q] = s[q] + __ldg(ob + o0 + q);
+  }
+}
+
+// ---- the in-kernel Fourier encoding (mlpe_fwd.cu, mlpe_bwd.cu)
+//
+// Lane c of the 64-lane encoding of a point x (3 f32), multires 10:
+//   c < 3:        x[c]
+//   3 <= c < 63:  sin(x[j] * 2^k + phase), k = (c - 3) / 6, j = (c - 3) % 3,
+//                 phase = pi/2 on the cosine lanes ((c - 3) % 6 >= 3), else 0
+//   c == 63:      0 (the pad lane)
+// x[j] * 2^k is exact, the sum with the phase is one f32 rounding, and the
+// sine is sinf (the arguments reach 2^9 |x|: no fast-math intrinsic).
+
+constexpr int PTS = 3;                          // coordinates per point
+constexpr float HALF_PI = 1.57079632679489661923f;   // float32(pi / 2)
+static_assert(WSCR_BYTES >= size_t(TM) * PTS * sizeof(float),
+              "the coordinate tile borrows the warp scratch");
+
+// lanes 3 .. 62: the coordinate, the frequency and the phase of lane c
+__device__ __forceinline__ void encoding_lane(int c, int& j, float& scale,
+                                              float& phase) {
+  const int rem = (c - 3) % 6;
+  j = rem % 3;
+  scale = float(1 << ((c - 3) / 6));
+  phase = rem >= 3 ? HALF_PI : 0.0f;
+}
+
+// the tile's 128 x 3 f32 coordinates of pts (n, 3) into shared memory; rows
+// past n are zero
+__device__ __forceinline__ void load_coords(float* xs, const float* __restrict__ pts,
+                                            long row0, int n, int tid) {
+  for (int i = tid; i < TM * PTS; i += THREADS) {
+    xs[i] = (row0 + i / PTS < n) ? pts[size_t(row0) * PTS + i] : 0.0f;
+  }
+}
+
+// the bf16 encoding tile (row stride LDE) from the coordinate tile; rows at
+// and past rows_left are zero. With `copy` (the tile's rows of a row-padded
+// (n_pad, 64) global array) the tile is stored there too, for the dW products.
+__device__ __forceinline__ void encode_tile(bf16* embs, const float* xs, long rows_left,
+                                            int tid, bf16* copy) {
+  for (int i = tid; i < TM * EMB / 8; i += THREADS) {
+    const int r = i / (EMB / 8);
+    const int c0 = (i % (EMB / 8)) * 8;
+    __align__(16) bf16 ov[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int c = c0 + e;
+      float v = 0.0f;
+      if (r < rows_left && c < 3) {
+        v = xs[r * PTS + c];
+      } else if (r < rows_left && c < EMB - 1) {
+        int j;
+        float scale, phase;
+        encoding_lane(c, j, scale, phase);
+        v = sinf(__fadd_rn(__fmul_rn(xs[r * PTS + j], scale), phase));
+      }
+      ov[e] = __float2bfloat16(v);
+    }
+    const uint4 pk = *reinterpret_cast<const uint4*>(ov);
+    *reinterpret_cast<uint4*>(embs + r * LDE + c0) = pk;
+    if (copy != nullptr) {
+      *reinterpret_cast<uint4*>(copy + size_t(r) * EMB + c0) = pk;
+    }
+  }
+}
+
+// ---- what the single-head backward kernels share (mlp_bwd.cu, mlpe_bwd.cu),
+// in a namespace of its own: mlpv_bwd.cu has another gradient layout
+
+namespace single_head {
+
+constexpr int N_CHAIN_CHUNKS = N_FWD_CHUNKS + N_BWD_CHUNKS;
+constexpr int N_CHAIN_DW_TILES = 30;   // 64-row blocks of the 9 weight gradients
+constexpr int GRAD_FLOATS = 495624;
+static_assert(WSCR_BYTES >= DRAW_BYTES, "the draw tile borrows the warp scratch");
+
+// offsets (in floats) of the 19 gradients in one flat pack-order buffer:
+// n0w n0b n1w n1b n2w n2b n3w n3b n4w n4b n5e n5h n5b n6w n6b n7w n7b ow ob
+constexpr int WW = NW * NW, EW = EMB * NW;
+constexpr int OFF_N0W = 0;
+constexpr int OFF_N0B = OFF_N0W + EW;
+constexpr int OFF_N1W = OFF_N0B + NW;
+constexpr int OFF_N1B = OFF_N1W + WW;
+constexpr int OFF_N2W = OFF_N1B + NW;
+constexpr int OFF_N2B = OFF_N2W + WW;
+constexpr int OFF_N3W = OFF_N2B + NW;
+constexpr int OFF_N3B = OFF_N3W + WW;
+constexpr int OFF_N4W = OFF_N3B + NW;
+constexpr int OFF_N4B = OFF_N4W + WW;
+constexpr int OFF_N5E = OFF_N4B + NW;
+constexpr int OFF_N5H = OFF_N5E + EW;
+constexpr int OFF_N5B = OFF_N5H + WW;
+constexpr int OFF_N6W = OFF_N5B + NW;
+constexpr int OFF_N6B = OFF_N6W + WW;
+constexpr int OFF_N7W = OFF_N6B + NW;
+constexpr int OFF_N7B = OFF_N7W + WW;
+constexpr int OFF_OW = OFF_N7B + NW;
+constexpr int OFF_OB = OFF_OW + NW * OUT;
+static_assert(OFF_OB + OUT == GRAD_FLOATS, "pack-order layout");
+
+struct ChainParams {
+  const bf16* chunk[N_CHAIN_CHUNKS];   // source of each 64-row weight chunk
+  const float* bias[N_LAYERS];         // (256,) f32 per hidden layer
+  const bf16* ow;                      // (256, 8) bf16
+};
+
+// mats: n0w (64x256), n1w..n4w (256x256), n5e (64x256), n5h, n6w, n7w
+//       (256x256), ow (256x8), bf16 row-major (in, out);
+// biases: n0b..n4b, n5b, n6b, n7b (256 f32 each), ob (unused in a backward).
+inline bool fill_chain_params(const void* const* mats, const void* const* biases,
+                              ChainParams& p) {
+  const bf16* m[10];
+  for (int i = 0; i < 10; ++i) m[i] = static_cast<const bf16*>(mats[i]);
+  int g = fill_forward_chunks(m, p.chunk, 0);
+  g = fill_backward_chunks(m, p.chunk, g);
+  for (int i = 0; i < N_LAYERS; ++i) p.bias[i] = static_cast<const float*>(biases[i]);
+  p.ow = m[9];
+  return g == N_CHAIN_CHUNKS;
+}
+
+// dh8 = bf16((bf16(draw) @ ow^T) * (nh8 > 0)) into `dst` and to global; K = 8,
+// on the CUDA cores, one thread per column. `drs`: room for the (128, 8) draw
+// tile (rounded to bf16, rows past n zero); nh8 is the tile `act`.
+__device__ __forceinline__ void dh8_from_draw(const float* __restrict__ draw, long row0,
+                                              int n, const bf16* __restrict__ ow,
+                                              float* drs, const bf16* act, bf16* dst,
+                                              bf16* dh8, int tid) {
+  for (int i = tid; i < TM * OUT; i += THREADS) {
+    const long r = row0 + i / OUT;
+    drs[i] = (r < n) ? __bfloat162float(__float2bfloat16(draw[size_t(r) * OUT + i % OUT]))
+                     : 0.0f;
+  }
+  float w8[OUT];
+#pragma unroll
+  for (int o = 0; o < OUT; ++o) w8[o] = __bfloat162float(ow[tid * OUT + o]);
+  __syncthreads();
+  for (int r = 0; r < TM; ++r) {
+    float s = 0.0f;
+#pragma unroll
+    for (int o = 0; o < OUT; ++o) s += drs[r * OUT + o] * w8[o];
+    const bool on = __bfloat162float(act[r * LDA + tid]) > 0.0f;
+    const bf16 v = __float2bfloat16(on ? s : 0.0f);
+    dst[r * LDA + tid] = v;
+    dh8[size_t(r) * NW + tid] = v;
+  }
+  __syncthreads();
+}
+
+// Sizes of the buffers a single-head backward needs for n points: the bf16
+// scratch (emb copy + nh1..nh8 + dh1..dh8, rows padded to 128) in elements,
+// and the f32 partials (one flat pack-order gradient per 2048-point split).
+inline void chain_bwd_sizes(int n, long long* scratch_elems, long long* partial_floats) {
+  *scratch_elems = (long long)padded_rows(n) * (EMB + 2 * N_LAYERS * NW);
+  *partial_floats = (long long)split_count(n) * GRAD_FLOATS;
+}
+
+// The second pass over a chain kernel's scratch (embp, then nh1..nh8, then
+// dh1..dh8): the 9 products g_W = act^T @ dh in 64-row tiles, the bias sums of
+// dh1 .. dh8, g_ow = nh8^T @ bf16(draw) with g_ob, and the reduction.
+inline int launch_chain_second_pass(bf16* scratch, const float* draw, int n,
+                                    float* partials, float* grads,
+                                    cudaStream_t stream) {
+  const long n_pad = padded_rows(n);
+  const size_t layer_stride = size_t(n_pad) * NW;
+  const bf16* embp = scratch;
+  const bf16* nh = embp + size_t(n_pad) * EMB;
+  const bf16* dh = nh + N_LAYERS * layer_stride;
+  DwParams dp;
+  struct Prod { const bf16* a; int lda; const bf16* b; int off; };
+  auto nh_l = [&](int l) { return nh + size_t(l - 1) * layer_stride; };
+  auto dh_l = [&](int l) { return dh + size_t(l - 1) * layer_stride; };
+  const Prod prods[9] = {
+      {embp, EMB, dh_l(1), OFF_N0W},  {nh_l(1), NW, dh_l(2), OFF_N1W},
+      {nh_l(2), NW, dh_l(3), OFF_N2W}, {nh_l(3), NW, dh_l(4), OFF_N3W},
+      {nh_l(4), NW, dh_l(5), OFF_N4W}, {embp, EMB, dh_l(6), OFF_N5E},
+      {nh_l(5), NW, dh_l(6), OFF_N5H}, {nh_l(6), NW, dh_l(7), OFF_N6W},
+      {nh_l(7), NW, dh_l(8), OFF_N7W}};
+  int t = 0;
+  for (const Prod& pr : prods) {
+    for (int c = 0; c < pr.lda; c += EMB) {
+      dp.tile[t++] = DwTile{pr.a, pr.b, pr.lda, c, EMB, NW, pr.off + c * NW};
+    }
+  }
+  if (t != N_CHAIN_DW_TILES) return int(cudaErrorInvalidValue);
+
+  SmallParams sp;
+  const int bias_off[N_LAYERS] = {OFF_N0B, OFF_N1B, OFF_N2B, OFF_N3B,
+                                  OFF_N4B, OFF_N5B, OFF_N6B, OFF_N7B};
+  for (int l = 0; l < N_LAYERS; ++l) sp.job[l] = SmallJob{dh_l(l + 1), NW, bias_off[l], -1};
+  sp.job[N_LAYERS] = SmallJob{nh_l(8), NW, OFF_OW, OFF_OB};
+
+  return launch_second_pass(dp, N_CHAIN_DW_TILES, sp, N_LAYERS + 1, draw, n,
+                            GRAD_FLOATS, partials, grads, stream);
+}
+
+}  // namespace single_head
 
 }  // namespace

@@ -257,7 +257,7 @@ mlpv_bwd_chain_kernel(const bf16* __restrict__ emb, const bf16* __restrict__ emb
 
   // ---- the dh chain: each step takes the 128 x 256 tile `cur` times W^T
   dh_chain(buf_b, buf_a, stage, wscr, g, prefetch, nh_t, dh_t, layer_stride,
-           demb + size_t(row0) * EMB, rows_left, warp, lane);
+           DembToGlobal{demb + size_t(row0) * EMB, rows_left}, warp, lane);
 }
 
 inline Scratch carve_scratch(void* base, long n_pad) {

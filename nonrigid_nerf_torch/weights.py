@@ -4,7 +4,11 @@ The JAX tree (nonrigid_nerf_tpu/engine/train_state.py:init_params) is
 {"coarse", "fine"?, "bender"?, "latents"} with {"w", "b"} dense leaves,
 `w` stored (fan_in, fan_out). `nn.Linear.weight` is (fan_out, fan_in), so
 every `w` is transposed. The bending output layer has no bias; `latents`
-is the (T, L) table indexed per frame.
+is the (T, L) table indexed per frame. An optional "quant" leaf, the int8
+calibration state {network: {"scales": (9,), "packed": 29-tuple}}, becomes
+the model's `quant` buffers and comes back as it went in: int8 matrices stay
+int8 and the bf16 head stays bf16 (as 2-byte void items where numpy has no
+bfloat16 type, which is also how an npz file holds it).
 """
 
 from __future__ import annotations
@@ -17,7 +21,9 @@ from torch import nn
 
 from nonrigid_nerf_torch.config import ModelConfig
 from nonrigid_nerf_torch.device import DeviceLike
-from nonrigid_nerf_torch.models.model import NRNeRF
+from nonrigid_nerf_torch.models.model import NRNeRF, QuantState
+
+N_PACKED_INT8 = 29      # weights of the int8 kernel in a "quant" leaf
 
 
 def _copy_dense(layer: nn.Linear, leaf: Mapping[str, Any], where: str):
@@ -79,7 +85,41 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
                 _copy_layers(model.bender.rigidity, tree["bender"]["rigidity"],
                              "bender.rigidity")
         model.latents.copy_(torch.from_numpy(latents))
+    if "quant" in tree:
+        model = model.with_quant({
+            network: _quant_state(leaf, f"quant.{network}").to(
+                model.latents.device)
+            for network, leaf in tree["quant"].items()})
     return model
+
+
+def _tensor_from_leaf(a) -> torch.Tensor:
+    """A leaf in its own type: bfloat16 arrives as ml_dtypes' type or, from an
+    npz file, as 2-byte void items, and numpy has neither natively."""
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(
+            np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _leaf_from_tensor(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2")).copy()
+    return t.numpy().copy()
+
+
+def _quant_state(leaf, where: str) -> QuantState:
+    """A tree's quant[network]: {"scales", "packed"}, or the (9,) scales
+    alone (the older form, packed at first use)."""
+    if not isinstance(leaf, Mapping):
+        return QuantState(_tensor_from_leaf(leaf).float())
+    packed = [_tensor_from_leaf(a) for a in leaf["packed"]]
+    if len(packed) != N_PACKED_INT8:
+        raise ValueError(f"{where}.packed: {len(packed)} arrays, the int8 "
+                         f"kernel takes {N_PACKED_INT8}")
+    return QuantState(_tensor_from_leaf(leaf["scales"]).float(), packed)
 
 
 def _jax_path(name: str):
@@ -138,6 +178,15 @@ def named_from_tree(tree: Mapping[str, Any], model: NRNeRF):
 
 
 def params_to_jax(model: NRNeRF):
-    """The model's parameters as the JAX tree (numpy leaves): the inverse of
-    `params_from_jax`."""
-    return tree_from_named(dict(model.named_parameters()))
+    """The model's parameters, and its int8 calibration state where it has
+    one, as the JAX tree (numpy leaves): the inverse of `params_from_jax`."""
+    tree = tree_from_named(dict(model.named_parameters()))
+    if model.quant is not None:
+        tree["quant"] = {}
+        for network, state in model.quant.items():
+            scales = _leaf_from_tensor(state.scales)
+            packed = state.packed
+            tree["quant"][network] = scales if packed is None else {
+                "scales": scales,
+                "packed": tuple(_leaf_from_tensor(t) for t in packed)}
+    return tree

@@ -38,8 +38,10 @@ TRAINING_FILES = ["apps/train.py", "checkpoints.py", "data/__init__.py",
                   "engine/train_state.py", "engine/train_step.py",
                   "ops/kernels/mlp_bwd.py"]
 VIEWDIRS_FILES = ["ops/kernels/mlpv_fwd.py", "ops/kernels/mlpv_bwd.py"]
+OPT_IN_FILES = ["ops/kernels/mlpe_fwd.py", "ops/kernels/mlpe_bwd.py",
+                "ops/kernels/quant_mlp.py"]
 KERNEL_SOURCES = ["mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpv_bwd.cu",
-                  "mlp_tile.cuh"]
+                  "mlpe_fwd.cu", "mlpe_bwd.cu", "mlp_i8.cu", "mlp_tile.cuh"]
 FORBIDDEN = ("jax", "jaxlib", "nonrigid_nerf_tpu")
 
 
@@ -85,6 +87,19 @@ def test_viewdirs_files_are_under_the_import_rule():
         assert "torch/extension.h" not in text       # plain C interfaces
         if name.endswith(".cu"):
             assert '#include "mlp_tile.cuh"' in text and 'extern "C"' in text
+
+
+def test_opt_in_mode_files_are_under_the_import_rule():
+    """The modules of fused_kernel="pts" and "int8": present, under the
+    import rule, and none reaches for a library's product in place of its
+    kernel."""
+    covered = {str(p.relative_to(REPO / "nonrigid_nerf_torch"))
+               for p in PACKAGE_FILES}
+    assert set(OPT_IN_FILES) <= covered
+    for name in OPT_IN_FILES:
+        text = (REPO / "nonrigid_nerf_torch" / name).read_text()
+        assert "_int_mm" not in text and "torch.compile" not in text
+        assert "load_kernel_library" in text
 
 
 def test_library_name_follows_the_source_and_the_shared_header(monkeypatch,

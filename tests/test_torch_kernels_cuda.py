@@ -18,8 +18,11 @@ from nonrigid_nerf_torch.engine.render import make_ray_renderer
 from nonrigid_nerf_torch.models.model import NRNeRF
 from nonrigid_nerf_torch.ops.kernels import mlp_bwd as KB
 from nonrigid_nerf_torch.ops.kernels import mlp_fwd as K
+from nonrigid_nerf_torch.ops.kernels import mlpe_bwd as KEB
+from nonrigid_nerf_torch.ops.kernels import mlpe_fwd as KE
 from nonrigid_nerf_torch.ops.kernels import mlpv_bwd as KVB
 from nonrigid_nerf_torch.ops.kernels import mlpv_fwd as KV
+from nonrigid_nerf_torch.ops.kernels import quant_mlp as KQ
 
 CFG = ModelConfig()          # the flagship: 8 x 256 coarse and fine, bending
 CFG_V = ModelConfig(use_viewdirs=True)     # ... with view directions
@@ -336,3 +339,235 @@ def test_mlpv_core_gradients_match_plain_function_on_cuda(model_v, cuda_device):
                 assert (a - b).abs().max().item() <= KB.grad_max_tol(777) * scale
     assert KV.mlpv_fwd.launches == fwd0 + 1
     assert len(got) == 2 + 16 + 8       # chain 8 x (w, b), heads 4 x (w, b)
+
+
+# ---- fused_kernel="pts": the encoding computed in the kernel
+
+def _bent_pts(n, seed=0):
+    """Points in the range the bent sample points of a scene have: a few
+    units around the origin, so the sines' arguments reach 2^9 * |x| in the
+    thousands of radians."""
+    return (np.random.RandomState(seed).randn(n, 3) * 1.5).astype(np.float32)
+
+
+def _mlp_weights(net, device):
+    return tuple(w.detach().to(device) for w in
+                 K.cast_mlp_weights(K.pack_mlp_weights(net)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 127, 129, 4096 + 5])
+def test_mlpe_kernel_matches_plain_on_cuda(model, cuda_device, n):
+    mw = _mlp_weights(model.coarse, cuda_device)
+    pts = torch.from_numpy(_bent_pts(n, 3)).to(cuda_device)
+    before = KE.mlpe_fwd.launches
+    out = KE.mlpe_fwd(pts, mw)
+    torch.cuda.synchronize()
+    assert KE.mlpe_fwd.launches == before + (n > 0)
+    assert out.shape == (n, K.OUT_PAD) and out.dtype == torch.float32
+    err = (out - KE.mlpe_fwd_plain(pts, mw)).abs()
+    if n:
+        assert err.max().item() <= K.BF16_TOL_MAX
+        assert err.mean().item() <= K.BF16_TOL_MEAN
+    # deterministic: no atomics
+    assert torch.equal(out, KE.mlpe_fwd(pts, mw))
+
+
+@pytest.mark.cuda
+def test_mlpe_kernel_takes_an_unaligned_view_of_the_points(model, cuda_device):
+    """The coordinates are read one f32 at a time: a slice that starts 12
+    bytes into an allocation is as good as the allocation."""
+    mw = _mlp_weights(model.coarse, cuda_device)
+    pts = torch.from_numpy(_bent_pts(301, 4)).to(cuda_device)
+    assert torch.equal(KE.mlpe_fwd(pts[1:], mw), KE.mlpe_fwd(pts, mw)[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 127, 129, 4096 + 5])
+def test_mlpe_bwd_kernel_matches_plain_on_cuda(model, cuda_device, n):
+    mw = _mlp_weights(model.fine, cuda_device)
+    pts = torch.from_numpy(_bent_pts(n, 5)).to(cuda_device)
+    draw = torch.from_numpy(np.random.RandomState(6).randn(n, 8).astype(
+        np.float32)).to(cuda_device)
+    before = KEB.mlpe_bwd.launches
+    got = KEB.mlpe_bwd(pts, mw, draw)
+    torch.cuda.synchronize()
+    assert KEB.mlpe_bwd.launches == before + (n > 0)
+    ref = KEB.mlpe_bwd_plain(pts, mw, draw)
+    assert got[0].shape == (n, 3)
+    for a, b in zip([got[0], *got[1]], [ref[0], *ref[1]]):
+        assert a.shape == b.shape and a.dtype == torch.float32
+    if n:
+        stats = KEB.bwd_agreement(got, ref)
+        assert stats["ok"], stats
+    # deterministic: fixed-order sums, no atomics
+    again = KEB.mlpe_bwd(pts, mw, draw)
+    for a, b in zip([got[0], *got[1]], [again[0], *again[1]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mlpe_bwd_kernel_refuses_more_points_than_one_launch_takes(
+        model, cuda_device, monkeypatch):
+    """One call is one launch: more points than its scratch allows raise,
+    and nothing is launched or counted. The scratch holds the recomputed
+    encoding where `mlp_bwd`'s holds its copy of the encoding, so it is the
+    same 8,320 B per point and the same limit keeps it at 2 GiB."""
+    assert KEB.MAX_POINTS_PER_LAUNCH == KB.MAX_POINTS_PER_LAUNCH == 1 << 18
+    assert KEB.SCRATCH_PER_POINT * 2 == 8320
+    mw = _mlp_weights(model.coarse, cuda_device)
+    pts = torch.from_numpy(_bent_pts(700, 7)).to(cuda_device)
+    draw = torch.from_numpy(np.random.RandomState(8).randn(700, 8).astype(
+        np.float32)).to(cuda_device)
+    monkeypatch.setattr(KEB, "MAX_POINTS_PER_LAUNCH", 256)
+    before = KEB.mlpe_bwd.launches
+    with pytest.raises(ValueError, match="at most 256 points"):
+        KEB.mlpe_bwd(pts, mw, draw)
+    assert KEB.mlpe_bwd.launches == before
+
+
+class _PlainECore(torch.autograd.Function):
+    """MLPECore with both kernels replaced by their plain versions."""
+
+    @staticmethod
+    def forward(ctx, pts, *packed):
+        ctx.save_for_backward(pts, *packed)
+        return KE.mlpe_fwd_plain(pts, K.cast_mlp_weights(packed))
+
+    @staticmethod
+    def backward(ctx, draw):
+        pts, *packed = ctx.saved_tensors
+        dpts, grads = KEB.mlpe_bwd_plain(pts, K.cast_mlp_weights(packed), draw)
+        return (dpts, *grads)
+
+
+@pytest.mark.cuda
+def test_mlpe_core_gradients_match_plain_function_on_cuda(model, cuda_device):
+    """`MLPECore` through torch.autograd.grad, twice over one graph (as the
+    training step does), against the same Function built from the plain
+    versions: gradients reach the points and, through pack_mlp_weights, the
+    nn.Linear parameters. 65541 points: a flipped ReLU gate changes a point's
+    whole row of dpts, amplified by the encoding's 2^k, and among a few
+    hundred points one such row is over the L2 limit on its own."""
+    gpu_model = NRNeRF(CFG, num_timesteps=1, device=cuda_device)
+    gpu_model.load_state_dict(model.state_dict())
+    net = gpu_model.coarse
+    params = list(net.parameters())
+    pts = torch.from_numpy(_bent_pts(65541, 9)).to(cuda_device).requires_grad_(True)
+    cots = [torch.from_numpy(np.random.RandomState(s).randn(65541, 8).astype(
+        np.float32)).to(cuda_device) for s in (10, 11)]
+    fwd0, bwd0 = KE.mlpe_fwd.launches, KEB.mlpe_bwd.launches
+    other0 = (K.mlp_fwd.launches, KB.mlp_bwd.launches)
+    out = KEB.MLPECore.apply(pts, *K.pack_mlp_weights(net))
+    ref = _PlainECore.apply(pts, *K.pack_mlp_weights(net))
+    for k, cot in enumerate(cots):
+        got = torch.autograd.grad(out, [pts] + params, cot, retain_graph=True)
+        want = torch.autograd.grad(ref, [pts] + params, cot, retain_graph=True)
+        assert KEB.mlpe_bwd.launches == bwd0 + k + 1
+        assert got[0].shape == (65541, 3)
+        for i, (a, b) in enumerate(zip(got, want)):
+            l2 = (torch.linalg.vector_norm(a - b)
+                  / torch.linalg.vector_norm(b)).item()
+            assert l2 <= KB.BWD_TOL_L2, (k, i, l2)
+            if i:       # parameters sum over the points; pts has gate flips
+                scale = b.abs().max().item()
+                assert (a - b).abs().max().item() <= KB.grad_max_tol(65541) * scale
+    assert KE.mlpe_fwd.launches == fwd0 + 1
+    assert (K.mlp_fwd.launches, KB.mlp_bwd.launches) == other0
+
+
+@pytest.mark.cuda
+def test_pts_renderer_on_cuda_runs_mlpe_and_matches_cpu(model, cuda_device):
+    """fused_kernel="pts" on the card launches `mlpe_fwd` once per pass and
+    block, `mlp_fwd` never, and renders what the CPU renders with the plain
+    version, up to the order of the f32 sums."""
+    cfg = ModelConfig(fused_kernel="pts")
+    rs = RenderSettings(N_samples=16, N_importance=16, near=0.1,
+                        far=1.6).test_mode()
+    rng = np.random.RandomState(1)
+    ro = np.tile([[0.0, 0.0, 0.6]], (64, 1)).astype(np.float32)
+    rd = np.concatenate([rng.uniform(-0.4, 0.4, (64, 2)),
+                         -np.ones((64, 1))], 1).astype(np.float32)
+    lat = model.latents.detach().expand(64, -1)
+    args = (torch.from_numpy(ro), torch.from_numpy(rd), lat)
+    gpu_model = NRNeRF(CFG, num_timesteps=1, device=cuda_device)
+    gpu_model.load_state_dict(model.state_dict())
+    before, other = KE.mlpe_fwd.launches, K.mlp_fwd.launches
+    gpu = make_ray_renderer(cfg, rs, chunk=64, device=cuda_device)(
+        gpu_model, *(a.to(cuda_device) for a in args))
+    torch.cuda.synchronize()
+    assert KE.mlpe_fwd.launches == before + 2
+    assert K.mlp_fwd.launches == other
+    cpu = make_ray_renderer(cfg, rs, chunk=64, device="cpu")(model, *args)
+    for key in ("rgb_map", "disp_map", "acc_map"):
+        np.testing.assert_allclose(gpu[key].cpu().numpy(), cpu[key].numpy(),
+                                   rtol=1e-3, atol=1e-3, err_msg=key)
+
+
+# ---- fused_kernel="int8"
+
+def _int8_weights(net, device, seed=0):
+    """The 29 packed int8 weights of `net` on `device`, calibrated on
+    encodings from a seed."""
+    scales = KQ.calibrate_act_scales(net, torch.from_numpy(_emb(2048, seed)))
+    return tuple(w.to(device) for w in KQ.pack_int8_mlp_weights(net, scales))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 127, 129, 4096 + 5])
+def test_int8_kernel_matches_plain_on_cuda(model, cuda_device, n):
+    qw = _int8_weights(model.coarse, cuda_device)
+    emb = torch.from_numpy(_emb(n, 3)).to(cuda_device).to(torch.bfloat16)
+    before = KQ.mlp_i8.launches
+    out = KQ.mlp_i8(emb, qw)
+    torch.cuda.synchronize()
+    assert KQ.mlp_i8.launches == before + (n > 0)
+    assert out.shape == (n, K.OUT_PAD) and out.dtype == torch.float32
+    ref = KQ.mlp_i8_plain(emb, qw)
+    if n:
+        # every layer up to h8 is bit-equal; the head's f32 sums differ in order
+        assert (out - ref).abs().max().item() <= KQ.I8_TOL_MAX
+        # and the quantized path stays near the bf16 one
+        bf = K.mlp_fwd_plain(emb, _mlp_weights(model.coarse, cuda_device))
+        assert ((out - bf).abs().mean() / bf.abs().mean()).item() < 0.02
+    # deterministic: no atomics
+    assert torch.equal(out, KQ.mlp_i8(emb, qw))
+
+
+@pytest.mark.cuda
+def test_int8_renderer_on_cuda_runs_mlp_i8_and_matches_cpu(model, cuda_device):
+    """After `quantize_for_inference`, fused_kernel="int8" on the card
+    launches `mlp_i8` once per pass and block, `mlp_fwd` never, and renders
+    what the CPU renders with the plain version."""
+    cfg = ModelConfig(fused_kernel="int8")
+    rs = RenderSettings(N_samples=16, N_importance=16, near=0.1,
+                        far=1.6).test_mode()
+    rng = np.random.RandomState(1)
+    ro = np.tile([[0.0, 0.0, 0.6]], (64, 1)).astype(np.float32)
+    rd = np.concatenate([rng.uniform(-0.4, 0.4, (64, 2)),
+                         -np.ones((64, 1))], 1).astype(np.float32)
+    lat = model.latents.detach().expand(64, -1)
+    args = (torch.from_numpy(ro), torch.from_numpy(rd), lat)
+    gpu_model = NRNeRF(CFG, num_timesteps=1, device=cuda_device)
+    gpu_model.load_state_dict(model.state_dict())
+    gpu_args = tuple(a.to(cuda_device) for a in args)
+    with pytest.raises(ValueError, match="quantize_for_inference"):
+        make_ray_renderer(cfg, rs, chunk=64, device=cuda_device)(
+            gpu_model, *gpu_args)
+    gpu_q = KQ.quantize_for_inference(gpu_model, CFG, *gpu_args, 0.1, 1.6,
+                                      n_rays=32, n_samples=16)
+    assert gpu_model.quant is None
+    assert gpu_q.quant["fine"].p0.device.type == "cuda"
+    before, other = KQ.mlp_i8.launches, K.mlp_fwd.launches
+    gpu = make_ray_renderer(cfg, rs, chunk=64, device=cuda_device)(
+        gpu_q, *gpu_args)
+    torch.cuda.synchronize()
+    assert KQ.mlp_i8.launches == before + 2
+    assert K.mlp_fwd.launches == other
+    cpu_q = KQ.quantize_for_inference(model, CFG, *args, 0.1, 1.6, n_rays=32,
+                                      n_samples=16)
+    cpu = make_ray_renderer(cfg, rs, chunk=64, device="cpu")(cpu_q, *args)
+    # the two calibrations may differ in a scale's last bit (f32 sums in
+    # another order), which moves single activations by one int8 step
+    for key in ("rgb_map", "acc_map"):
+        assert np.abs(gpu[key].cpu().numpy() - cpu[key].numpy()).mean() < 5e-3

@@ -195,9 +195,21 @@ class TestFusedKernelPredicate:
 
     @pytest.mark.parametrize("mode", ["pts", "int8"])
     def test_unported_modes_raise(self, mode):
-        with pytest.raises(NotImplementedError):
-            t_query.use_fused_kernel(self.cfg(mode), t_config.EditConfig(),
-                                     self.CUDA)
+        """The two opt-in modes are ported: both take the kernels on either
+        device. What raises now is a mode that does not exist, and "pts"
+        outside its support; "int8" outside its support takes the f32 path
+        (tests/test_torch_mlpe_kernel.py, tests/test_torch_quant.py)."""
+        edit = t_config.EditConfig()
+        assert t_query.use_fused_kernel(self.cfg(mode), edit, self.CUDA)
+        assert t_query.use_fused_kernel(self.cfg(mode), edit, self.CPU)
+        with pytest.raises(ValueError, match="unknown fused_kernel"):
+            t_query.use_fused_kernel(self.cfg(mode + "2"), edit, self.CUDA)
+        views = self.cfg(mode, use_viewdirs=True)
+        if mode == "pts":
+            with pytest.raises(ValueError, match="outside the kernel"):
+                t_query.use_fused_kernel(views, edit, self.CUDA)
+        else:
+            assert not t_query.use_fused_kernel(views, edit, self.CUDA)
 
     def test_renderer_checks_mode_when_built(self):
         with pytest.raises(ValueError):

@@ -257,11 +257,15 @@ def test_what_is_still_not_ported_raises():
     with pytest.raises(NotImplementedError, match="compute_dtype"):
         check_nerf_supported(t_config.ModelConfig(use_viewdirs=True,
                                                   compute_dtype="bfloat16"))
-    for mode in ("pts", "int8"):
-        with pytest.raises(NotImplementedError):
-            t_query.use_fused_kernel(
-                t_config.ModelConfig(use_viewdirs=True, fused_kernel=mode),
-                t_config.EditConfig(), torch.device("cuda"))
+    # the two opt-in modes are ported for the single-head MLP only: with
+    # view directions "pts" raises and "int8" takes the plain f32 MLP
+    with pytest.raises(ValueError, match="outside the kernel's support"):
+        t_query.use_fused_kernel(
+            t_config.ModelConfig(use_viewdirs=True, fused_kernel="pts"),
+            t_config.EditConfig(), torch.device("cuda"))
+    assert not t_query.use_fused_kernel(
+        t_config.ModelConfig(use_viewdirs=True, fused_kernel="int8"),
+        t_config.EditConfig(), torch.device("cuda"))
 
 
 # ---- parameters and checkpoints
