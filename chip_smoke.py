@@ -9,7 +9,10 @@ the same config with use_viewdirs=True (`mlpv_fwd`, `mlpv_bwd`). Then the
 flagship's two opt-in kernel modes: fused_kernel="pts" (`mlpe_fwd`,
 `mlpe_bwd`: the Fourier encoding computed inside the kernels; rendered and
 trained) and fused_kernel="int8" (`mlp_i8`; rendered, after
-`quantize_for_inference` on the first pose's rays).
+`quantize_for_inference` on the first pose's rays). Last, the fused point
+query's two entry points, `fused_point_query` (`fused_fwd`, `fused_bwd`)
+and `fused_point_query_split` (`bend_fwd`, `mlp_fwd`; `mlp_bwd`,
+`bend_bwd`), on the flagship's parameters.
 
 Phases (each raises on failure; the exit code is then non-zero and no
 result line is printed):
@@ -51,7 +54,18 @@ result line is printed):
    and the latents' gradients included; with view directions in both
    direction modes); a checkpoint saved, loaded and stepped once, bit-equal
    to the step without the round trip; a profile of a few steps.
-5. Print the kernels JSON line and, last, the result line
+5. The fused point query: each of its four kernels against its plain
+   version at a render block's coarse pass (2^21 points, forwards) and a
+   training step's two passes (65,536 and 131,072 points, forwards and
+   backwards), bit-equal on relaunch, timed beside its plain version, its
+   roofline bound and the same products as cuBLAS bf16 matmuls; then both
+   entry points at the three sizes (backward through autograd on the JAX
+   tests' loss at the training sizes), launch counts set to 0 just before
+   and read just after each call, the split held bit-equal to the monolith
+   and the gradients against the f32 modules'; and `fused_fwd` against what
+   the engine spends on the same function (the f32 bender, then
+   `mlpe_fwd`).
+6. Print the kernels JSON line and, last, the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -197,12 +211,14 @@ def synthetic_dataset(device):
 
 def kernel_wrappers():
     """Every kernel's wrapper by name: each counts its launches."""
-    from nonrigid_nerf_torch.ops.kernels import (mlp_bwd, mlp_fwd, mlpe_bwd,
-                                                 mlpe_fwd, mlpv_bwd, mlpv_fwd,
-                                                 quant_mlp)
+    from nonrigid_nerf_torch.ops.kernels import (bend_bwd, bend_fwd, fused_bwd,
+                                                 fused_fwd, mlp_bwd, mlp_fwd,
+                                                 mlpe_bwd, mlpe_fwd, mlpv_bwd,
+                                                 mlpv_fwd, quant_mlp)
     wrappers = (mlp_fwd.mlp_fwd, mlp_bwd.mlp_bwd, mlpv_fwd.mlpv_fwd,
                 mlpv_bwd.mlpv_bwd, mlpe_fwd.mlpe_fwd, mlpe_bwd.mlpe_bwd,
-                quant_mlp.mlp_i8)
+                quant_mlp.mlp_i8, bend_fwd.bend_fwd, bend_bwd.bend_bwd,
+                fused_fwd.fused_fwd, fused_bwd.fused_bwd)
     return {w.__name__: w for w in wrappers}
 
 
@@ -1046,6 +1062,381 @@ def kernel_rows(fam, sizes, fwd_checks, bwd_checks, render_launches,
     return [fwd_row, bwd_row]
 
 
+# ---- the fused point query (fused_point_query, fused_point_query_split)
+
+FUSED_REPLACES = {
+    "bend_fwd": "nonrigid_nerf_tpu/ops/pallas/fused_query.py:635",
+    "bend_bwd": "nonrigid_nerf_tpu/ops/pallas/fused_query.py:660",
+    "fused_fwd": "nonrigid_nerf_tpu/ops/pallas/fused_query.py:289",
+    "fused_bwd": "nonrigid_nerf_tpu/ops/pallas/fused_query.py:478",
+}
+# the entry points' gradients against the f32 modules': the JAX package's
+# bound for its kernels against its XLA path (tests/test_fused_kernel.py:
+# 132-153), which holds without the raised density bias of `flagship_model`
+# (tests/test_torch_fused_query.py says why)
+FUSED_F32_GRAD_TOL = 0.06
+
+
+def fused_inputs(model, n, device, seed):
+    """Points where the synthetic scene's bent points lie (as for "pts"), and
+    each point's latent from the model's latent table (a frame at random)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand((n, 3), generator=gen, device=device)
+    lo = torch.tensor([-0.8, -0.8, -1.0], device=device)
+    hi = torch.tensor([0.8, 0.8, 0.5], device=device)
+    frame = torch.randint(0, model.latents.shape[0], (n,), generator=gen,
+                          device=device)
+    return lo + (hi - lo) * u, model.latents.detach()[frame].contiguous(), gen
+
+
+def bend_chain_bf16(pts, lat, bw):
+    """The bender's products as cuBLAS bf16 matmuls, the elementwise work
+    around them and the encoding (a yardstick only: the port never calls
+    it). Returns (emb f32, activations)."""
+    from nonrigid_nerf_torch.ops.embedding import fourier_embed
+    (b0p, b0l, b0b, b1w, b1b, b2w, b2b, b3w, b3b, bow,
+     r0w, r0b, r1w, r1b, row, rob, _, _) = bw
+    bf16 = torch.bfloat16
+    ptsb, latb = pts.to(bf16), lat.to(bf16)
+    bh = [torch.relu(ptsb @ b0p[:3] + latb @ b0l + b0b).to(bf16)]
+    for w, b in ((b1w, b1b), (b2w, b2b), (b3w, b3b)):
+        bh.append(torch.relu(bh[-1] @ w + b).to(bf16))
+    off = (bh[3] @ bow[:, :3]).float()
+    rh0 = torch.relu(ptsb @ r0w[:3] + r0b).to(bf16)
+    rh1 = torch.relu(rh0 @ r1w + r1b).to(bf16)
+    rig = (torch.tanh(rh1 @ row[:, :1] + rob[:, :1]) + 1.0) * 0.5
+    bent = pts + rig * off
+    emb = torch.nn.functional.pad(fourier_embed(bent, 10), (0, 1))
+    return emb, dict(ptsb=ptsb, latb=latb, bh=bh, rh0=rh0, rh1=rh1, off=off,
+                     rig=rig, bent=bent)
+
+
+def bend_bwd_chain_bf16(pts, lat, bw, demb, doff, drig):
+    """The bender's backward as cuBLAS bf16 matmuls (a yardstick only)."""
+    (b0p, b0l, _, b1w, _, b2w, _, b3w, _, bow,
+     r0w, _, r1w, _, row, _, P, phase) = bw
+    bf16 = torch.bfloat16
+    _, a = bend_chain_bf16(pts, lat, bw)
+    dbent = (demb * torch.cos(a["bent"] @ P[:3] + phase)) @ P[:3].t()
+    doff_t = (dbent * a["rig"] + doff).to(bf16)
+    drig_raw = ((drig + (dbent * a["off"]).sum(1, keepdim=True))
+                * 2.0 * a["rig"] * (1.0 - a["rig"])).to(bf16)
+    grads = [a["rh1"].t() @ drig_raw]
+    g = (drig_raw @ row[:, :1].t()) * (a["rh1"] > 0)
+    grads.append(a["rh0"].t() @ g)
+    g = (g @ r1w.t()) * (a["rh0"] > 0)
+    grads.append(a["ptsb"].t() @ g)
+    dpts = g @ r0w[:3].t()
+    grads.append(a["bh"][3].t() @ doff_t)
+    g = (doff_t @ bow[:, :3].t()) * (a["bh"][3] > 0)
+    for layer, w in ((2, b3w), (1, b2w), (0, b1w)):
+        grads.append(a["bh"][layer].t() @ g)
+        g = (g @ w.t()) * (a["bh"][layer] > 0)
+    grads += [a["ptsb"].t() @ g, a["latb"].t() @ g]
+    return dbent + dpts + g @ b0p[:3].t(), g @ b0l.t(), grads
+
+
+def fused_weights(model, device, network):
+    from nonrigid_nerf_torch.ops.kernels import fused_fwd as FF
+    from nonrigid_nerf_torch.ops.kernels import fused_query as FQ
+    with torch.no_grad():
+        return tuple(w.detach().to(device) for w in FF.cast_fused_weights(
+            FQ.pack_fused_weights(model, network=network)))
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """The device time of fn per call, without the host's gaps between calls
+    that a CUDA-event timing of a kernel shorter than its wrapper's host time
+    includes: a spin kernel (about 50 ms) holds the stream until the host has
+    queued all the calls, so the events time them back to back."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def timings(kernel, plain, chain, flops, nbytes):
+    """ms of the kernel (CUDA events over 10 calls, with and without the
+    host's gaps between them), of its plain version and of the bf16
+    yardstick, and the roofline bound."""
+    ms = cuda_time_ms(kernel, 10)
+    kernel_device_ms = device_ms(kernel)
+    plain_ms = cuda_time_ms(plain, 3, warmup=1)
+    chain_ms = cuda_time_ms(chain, 10)
+    bound_ms, bound_by = roofline(flops, nbytes)
+    return dict(ms=ms, device_ms=kernel_device_ms, plain_ms=plain_ms,
+                matmul_chain_bf16_ms=chain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def log_timing(name, n, t):
+    log(f"{name} n={n}: kernel {t['ms']:.4f} ms (device time "
+        f"{t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, bf16 matmul "
+        f"chain {t['matmul_chain_bf16_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']})")
+
+
+def check_fused_forwards(model, n, device, network):
+    """`bend_fwd` and `fused_fwd` against their plain versions at n points,
+    bit-equal on relaunch, with timings."""
+    from nonrigid_nerf_torch.ops.kernels import bend_fwd as BF
+    from nonrigid_nerf_torch.ops.kernels import fused_fwd as FF
+    from nonrigid_nerf_torch.ops.kernels import mlp_fwd as K
+    w = fused_weights(model, device, network)
+    bw = w[:18]
+    pts, lat, _ = fused_inputs(model, n, device, SEED + n)
+    got = BF.bend_fwd(pts, lat, bw)
+    errs = BF.bend_fwd_agreement(got, BF.bend_fwd_plain(pts, lat, bw))
+    torch.cuda.synchronize()
+    log(f"bend_fwd n={n}: emb mean abs err {errs['emb_mean']:.3e} (tol "
+        f"{BF.BEND_TOL_EMB_MEAN:.0e}), share of entries off by over "
+        f"{BF.BEND_TOL_EMB_ENTRY:.0e} {errs['emb_outliers']:.3e} (tol "
+        f"{BF.BEND_TOL_EMB_OUTLIERS:.0e}), worst {errs['emb_max']:.3e}; off "
+        f"{errs['off']:.3e} (tol {BF.BEND_TOL_OFF:.0e}), rig {errs['rig']:.3e} "
+        f"(tol {BF.BEND_TOL_RIG:.0e})")
+    if not errs["ok"]:
+        raise AssertionError(f"bend_fwd disagrees with its plain version: {errs}")
+    if not all(torch.equal(a, b) for a, b in zip(got, BF.bend_fwd(pts, lat, bw))):
+        raise AssertionError("bend_fwd is not deterministic")
+    bend_t = timings(lambda: BF.bend_fwd(pts, lat, bw),
+                     lambda: BF.bend_fwd_plain(pts, lat, bw),
+                     lambda: bend_chain_bf16(pts, lat, bw),
+                     2.0 * BF.BEND_MACS_PER_POINT * n,
+                     tensor_bytes(pts, lat, *got, *bw[:16]))
+    log_timing("bend_fwd", n, bend_t)
+
+    out = FF.fused_fwd(pts, lat, w)
+    ferrs = FF.fused_fwd_agreement(out, FF.fused_fwd_plain(pts, lat, w))
+    torch.cuda.synchronize()
+    log(f"fused_fwd n={n}: raw max abs err {ferrs['raw_max']:.3e} (tol "
+        f"{FF.FUSED_TOL_RAW_MAX:.0e}), mean {ferrs['raw_mean']:.3e} (tol "
+        f"{K.BF16_TOL_MEAN:.0e}); off {ferrs['off']:.3e}, rig {ferrs['rig']:.3e}")
+    if not ferrs["ok"]:
+        raise AssertionError(f"fused_fwd disagrees with its plain version: {ferrs}")
+    if not all(torch.equal(a, b) for a, b in zip(out, FF.fused_fwd(pts, lat, w))):
+        raise AssertionError("fused_fwd is not deterministic")
+    fam = Family("plain")
+    fused_t = timings(lambda: FF.fused_fwd(pts, lat, w),
+                      lambda: FF.fused_fwd_plain(pts, lat, w),
+                      lambda: fam.fwd_chain_bf16(
+                          (bend_chain_bf16(pts, lat, bw)[0].to(torch.bfloat16),),
+                          w[18:]),
+                      2.0 * (K.MACS_PER_POINT + BF.BEND_MACS_PER_POINT) * n,
+                      tensor_bytes(pts, lat, *out, *bw[:16], *w[18:]))
+    log_timing("fused_fwd", n, fused_t)
+    return (dict(max_abs_err=errs["emb_max"], errors=errs, **bend_t),
+            dict(max_abs_err=ferrs["raw_max"], errors=ferrs, **fused_t))
+
+
+def check_fused_backwards(model, n, device, network):
+    """`bend_bwd` and `fused_bwd` against their plain versions at n points,
+    bit-equal on relaunch, with timings."""
+    from nonrigid_nerf_torch.ops.kernels import bend_bwd as BB
+    from nonrigid_nerf_torch.ops.kernels import fused_bwd as FB
+    w = fused_weights(model, device, network)
+    bw = w[:18]
+    pts, lat, gen = fused_inputs(model, n, device, SEED + n + 1)
+
+    def randn(cols, scale=1.0):
+        return scale * torch.randn((n, cols), generator=gen, device=device)
+
+    results = []
+    for name, fn, plain, agree, cots, macs, chain in (
+            ("bend_bwd", BB.bend_bwd, BB.bend_bwd_plain, BB.bend_bwd_agreement,
+             (randn(64, 0.1), randn(3), randn(1)), BB.BEND_BWD_MACS_PER_POINT,
+             lambda c: bend_bwd_chain_bf16(pts, lat, bw, *c)),
+            ("fused_bwd", FB.fused_bwd, FB.fused_bwd_plain,
+             FB.fused_bwd_agreement, (randn(8), randn(3), randn(1)),
+             FB.FUSED_BWD_MACS_PER_POINT,
+             lambda c: fused_bwd_chain_bf16(pts, lat, w, *c))):
+        weights = bw if name == "bend_bwd" else w
+        got = fn(pts, lat, weights, *cots)
+        ref = plain(pts, lat, weights, *cots)
+        torch.cuda.synchronize()
+        stats = agree(got, ref)
+        log(f"{name} n={n}: {len(got[2])} gradients max err "
+            f"{stats['grad_max_rel']:.3e} of max magnitude, L2 "
+            f"{stats['grad_l2_rel']:.3e}; dpts and dlat L2 "
+            f"{stats['demb_l2_rel']:.3e}, outliers {stats['demb_outliers']:.3e}, "
+            f"worst {stats['demb_max_rel']:.3e}")
+        log(f"{name} max abs err of each array over its max magnitude: "
+            + " ".join(f"{k}={v:.2e}" for k, v in stats["max_rel"].items()))
+        if not stats["ok"]:
+            raise AssertionError(f"{name} disagrees with its plain version: "
+                                 f"{stats}")
+        again = fn(pts, lat, weights, *cots)
+        if not all(torch.equal(a, b) for a, b in zip(
+                [got[0], got[1], *got[2]], [again[0], again[1], *again[2]])):
+            raise AssertionError(f"{name} is not deterministic")
+        t = timings(lambda: fn(pts, lat, weights, *cots),
+                    lambda: plain(pts, lat, weights, *cots),
+                    lambda: chain(cots), 2.0 * macs * n,
+                    tensor_bytes(pts, lat, *cots, got[0], got[1], *got[2],
+                                 *weights[:16], *weights[18:]))
+        log_timing(name, n, t)
+        results.append(dict(max_abs_err=stats["grad_max_rel"], agreement=stats,
+                            **t))
+    return results
+
+
+def fused_bwd_chain_bf16(pts, lat, w, draw, doff, drig):
+    """The fused backward as cuBLAS bf16 matmuls (a yardstick only): the
+    canonical MLP's, then the bender's."""
+    embb = bend_chain_bf16(pts, lat, w[:18])[0].to(torch.bfloat16)
+    demb, _, _ = Family("plain").bwd_chain_bf16((embb,), w[18:],
+                                                draw.to(torch.bfloat16))
+    return bend_bwd_chain_bf16(pts, lat, w[:18], demb.float(), doff, drig)
+
+
+def entry_point_runs(model, model_unshifted, sizes, device):
+    """Both entry points at each (points, network, backward?) of `sizes`,
+    launch counts set to 0 just before each call and read just after; the
+    split held bit-equal to the monolith; with a backward, the gradients
+    against the f32 modules' (on the parameters without the raised density
+    bias). Returns the launches by kernel, summed over the calls."""
+    from nonrigid_nerf_torch.ops.embedding import fourier_embed
+    from nonrigid_nerf_torch.ops.kernels import fused_query as FQ
+
+    def loss_of(raw, off, rig):      # the JAX tests' loss
+        return (raw ** 2).mean() + 10 * (off ** 2).mean() + (rig ** 2).mean()
+
+    def run(entry, m, pts, lat, network, backward):
+        names = [k for k, _ in m.named_parameters()
+                 if k.startswith((network + ".", "bender."))]
+        params = dict(m.named_parameters())
+        if not backward:
+            with torch.no_grad():
+                return entry(m, pts, lat, network=network), {}
+        p, l = pts.clone().requires_grad_(True), lat.clone().requires_grad_(True)
+        out = entry(m, p, l, network=network)
+        grads = torch.autograd.grad(loss_of(*out), [p, l] + [params[k] for k in names])
+        return out, dict(zip(["pts", "lat"] + names, grads))
+
+    total = {}
+    for n, network, backward in sizes:
+        pts, lat, _ = fused_inputs(model, n, device, SEED + 3 * n)
+        results = {}
+        for label, entry, want in (
+                ("fused_point_query", FQ.fused_point_query,
+                 {"fused_fwd": 1, "fused_bwd": int(backward)}),
+                ("fused_point_query_split", FQ.fused_point_query_split,
+                 {"bend_fwd": 1, "mlp_fwd": 1, "mlp_bwd": int(backward),
+                  "bend_bwd": int(backward)})):
+            reset_launch_counts()
+            results[label] = run(entry, model, pts, lat, network, backward)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            expected = {k: want.get(k, 0) for k in counts}
+            log(f"{label} n={n} ({network}{', backward' if backward else ''}): "
+                f"launches {dict((k, v) for k, v in counts.items() if v)} "
+                f"(expected {dict((k, v) for k, v in expected.items() if v)}, "
+                "every other kernel 0)")
+            if counts != expected:
+                raise AssertionError(f"{label} did not run its kernels once each")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        (mono, mono_g), (split, split_g) = results.values()
+        same = all(torch.equal(a, b) for a, b in zip(mono, split)) and \
+            mono_g.keys() == split_g.keys() and \
+            all(torch.equal(mono_g[k], split_g[k]) for k in mono_g)
+        log(f"split vs monolith n={n}: bit-equal in value"
+            f"{' and every gradient' if backward else ''} = {same}")
+        if not same:
+            raise AssertionError("the split entry point disagrees with the "
+                                 "monolith")
+        if not all(torch.isfinite(t).all() for t in (*mono, *mono_g.values())):
+            raise AssertionError("non-finite outputs or gradients")
+        if backward:
+            def f32_path(m, x, l, network):
+                bent, det = m.bender(x, l)
+                raw = m.network(network)(fourier_embed(bent, 10))
+                return raw, det["unmasked_offsets"], det["rigidity_mask"]
+
+            _, got = run(FQ.fused_point_query, model_unshifted, pts, lat,
+                         network, True)
+            _, want = run(f32_path, model_unshifted, pts, lat, network, True)
+            rel = {k: ((got[k] - want[k]).abs().max()
+                       / want[k].abs().max().clamp_min(1e-6)).item()
+                   for k in got if k not in ("pts", "lat")}
+            worst = max(rel, key=rel.get)
+            log(f"fused_point_query n={n} gradients vs the f32 modules: worst "
+                f"{rel[worst]:.4f} of max magnitude ({worst}) over {len(rel)} "
+                f"parameters (need < {FUSED_F32_GRAD_TOL})")
+            if rel[worst] >= FUSED_F32_GRAD_TOL:
+                raise AssertionError("the entry point's gradients disagree "
+                                     "with the f32 modules'")
+    return total
+
+
+def fused_query_phase(cfg, device, smi, sizes):
+    """Phase 5: the four kernels against their plain versions, the entry
+    points with their launch counts, the comparison with the engine's stage
+    1 + `mlpe_fwd`. `sizes` = (render block's coarse pass, a training step's
+    coarse and fine passes). Returns (the four kernels rows, results)."""
+    from nonrigid_nerf_torch.ops.kernels import mlp_fwd as K
+    from nonrigid_nerf_torch.ops.kernels import mlpe_fwd as KE
+    n_render, n_train, n_train_fine = sizes
+    model = flagship_model(cfg, device)
+    model_unshifted = copy.deepcopy(model)
+    with torch.no_grad():
+        for net in (model_unshifted.coarse, model_unshifted.fine):
+            net.output.bias[3] -= 1.0
+    with torch.no_grad():
+        fwd = [check_fused_forwards(model, n, device, net)
+               for n, net in ((n_render, "coarse"), (n_train, "coarse"),
+                              (n_train_fine, "fine"))]
+        bwd = [check_fused_backwards(model, n, device, net)
+               for n, net in ((n_train, "coarse"), (n_train_fine, "fine"))]
+    launches = entry_point_runs(
+        model, model_unshifted, ((n_render, "coarse", False),
+                                 (n_train, "coarse", True),
+                                 (n_train_fine, "fine", True)), device)
+
+    # what the engine spends on the same function today: the f32 bender
+    # (bend_encode_stage's products) and mlpe_fwd on the bent points
+    pts, lat, _ = fused_inputs(model, n_render, device, SEED)
+    with torch.no_grad():
+        mw = tuple(t.detach() for t in K.cast_mlp_weights(
+            K.pack_mlp_weights(model.coarse)))
+        bender_ms = cuda_time_ms(lambda: model.bender(pts, lat), 5)
+        engine_ms = cuda_time_ms(lambda: KE.mlpe_fwd(model.bender(pts, lat)[0], mw),
+                                 5)
+    fused_ms = fwd[0][1]["ms"]
+    log(f"fused_fwd against the engine at {n_render} points: fused_fwd "
+        f"{fused_ms:.4f} ms; the f32 bender {bender_ms:.4f} ms, then mlpe_fwd: "
+        f"{engine_ms:.4f} ms in all ({engine_ms / fused_ms:.3f} x); {smi}")
+
+    src = "nonrigid_nerf_torch/ops/kernels/csrc/"
+    rows = []
+    for name, checks, points in (
+            ("bend_fwd", [f[0] for f in fwd], (n_render, n_train, n_train_fine)),
+            ("bend_bwd", [b[0] for b in bwd], (n_train, n_train_fine)),
+            ("fused_fwd", [f[1] for f in fwd], (n_render, n_train, n_train_fine)),
+            ("fused_bwd", [b[1] for b in bwd], (n_train, n_train_fine))):
+        head = checks[0]
+        rows.append({"name": name, "route": "cuda", "source": f"{src}{name}.cu",
+                     "replaces": FUSED_REPLACES[name],
+                     "launches": launches[name],
+                     "max_abs_err": max(c["max_abs_err"] for c in checks),
+                     "ms": head["ms"], "plain_ms": head["plain_ms"],
+                     "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                     "library_ms": None, "points": points[0],
+                     "device_ms": head["device_ms"],
+                     "matmul_chain_bf16_ms": head["matmul_chain_bf16_ms"],
+                     "other_sizes": [{"points": p, **{k: v for k, v in c.items()
+                                                      if k != "agreement"}}
+                                     for p, c in zip(points[1:], checks[1:])]})
+    return rows, dict(engine_stage1_mlpe_ms=engine_ms, bender_f32_ms=bender_ms,
+                      fused_fwd_ms=fused_ms, points=n_render, gpu=smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -1072,7 +1463,8 @@ def main() -> int:
 
     # ---- phase 1: build, one nvcc per source, side by side
     sources = ("mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpv_bwd.cu",
-               "mlpe_fwd.cu", "mlpe_bwd.cu", "mlp_i8.cu")
+               "mlpe_fwd.cu", "mlpe_bwd.cu", "mlp_i8.cu", "bend_fwd.cu",
+               "bend_bwd.cu", "fused_fwd.cu", "fused_bwd.cu")
     t0 = time.perf_counter()
     build.load_kernel_libraries(sources)
     log(f"build {', '.join(sources)}: {time.perf_counter() - t0:.2f} s in all")
@@ -1146,6 +1538,13 @@ def main() -> int:
     rows.append(int8_row(sizes, i8_checks, i8_launches))
     log(f"int8 done: {time.perf_counter() - t_start:.1f} s since the start")
 
+    # ---- the fused point query: its four kernels and both entry points
+    fused_rows, fused_vs_engine = fused_query_phase(
+        cfg_plain, device, smi, (n_coarse, n_bwd_coarse, n_bwd_fine))
+    rows += fused_rows
+    log(f"fused point query done: {time.perf_counter() - t_start:.1f} s since "
+        "the start")
+
     # the three modes of the flagship side by side, from this run
     by_mode = {r["fused_kernel"]: r for r in renders if not r["use_viewdirs"]}
     log("flagship frame, s/frame: " + ", ".join(
@@ -1159,12 +1558,13 @@ def main() -> int:
         f"{t['fused_kernel']} {t['steps_per_s']:.2f} (device "
         f"{t['profile']['device_busy_ms'] / PROFILE_STEPS:.2f} ms/step)"
         for t in trains if not t["use_viewdirs"]) + f"; {smi}")
-    if len(rows) != 7:
-        raise AssertionError(f"{len(rows)} kernel rows, 7 kernels")
+    if len(rows) != 11:
+        raise AssertionError(f"{len(rows)} kernel rows, 11 kernels")
 
     # ---- phase 5: results
     log(json.dumps({"render": renders}))
     log(json.dumps({"train": trains}))
+    log(json.dumps({"fused_fwd_vs_engine": fused_vs_engine}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

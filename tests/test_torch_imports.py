@@ -40,8 +40,13 @@ TRAINING_FILES = ["apps/train.py", "checkpoints.py", "data/__init__.py",
 VIEWDIRS_FILES = ["ops/kernels/mlpv_fwd.py", "ops/kernels/mlpv_bwd.py"]
 OPT_IN_FILES = ["ops/kernels/mlpe_fwd.py", "ops/kernels/mlpe_bwd.py",
                 "ops/kernels/quant_mlp.py"]
+FUSED_QUERY_FILES = ["ops/kernels/bend_fwd.py", "ops/kernels/bend_bwd.py",
+                     "ops/kernels/fused_fwd.py", "ops/kernels/fused_bwd.py",
+                     "ops/kernels/fused_query.py"]
 KERNEL_SOURCES = ["mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpv_bwd.cu",
-                  "mlpe_fwd.cu", "mlpe_bwd.cu", "mlp_i8.cu", "mlp_tile.cuh"]
+                  "mlpe_fwd.cu", "mlpe_bwd.cu", "mlp_i8.cu", "mlp_tile.cuh",
+                  "bend_fwd.cu", "bend_bwd.cu", "fused_fwd.cu", "fused_bwd.cu",
+                  "bend_tile.cuh"]
 FORBIDDEN = ("jax", "jaxlib", "nonrigid_nerf_tpu")
 
 
@@ -100,6 +105,23 @@ def test_opt_in_mode_files_are_under_the_import_rule():
         text = (REPO / "nonrigid_nerf_torch" / name).read_text()
         assert "_int_mm" not in text and "torch.compile" not in text
         assert "load_kernel_library" in text
+
+
+def test_fused_query_files_are_under_the_import_rule():
+    """The modules of the fused point query: present, under the import rule,
+    each kernel module bound to its own CUDA source, which shares the
+    bender's device code (bend_tile.cuh); none reaches for a library's
+    product in place of its kernel."""
+    covered = {str(p.relative_to(REPO / "nonrigid_nerf_torch"))
+               for p in PACKAGE_FILES}
+    assert set(FUSED_QUERY_FILES) <= covered
+    csrc = REPO / "nonrigid_nerf_torch" / "ops" / "kernels" / "csrc"
+    for name in FUSED_QUERY_FILES[:4]:
+        text = (REPO / "nonrigid_nerf_torch" / name).read_text()
+        source = pathlib.Path(name).stem + ".cu"
+        assert f'load_kernel_library("{source}")' in text
+        assert "torch.compile" not in text and "import triton" not in text
+        assert '#include "bend_tile.cuh"' in (csrc / source).read_text()
 
 
 def test_library_name_follows_the_source_and_the_shared_header(monkeypatch,

@@ -16,6 +16,11 @@ import torch
 from nonrigid_nerf_torch.config import ModelConfig, RenderSettings
 from nonrigid_nerf_torch.engine.render import make_ray_renderer
 from nonrigid_nerf_torch.models.model import NRNeRF
+from nonrigid_nerf_torch.ops.kernels import bend_bwd as BB
+from nonrigid_nerf_torch.ops.kernels import bend_fwd as BF
+from nonrigid_nerf_torch.ops.kernels import fused_bwd as FB
+from nonrigid_nerf_torch.ops.kernels import fused_fwd as FF
+from nonrigid_nerf_torch.ops.kernels import fused_query as FQ
 from nonrigid_nerf_torch.ops.kernels import mlp_bwd as KB
 from nonrigid_nerf_torch.ops.kernels import mlp_fwd as K
 from nonrigid_nerf_torch.ops.kernels import mlpe_bwd as KEB
@@ -571,3 +576,163 @@ def test_int8_renderer_on_cuda_runs_mlp_i8_and_matches_cpu(model, cuda_device):
     # another order), which moves single activations by one int8 step
     for key in ("rgb_map", "acc_map"):
         assert np.abs(gpu[key].cpu().numpy() - cpu[key].numpy()).mean() < 5e-3
+
+
+# ---- the fused point query: bend_fwd, bend_bwd, fused_fwd, fused_bwd
+
+def _bend_inputs(n, device, seed):
+    """Points where the synthetic scene's bent points lie (the sines'
+    arguments reach hundreds of radians), latents of the model's scale."""
+    rng = np.random.RandomState(seed)
+    lo, hi = np.array([-0.8, -0.8, -1.0]), np.array([0.8, 0.8, 0.5])
+    pts = (lo + (hi - lo) * rng.uniform(size=(n, 3))).astype(np.float32)
+    lat = (0.1 * rng.randn(n, 32)).astype(np.float32)
+    return (torch.from_numpy(pts).to(device), torch.from_numpy(lat).to(device),
+            rng)
+
+
+def _fused_weights(model, device, network="coarse"):
+    return tuple(w.detach().to(device) for w in FF.cast_fused_weights(
+        FQ.pack_fused_weights(model, network=network)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 127, 129, 4096 + 5])
+def test_bend_kernels_match_plain_on_cuda(model, cuda_device, n):
+    w = _fused_weights(model, cuda_device)[:18]
+    pts, lat, rng = _bend_inputs(n, cuda_device, 11)
+    before = (BF.bend_fwd.launches, BB.bend_bwd.launches)
+    emb, off, rig = BF.bend_fwd(pts, lat, w)
+    cots = [torch.from_numpy((s * rng.randn(n, c)).astype(np.float32)).to(
+        cuda_device) for c, s in ((64, 0.1), (3, 1.0), (1, 1.0))]
+    got = BB.bend_bwd(pts, lat, w, *cots)
+    torch.cuda.synchronize()
+    assert (BF.bend_fwd.launches, BB.bend_bwd.launches) == (
+        before[0] + (n > 0), before[1] + (n > 0))
+    assert emb.shape == (n, 64) and off.shape == (n, 3) and rig.shape == (n, 1)
+    if n:
+        stats = BF.bend_fwd_agreement((emb, off, rig),
+                                      BF.bend_fwd_plain(pts, lat, w))
+        assert stats["ok"], stats
+        stats = BB.bend_bwd_agreement(got, BB.bend_bwd_plain(pts, lat, w, *cots))
+        assert stats["ok"], stats
+    # deterministic: no atomics
+    assert all(torch.equal(a, b) for a, b in zip((emb, off, rig),
+                                                  BF.bend_fwd(pts, lat, w)))
+    again = BB.bend_bwd(pts, lat, w, *cots)
+    assert all(torch.equal(a, b) for a, b in zip(
+        [got[0], got[1], *got[2]], [again[0], again[1], *again[2]]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 127, 129, 65536 + 5])
+def test_fused_kernels_match_plain_on_cuda(model, cuda_device, n):
+    """At the last size a few ReLU gates of the chain flip with the
+    encoding's flipped points, as at a training step's 65,536 points; among a
+    few thousand points one flip is over the L2 limit on its own (0.013 at
+    4,101 points on an H100)."""
+    w = _fused_weights(model, cuda_device, "fine")
+    pts, lat, rng = _bend_inputs(n, cuda_device, 12)
+    before = (FF.fused_fwd.launches, FB.fused_bwd.launches)
+    raw, off, rig = FF.fused_fwd(pts, lat, w)
+    cots = [torch.from_numpy(rng.randn(n, c).astype(np.float32)).to(cuda_device)
+            for c in (8, 3, 1)]
+    got = FB.fused_bwd(pts, lat, w, *cots)
+    torch.cuda.synchronize()
+    assert (FF.fused_fwd.launches, FB.fused_bwd.launches) == (
+        before[0] + (n > 0), before[1] + (n > 0))
+    assert raw.shape == (n, 8) and len(got[2]) == 35
+    if n:
+        stats = FF.fused_fwd_agreement((raw, off, rig),
+                                       FF.fused_fwd_plain(pts, lat, w))
+        assert stats["ok"], stats
+        stats = FB.fused_bwd_agreement(got, FB.fused_bwd_plain(pts, lat, w, *cots))
+        assert stats["ok"], stats
+    assert all(torch.equal(a, b) for a, b in zip((raw, off, rig),
+                                                  FF.fused_fwd(pts, lat, w)))
+    again = FB.fused_bwd(pts, lat, w, *cots)
+    assert all(torch.equal(a, b) for a, b in zip(
+        [got[0], got[1], *got[2]], [again[0], again[1], *again[2]]))
+
+
+@pytest.mark.cuda
+def test_bender_kernels_take_unaligned_views_of_the_inputs(model, cuda_device):
+    """The kernels read the latents 4 floats at a time: a view that starts
+    off a 16-byte boundary is copied by the wrappers, and the results are the
+    aligned inputs' bit for bit."""
+    w = _fused_weights(model, cuda_device)
+    pts, lat, _ = _bend_inputs(300, cuda_device, 14)
+    flat = torch.zeros(300 * 32 + 1, device=cuda_device)
+    flat[1:] = lat.flatten()
+    lat_view = flat[1:].view(300, 32)
+    pts_view = torch.zeros(300 * 3 + 1, device=cuda_device)
+    pts_view[1:] = pts.flatten()
+    pts_view = pts_view[1:].view(300, 3)
+    assert lat_view.data_ptr() % 16 and lat_view.is_contiguous()
+    for fn, ws in ((BF.bend_fwd, w[:18]), (FF.fused_fwd, w)):
+        for a, b in zip(fn(pts_view, lat_view, ws), fn(pts, lat, ws)):
+            assert torch.equal(a, b)
+    cots = [torch.ones(300, c, device=cuda_device) for c in (8, 3, 1)]
+    a = FB.fused_bwd(pts_view, lat_view, w, *cots)
+    b = FB.fused_bwd(pts, lat, w, *cots)
+    assert all(torch.equal(x, y) for x, y in zip([a[0], a[1], *a[2]],
+                                                  [b[0], b[1], *b[2]]))
+
+
+@pytest.mark.cuda
+def test_bender_backwards_refuse_more_points_than_one_launch_takes(
+        model, cuda_device):
+    w = _fused_weights(model, cuda_device)
+    n = KB.MAX_POINTS_PER_LAUNCH + 1
+    pts, lat = torch.zeros(n, 3, device=cuda_device), torch.zeros(
+        n, 32, device=cuda_device)
+    z3, z1 = torch.zeros(n, 3, device=cuda_device), torch.zeros(
+        n, 1, device=cuda_device)
+    with pytest.raises(ValueError, match="at most"):
+        BB.bend_bwd(pts, lat, w[:18], torch.zeros(n, 64, device=cuda_device),
+                    z3, z1)
+    with pytest.raises(ValueError, match="at most"):
+        FB.fused_bwd(pts, lat, w, torch.zeros(n, 8, device=cuda_device), z3, z1)
+
+
+def _entry_grads(entry, model, pts, lat):
+    pts = pts.clone().requires_grad_(True)
+    lat = lat.clone().requires_grad_(True)
+    out = entry(model, pts, lat)
+    loss = (out[0] ** 2).mean() + 10 * (out[1] ** 2).mean() + (out[2] ** 2).mean()
+    params = [p for n, p in model.named_parameters()
+              if n.startswith(("coarse.", "bender."))]
+    return out, torch.autograd.grad(loss, [pts, lat] + params)
+
+
+@pytest.mark.cuda
+def test_entry_points_on_cuda_split_equals_monolith(model, cuda_device):
+    """Both entry points on the card: the launch counts (one fused_fwd and
+    one fused_bwd; one bend_fwd, mlp_fwd, mlp_bwd and bend_bwd), the split
+    bit-equal to the monolith in value and gradient, and the gradients close
+    to the CPU's (the plain versions) at 6% of each one's max magnitude."""
+    m = model.to(cuda_device)
+    try:
+        pts, lat, _ = _bend_inputs(65536 + 3, cuda_device, 13)
+        wrappers = (FF.fused_fwd, FB.fused_bwd, BF.bend_fwd, BB.bend_bwd,
+                    K.mlp_fwd, KB.mlp_bwd, KE.mlpe_fwd, KEB.mlpe_bwd)
+        for w_ in wrappers:
+            w_.launches = 0
+        mono = _entry_grads(FQ.fused_point_query, m, pts, lat)
+        counts = [w_.launches for w_ in wrappers]
+        split = _entry_grads(FQ.fused_point_query_split, m, pts, lat)
+        torch.cuda.synchronize()
+        assert counts == [1, 1, 0, 0, 0, 0, 0, 0]
+        assert [w_.launches for w_ in wrappers] == [1, 1, 1, 1, 1, 1, 0, 0]
+        for a, b in zip(mono[0] + mono[1], split[0] + split[1]):
+            assert torch.equal(a, b)
+    finally:
+        model.to("cpu")
+    cpu = _entry_grads(FQ.fused_point_query, model, pts.cpu()[:4099],
+                       lat.cpu()[:4099])
+    card = _entry_grads(FQ.fused_point_query, m.to(cuda_device),
+                        pts[:4099], lat[:4099])
+    model.to("cpu")
+    for a, b in zip(card[1], cpu[1]):
+        scale = max(float(b.abs().max()), 1e-6)
+        assert float((a.cpu() - b).abs().max()) / scale < 0.06
