@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
-Two model families run, each through its own pair of kernels: the flagship
-config (configs/example_sequence.txt) as it is (`mlp_fwd`, `mlp_bwd`), and
-the same config with use_viewdirs=True (`mlpv_fwd`, `mlpv_bwd`). Then the
-flagship's two opt-in kernel modes: fused_kernel="pts" (`mlpe_fwd`,
-`mlpe_bwd`: the Fourier encoding computed inside the kernels; rendered and
-trained) and fused_kernel="int8" (`mlp_i8`; rendered, after
-`quantize_for_inference` on the first pose's rays). Last, the fused point
+Three model families run, each through its pair of kernels: the flagship
+config (configs/example_sequence.txt) as it is (F: `mlp_fwd`, `mlp_bwd` at
+the 64-lane encoding), the same config with use_viewdirs=True (`mlpv_fwd`,
+`mlpv_bwd`), and the time-conditioned baseline of
+results/r4_baseline_tc/args.txt (B: no bender, the 32-lane latent
+concatenated to the encoding, `mlp_fwd` and `mlp_bwd` at 128 lanes; its
+regularizer weights are 0). Then the flagship's two opt-in kernel modes:
+fused_kernel="pts" (`mlpe_fwd`, `mlpe_bwd`: the Fourier encoding computed
+inside the kernels; rendered and trained) and fused_kernel="int8"
+(`mlp_i8`; rendered, after `quantize_for_inference` on the first pose's
+rays). Last, the fused point
 query's two entry points, `fused_point_query` (`fused_fwd`, `fused_bwd`)
 and `fused_point_query_split` (`bend_fwd`, `mlp_fwd`; `mlp_bwd`,
 `bend_bwd`), on the flagship's parameters.
@@ -27,31 +31,36 @@ result line is printed):
    encoding in PyTorch before it, for "int8" a chain of torch._int_mm calls
    with elementwise requantization); compute the roofline bound. Points for
    `mlpe_fwd` / `mlpe_bwd` lie where the synthetic scene's bent points lie,
-   so the sines' arguments reach hundreds of radians. Forward kernels: chunk x N_samples and chunk x (N_samples
-   + N_importance) points of a render block, and N_rand x N_samples and
-   N_rand x (N_samples + N_importance) points of a training step. Backward
-   kernels: the training step's two sizes (`mlp_i8`: the render sizes only).
-3. Per family and mode, render frames at 384 x 512 through `render_path`, parameters
-   from a seed, with the launch counts set to 0 just before and read just
-   after (12 launches of the family's forward kernel per frame, none of the
-   other's). Render the same frames with fused_kernel="off" (plain f32 MLP)
+   so the sines' arguments reach hundreds of radians; B's 128-lane inputs
+   hold 63 encoding lanes, 32 latent lanes (0.3 N(0, 1)) and 33 zero lanes.
+   Forward kernels: chunk x N_samples (2^21) and chunk x (N_samples +
+   N_importance) (2^22) points of a render block, and N_rand x N_samples
+   (65,536) and N_rand x (N_samples + N_importance) (131,072) points of a
+   training step, for B at 128 lanes as well as at 64. Backward kernels:
+   the training step's two sizes (`mlp_i8`: the render sizes only).
+3. Per family and mode, render frames at 384 x 512 through `render_path`,
+   parameters from a seed, with the launch counts set to 0 just before and
+   read just after (12 launches of the family's forward kernel per frame,
+   none of the other's; for F and B all at the family's width, 64 or 128
+   lanes). Render the same frames with fused_kernel="off" (plain f32 MLP)
    and require a PSNR of at least 40 dB between the two ("pts" and "int8"
    are held against the first family's "off" frames, the same parameters:
-   40 dB and 30 dB). Without view
-   directions: a block of rays on the card against the same rays on the
-   CPU. With them: the frames use finite-difference directions, and a block
-   of rays is rendered with exact directions (a jvp through the bender),
-   kernel against "off". Profile one frame: device time by kernel and the
-   device's idle share.
-4. Per family, and in "pts" mode, train (1024 rays, 64 + 64 samples, all three regularizers, a
-   test split) with `apps.train.train` on a synthetic image stack built in
-   memory, launch counts set to 0 just before and read just after: 2
+   40 dB and 30 dB). For F: a block of rays on the card against the same
+   rays on the CPU. With view directions: the frames use finite-difference
+   directions, and a block of rays is rendered with exact directions (a jvp
+   through the bender), kernel against "off". Profile one frame: device
+   time by kernel and the device's idle share.
+4. Per family, and in "pts" mode, train (1024 rays, 64 + 64 samples, a
+   test split; all three regularizers, or for B none, as its run had) with
+   `apps.train.train` on a synthetic image stack built in memory, launch
+   counts set to 0 just before and read just after: 2
    forward and 4 backward launches per step, everything finite, the loss
    lower at the end than at the start; steps and rays per second over all
    steps after the first window of 25. Then, from the trained state: one
    step's losses and gradients with the kernels against fused_kernel="off"
    and against the kernels' plain versions on the same draws (the bender's
-   and the latents' gradients included; with view directions in both
+   and the latents' gradients included, the latents' named on its own: for
+   B they learn through the MLP's input alone; with view directions in both
    direction modes); a checkpoint saved, loaded and stepped once, bit-equal
    to the step without the round trip; a profile of a few steps.
 5. The fused point query: each of its four kernels against its plain
@@ -65,7 +74,9 @@ result line is printed):
    and the gradients against the f32 modules'; and `fused_fwd` against what
    the engine spends on the same function (the f32 bender, then
    `mlpe_fwd`).
-6. Print the kernels JSON line and, last, the result line
+6. Print the kernels JSON line (eleven rows; `mlp_fwd` and `mlp_bwd` carry
+   B's 128-lane checks, timings and launches under "lanes_128") and, last,
+   the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -97,6 +108,14 @@ TRAIN_TEST_IDS = (3, 7)
 TRAIN_STEPS = 150                # training steps without view directions
 TRAIN_STEPS_VIEWDIRS = 200       # ... and with them
 TRAIN_STEPS_PTS = 150            # ... and in fused_kernel="pts" mode
+TRAIN_STEPS_BASELINE = 100       # ... and for the time-conditioned baseline
+# the baseline's latent table: nonzero, so that the latent lanes 63 .. 94 of
+# the MLP's input carry signal (as the JAX package's test of its kernel,
+# tests/test_fused_kernel.py:209)
+BASELINE_LATENT_SCALE = 0.3
+# the regularizer weights (offsets, divergence, rigidity) of each run:
+# configs/example_sequence.txt and results/r4_baseline_tc/args.txt
+LOSS_WEIGHTS = {False: (60.0, 3.0, 0.0005), True: (0.0, 0.0, 0.0)}
 TRAIN_PRINT = 25
 PROFILE_STEPS = 5
 # one training step with the kernels against fused_kernel="off" on the same
@@ -146,20 +165,21 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def flagship_model(cfg, device, frames=FRAMES):
     """The port's model from a seed, with the zero-initialised bending and
-    rigidity output layers perturbed (a fresh model would never bend) and
-    the density bias raised by 1 so random networks render non-empty
-    frames."""
+    rigidity output layers perturbed (a fresh model would never bend), a
+    nonzero latent table and the density bias raised by 1 so random
+    networks render non-empty frames."""
     from nonrigid_nerf_torch.models.model import NRNeRF
     gen = torch.Generator().manual_seed(SEED)
     model = NRNeRF(cfg, num_timesteps=frames, generator=gen, device="cpu")
     with torch.no_grad():
-        model.bender.bend[-1].weight.copy_(
-            0.05 * torch.randn(model.bender.bend[-1].weight.shape, generator=gen))
-        model.bender.rigidity[-1].weight.copy_(
-            0.3 * torch.randn(model.bender.rigidity[-1].weight.shape,
-                              generator=gen))
-        model.latents.copy_(0.1 * torch.randn(model.latents.shape,
-                                              generator=gen))
+        if model.bender is not None:
+            model.bender.bend[-1].weight.copy_(0.05 * torch.randn(
+                model.bender.bend[-1].weight.shape, generator=gen))
+            model.bender.rigidity[-1].weight.copy_(0.3 * torch.randn(
+                model.bender.rigidity[-1].weight.shape, generator=gen))
+        scale = BASELINE_LATENT_SCALE if cfg.time_conditioned_baseline else 0.1
+        model.latents.copy_(scale * torch.randn(model.latents.shape,
+                                                generator=gen))
         for net in (model.coarse, model.fine):
             if cfg.use_viewdirs:
                 net.alpha.bias += 1.0
@@ -225,6 +245,8 @@ def kernel_wrappers():
 def reset_launch_counts():
     for wrapper in kernel_wrappers().values():
         wrapper.launches = 0
+        if hasattr(wrapper, "launches_by_width"):
+            wrapper.launches_by_width = dict.fromkeys(wrapper.launches_by_width, 0)
 
 
 def launch_counts(without=()):
@@ -235,12 +257,14 @@ def launch_counts(without=()):
 
 class Family:
     """One pair of kernels behind one interface. `inputs` are (emb,) for the
-    flagship ("plain"), (emb, embv) with view directions ("viewdirs") and
-    (pts,) where the kernels compute the encoding themselves ("pts")."""
+    flagship ("plain", 64 lanes) and the time-conditioned baseline
+    ("baseline", 128 lanes), (emb, embv) with view directions ("viewdirs")
+    and (pts,) where the kernels compute the encoding themselves ("pts")."""
 
     def __init__(self, kind: str):
         self.kind = kind
         self.viewdirs = kind == "viewdirs"
+        self.emb_width = 128 if kind == "baseline" else 64
         if kind == "viewdirs":
             from nonrigid_nerf_torch.ops.kernels import mlpv_bwd as KB
             from nonrigid_nerf_torch.ops.kernels import mlpv_fwd as K
@@ -260,7 +284,7 @@ class Family:
             self.core_name = "MLPECore"
             self.replaces = ("nonrigid_nerf_tpu/ops/pallas/fused_query.py:932",
                              "nonrigid_nerf_tpu/ops/pallas/fused_query.py:970")
-        elif kind == "plain":
+        elif kind in ("plain", "baseline"):
             from nonrigid_nerf_torch.ops.kernels import mlp_bwd as KB
             from nonrigid_nerf_torch.ops.kernels import mlp_fwd as K
             self.fwd, self.fwd_plain = K.mlp_fwd, K.mlp_fwd_plain
@@ -273,9 +297,14 @@ class Family:
             raise ValueError(f"unknown family {kind!r}")
         self.K, self.KB = K, KB
         self.fwd_name, self.bwd_name = self.fwd.__name__, self.bwd.__name__
+        self.macs, self.bwd_macs = K.MACS_PER_POINT, KB.BWD_MACS_PER_POINT
+        if kind == "baseline":
+            self.macs = K.macs_per_point(self.emb_width)
+            self.bwd_macs = KB.bwd_macs_per_point(self.emb_width)
         self.n_grads = len(KB.BWD_NAMES) - (2 if self.viewdirs else 1)
         self.what = {"plain": "no viewdirs", "viewdirs": "viewdirs",
-                     "pts": "no viewdirs, fused_kernel=pts"}[kind]
+                     "pts": "no viewdirs, fused_kernel=pts",
+                     "baseline": "time-conditioned baseline"}[kind]
 
     def counts(self):
         return {self.fwd_name: self.fwd.launches,
@@ -286,18 +315,23 @@ class Family:
                      for w in self.cast(self.pack(net)))
 
     def inputs(self, n_points, device, seed):
-        """bf16 encodings from a seed, the pad lanes zero; for "pts" f32
-        points where the synthetic scene's bent points lie (x, y within 0.8
-        of the axis, z from -1 to 0.5 before the cameras at z = 0.6)."""
+        """bf16 encodings from a seed, the pad lanes zero (for the baseline
+        lanes 63 .. 94 a latent, 0.3 N(0, 1)); for "pts" f32 points where
+        the synthetic scene's bent points lie (x, y within 0.8 of the axis,
+        z from -1 to 0.5 before the cameras at z = 0.6)."""
         gen = torch.Generator(device=device).manual_seed(seed)
         if self.kind == "pts":
             u = torch.rand((n_points, 3), generator=gen, device=device)
             lo = torch.tensor([-0.8, -0.8, -1.0], device=device)
             hi = torch.tensor([0.8, 0.8, 0.5], device=device)
             return (lo + (hi - lo) * u,), gen
-        emb = (torch.rand((n_points, 64), generator=gen, device=device) * 2
-               - 1).to(torch.bfloat16)
-        emb[:, 63] = 0          # the pad lane of the 63-channel encoding
+        emb = torch.rand((n_points, self.emb_width), generator=gen,
+                         device=device) * 2 - 1
+        emb[:, 63:] = 0         # the pad lanes of the 63-channel encoding
+        if self.kind == "baseline":
+            emb[:, 63:95] = BASELINE_LATENT_SCALE * torch.randn(
+                (n_points, 32), generator=gen, device=device)
+        emb = emb.to(torch.bfloat16)
         if not self.viewdirs:
             return (emb,), gen
         embv = (torch.rand((n_points, 32), generator=gen, device=device) * 2
@@ -426,7 +460,7 @@ def check_fwd(fam, model, n_points, device, network="coarse"):
     ms = cuda_time_ms(lambda: fam.fwd(*inputs, mw), 10)
     plain_ms = cuda_time_ms(lambda: fam.fwd_plain(*inputs, mw), 3, warmup=1)
     chain_ms = cuda_time_ms(lambda: fam.fwd_chain_bf16(inputs, mw), 10)
-    flops = 2.0 * K.MACS_PER_POINT * n_points
+    flops = 2.0 * fam.macs * n_points
     bound_ms, bound_by = roofline(flops, tensor_bytes(*inputs, out, *mw))
     log(f"{name} n={n_points}: kernel {ms:.4f} ms "
         f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
@@ -468,7 +502,7 @@ def check_bwd(fam, model, n_points, device):
     ms = cuda_time_ms(lambda: fam.bwd(*inputs, mw, draw), 10)
     plain_ms = cuda_time_ms(lambda: fam.bwd_plain(*inputs, mw, draw), 3, warmup=1)
     chain_ms = cuda_time_ms(lambda: fam.bwd_chain_bf16(inputs, mw, drawb), 10)
-    flops = 2.0 * KB.BWD_MACS_PER_POINT * n_points
+    flops = 2.0 * fam.bwd_macs * n_points
     bound_ms, bound_by = roofline(flops, tensor_bytes(*inputs, draw, *flat, *mw))
     log(f"{name} n={n_points}: kernel {ms:.4f} ms "
         f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
@@ -561,15 +595,22 @@ def render_phase(fam, cfg, args, device, smi, kernel_ms, off_frames=None):
                               chunk=CHUNK, verbose=True, device=device)
     t_kernel = time.perf_counter() - t0
     launches = fam.fwd.launches
+    by_width = dict(getattr(fam.fwd, "launches_by_width", {}))
     others = launch_counts(without=(name,))
     blocks = -(-H * W // CHUNK)
-    log(f"render ({name}, fused_kernel={cfg.fused_kernel}): {FRAMES} frames "
-        f"in {t_kernel:.3f} s, {t_kernel / FRAMES:.4f} s/frame, {name} "
-        f"launches {launches} (expected {FRAMES * blocks * 2}), of the other "
+    what = fam.what if "fused_kernel" in fam.what \
+        else f"{fam.what}, fused_kernel={cfg.fused_kernel}"
+    log(f"render ({name}, {what}): {FRAMES} frames in {t_kernel:.3f} s, "
+        f"{t_kernel / FRAMES:.4f} s/frame, "
+        f"{name} launches {launches} (expected {FRAMES * blocks * 2}"
+        f"{f', by input width {by_width}' if by_width else ''}), of the other "
         f"kernels {others} (expected 0)")
     if launches != FRAMES * blocks * 2 or any(others.values()):
         raise AssertionError(f"the render path did not run {name}, and only "
                              "it, once per pass and block")
+    if by_width and by_width.get(fam.emb_width) != launches:
+        raise AssertionError(f"the render path ran {name} at another width "
+                             f"than {fam.emb_width} lanes")
     if rgbs.shape != (FRAMES, H, W, 3) or disps.shape != (FRAMES, H, W):
         raise AssertionError(f"bad shapes {rgbs.shape} {disps.shape}")
     if not (np.isfinite(rgbs).all() and np.isfinite(disps).all()):
@@ -658,6 +699,7 @@ def render_phase(fam, cfg, args, device, smi, kernel_ms, off_frames=None):
         f"CatArrayBatchedCopy's: {prof['cat_share']:.3f}")
     results.update(frames=FRAMES, height=H, width=W, chunk=CHUNK,
                    use_viewdirs=cfg.use_viewdirs, fused_kernel=cfg.fused_kernel,
+                   time_conditioned_baseline=cfg.time_conditioned_baseline,
                    s_per_frame_kernel=t_kernel / FRAMES,
                    s_per_frame_off=None if t_off is None else t_off / FRAMES,
                    psnr_kernel_vs_off_db=frame_psnr,
@@ -685,12 +727,13 @@ def train_phase(fam, args, cfg, device, smi, steps):
     args.seed = SEED
     tc = train_config_from_args(args)
     rs = render_settings_from_args(args, ds.near, ds.far)
+    weights = (tc.offsets_loss_weight, tc.divergence_loss_weight,
+               tc.rigidity_loss_weight)
     if not (tc.N_rand == 1024 and rs.N_samples == 64 and rs.N_importance == 64
             and rs.perturb == 1.0 and rs.raw_noise_std == 1.0
-            and tc.offsets_loss_weight == 60.0
-            and tc.divergence_loss_weight == 3.0
-            and tc.rigidity_loss_weight == 0.0005 and ds.has_test_split):
-        raise AssertionError(f"unexpected flagship training setup {tc} {rs}")
+            and weights == LOSS_WEIGHTS[cfg.time_conditioned_baseline]
+            and ds.has_test_split):
+        raise AssertionError(f"unexpected training setup ({what}) {tc} {rs}")
 
     with tempfile.TemporaryDirectory() as logdir:
         reset_launch_counts()
@@ -706,12 +749,19 @@ def train_phase(fam, args, cfg, device, smi, steps):
         if not os.path.exists(os.path.join(logdir, "latest.npz")):
             raise AssertionError("train() saved no checkpoint")
     want = {fam.fwd_name: 2 * steps, fam.bwd_name: 4 * steps}
+    by_width = {name: dict(w.launches_by_width)
+                for name, w in ((fam.fwd_name, fam.fwd), (fam.bwd_name, fam.bwd))
+                if hasattr(w, "launches_by_width")}
     log(f"train ({what}): {steps} steps in {wall:.2f} s (first step's warm-up "
-        f"and the checkpoint included); launches {counts} (expected {want}), "
-        f"of the other kernels {others} (expected 0)")
+        f"and the checkpoint included); launches {counts} (expected {want}"
+        f"{f', by input width {by_width}' if by_width else ''}), of the other "
+        f"kernels {others} (expected 0)")
     if state.step != steps or counts != want or any(others.values()):
         raise AssertionError(f"a training step must launch {fam.fwd_name} "
                              f"twice and {fam.bwd_name} four times")
+    if any(w.get(fam.emb_width) != counts[name] for name, w in by_width.items()):
+        raise AssertionError(f"training ran its kernels at another width than "
+                             f"{fam.emb_width} lanes")
     for row in rows:
         if not all(math.isfinite(v) for v in row.values()):
             raise AssertionError(f"non-finite metrics {row}")
@@ -790,7 +840,8 @@ def train_phase(fam, args, cfg, device, smi, steps):
         cos_off, cos_plain = cosines(grads_k, grads_o), cosines(grads_k, grads_p)
         deform = {n: c for n, c in cos_off.items() if is_deformation(n)}
         mlp = {n: c for n, c in cos_off.items() if not is_deformation(n)}
-        if "latents" not in deform or len(deform) < 2:
+        if "latents" not in deform or (state.model.bender is not None
+                                       and len(deform) < 2):
             raise AssertionError("the bender and the latents got no gradient")
         worst_mlp, worst_def = min(mlp, key=mlp.get), min(deform, key=deform.get)
         worst_plain = min(cos_plain, key=cos_plain.get)
@@ -805,7 +856,9 @@ def train_phase(fam, args, cfg, device, smi, steps):
             f"the latents' {len(deform)} (need >= {deform_floor}); vs the "
             f"plain versions: min {cos_plain[worst_plain]:.5f} "
             f"({worst_plain}) over {len(cos_plain)} (need >= "
-            f"{STEP_PLAIN_MIN_COSINE})")
+            f"{STEP_PLAIN_MIN_COSINE}); the latents' gradient: cosine "
+            f"{deform['latents']:.5f} vs off, {cos_plain['latents']:.5f} vs "
+            f"the plain versions")
         if (loss_gap > STEP_LOSS_TOL_REL
                 or mlp[worst_mlp] < STEP_GRAD_MIN_COSINE
                 or deform[worst_def] < deform_floor):
@@ -817,7 +870,9 @@ def train_phase(fam, args, cfg, device, smi, steps):
         step_checks[mode] = {
             "loss_gap": loss_gap, "min_mlp_grad_cosine": mlp[worst_mlp],
             "min_deformation_grad_cosine": deform[worst_def],
-            "min_grad_cosine_vs_plain": cos_plain[worst_plain]}
+            "min_grad_cosine_vs_plain": cos_plain[worst_plain],
+            "latents_grad_cosine_vs_off": deform["latents"],
+            "latents_grad_cosine_vs_plain": cos_plain["latents"]}
 
     # a checkpoint saved, loaded, one more step: bit-equal to the step taken
     # without the round trip
@@ -851,6 +906,7 @@ def train_phase(fam, args, cfg, device, smi, steps):
         f"{prof['bwd_share']:.3f}")
     return {"steps": steps, "n_rand": tc.N_rand, "use_viewdirs": cfg.use_viewdirs,
             "fused_kernel": cfg.fused_kernel,
+            "time_conditioned_baseline": cfg.time_conditioned_baseline,
             "frames": TRAIN_FRAMES, "height": H, "width": W,
             "wall_s": wall, "steps_per_s": steps_per_s,
             "rays_per_s": steps_per_s * tc.N_rand,
@@ -996,6 +1052,7 @@ def int8_render_phase(cfg_plain, args, device, smi, kernel_ms, off_frames):
         f"CatArrayBatchedCopy's: {prof['cat_share']:.3f}")
     return dict(frames=FRAMES, height=H, width=W, chunk=CHUNK,
                 use_viewdirs=False, fused_kernel="int8",
+                time_conditioned_baseline=False,
                 s_per_frame_kernel=t_kernel / FRAMES, s_per_frame_off=None,
                 calibrate_s=t_calibrate, psnr_kernel_vs_off_db=frame_psnr,
                 rays_per_s_kernel=H * W * FRAMES / t_kernel,
@@ -1060,6 +1117,20 @@ def kernel_rows(fam, sizes, fwd_checks, bwd_checks, render_launches,
                "agreement": coarse_b["agreement"],
                "fine_pass": {"points": n_bwd_fine, **fine_b}}
     return [fwd_row, bwd_row]
+
+
+def add_width_rows(rows, rows_128):
+    """`mlp_fwd`'s and `mlp_bwd`'s rows with the baseline's 128-lane checks,
+    timings and launches under "lanes_128"; the rows' own numbers stay the
+    64-lane ones, their launches count both widths."""
+    for row, wide in zip(rows, rows_128):
+        if row["name"] != wide["name"]:
+            raise AssertionError(f"{wide['name']} has no 64-lane row")
+        row["launches_64"] = row["launches"]
+        row["launches"] += wide["launches"]
+        row["max_abs_err"] = max(row["max_abs_err"], wide["max_abs_err"])
+        row["lanes_128"] = {k: v for k, v in wide.items()
+                            if k not in ("name", "route", "source", "replaces")}
 
 
 # ---- the fused point query (fused_point_query, fused_point_query_split)
@@ -1484,9 +1555,19 @@ def main() -> int:
     if cfg_views.multires_views != 4 or cfg_views.input_ch_views != 27:
         raise AssertionError(f"unexpected view encoding {cfg_views}")
     cfg_pts = dataclasses.replace(cfg_plain, fused_kernel="pts")
-    families = [(Family("plain"), cfg_plain, TRAIN_STEPS),
-                (Family("viewdirs"), cfg_views, TRAIN_STEPS_VIEWDIRS),
-                (Family("pts"), cfg_pts, TRAIN_STEPS_PTS)]
+    # the time-conditioned baseline as its run had it: the flagship's widths,
+    # no bender, the latent in the MLP's input, no regularizers
+    args_tc = load_args(os.path.join(root, "results", "r4_baseline_tc",
+                                     "args.txt"))
+    cfg_tc = model_config_from_args(args_tc)
+    if cfg_tc != dataclasses.replace(cfg_plain, ray_bending=None,
+                                     time_conditioned_baseline=True) \
+            or cfg_tc.input_ch + cfg_tc.ray_bending_latent_size != 95:
+        raise AssertionError(f"unexpected baseline config {cfg_tc}")
+    families = [(Family("plain"), cfg_plain, TRAIN_STEPS, args),
+                (Family("viewdirs"), cfg_views, TRAIN_STEPS_VIEWDIRS, args),
+                (Family("pts"), cfg_pts, TRAIN_STEPS_PTS, args),
+                (Family("baseline"), cfg_tc, TRAIN_STEPS_BASELINE, args_tc)]
     n_coarse = CHUNK * cfg_plain.N_samples
     n_fine = CHUNK * (cfg_plain.N_samples + cfg_plain.N_importance)
     n_bwd_coarse = args.N_rand * cfg_plain.N_samples
@@ -1495,7 +1576,7 @@ def main() -> int:
 
     rows, renders, trains = [], [], []
     off_frames_plain = None
-    for fam, cfg, steps in families:
+    for fam, cfg, steps, fam_args in families:
         # ---- phase 2: kernel vs plain at the render and training shapes
         model = flagship_model(cfg, device)
         with torch.no_grad():   # the plain versions must not record a graph
@@ -1509,18 +1590,22 @@ def main() -> int:
         # ---- phase 3: render through render_path, kernel vs off ("pts"
         # against the first family's "off" frames: the same parameters)
         render, render_launches, off_frames = render_phase(
-            fam, cfg, args, device, smi,
+            fam, cfg, fam_args, device, smi,
             (fwd_checks[0]["ms"], fwd_checks[1]["ms"]),
             off_frames_plain if fam.kind == "pts" else None)
         if fam.kind == "plain":
             off_frames_plain = off_frames
         # ---- phase 4: training
-        train_results, train_counts = train_phase(fam, args, cfg, device, smi,
-                                                  steps)
+        train_results, train_counts = train_phase(fam, fam_args, cfg, device,
+                                                  smi, steps)
         renders.append(render)
         trains.append(train_results)
-        rows += kernel_rows(fam, sizes, fwd_checks, bwd_checks,
-                            render_launches, train_counts)
+        fam_rows = kernel_rows(fam, sizes, fwd_checks, bwd_checks,
+                               render_launches, train_counts)
+        if fam.kind == "baseline":
+            add_width_rows(rows[:2], fam_rows)
+        else:
+            rows += fam_rows
         log(f"family done ({fam.what}): "
             f"{time.perf_counter() - t_start:.1f} s since the start")
 
@@ -1546,7 +1631,8 @@ def main() -> int:
         "the start")
 
     # the three modes of the flagship side by side, from this run
-    by_mode = {r["fused_kernel"]: r for r in renders if not r["use_viewdirs"]}
+    by_mode = {r["fused_kernel"]: r for r in renders
+               if not r["use_viewdirs"] and not r["time_conditioned_baseline"]}
     log("flagship frame, s/frame: " + ", ".join(
         f"{mode} {by_mode[mode]['s_per_frame_kernel']:.4f}"
         for mode in ("auto", "pts", "int8"))
@@ -1557,7 +1643,16 @@ def main() -> int:
     log("flagship training, steps/s: " + ", ".join(
         f"{t['fused_kernel']} {t['steps_per_s']:.2f} (device "
         f"{t['profile']['device_busy_ms'] / PROFILE_STEPS:.2f} ms/step)"
-        for t in trains if not t["use_viewdirs"]) + f"; {smi}")
+        for t in trains if not t["use_viewdirs"]
+        and not t["time_conditioned_baseline"]) + f"; {smi}")
+    render_b = next(r for r in renders if r["time_conditioned_baseline"])
+    train_b = next(t for t in trains if t["time_conditioned_baseline"])
+    log(f"time-conditioned baseline: {render_b['s_per_frame_kernel']:.4f} s/frame "
+        f"(off {render_b['s_per_frame_off']:.4f}), PSNR kernel vs off "
+        f"{min(render_b['psnr_kernel_vs_off_db']):.2f} dB or more; "
+        f"{train_b['steps_per_s']:.2f} steps/s (device "
+        f"{train_b['profile']['device_busy_ms'] / PROFILE_STEPS:.2f} ms/step); "
+        f"{smi}")
     if len(rows) != 11:
         raise AssertionError(f"{len(rows)} kernel rows, 11 kernels")
 

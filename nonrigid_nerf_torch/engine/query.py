@@ -10,6 +10,10 @@ coarse or fine MLP, as the CUDA kernels when `use_fused_kernel` says so:
 recorded (rendering), and the autograd function `MLPCore` (`MLPVCore`),
 whose backward is `mlp_bwd` (`mlpv_bwd`), where one is (training).
 
+For the time-conditioned baseline (no bender) stage 1 hands each sample
+its ray's latent, and stage 2 concatenates it to the encoding: the kernels
+then run at a 128-lane input, the plain path takes it through `NeRF`.
+
 Two opt-in modes of `fused_kernel` take other kernels. "pts": stage 1 hands
 over the f32 bent points in place of the encoding, and `mlpe_fwd` /
 `MLPECore` compute the encoding on the chip, so no encoding tensor lies
@@ -46,10 +50,13 @@ def supports_fused_query(cfg: ModelConfig) -> bool:
     """Whether the kernels cover this canonical MLP: 8 x 256 with the skip
     at 4 for both networks and the 63-channel encoding; with view directions
     the 27-channel view encoding (`mlpv_fwd`, `mlpv_bwd`), else the single
-    head (`mlp_fwd`, `mlp_bwd`). The time-conditioned input takes another
-    kernel."""
+    head (`mlp_fwd`, `mlp_bwd`). The time-conditioned baseline's input, the
+    encoding and the latent, takes the single head at 128 lanes, so without
+    view directions and with at most 65 latent channels."""
     return ((not cfg.use_viewdirs or cfg.multires_views == 4)
-            and not cfg.time_conditioned_baseline
+            and (not cfg.time_conditioned_baseline
+                 or (not cfg.use_viewdirs
+                     and cfg.input_ch + cfg.ray_bending_latent_size <= 128))
             and cfg.i_embed == 0 and cfg.multires == 10
             and cfg.netdepth == 8 and cfg.netwidth == 256
             and (cfg.N_importance <= 0
@@ -85,8 +92,9 @@ def use_fused_kernel(cfg: ModelConfig, edit: EditConfig,
     the kernel; also an error with view directions, which that kernel does
     not take. "auto": on a CUDA device whenever "on" would be allowed; a
     scene edit turns it off. "int8": inference only; the int8 kernel covers
-    the single-head MLP, and anything outside that (view directions, another
-    architecture, a scene edit) takes the plain f32 MLP without an error."""
+    the single-head MLP on the 63-channel encoding, and anything outside that
+    (view directions, the time-conditioned input, another architecture, a
+    scene edit) takes the plain f32 MLP without an error."""
     mode = cfg.fused_kernel
     if mode not in FUSED_KERNEL_MODES:
         raise ValueError(f"unknown fused_kernel={mode!r}; known: "
@@ -95,7 +103,8 @@ def use_fused_kernel(cfg: ModelConfig, edit: EditConfig,
         return False
     supported = supports_fused_query(cfg) and not edits_active(edit)
     if mode == "int8":
-        return supported and not cfg.use_viewdirs
+        return (supported and not cfg.use_viewdirs
+                and not cfg.time_conditioned_baseline)
     if not supported or (mode == "pts" and not encode_in_kernel(cfg)):
         if mode in ("on", "pts"):
             raise ValueError(
@@ -181,7 +190,8 @@ def bend_encode_stage(model, cfg: ModelConfig, pts, latents,
     None with `embed=False` (for a caller that encodes in another sample
     order),
     bent_pts (R, S, 3), rigidity (R, S, 1) or None, latents_per_pt (R, S, L)
-    or None without bending, and details: None, or with `detailed` the
+    or None without bending and without the time-conditioned input, and
+    details: None, or with `detailed` the
     internals the regularizers read (initial_input_pts and input_pts, both
     detached, and the bender's unmasked_offsets, rigidity_mask,
     masked_offsets)."""
@@ -189,7 +199,7 @@ def bend_encode_stage(model, cfg: ModelConfig, pts, latents,
     details = {"initial_input_pts": pts.detach()} if detailed else None
     rigidity = None
     latents_per_pt = None
-    if model.bender is not None:
+    if cfg.use_ray_bending or cfg.time_conditioned_baseline:
         latents_per_pt = latents[:, None, :].expand(R, S, latents.shape[-1])
     if model.bender is not None and not edit.render_canonical:
         bent_pts, bend_details = model.bender(
@@ -219,10 +229,12 @@ def canonical_mlp_stage(model, cfg: ModelConfig, network: str, stage1,
                         embedded_views=None, edit: EditConfig = EditConfig(),
                         fused: bool = False):
     """Stage 2: the coarse or fine canonical MLP on stage 1's encoding (in
-    "pts" mode: on its bent points) and, with view directions, on
-    embedded_views (R, S, input_ch_views), then the foreground-removal edit.
-    Returns raw (R, S, 4) f32."""
+    "pts" mode: on its bent points; for the time-conditioned baseline with
+    its latents concatenated, in the encoding's dtype on the kernel path)
+    and, with view directions, on embedded_views (R, S, input_ch_views),
+    then the foreground-removal edit. Returns raw (R, S, 4) f32."""
     embedded = stage1["embedded"]
+    latents_per_pt = stage1["latents_per_pt"]
     net = model.network(network)
     if fused and encode_in_kernel(cfg):
         # stage 1 handed over the raw bent points (see bend_encode_stage)
@@ -235,6 +247,11 @@ def canonical_mlp_stage(model, cfg: ModelConfig, network: str, stage1,
             raw = mlpe_fwd(pts_flat, cast_mlp_weights(packed))
         raw = raw.reshape(R, S, OUT_PAD)[..., :4]
     elif fused:
+        if cfg.time_conditioned_baseline:
+            # the latent rides in the MLP input (reference:
+            # run_nerf_helpers.py:207-209), padded with it to 128 lanes
+            embedded = torch.cat([embedded, latents_per_pt.to(embedded.dtype)],
+                                 dim=-1)
         R, S, in_ch = embedded.shape
         emb_flat = F.pad(embedded.reshape(R * S, in_ch),
                          (0, pad_lanes(in_ch) - in_ch))
@@ -266,8 +283,8 @@ def canonical_mlp_stage(model, cfg: ModelConfig, network: str, stage1,
                 raw = mlp_fwd(emb_flat, cast_mlp_weights(packed))
         raw = raw.reshape(R, S, OUT_PAD)[..., :4]
     else:
-        raw = net(embedded, embedded_views) if cfg.use_viewdirs \
-            else net(embedded)
+        raw = net(embedded, embedded_views,
+                  latents_per_pt if cfg.time_conditioned_baseline else None)
     return _apply_removal_edit(raw, stage1["rigidity"], edit)
 
 

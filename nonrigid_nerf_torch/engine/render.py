@@ -127,6 +127,11 @@ def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
             def cat(a, b):
                 return torch.cat([a, b], dim=-2)
 
+            # the per-ray latents for every sample of the union: the
+            # time-conditioned baseline's fine MLP reads them
+            latents_cat = (latents[:, None, :].expand(
+                z_cat.shape + (latents.shape[-1],))
+                if st["latents_per_pt"] is not None else None)
             bent_cat = cat(st["bent_pts"], st_new["bent_pts"])
             rigidity_cat = (cat(st["rigidity"], st_new["rigidity"])
                             if st["rigidity"] is not None else None)
@@ -149,7 +154,8 @@ def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
                     fine_details = dict(zip(keys, rest))
                 st_sorted = {"embedded": embed_for_mlp(cfg, bent_sorted, fused),
                              "bent_pts": bent_sorted,
-                             "rigidity": rigidity_sorted}
+                             "rigidity": rigidity_sorted,
+                             "latents_per_pt": latents_cat}
                 dirs = sample_viewdirs(model, cfg, bent_sorted, st_sorted,
                                        viewdirs, edit)
                 raw_fine = canonical_mlp_stage(model, cfg, "fine", st_sorted,
@@ -167,7 +173,8 @@ def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
                                                viewdirs, edit)
                     ev_cat = _embed_views(cfg, cat(dirs_coarse, dirs_new))
                 st_cat = {"embedded": cat(st["embedded"], st_new["embedded"]),
-                          "bent_pts": bent_cat, "rigidity": rigidity_cat}
+                          "bent_pts": bent_cat, "rigidity": rigidity_cat,
+                          "latents_per_pt": latents_cat}
                 raw_cat = canonical_mlp_stage(model, cfg, "fine", st_cat,
                                               ev_cat, edit, fused)
                 merged = sort_merge(z_cat, raw_cat, *det_cat)

@@ -7,8 +7,10 @@ output head gives `output_ch` channels (5 with importance sampling, of which
 4 are used). With them (reference: run_nerf_helpers.py:283-304) a density
 head `alpha` (W -> 1), a `feature` head (W -> W, no activation), one
 view-conditioned ReLU layer `views[0]` (W + view_ch -> W / 2) and an `rgb`
-head (W / 2 -> 3). The time-conditioned input comes with a later slice of
-the port.
+head (W / 2 -> 3). The time-conditioned baseline concatenates the latent
+code to the encoded input, [embedded_pts, latents], before the first layer
+and at the skip (reference: run_nerf_helpers.py:273-282), so both of those
+layers take L more inputs.
 """
 
 from __future__ import annotations
@@ -24,8 +26,6 @@ from nonrigid_nerf_torch.models.mlp import dense
 
 def check_nerf_supported(cfg: ModelConfig) -> None:
     """Raise on the canonical-MLP variants that are not ported yet."""
-    if cfg.time_conditioned_baseline:
-        raise NotImplementedError("time_conditioned_baseline is not ported yet")
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r} is not ported yet")
@@ -40,6 +40,9 @@ class NeRF(nn.Module):
         D = cfg.netdepth if depth is None else depth
         W = cfg.netwidth if width is None else width
         input_ch = cfg.input_ch
+        if cfg.time_conditioned_baseline:
+            input_ch += cfg.ray_bending_latent_size
+        self.time_conditioned = cfg.time_conditioned_baseline
         self.skips = tuple(cfg.skips)
         layers = [dense(input_ch, W, generator=generator, device=device)]
         for i in range(D - 1):
@@ -61,10 +64,16 @@ class NeRF(nn.Module):
                                 device=device)
 
     def forward(self, embedded_pts: torch.Tensor,
-                embedded_views: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(..., input_ch) encoded (bent) points, and with view directions
-        (..., input_ch_views) encoded directions -> raw (..., 4) f32: rgb
-        logits and density."""
+                embedded_views: Optional[torch.Tensor] = None,
+                latents: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(..., input_ch) encoded (bent) points, with view directions
+        (..., input_ch_views) encoded directions, and for the
+        time-conditioned baseline (..., L) latent codes -> raw (..., 4) f32:
+        rgb logits and density."""
+        if self.time_conditioned:
+            if latents is None:
+                raise ValueError("a time-conditioned NeRF needs latents")
+            embedded_pts = torch.cat([embedded_pts, latents], dim=-1)
         h = embedded_pts
         for i, layer in enumerate(self.pts):
             h = torch.relu(layer(h))

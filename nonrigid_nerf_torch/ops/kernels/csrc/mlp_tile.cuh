@@ -10,7 +10,12 @@
 //   schedule of chunks (64 weight rows as a rule) across all layers of a
 //   kernel, so the next chunk is in flight while the current one is used;
 // - the chain: nh1 .. nh8 of the 8 x 256 MLP with the skip at layer 4 as a
-//   split weight (n5h on the hidden tile, n5e on the encoding tile);
+//   split weight (n5h on the hidden tile, n5e on the encoding tile), for an
+//   encoding of E lanes: 64 (the 63-channel Fourier encoding) or 128 (the
+//   time-conditioned input: the encoding and the 32-lane latent, 95
+//   channels). The chain's device code, its chunk schedules, the single-head
+//   gradient layout and the second pass are templates on E; every kernel but
+//   mlp_fwd.cu and mlp_bwd.cu runs the 64-lane instantiation;
 // - the transposed step `cur @ W^T` of the backward's dh chain, which reads
 //   the same row chunks of W as col-major B operands;
 // - the backward's second pass: split-K dW products, column sums and the
@@ -38,6 +43,7 @@ using namespace nvcuda;
 constexpr int TM = 128;        // points per CTA
 constexpr int NW = 256;        // hidden width
 constexpr int EMB = 64;        // encoding width (63 channels + 1 zero lane)
+constexpr int EMB_TC = 128;    // time-conditioned input width (63 + 32 + 33 zero lanes)
 constexpr int VEMB = 32;       // view-encoding width (27 channels + 5 zero lanes)
 constexpr int VW = 128;        // width of the view-conditioned layer
 constexpr int OUT = 8;         // head width (4 lanes used)
@@ -48,9 +54,13 @@ constexpr int LDE = EMB + 8;
 constexpr int LDV = VEMB + 8;
 constexpr int LDW = NW + 8;
 constexpr int N_LAYERS = 8;
-constexpr int N_FWD_CHUNKS = 30;   // 1 + 4*4 + (4 + 1) + 2*4
+// forward chunks: E/64 (n0w) + 4*4 + (4 + E/64) + 2*4: 30 at 64 lanes, 32 at 128
+template <int E> constexpr int n_fwd_chunks = 2 * (E / KC) + 7 * (NW / KC);
+constexpr int N_FWD_CHUNKS = n_fwd_chunks<EMB>;
 constexpr int N_BWD_STEPS = 9;     // n7w n6w n5e n5h n4w n3w n2w n1w n0w
-constexpr int N_BWD_CHUNKS = 30;   // 4*7 + 2
+// backward chunks: 4*7 + 2 * E/64: 30 at 64 lanes, 32 at 128
+template <int E> constexpr int n_bwd_chunks = 7 * (NW / KC) + 2 * (E / KC);
+constexpr int N_BWD_CHUNKS = n_bwd_chunks<EMB>;
 constexpr int SPLIT_ROWS = 2048;   // points per split of the dW products
 constexpr int RK = 64;             // points per staged chunk of the dW kernel
 constexpr int SMALL_GROUPS = 4;    // row groups per block of the small kernel
@@ -58,7 +68,10 @@ constexpr int MAX_DW_TILES = 48;
 constexpr int MAX_SMALL_JOBS = 12;
 
 constexpr size_t ACT_BYTES = size_t(TM) * LDA * sizeof(bf16);
-constexpr size_t EMB_BYTES = size_t(TM) * LDE * sizeof(bf16);
+// the encoding tile of E lanes: row stride E + 8 halves
+template <int E> constexpr int ld_emb = E + 8;
+template <int E> constexpr size_t emb_tile_bytes = size_t(TM) * ld_emb<E> * sizeof(bf16);
+constexpr size_t EMB_BYTES = emb_tile_bytes<EMB>;
 constexpr size_t VEMB_BYTES = size_t(TM) * LDV * sizeof(bf16);
 constexpr size_t STAGE_BYTES = size_t(KC) * LDW * sizeof(bf16);
 constexpr size_t WSCR_BYTES = size_t(THREADS / 32) * 16 * 16 * sizeof(float);
@@ -72,6 +85,7 @@ constexpr size_t DW_B_BYTES = size_t(RK) * LDBS * sizeof(bf16);
 constexpr size_t DW_SMEM_BYTES = 2 * (DW_A_BYTES + DW_B_BYTES);
 
 static_assert(ACT_BYTES % 128 == 0 && EMB_BYTES % 128 == 0 &&
+              emb_tile_bytes<EMB_TC> % 128 == 0 &&
               VEMB_BYTES % 128 == 0 && STAGE_BYTES % 128 == 0 &&
               WSCR_BYTES % 128 == 0 && DRAW_BYTES % 128 == 0 &&
               DW_A_BYTES % 128 == 0 && DW_B_BYTES % 128 == 0,
@@ -210,17 +224,20 @@ __device__ __forceinline__ void store_layer(AccFrag (&acc)[4][4], float* wscr,
   }
 }
 
-// forward chunks of layer l; layer 5 reads 4 chunks of n5h, then n5e on emb
+// forward chunks of layer l at an encoding of E lanes: layer 0 reads E/64
+// chunks of n0w on emb; layer 5 reads 4 chunks of n5h, then E/64 of n5e on emb
+template <int E>
 __device__ __forceinline__ int layer_chunks(int layer) {
-  return layer == 0 ? 1 : (layer == 5 ? 5 : 4);
+  return layer == 0 ? E / KC : (layer == 5 ? NW / KC + E / KC : NW / KC);
 }
 
-// nh1 .. nh8 of the tile: chunks g .. g + 29 of the schedule. `act` ends as
-// nh8. With `nh` (the row-padded (8, n_pad, 256) global scratch, offset to
-// the tile's first row) every layer is stored there too.
+// nh1 .. nh8 of the tile from the encoding tile `embs` of E lanes (row
+// stride ld_emb<E>): chunks g .. g + n_fwd_chunks<E> - 1 of the schedule.
+// `act` ends as nh8. With `nh` (the row-padded (8, n_pad, 256) global
+// scratch, offset to the tile's first row) every layer is stored there too.
 //   nh1 = bf16(relu(emb @ n0w + n0b));  nh2..nh5, nh7, nh8 alike;
 //   nh6 = bf16(relu(nh5 @ n5h + emb @ n5e + n5b))
-template <class Prefetch>
+template <int E = EMB, class Prefetch>
 __device__ __forceinline__ void chain_forward(bf16* act, const bf16* embs, bf16* stage,
                                               float* wscr, const float* const* bias,
                                               int& g, Prefetch& prefetch, bf16* nh,
@@ -230,12 +247,14 @@ __device__ __forceinline__ void chain_forward(bf16* act, const bf16* embs, bf16*
   AccFrag acc[4][4];
   for (int layer = 0; layer < N_LAYERS; ++layer) {
     zero_acc(acc);
-    const int n_chunks = layer_chunks(layer);
+    const int n_chunks = layer_chunks<E>(layer);
     for (int c = 0; c < n_chunks; ++c, ++g) {
       ring_next(prefetch, g);
-      const bool from_emb = (layer == 0) || (layer == 5 && c == 4);
-      mma_chunk(acc, from_emb ? embs : act, from_emb ? LDE : LDA,
-                from_emb ? 0 : c * KC, stage_of(stage, g), wm, wn);
+      const bool skip = layer == 5 && c >= NW / KC;   // n5e's chunks
+      const bool from_emb = layer == 0 || skip;
+      const int k0 = (skip ? c - NW / KC : c) * KC;
+      mma_chunk(acc, from_emb ? embs : act, from_emb ? ld_emb<E> : LDA, k0,
+                stage_of(stage, g), wm, wn);
       __syncthreads();   // all reads of this stage and of act are done
     }
     store_layer<true>(acc, wscr, bias[layer], act,
@@ -403,29 +422,32 @@ __device__ __forceinline__ int bwd_layer(int step) {
   return step == 0 ? 7 : step == 1 ? 6 : step == 2 ? 0 : step == 8 ? 0 : 8 - step;
 }
 
-// dh_chain's sink that writes demb to the tile's rows of the (n, 64) f32
+// dh_chain's sink that writes demb to the tile's rows of the (n, E) f32
 // output: step 2 stores, step 8 adds. rows_left = n - row0.
-struct DembToGlobal {
+template <int E>
+struct DembTo {
   float* demb;
   long rows_left;
   __device__ __forceinline__ void operator()(int step, int row, int col,
                                              const float* v) const {
     if (row >= rows_left) return;
-    float* dst = demb + size_t(row) * EMB + col;
+    float* dst = demb + size_t(row) * E + col;
 #pragma unroll
     for (int e = 0; e < 8; ++e) dst[e] = (step == 2) ? v[e] : dst[e] + v[e];
   }
 };
+using DembToGlobal = DembTo<EMB>;
 
-// The dh chain from dh8 (in `cur`) down: chunks g .. g + 29 of the schedule
-// (n7w n6w n5e n5h n4w n3w n2w n1w n0w).
+// The dh chain from dh8 (in `cur`) down: chunks g .. g + n_bwd_chunks<E> - 1
+// of the schedule (n7w n6w n5e n5h n4w n3w n2w n1w n0w; n5e and n0w as E/64
+// chunks each, one per 64 columns of demb).
 //   dh_l = bf16((dh_{l+1} @ W_l^T) * (nh_l > 0))   l = 7 .. 1
 //   demb = dh6 @ n5e^T + dh1 @ n0w^T               (f32, no mask)
 // nh, dh: the tile's rows of the row-padded (8, n_pad, 256) scratch arrays.
 // The two products of demb (step 2, then step 8) are handed to
 // `demb_run(step, row, col, v)` in runs of 8 columns; the same lane gets the
 // same elements in both steps.
-template <class Prefetch, class DembRun>
+template <int E = EMB, class Prefetch, class DembRun>
 __device__ __forceinline__ void dh_chain(bf16* cur, bf16* oth, bf16* stage, float* wscr,
                                          int& g, Prefetch& prefetch, const bf16* nh,
                                          bf16* dh, size_t layer_stride,
@@ -433,7 +455,7 @@ __device__ __forceinline__ void dh_chain(bf16* cur, bf16* oth, bf16* stage, floa
   AccFrag acc[4];
   for (int step = 0; step < N_BWD_STEPS; ++step) {
     const int layer = bwd_layer(step);          // 0: a demb product
-    const int n_chunks = layer ? NW / KC : 1;
+    const int n_chunks = layer ? NW / KC : E / KC;
     for (int c = 0; c < n_chunks; ++c, ++g) {
       ring_next(prefetch, g);
       mma_nt<NW, 4>(acc, cur, stage_of(stage, g), warp);
@@ -456,24 +478,27 @@ __device__ __forceinline__ void dh_chain(bf16* cur, bf16* oth, bf16* stage, floa
   }
 }
 
-// The 30 forward chunks of the chain from the matrices n0w, n1w..n4w, n5e,
-// n5h, n6w, n7w (m[0..8]); returns the next free slot.
+// The n_fwd_chunks<E> forward chunks of the chain from the matrices n0w,
+// n1w..n4w, n5e, n5h, n6w, n7w (m[0..8]; n0w and n5e E x 256); returns the
+// next free slot.
+template <int E = EMB>
 inline int fill_forward_chunks(const bf16* const* m, const bf16** chunk, int g) {
-  chunk[g++] = m[0];
+  for (int c = 0; c < E / KC; ++c) chunk[g++] = m[0] + c * KC * NW;   // n0w
   for (int layer = 1; layer <= 4; ++layer)
     for (int c = 0; c < 4; ++c) chunk[g++] = m[layer] + c * KC * NW;
-  for (int c = 0; c < 4; ++c) chunk[g++] = m[6] + c * KC * NW;   // n5h
-  chunk[g++] = m[5];                                               // n5e
+  for (int c = 0; c < 4; ++c) chunk[g++] = m[6] + c * KC * NW;        // n5h
+  for (int c = 0; c < E / KC; ++c) chunk[g++] = m[5] + c * KC * NW;   // n5e
   for (int layer = 7; layer <= 8; ++layer)
     for (int c = 0; c < 4; ++c) chunk[g++] = m[layer] + c * KC * NW;
   return g;
 }
 
-// The 30 backward chunks: n7w n6w n5e n5h n4w n3w n2w n1w n0w.
+// The n_bwd_chunks<E> backward chunks: n7w n6w n5e n5h n4w n3w n2w n1w n0w.
+template <int E = EMB>
 inline int fill_backward_chunks(const bf16* const* m, const bf16** chunk, int g) {
   const int bwd_mat[N_BWD_STEPS] = {8, 7, 5, 6, 4, 3, 2, 1, 0};
   for (int s = 0; s < N_BWD_STEPS; ++s) {
-    const int n_chunks = (bwd_mat[s] == 5 || bwd_mat[s] == 0) ? 1 : 4;
+    const int n_chunks = (bwd_mat[s] == 5 || bwd_mat[s] == 0) ? E / KC : 4;
     for (int c = 0; c < n_chunks; ++c) chunk[g++] = m[bwd_mat[s]] + c * KC * NW;
   }
   return g;
@@ -699,28 +724,37 @@ inline int launch_second_pass(const DwParams& dp, int n_tiles, const SmallParams
 
 // ---- the single-head forward kernels (mlp_fwd.cu, mlpe_fwd.cu)
 
-constexpr size_t FWD_SMEM_BYTES = ACT_BYTES + EMB_BYTES + 2 * STAGE_BYTES + WSCR_BYTES;
-static_assert(FWD_SMEM_BYTES <= SMEM_LIMIT, "fits one Hopper CTA");
+// activation tile + encoding tile + ring + warp scratch: 162,816 B at 64
+// lanes, 178,176 B at 128
+template <int E>
+constexpr size_t fwd_smem_bytes =
+    ACT_BYTES + emb_tile_bytes<E> + 2 * STAGE_BYTES + WSCR_BYTES;
+constexpr size_t FWD_SMEM_BYTES = fwd_smem_bytes<EMB>;
+static_assert(fwd_smem_bytes<EMB> <= SMEM_LIMIT && fwd_smem_bytes<EMB_TC> <= SMEM_LIMIT,
+              "the forward fits one Hopper CTA at both widths");
 
-struct FwdParams {
-  const bf16* chunk[N_FWD_CHUNKS];   // source of each 64-row weight chunk
-  const float* bias[N_LAYERS];       // (256,) f32 per hidden layer
-  const bf16* ow;                    // (256, 8) bf16
-  const float* ob;                   // (8,) f32
+template <int E>
+struct FwdParamsT {
+  const bf16* chunk[n_fwd_chunks<E>];   // source of each 64-row weight chunk
+  const float* bias[N_LAYERS];          // (256,) f32 per hidden layer
+  const bf16* ow;                       // (256, 8) bf16
+  const float* ob;                      // (8,) f32
 };
+using FwdParams = FwdParamsT<EMB>;
 
-// mats: n0w (64x256), n1w, n2w, n3w, n4w (256x256), n5e (64x256),
+// mats: n0w (E x 256), n1w, n2w, n3w, n4w (256x256), n5e (E x 256),
 //       n5h, n6w, n7w (256x256), ow (256x8), all bf16 row-major (in, out);
 // biases: n0b .. n4b, n5b, n6b, n7b (256 f32 each), ob (8 f32).
+template <int E>
 inline bool fill_fwd_params(const void* const* mats, const void* const* biases,
-                            FwdParams& p) {
+                            FwdParamsT<E>& p) {
   const bf16* m[10];
   for (int i = 0; i < 10; ++i) m[i] = static_cast<const bf16*>(mats[i]);
-  const int g = fill_forward_chunks(m, p.chunk, 0);
+  const int g = fill_forward_chunks<E>(m, p.chunk, 0);
   for (int i = 0; i < N_LAYERS; ++i) p.bias[i] = static_cast<const float*>(biases[i]);
   p.ow = m[9];
   p.ob = static_cast<const float*>(biases[8]);
-  return g == N_FWD_CHUNKS;
+  return g == n_fwd_chunks<E>;
 }
 
 
@@ -815,53 +849,66 @@ __device__ __forceinline__ void encode_tile(bf16* embs, const float* xs, long ro
 
 namespace single_head {
 
-constexpr int N_CHAIN_CHUNKS = N_FWD_CHUNKS + N_BWD_CHUNKS;
-constexpr int N_CHAIN_DW_TILES = 30;   // 64-row blocks of the 9 weight gradients
-constexpr int GRAD_FLOATS = 495624;
 static_assert(WSCR_BYTES >= DRAW_BYTES, "the draw tile borrows the warp scratch");
 
-// offsets (in floats) of the 19 gradients in one flat pack-order buffer:
+// offsets (in floats) of the 19 gradients in one flat pack-order buffer at an
+// encoding of E lanes:
 // n0w n0b n1w n1b n2w n2b n3w n3b n4w n4b n5e n5h n5b n6w n6b n7w n7b ow ob
-constexpr int WW = NW * NW, EW = EMB * NW;
-constexpr int OFF_N0W = 0;
-constexpr int OFF_N0B = OFF_N0W + EW;
-constexpr int OFF_N1W = OFF_N0B + NW;
-constexpr int OFF_N1B = OFF_N1W + WW;
-constexpr int OFF_N2W = OFF_N1B + NW;
-constexpr int OFF_N2B = OFF_N2W + WW;
-constexpr int OFF_N3W = OFF_N2B + NW;
-constexpr int OFF_N3B = OFF_N3W + WW;
-constexpr int OFF_N4W = OFF_N3B + NW;
-constexpr int OFF_N4B = OFF_N4W + WW;
-constexpr int OFF_N5E = OFF_N4B + NW;
-constexpr int OFF_N5H = OFF_N5E + EW;
-constexpr int OFF_N5B = OFF_N5H + WW;
-constexpr int OFF_N6W = OFF_N5B + NW;
-constexpr int OFF_N6B = OFF_N6W + WW;
-constexpr int OFF_N7W = OFF_N6B + NW;
-constexpr int OFF_N7B = OFF_N7W + WW;
-constexpr int OFF_OW = OFF_N7B + NW;
-constexpr int OFF_OB = OFF_OW + NW * OUT;
-static_assert(OFF_OB + OUT == GRAD_FLOATS, "pack-order layout");
-
-struct ChainParams {
-  const bf16* chunk[N_CHAIN_CHUNKS];   // source of each 64-row weight chunk
-  const float* bias[N_LAYERS];         // (256,) f32 per hidden layer
-  const bf16* ow;                      // (256, 8) bf16
+template <int E>
+struct GradLayout {
+  static constexpr int WW = NW * NW, EW = E * NW;
+  static constexpr int OFF_N0W = 0;
+  static constexpr int OFF_N0B = OFF_N0W + EW;
+  static constexpr int OFF_N1W = OFF_N0B + NW;
+  static constexpr int OFF_N1B = OFF_N1W + WW;
+  static constexpr int OFF_N2W = OFF_N1B + NW;
+  static constexpr int OFF_N2B = OFF_N2W + WW;
+  static constexpr int OFF_N3W = OFF_N2B + NW;
+  static constexpr int OFF_N3B = OFF_N3W + WW;
+  static constexpr int OFF_N4W = OFF_N3B + NW;
+  static constexpr int OFF_N4B = OFF_N4W + WW;
+  static constexpr int OFF_N5E = OFF_N4B + NW;
+  static constexpr int OFF_N5H = OFF_N5E + EW;
+  static constexpr int OFF_N5B = OFF_N5H + WW;
+  static constexpr int OFF_N6W = OFF_N5B + NW;
+  static constexpr int OFF_N6B = OFF_N6W + WW;
+  static constexpr int OFF_N7W = OFF_N6B + NW;
+  static constexpr int OFF_N7B = OFF_N7W + WW;
+  static constexpr int OFF_OW = OFF_N7B + NW;
+  static constexpr int OFF_OB = OFF_OW + NW * OUT;
+  static constexpr int FLOATS = OFF_OB + OUT;
+  // 64-row blocks of the 9 weight gradients: 28 + 2 * E/64
+  static constexpr int DW_TILES = 7 * (NW / 64) + 2 * (E / 64);
 };
+constexpr int GRAD_FLOATS = GradLayout<EMB>::FLOATS;
+static_assert(GRAD_FLOATS == 495624 && GradLayout<EMB_TC>::FLOATS == 528392,
+              "pack-order layout");
 
-// mats: n0w (64x256), n1w..n4w (256x256), n5e (64x256), n5h, n6w, n7w
+// the chain kernel's schedule: the recompute's chunks, then the dh chain's
+template <int E> constexpr int n_chain_chunks = n_fwd_chunks<E> + n_bwd_chunks<E>;
+constexpr int N_CHAIN_CHUNKS = n_chain_chunks<EMB>;
+
+template <int E>
+struct ChainParamsT {
+  const bf16* chunk[n_chain_chunks<E>];   // source of each 64-row weight chunk
+  const float* bias[N_LAYERS];            // (256,) f32 per hidden layer
+  const bf16* ow;                         // (256, 8) bf16
+};
+using ChainParams = ChainParamsT<EMB>;
+
+// mats: n0w (E x 256), n1w..n4w (256x256), n5e (E x 256), n5h, n6w, n7w
 //       (256x256), ow (256x8), bf16 row-major (in, out);
 // biases: n0b..n4b, n5b, n6b, n7b (256 f32 each), ob (unused in a backward).
+template <int E>
 inline bool fill_chain_params(const void* const* mats, const void* const* biases,
-                              ChainParams& p) {
+                              ChainParamsT<E>& p) {
   const bf16* m[10];
   for (int i = 0; i < 10; ++i) m[i] = static_cast<const bf16*>(mats[i]);
-  int g = fill_forward_chunks(m, p.chunk, 0);
-  g = fill_backward_chunks(m, p.chunk, g);
+  int g = fill_forward_chunks<E>(m, p.chunk, 0);
+  g = fill_backward_chunks<E>(m, p.chunk, g);
   for (int i = 0; i < N_LAYERS; ++i) p.bias[i] = static_cast<const float*>(biases[i]);
   p.ow = m[9];
-  return g == N_CHAIN_CHUNKS;
+  return g == n_chain_chunks<E>;
 }
 
 // dh8 = bf16((bf16(draw) @ ow^T) * (nh8 > 0)) into `dst` and to global; K = 8,
@@ -892,51 +939,57 @@ __device__ __forceinline__ void dh8_from_draw(const float* __restrict__ draw, lo
   __syncthreads();
 }
 
-// Sizes of the buffers a single-head backward needs for n points: the bf16
-// scratch (emb copy + nh1..nh8 + dh1..dh8, rows padded to 128) in elements,
-// and the f32 partials (one flat pack-order gradient per 2048-point split).
+// Sizes of the buffers a single-head backward needs for n points at an
+// encoding of E lanes: the bf16 scratch (emb copy + nh1..nh8 + dh1..dh8, rows
+// padded to 128) in elements, and the f32 partials (one flat pack-order
+// gradient per 2048-point split).
+template <int E = EMB>
 inline void chain_bwd_sizes(int n, long long* scratch_elems, long long* partial_floats) {
-  *scratch_elems = (long long)padded_rows(n) * (EMB + 2 * N_LAYERS * NW);
-  *partial_floats = (long long)split_count(n) * GRAD_FLOATS;
+  *scratch_elems = (long long)padded_rows(n) * (E + 2 * N_LAYERS * NW);
+  *partial_floats = (long long)split_count(n) * GradLayout<E>::FLOATS;
 }
 
-// The second pass over a chain kernel's scratch (embp, then nh1..nh8, then
-// dh1..dh8): the 9 products g_W = act^T @ dh in 64-row tiles, the bias sums of
-// dh1 .. dh8, g_ow = nh8^T @ bf16(draw) with g_ob, and the reduction.
+// The second pass over a chain kernel's scratch (embp of E lanes, then
+// nh1..nh8, then dh1..dh8): the 9 products g_W = act^T @ dh in 64-row tiles,
+// the bias sums of dh1 .. dh8, g_ow = nh8^T @ bf16(draw) with g_ob, and the
+// reduction.
+template <int E = EMB>
 inline int launch_chain_second_pass(bf16* scratch, const float* draw, int n,
                                     float* partials, float* grads,
                                     cudaStream_t stream) {
+  using L = GradLayout<E>;
   const long n_pad = padded_rows(n);
   const size_t layer_stride = size_t(n_pad) * NW;
   const bf16* embp = scratch;
-  const bf16* nh = embp + size_t(n_pad) * EMB;
+  const bf16* nh = embp + size_t(n_pad) * E;
   const bf16* dh = nh + N_LAYERS * layer_stride;
   DwParams dp;
   struct Prod { const bf16* a; int lda; const bf16* b; int off; };
   auto nh_l = [&](int l) { return nh + size_t(l - 1) * layer_stride; };
   auto dh_l = [&](int l) { return dh + size_t(l - 1) * layer_stride; };
   const Prod prods[9] = {
-      {embp, EMB, dh_l(1), OFF_N0W},  {nh_l(1), NW, dh_l(2), OFF_N1W},
-      {nh_l(2), NW, dh_l(3), OFF_N2W}, {nh_l(3), NW, dh_l(4), OFF_N3W},
-      {nh_l(4), NW, dh_l(5), OFF_N4W}, {embp, EMB, dh_l(6), OFF_N5E},
-      {nh_l(5), NW, dh_l(6), OFF_N5H}, {nh_l(6), NW, dh_l(7), OFF_N6W},
-      {nh_l(7), NW, dh_l(8), OFF_N7W}};
+      {embp, E, dh_l(1), L::OFF_N0W},     {nh_l(1), NW, dh_l(2), L::OFF_N1W},
+      {nh_l(2), NW, dh_l(3), L::OFF_N2W}, {nh_l(3), NW, dh_l(4), L::OFF_N3W},
+      {nh_l(4), NW, dh_l(5), L::OFF_N4W}, {embp, E, dh_l(6), L::OFF_N5E},
+      {nh_l(5), NW, dh_l(6), L::OFF_N5H}, {nh_l(6), NW, dh_l(7), L::OFF_N6W},
+      {nh_l(7), NW, dh_l(8), L::OFF_N7W}};
+  constexpr int ROWS = 64;   // activation columns (rows of a dW) per tile
   int t = 0;
   for (const Prod& pr : prods) {
-    for (int c = 0; c < pr.lda; c += EMB) {
-      dp.tile[t++] = DwTile{pr.a, pr.b, pr.lda, c, EMB, NW, pr.off + c * NW};
+    for (int c = 0; c < pr.lda; c += ROWS) {
+      dp.tile[t++] = DwTile{pr.a, pr.b, pr.lda, c, ROWS, NW, pr.off + c * NW};
     }
   }
-  if (t != N_CHAIN_DW_TILES) return int(cudaErrorInvalidValue);
+  if (t != L::DW_TILES) return int(cudaErrorInvalidValue);
 
   SmallParams sp;
-  const int bias_off[N_LAYERS] = {OFF_N0B, OFF_N1B, OFF_N2B, OFF_N3B,
-                                  OFF_N4B, OFF_N5B, OFF_N6B, OFF_N7B};
+  const int bias_off[N_LAYERS] = {L::OFF_N0B, L::OFF_N1B, L::OFF_N2B, L::OFF_N3B,
+                                  L::OFF_N4B, L::OFF_N5B, L::OFF_N6B, L::OFF_N7B};
   for (int l = 0; l < N_LAYERS; ++l) sp.job[l] = SmallJob{dh_l(l + 1), NW, bias_off[l], -1};
-  sp.job[N_LAYERS] = SmallJob{nh_l(8), NW, OFF_OW, OFF_OB};
+  sp.job[N_LAYERS] = SmallJob{nh_l(8), NW, L::OFF_OW, L::OFF_OB};
 
-  return launch_second_pass(dp, N_CHAIN_DW_TILES, sp, N_LAYERS + 1, draw, n,
-                            GRAD_FLOATS, partials, grads, stream);
+  return launch_second_pass(dp, L::DW_TILES, sp, N_LAYERS + 1, draw, n, L::FLOATS,
+                            partials, grads, stream);
 }
 
 }  // namespace single_head

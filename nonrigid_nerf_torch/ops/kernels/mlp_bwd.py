@@ -15,8 +15,12 @@ Counterpart of the Pallas kernel `_mlp_core_bwd` and its math `_mlp_bwd_math`
   f32 weights is kept between the two; the backward recomputes the
   activations.
 
+The encoding has 64 or 128 lanes, as for `mlp_fwd`; demb comes back at the
+full width, so with the time-conditioned input its lanes 63 .. 94 are the
+gradient of the latents.
+
 The kernel is bound by the tensor cores (2.96 MFLOP per point against 416 B
-of HBM traffic per point); see the source for its design.
+of HBM traffic per point at 64 lanes); see the source for its design.
 """
 
 from __future__ import annotations
@@ -28,15 +32,29 @@ import torch
 
 from nonrigid_nerf_torch.ops.kernels.build import load_kernel_library
 from nonrigid_nerf_torch.ops.kernels.mlp_fwd import (
-    EMB, MACS_PER_POINT, N_MLP_W, OUT_PAD, _BIAS_IDX, _MATRIX_IDX, _check_args,
-    _expected_shape, cast_mlp_weights, chain_plain, check_kernel_weights,
-    mlp_fwd, weight_pointers)
+    EMB, EMB_WIDTHS, N_MLP_W, OUT_PAD, _BIAS_IDX, _MATRIX_IDX,
+    _check_args, _expected_shape, cast_mlp_weights, chain_plain,
+    check_emb_width, check_kernel_weights, macs_per_point, mlp_fwd,
+    weight_pointers)
 
-# recompute + the dh chain + the dW products, each as many MACs as the forward
-BWD_MACS_PER_POINT = 3 * MACS_PER_POINT
-GRAD_FLOATS = sum(_expected_shape(i).numel() for i in range(N_MLP_W))
+
+def bwd_macs_per_point(emb_width: int = EMB) -> int:
+    """The recompute, the dh chain and the dW products, each as many MACs
+    as the forward."""
+    return 3 * macs_per_point(emb_width)
+
+
+def grad_shapes(emb_width: int = EMB):
+    """The 19 gradients' (padded) shapes in pack order."""
+    return tuple(_expected_shape(i, emb_width) for i in range(N_MLP_W))
+
+
+BWD_MACS_PER_POINT = bwd_macs_per_point(EMB)
+_SHAPES = grad_shapes(EMB)
+GRAD_FLOATS = sum(shape.numel() for shape in _SHAPES)
 # one call takes at most this many points: the bf16 scratch (8,320 B per
-# point) then stays at 2 GiB. The training step gives 131,072 at most.
+# point at 64 lanes, 8,448 at 128) then stays at 2.06 GiB. The training step
+# gives 131,072 at most.
 MAX_POINTS_PER_LAUNCH = 1 << 18
 # Agreement of two implementations of the bf16 backward (these kernels, the
 # plain version, the JAX math). f32 sums in another order flip an occasional
@@ -142,7 +160,7 @@ def masked(g, nh):
 
 
 def chain_bwd_plain(embb, nh, mw, dh8):
-    """The dh chain from dh8 down: demb (n, 64) f32 and the chain's 17
+    """The dh chain from dh8 down: demb (n, E) f32 and the chain's 17
     gradients in pack order. nh = [nh1 .. nh8] from `chain_plain`."""
     (n0w, _, n1w, _, n2w, _, n3w, _, n4w, _, n5e, n5h, _, n6w, _, n7w,
      _) = mw[:17]
@@ -174,10 +192,12 @@ def mlp_bwd_plain(embb: torch.Tensor, mw: Sequence[torch.Tensor],
                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Plain PyTorch version of the kernel: `_mlp_bwd_math` line for line.
 
-    embb (n, 64) (cast to bf16), mw from `cast_mlp_weights`, draw (n, 8) f32.
-    bf16 x bf16 products are exact in f32, so an f32 matmul of the bf16
-    values is the kernel's arithmetic up to the order of the f32 sums.
-    Returns demb (n, 64) f32 and the 19 f32 gradients in pack order."""
+    embb (n, 64 or 128) (cast to bf16), mw from `cast_mlp_weights`, draw
+    (n, 8) f32. bf16 x bf16 products are exact in f32, so an f32 matmul of
+    the bf16 values is the kernel's arithmetic up to the order of the f32
+    sums. Returns demb (n, 64 or 128) f32 and the 19 f32 gradients in pack
+    order."""
+    check_emb_width(embb.shape[-1])
     ow = mw[17]
     # the forward activations, recomputed in bf16 from embb as in mlp_fwd
     embb = embb.to(torch.bfloat16)
@@ -199,18 +219,16 @@ def split_grads(flat: torch.Tensor, shapes) -> List[torch.Tensor]:
     return out
 
 
-_SHAPES = tuple(_expected_shape(i) for i in range(N_MLP_W))
-
-
 def mlp_bwd(embb: torch.Tensor, mw: Sequence[torch.Tensor],
             draw: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """demb (n, 64) f32 and the 19 f32 weight gradients (pack order, padded
-    shapes, summed over all n points) of the canonical MLP at embb (n, 64)
-    for the cotangent draw (n, 8).
+    """demb (n, E) f32 and the 19 f32 weight gradients (pack order, padded
+    shapes, summed over all n points) of the canonical MLP at embb (n, E),
+    E = 64 or 128, for the cotangent draw (n, 8).
 
     On a CPU tensor this is `mlp_bwd_plain`. On a CUDA tensor it launches
     the CUDA kernels on the current stream (and counts the call in
-    `mlp_bwd.launches`), or raises."""
+    `mlp_bwd.launches`, and by width in `mlp_bwd.launches_by_width`), or
+    raises."""
     _check_args(embb, mw)
     if draw.shape != (embb.shape[0], OUT_PAD) or draw.device != embb.device:
         raise ValueError(f"draw must be ({embb.shape[0]}, {OUT_PAD}) on "
@@ -222,61 +240,68 @@ def mlp_bwd(embb: torch.Tensor, mw: Sequence[torch.Tensor],
         raise ValueError(f"mlp_bwd runs on cpu or cuda, not {embb.device}")
     embb = embb.to(torch.bfloat16).contiguous()
     draw = draw.float().contiguous()
-    check_kernel_weights(mw, _expected_shape, "mlp_bwd")
-    n = embb.shape[0]
+    n, width = embb.shape
+    shapes = grad_shapes(width)
+    check_kernel_weights(mw, lambda i: shapes[i], "mlp_bwd")
     device = embb.device
     if n > MAX_POINTS_PER_LAUNCH:
         raise ValueError(f"mlp_bwd takes at most {MAX_POINTS_PER_LAUNCH} "
                          f"points per call, got {n}")
-    demb = torch.empty((n, EMB), dtype=torch.float32, device=device)
+    demb = torch.empty((n, width), dtype=torch.float32, device=device)
+    grad_floats = sum(shape.numel() for shape in shapes)
     if n == 0:      # nothing to launch, nothing to count
-        return demb, split_grads(torch.zeros(GRAD_FLOATS, device=device),
-                                 _SHAPES)
+        return demb, split_grads(torch.zeros(grad_floats, device=device),
+                                 shapes)
     lib = _library()
     mats, biases = weight_pointers(mw, _MATRIX_IDX, _BIAS_IDX)
     scratch_elems, partial_floats = ctypes.c_longlong(), ctypes.c_longlong()
-    lib.nrnerf_mlp_bwd_sizes(n, ctypes.byref(scratch_elems),
-                             ctypes.byref(partial_floats))
+    err = lib.nrnerf_mlp_bwd_sizes(n, width, ctypes.byref(scratch_elems),
+                                   ctypes.byref(partial_floats))
+    if err != 0:
+        raise RuntimeError(f"mlp_bwd_sizes failed: CUDA error {err}")
     scratch = torch.empty(scratch_elems.value, dtype=torch.bfloat16,
                           device=device)
     partials = torch.empty(partial_floats.value, dtype=torch.float32,
                            device=device)
-    grads = torch.empty(GRAD_FLOATS, dtype=torch.float32, device=device)
+    grads = torch.empty(grad_floats, dtype=torch.float32, device=device)
     for t in (embb, draw, demb, scratch, partials, grads, *mw):
         if t.data_ptr() % 16:
             raise ValueError("mlp_bwd needs 16-byte aligned tensors")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.nrnerf_mlp_bwd(embb.data_ptr(), draw.data_ptr(), n, mats,
-                                 biases, scratch.data_ptr(),
+        err = lib.nrnerf_mlp_bwd(embb.data_ptr(), draw.data_ptr(), n, width,
+                                 mats, biases, scratch.data_ptr(),
                                  partials.data_ptr(), demb.data_ptr(),
                                  grads.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"mlp_bwd kernel launch failed: CUDA error {err}")
     mlp_bwd.launches += 1
-    return demb, split_grads(grads, _SHAPES)
+    mlp_bwd.launches_by_width[width] += 1
+    return demb, split_grads(grads, shapes)
 
 
 mlp_bwd.launches = 0
+mlp_bwd.launches_by_width = dict.fromkeys(EMB_WIDTHS, 0)
 
 
 def _library() -> ctypes.CDLL:
     lib = load_kernel_library("mlp_bwd.cu")
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     lib.nrnerf_mlp_bwd.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ptrs, ptrs,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ptrs,
+        ptrs, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p]
     lib.nrnerf_mlp_bwd.restype = ctypes.c_int
     lib.nrnerf_mlp_bwd_sizes.argtypes = [
-        ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
         ctypes.POINTER(ctypes.c_longlong)]
-    lib.nrnerf_mlp_bwd_sizes.restype = None
+    lib.nrnerf_mlp_bwd_sizes.restype = ctypes.c_int
     return lib
 
 
 class MLPCore(torch.autograd.Function):
-    """raw (n, 8) f32 = the canonical MLP on emb (n, 64), differentiable.
+    """raw (n, 8) f32 = the canonical MLP on emb (n, 64 or 128),
+    differentiable.
 
     `MLPCore.apply(emb, *packed)` takes the 19 packed f32 tensors of
     `pack_mlp_weights` and casts the ten matrices to bf16 itself. The

@@ -12,8 +12,13 @@ and of its weight packing `pack_mlp_weights` (fused_query.py:120-153).
   the plain version `mlp_fwd_plain` on a CPU tensor. It never falls back: a
   CUDA tensor either launches the kernel or raises.
 
+The encoding has 64 lanes (the 63-channel Fourier encoding) or 128 (the
+time-conditioned baseline's input: the encoding and the latent, 63 + 32
+channels, as the JAX `pack_mlp_weights(in_ch=95)` pads it); n0w and n5e have
+as many rows. Any other width raises.
+
 The kernel is bound by the tensor cores (0.987 MFLOP per point against
-160 B of HBM traffic); see the source for its design.
+160 B of HBM traffic at 64 lanes); see the source for its design.
 """
 
 from __future__ import annotations
@@ -28,11 +33,19 @@ from nonrigid_nerf_torch.ops.kernels.build import load_kernel_library
 
 NW = 256          # canonical MLP width
 EMB = 64          # 63 encoding channels padded to 64
+EMB_TC = 128      # the time-conditioned input, 63 + 32 channels, padded to 128
+EMB_WIDTHS = (EMB, EMB_TC)
 OUT_PAD = 8       # raw output (4 channels consumed) padded to 8
 N_MLP_W = 19
-# MACs per point: 64*256 (layer 0) + 7*256*256 (layers 1-4, 5h, 6, 7)
-# + 64*256 (layer 5 skip) + 256*8 (head)
-MACS_PER_POINT = 2 * EMB * NW + 7 * NW * NW + NW * OUT_PAD
+
+
+def macs_per_point(emb_width: int = EMB) -> int:
+    """MACs per point: E*256 (layer 0) + 7*256*256 (layers 1-4, 5h, 6, 7)
+    + E*256 (layer 5 skip) + 256*8 (head), for an encoding of E lanes."""
+    return 2 * emb_width * NW + 7 * NW * NW + NW * OUT_PAD
+
+
+MACS_PER_POINT = macs_per_point(EMB)
 # Agreement of two implementations of the bf16 chain (this kernel, its plain
 # version, the JAX math): f32 sums in another order flip an occasional bf16
 # rounding between layers, which reaches raw at about 1e-4. Observed max /
@@ -50,6 +63,12 @@ def pad_lanes(n_ch: int) -> int:
     return -(-n_ch // 64) * 64
 
 
+def check_emb_width(width: int) -> None:
+    if width not in EMB_WIDTHS:
+        raise ValueError(f"the MLP kernels take an encoding of {EMB_WIDTHS} "
+                         f"lanes, got {width}")
+
+
 def _pad_w(w, rows, cols):
     return F.pad(w, (0, cols - w.shape[1], 0, rows - w.shape[0]))
 
@@ -63,9 +82,12 @@ def pack_chain_weights(pts) -> list:
     packed tensors: n0w n0b n1w n1b n2w n2b n3w n3b n4w n4b n5e n5h n5b n6w
     n6b n7w n7b, in the JAX (fan_in, fan_out) layout. The skip layer's weight
     splits into its input rows (n5e) and its hidden rows (n5h), so the concat
-    becomes a sum of two products."""
+    becomes a sum of two products. The input (63 channels, or 95 with the
+    time-conditioned latent) is padded to 64 or 128 lanes; a wider one
+    raises."""
     in_ch = pts[0].in_features
     emb_pad = pad_lanes(in_ch)
+    check_emb_width(emb_pad)
     ws = [_pad_w(pts[0].weight.t(), emb_pad, NW), _pad_b(pts[0].bias, NW)]
     for i in (1, 2, 3, 4):
         ws += [pts[i].weight.t(), _pad_b(pts[i].bias, NW)]
@@ -121,15 +143,17 @@ def chain_plain(embb: torch.Tensor, mw: Sequence[torch.Tensor]):
 def mlp_fwd_plain(emb: torch.Tensor, mw: Sequence[torch.Tensor]) -> torch.Tensor:
     """Plain PyTorch version of the kernel, with the same bf16 casts.
 
-    emb (n, 64) (cast to bf16), mw from `cast_mlp_weights`. Returns (n, 8)
-    f32."""
+    emb (n, 64 or 128) (cast to bf16), mw from `cast_mlp_weights`. Returns
+    (n, 8) f32."""
+    check_emb_width(emb.shape[-1])
     nh8 = chain_plain(emb.to(torch.bfloat16), mw)[-1]
     return mm_bf16(nh8, mw[17]) + mw[18]
 
 
 def _check_args(emb, mw):
-    if emb.dim() != 2 or emb.shape[1] != EMB:
-        raise ValueError(f"emb must be (n, {EMB}), got {tuple(emb.shape)}")
+    if emb.dim() != 2 or emb.shape[1] not in EMB_WIDTHS:
+        raise ValueError(f"emb must be (n, 64) or (n, 128), got "
+                         f"{tuple(emb.shape)}")
     if len(mw) != N_MLP_W:
         raise ValueError(f"expected {N_MLP_W} packed weights, got {len(mw)}")
     for i, w in enumerate(mw):
@@ -137,6 +161,10 @@ def _check_args(emb, mw):
         if w.dtype != want or w.device != emb.device:
             raise ValueError(f"packed weight {i} must be {want} on "
                              f"{emb.device}, got {w.dtype} on {w.device}")
+    for i in (0, 10):
+        if mw[i].dim() != 2 or mw[i].shape[0] != emb.shape[1]:
+            raise ValueError(f"packed weight {i} must have {emb.shape[1]} "
+                             f"rows, as emb has lanes, got {tuple(mw[i].shape)}")
 
 
 def check_kernel_weights(mw, expected_shape, what: str):
@@ -159,18 +187,20 @@ def weight_pointers(mw, matrix_idx, bias_idx):
 
 
 def mlp_fwd(emb: torch.Tensor, mw: Sequence[torch.Tensor]) -> torch.Tensor:
-    """raw (n, 8) f32 = the canonical MLP on emb (n, 64).
+    """raw (n, 8) f32 = the canonical MLP on emb (n, 64) or (n, 128).
 
     On a CPU tensor this is `mlp_fwd_plain`. On a CUDA tensor it launches the
     CUDA kernel on the current stream (and counts the launch in
-    `mlp_fwd.launches`), or raises."""
+    `mlp_fwd.launches`, and by width in `mlp_fwd.launches_by_width`), or
+    raises."""
     _check_args(emb, mw)
     if emb.device.type == "cpu":
         return mlp_fwd_plain(emb, mw)
     if emb.device.type != "cuda":
         raise ValueError(f"mlp_fwd runs on cpu or cuda, not {emb.device}")
     embb = emb.to(torch.bfloat16).contiguous()
-    check_kernel_weights(mw, _expected_shape, "mlp_fwd")
+    width = embb.shape[1]
+    check_kernel_weights(mw, lambda i: _expected_shape(i, width), "mlp_fwd")
     for t in (embb, *mw):
         if t.data_ptr() % 16:
             raise ValueError("mlp_fwd needs 16-byte aligned tensors")
@@ -184,20 +214,22 @@ def mlp_fwd(emb: torch.Tensor, mw: Sequence[torch.Tensor]) -> torch.Tensor:
     mats, biases = weight_pointers(mw, _MATRIX_IDX, _BIAS_IDX)
     with torch.cuda.device(emb.device):
         stream = torch.cuda.current_stream(emb.device).cuda_stream
-        err = lib.nrnerf_mlp_fwd(embb.data_ptr(), n, mats, biases,
+        err = lib.nrnerf_mlp_fwd(embb.data_ptr(), n, width, mats, biases,
                                  out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"mlp_fwd kernel launch failed: CUDA error {err}")
     mlp_fwd.launches += 1
+    mlp_fwd.launches_by_width[width] += 1
     return out
 
 
 mlp_fwd.launches = 0
+mlp_fwd.launches_by_width = dict.fromkeys(EMB_WIDTHS, 0)
 
 
-def _expected_shape(i: int):
+def _expected_shape(i: int, emb_width: int = EMB):
     if i in (0, 10):
-        return torch.Size((EMB, NW))
+        return torch.Size((emb_width, NW))
     if i == 17:
         return torch.Size((NW, OUT_PAD))
     if i == 18:
@@ -211,7 +243,7 @@ def _library() -> ctypes.CDLL:
     lib = load_kernel_library("mlp_fwd.cu")
     fn = lib.nrnerf_mlp_fwd
     ptrs = ctypes.POINTER(ctypes.c_void_p)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ptrs, ptrs,
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ptrs, ptrs,
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

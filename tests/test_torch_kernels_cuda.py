@@ -736,3 +736,132 @@ def test_entry_points_on_cuda_split_equals_monolith(model, cuda_device):
     for a, b in zip(card[1], cpu[1]):
         scale = max(float(b.abs().max()), 1e-6)
         assert float((a.cpu() - b).abs().max()) / scale < 0.06
+
+
+# ---- the time-conditioned baseline: mlp_fwd and mlp_bwd at 128 lanes
+
+CFG_TC = ModelConfig(ray_bending=None, time_conditioned_baseline=True)
+
+
+@pytest.fixture(scope="module")
+def model_tc():
+    """The baseline from a seed: no bender, a nonzero latent table, so the
+    latent lanes 63 .. 94 of the MLP input carry signal."""
+    gen = torch.Generator().manual_seed(2)
+    m = NRNeRF(CFG_TC, num_timesteps=2, generator=gen, device="cpu")
+    with torch.no_grad():
+        m.latents.copy_(0.3 * torch.randn(m.latents.shape, generator=gen))
+        for net in (m.coarse, m.fine):
+            net.output.bias[3] += 1.0
+    return m
+
+
+def _emb_tc(n, seed=0):
+    """63 encoding lanes and 32 latent lanes, the rest zero."""
+    rng = np.random.RandomState(seed)
+    emb = np.zeros((n, 128), np.float32)
+    emb[:, :63] = rng.uniform(-1, 1, (n, 63))
+    emb[:, 63:95] = 0.3 * rng.randn(n, 32)
+    return emb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 127, 129, 4096 + 5])
+def test_kernel_matches_plain_on_cuda_at_128_lanes(model_tc, cuda_device, n):
+    mw = tuple(w.detach().to(cuda_device) for w in
+               K.cast_mlp_weights(K.pack_mlp_weights(model_tc.coarse)))
+    assert mw[0].shape == mw[10].shape == (128, 256)
+    emb = torch.from_numpy(_emb_tc(n, 3)).to(cuda_device)
+    before = dict(K.mlp_fwd.launches_by_width)
+    out = K.mlp_fwd(emb, mw)
+    torch.cuda.synchronize()
+    assert K.mlp_fwd.launches_by_width == {64: before[64],
+                                           128: before[128] + (n > 0)}
+    assert out.shape == (n, K.OUT_PAD) and out.dtype == torch.float32
+    err = (out - K.mlp_fwd_plain(emb, mw)).abs()
+    if n:
+        assert err.max().item() <= K.BF16_TOL_MAX
+        assert err.mean().item() <= K.BF16_TOL_MEAN
+    assert torch.equal(out, K.mlp_fwd(emb, mw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 127, 129, 4096 + 5])
+def test_bwd_kernel_matches_plain_on_cuda_at_128_lanes(model_tc, cuda_device, n):
+    mw = tuple(w.detach().to(cuda_device) for w in
+               K.cast_mlp_weights(K.pack_mlp_weights(model_tc.fine)))
+    embb = torch.from_numpy(_emb_tc(n, 5)).to(cuda_device).to(torch.bfloat16)
+    draw = torch.from_numpy(np.random.RandomState(6).randn(n, 8).astype(
+        np.float32)).to(cuda_device)
+    before = dict(KB.mlp_bwd.launches_by_width)
+    got = KB.mlp_bwd(embb, mw, draw)
+    torch.cuda.synchronize()
+    assert KB.mlp_bwd.launches_by_width == {64: before[64],
+                                            128: before[128] + (n > 0)}
+    assert got[0].shape == (n, 128) and got[1][0].shape == (128, 256)
+    _assert_bwd_close(got, KB.mlp_bwd_plain(embb, mw, draw))
+    if n:       # the latents' lanes get a gradient, the pad lanes none
+        assert got[0][:, 63:95].abs().max().item() > 0
+        assert got[0][:, 95:].abs().max().item() == 0
+    again = KB.mlp_bwd(embb, mw, draw)
+    assert torch.equal(got[0], again[0])
+    for a, b in zip(got[1], again[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mlp_core_gradients_match_plain_function_on_cuda_at_128_lanes(
+        model_tc, cuda_device):
+    """`MLPCore` on the baseline's 95-channel input padded to 128 lanes,
+    twice over one graph, against the plain versions: the latents' gradient
+    comes back through the padding."""
+    gpu_model = NRNeRF(CFG_TC, num_timesteps=2, device=cuda_device)
+    gpu_model.load_state_dict(model_tc.state_dict())
+    net = gpu_model.coarse
+    params = list(net.parameters())
+    x = torch.from_numpy(_emb_tc(777, 9)[:, :95]).to(cuda_device)
+    x.requires_grad_(True)
+    emb = torch.nn.functional.pad(x, (0, 33))
+    cots = [torch.from_numpy(np.random.RandomState(s).randn(777, 8).astype(
+        np.float32)).to(cuda_device) for s in (10, 11)]
+    out = KB.MLPCore.apply(emb, *K.pack_mlp_weights(net))
+    ref = _PlainCore.apply(emb, *K.pack_mlp_weights(net))
+    for cot in cots:
+        got = torch.autograd.grad(out, [x] + params, cot, retain_graph=True)
+        want = torch.autograd.grad(ref, [x] + params, cot, retain_graph=True)
+        assert got[0][:, 63:].abs().max().item() > 0
+        for i, (a, b) in enumerate(zip(got, want)):
+            l2 = (torch.linalg.vector_norm(a - b)
+                  / torch.linalg.vector_norm(b)).item()
+            assert l2 <= KB.BWD_TOL_L2, (i, l2)
+
+
+@pytest.mark.cuda
+def test_baseline_renderer_on_cuda_runs_kernel_and_matches_cpu(model_tc,
+                                                               cuda_device):
+    """The baseline with fused_kernel="auto" on the card: mlp_fwd at 128
+    lanes once per pass and block, and what the CPU renders with the plain
+    version."""
+    rs = RenderSettings(N_samples=16, N_importance=16, near=0.1,
+                        far=1.6).test_mode()
+    rng = np.random.RandomState(1)
+    ro = np.tile([[0.0, 0.0, 0.6]], (64, 1)).astype(np.float32)
+    rd = np.concatenate([rng.uniform(-0.4, 0.4, (64, 2)),
+                         -np.ones((64, 1))], 1).astype(np.float32)
+    lat = model_tc.latents.detach()[torch.arange(64) % 2]
+    args = (torch.from_numpy(ro), torch.from_numpy(rd), lat)
+
+    gpu_model = NRNeRF(CFG_TC, num_timesteps=2, device=cuda_device)
+    gpu_model.load_state_dict(model_tc.state_dict())
+    before = K.mlp_fwd.launches_by_width[128]
+    gpu = make_ray_renderer(CFG_TC, rs, chunk=64, device=cuda_device)(
+        gpu_model, *(a.to(cuda_device) for a in args))
+    torch.cuda.synchronize()
+    assert K.mlp_fwd.launches_by_width[128] == before + 2
+    cpu = make_ray_renderer(ModelConfig(ray_bending=None,
+                                        time_conditioned_baseline=True,
+                                        fused_kernel="on"), rs, chunk=64,
+                            device="cpu")(model_tc, *args)
+    for key in ("rgb_map", "disp_map", "acc_map"):
+        np.testing.assert_allclose(gpu[key].cpu().numpy(), cpu[key].numpy(),
+                                   rtol=1e-3, atol=1e-3, err_msg=key)

@@ -251,9 +251,14 @@ def test_supports_fused_query_with_viewdirs():
 
 def test_what_is_still_not_ported_raises():
     check_nerf_supported(t_config.ModelConfig(use_viewdirs=True))
-    with pytest.raises(NotImplementedError, match="time_conditioned"):
-        check_nerf_supported(t_config.ModelConfig(
-            ray_bending=None, time_conditioned_baseline=True))
+    # the time-conditioned baseline is ported, with view directions too (on
+    # the plain path: its kernel takes the single head only)
+    baseline = t_config.ModelConfig(ray_bending=None,
+                                    time_conditioned_baseline=True,
+                                    use_viewdirs=True)
+    check_nerf_supported(baseline)
+    assert not t_query.use_fused_kernel(baseline, t_config.EditConfig(),
+                                        torch.device("cuda"))
     with pytest.raises(NotImplementedError, match="compute_dtype"):
         check_nerf_supported(t_config.ModelConfig(use_viewdirs=True,
                                                   compute_dtype="bfloat16"))
