@@ -23,7 +23,8 @@ result line is printed):
 
 1. Print the card's name and power limit, build every CUDA kernel from the
    sources in this checkout (one nvcc per source, side by side), print the
-   build times and what ptxas says of registers and spills.
+   build times and what ptxas says of registers, spills and wgmma
+   serialization.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, within the tolerance the CPU tests pin,
    and relaunch it to see bit-equal outputs; time kernel, plain version and
@@ -74,9 +75,13 @@ result line is printed):
    and the gradients against the f32 modules'; and `fused_fwd` against what
    the engine spends on the same function (the f32 bender, then
    `mlpe_fwd`).
-6. Print the kernels JSON line (eleven rows; `mlp_fwd` and `mlp_bwd` carry
-   B's 128-lane checks, timings and launches under "lanes_128") and, last,
-   the result line
+6. Print rows 1-2 (`mlp_fwd`, `mlp_bwd`: csrc/mlp_sm90.cuh's chain on
+   wgmma) at every size and width beside their bounds, with rows 3 and 5
+   (`mlpv_fwd`, `mlpe_fwd`: csrc/mlp_tile.cuh's design) from the same call
+   as a control for the card's drift; the kernels JSON line (eleven rows;
+   `mlp_fwd` and `mlp_bwd` carry B's 128-lane checks, timings and launches
+   under "lanes_128", and their share of the bound) and, last, the result
+   line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -458,17 +463,19 @@ def check_fwd(fam, model, n_points, device, network="coarse"):
         raise AssertionError(f"{name} is not deterministic")
 
     ms = cuda_time_ms(lambda: fam.fwd(*inputs, mw), 10)
+    kernel_device_ms = device_ms(lambda: fam.fwd(*inputs, mw))
     plain_ms = cuda_time_ms(lambda: fam.fwd_plain(*inputs, mw), 3, warmup=1)
     chain_ms = cuda_time_ms(lambda: fam.fwd_chain_bf16(inputs, mw), 10)
     flops = 2.0 * fam.macs * n_points
     bound_ms, bound_by = roofline(flops, tensor_bytes(*inputs, out, *mw))
-    log(f"{name} n={n_points}: kernel {ms:.4f} ms "
-        f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-        f"bf16 matmul chain {chain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by})")
+    log(f"{name} n={n_points}: kernel {ms:.4f} ms (device time "
+        f"{kernel_device_ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_ms:.4f} ms, bf16 matmul chain {chain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of it")
     return dict(max_abs_err=max_err, mean_abs_err=mean_err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                matmul_chain_bf16_ms=chain_ms)
+                device_ms=kernel_device_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / ms, matmul_chain_bf16_ms=chain_ms)
 
 
 def check_bwd(fam, model, n_points, device):
@@ -500,22 +507,34 @@ def check_bwd(fam, model, n_points, device):
 
     drawb = draw.to(torch.bfloat16)
     ms = cuda_time_ms(lambda: fam.bwd(*inputs, mw, draw), 10)
+    kernel_device_ms = device_ms(lambda: fam.bwd(*inputs, mw, draw))
     plain_ms = cuda_time_ms(lambda: fam.bwd_plain(*inputs, mw, draw), 3, warmup=1)
     chain_ms = cuda_time_ms(lambda: fam.bwd_chain_bf16(inputs, mw, drawb), 10)
     flops = 2.0 * fam.bwd_macs * n_points
     bound_ms, bound_by = roofline(flops, tensor_bytes(*inputs, draw, *flat, *mw))
-    log(f"{name} n={n_points}: kernel {ms:.4f} ms "
-        f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-        f"bf16 matmul chain {chain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by})")
+    # mlp_bwd's two-pass floor: the bf16 scratch (the encoding copy, nh and
+    # dh) written by the chain kernel and read back by the second pass
+    floor_ms = None
+    if name == "mlp_bwd":
+        scratch_bytes = 2 * n_points * (inputs[0].shape[1] + 16 * 256)
+        floor_ms = 2 * scratch_bytes / PEAK_HBM_BYTES * 1e3
+    log(f"{name} n={n_points}: kernel {ms:.4f} ms (device time "
+        f"{kernel_device_ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_ms:.4f} ms, bf16 matmul chain {chain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of it"
+        + ("" if floor_ms is None else
+           f"; the scratch's round trip alone {floor_ms:.4f} ms"))
     return dict(max_abs_err=stats["grad_max_rel"], agreement=stats, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                device_ms=kernel_device_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / ms, scratch_floor_ms=floor_ms,
                 matmul_chain_bf16_ms=chain_ms)
 
 
-# the device kernels of one backward call (csrc/mlp_tile.cuh)
-BWD_KERNEL_NAMES = ("_bwd_chain_kernel", "mlp_dw_kernel", "mlp_small_kernel",
-                    "mlp_reduce_kernel")
+# the device kernels of one backward call (csrc/mlp_tile.cuh; mlp_bwd's
+# chain and dW kernels are csrc/mlp_bwd.cu's, on csrc/mlp_sm90.cuh)
+BWD_KERNEL_NAMES = ("_bwd_chain_kernel", "mlp_dw_kernel", "mlp_dw_sm90_kernel",
+                    "mlp_small_kernel", "mlp_reduce_kernel")
 
 
 def profile_run(run, what):
@@ -1098,6 +1117,8 @@ def kernel_rows(fam, sizes, fwd_checks, bwd_checks, render_launches,
                "ms": coarse_k["ms"], "plain_ms": coarse_k["plain_ms"],
                "bound_ms": coarse_k["bound_ms"],
                "bound_by": coarse_k["bound_by"], "library_ms": None,
+               "device_ms": coarse_k["device_ms"],
+               "share_of_bound": coarse_k["share_of_bound"],
                "points": n_coarse,
                "matmul_chain_bf16_ms": coarse_k["matmul_chain_bf16_ms"],
                "fine_pass": {"points": n_fine, **fine_k},
@@ -1112,6 +1133,9 @@ def kernel_rows(fam, sizes, fwd_checks, bwd_checks, render_launches,
                "ms": coarse_b["ms"], "plain_ms": coarse_b["plain_ms"],
                "bound_ms": coarse_b["bound_ms"],
                "bound_by": coarse_b["bound_by"], "library_ms": None,
+               "device_ms": coarse_b["device_ms"],
+               "share_of_bound": coarse_b["share_of_bound"],
+               "scratch_floor_ms": coarse_b["scratch_floor_ms"],
                "points": n_bwd_coarse,
                "matmul_chain_bf16_ms": coarse_b["matmul_chain_bf16_ms"],
                "agreement": coarse_b["agreement"],
@@ -1543,7 +1567,7 @@ def main() -> int:
         info = build.BUILD_INFO[source]
         log(f"build {source}: nvcc {info['seconds']:.2f} s, {info['path']}")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C75" in line:
                 log("  ptxas:", line.strip())
 
     args = load_args(os.path.join(root, "configs", "example_sequence.txt"))
@@ -1655,6 +1679,23 @@ def main() -> int:
         f"{smi}")
     if len(rows) != 11:
         raise AssertionError(f"{len(rows)} kernel rows, 11 kernels")
+    # rows 1-2 (csrc/mlp_sm90.cuh's chain) beside rows 3 and 5, which run
+    # mlp_tile.cuh's design in the same call: a control for the card's drift
+    by_name = {r["name"]: r for r in rows}
+    for name in ("mlp_fwd", "mlp_bwd", "mlpv_fwd", "mlpe_fwd"):
+        r = by_name[name]
+        passes = [("", r)] + [(f"{k} ", r[k]) for k in
+                              ("fine_pass", "train_pass", "train_fine_pass")
+                              if k in r]
+        if "lanes_128" in r:
+            passes += [("128 lanes ", r["lanes_128"])] + [
+                (f"128 lanes {k} ", r["lanes_128"][k]) for k in
+                ("fine_pass", "train_pass", "train_fine_pass")
+                if k in r["lanes_128"]]
+        log(f"design check, {name}: " + "; ".join(
+            f"{what}{p['points']} pts {p['ms']:.4f} ms, bound "
+            f"{p['bound_ms']:.4f} ms, {p['bound_ms'] / p['ms']:.3f} of it"
+            for what, p in passes) + f"; {smi}")
 
     # ---- phase 5: results
     log(json.dumps({"render": renders}))

@@ -1,6 +1,11 @@
 // Shared device code of the canonical-MLP kernels for Hopper (sm_90a):
-// mlp_fwd.cu, mlp_bwd.cu, mlpv_fwd.cu, mlpv_bwd.cu, mlpe_fwd.cu, mlpe_bwd.cu
-// and (the cp.async ring only) mlp_i8.cu. What they share:
+// mlpv_fwd.cu, mlpv_bwd.cu, mlpe_fwd.cu, mlpe_bwd.cu and (the cp.async ring
+// only) mlp_i8.cu, the fused point query's (bend_*.cu, fused_*.cu), and
+// from mlp_bwd.cu the single-head gradient layout, the buffer sizes and the
+// reduction over the splits. Rows 1-2 (mlp_fwd.cu and mlp_bwd.cu's chain and
+// dW kernels) run their own chain on wgmma, csrc/mlp_sm90.cuh; the design
+// below is the one they had before, and the one the other kernels keep.
+// What they share:
 //
 // - the tile: one CTA of 8 warps owns 128 points; a 128 x 256 bf16 activation
 //   tile stays in shared memory and each layer's accumulators live in
@@ -14,15 +19,16 @@
 //   encoding of E lanes: 64 (the 63-channel Fourier encoding) or 128 (the
 //   time-conditioned input: the encoding and the 32-lane latent, 95
 //   channels). The chain's device code, its chunk schedules, the single-head
-//   gradient layout and the second pass are templates on E; every kernel but
-//   mlp_fwd.cu and mlp_bwd.cu runs the 64-lane instantiation;
+//   gradient layout and the second pass are templates on E; the kernels
+//   here run the 64-lane instantiation, mlp_bwd.cu reads the gradient
+//   layout at both;
 // - the transposed step `cur @ W^T` of the backward's dh chain, which reads
 //   the same row chunks of W as col-major B operands;
 // - the backward's second pass: split-K dW products, column sums and the
 //   8-lane head products, and the fixed-order reduction over the splits;
 // - the in-kernel Fourier encoding of mlpe_fwd.cu and mlpe_bwd.cu;
-// - what mlp_bwd.cu and mlpe_bwd.cu have in common: the gradient layout, the
-//   dh8 step and the second pass's job list.
+// - what mlpe_bwd.cu (and before it mlp_bwd.cu) needs of a single head: the
+//   gradient layout, the dh8 step and the second pass's job list.
 //
 // Products use warp-level bf16 tensor-core MMA (nvcuda::wmma 16x16x16) with
 // f32 accumulators. No atomics anywhere: the same inputs give bit-equal

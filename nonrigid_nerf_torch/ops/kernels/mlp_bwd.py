@@ -20,7 +20,10 @@ full width, so with the time-conditioned input its lanes 63 .. 94 are the
 gradient of the latents.
 
 The kernel is bound by the tensor cores (2.96 MFLOP per point against 416 B
-of HBM traffic per point at 64 lanes); see the source for its design.
+of HBM traffic per point at 64 lanes); see the source for its design. On a
+CUDA tensor the wrapper first packs the chain's forward and backward chunks
+into the swizzled image the chain kernel streams
+(`mlp_sm90.pack_chain_image`).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from nonrigid_nerf_torch.ops.kernels.build import load_kernel_library
+from nonrigid_nerf_torch.ops.kernels.mlp_sm90 import pack_chain_image
 from nonrigid_nerf_torch.ops.kernels.mlp_fwd import (
     EMB, EMB_WIDTHS, N_MLP_W, OUT_PAD, _BIAS_IDX, _MATRIX_IDX,
     _check_args, _expected_shape, cast_mlp_weights, chain_plain,
@@ -264,13 +268,15 @@ def mlp_bwd(embb: torch.Tensor, mw: Sequence[torch.Tensor],
     partials = torch.empty(partial_floats.value, dtype=torch.float32,
                            device=device)
     grads = torch.empty(grad_floats, dtype=torch.float32, device=device)
+    image = pack_chain_image(mw, ("fwd", "bwd"))
     for t in (embb, draw, demb, scratch, partials, grads, *mw):
         if t.data_ptr() % 16:
             raise ValueError("mlp_bwd needs 16-byte aligned tensors")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.nrnerf_mlp_bwd(embb.data_ptr(), draw.data_ptr(), n, width,
-                                 mats, biases, scratch.data_ptr(),
+                                 image.data_ptr(), mats, biases,
+                                 scratch.data_ptr(),
                                  partials.data_ptr(), demb.data_ptr(),
                                  grads.data_ptr(), stream)
     if err != 0:
@@ -288,8 +294,8 @@ def _library() -> ctypes.CDLL:
     lib = load_kernel_library("mlp_bwd.cu")
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     lib.nrnerf_mlp_bwd.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ptrs,
-        ptrs, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ptrs, ptrs, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p]
     lib.nrnerf_mlp_bwd.restype = ctypes.c_int
     lib.nrnerf_mlp_bwd_sizes.argtypes = [

@@ -18,7 +18,9 @@ channels, as the JAX `pack_mlp_weights(in_ch=95)` pads it); n0w and n5e have
 as many rows. Any other width raises.
 
 The kernel is bound by the tensor cores (0.987 MFLOP per point against
-160 B of HBM traffic at 64 lanes); see the source for its design.
+160 B of HBM traffic at 64 lanes); see the source for its design. On a CUDA
+tensor the wrapper first packs the chain's weights into the swizzled image
+the kernel streams (`mlp_sm90.pack_chain_image`, one gather).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from nonrigid_nerf_torch.ops.kernels.build import load_kernel_library
+from nonrigid_nerf_torch.ops.kernels.mlp_sm90 import pack_chain_image
 
 NW = 256          # canonical MLP width
 EMB = 64          # 63 encoding channels padded to 64
@@ -211,11 +214,12 @@ def mlp_fwd(emb: torch.Tensor, mw: Sequence[torch.Tensor]) -> torch.Tensor:
     if n == 0:      # nothing to launch, nothing to count
         return out
     lib = _library()
+    image = pack_chain_image(mw, ("fwd",))
     mats, biases = weight_pointers(mw, _MATRIX_IDX, _BIAS_IDX)
     with torch.cuda.device(emb.device):
         stream = torch.cuda.current_stream(emb.device).cuda_stream
-        err = lib.nrnerf_mlp_fwd(embb.data_ptr(), n, width, mats, biases,
-                                 out.data_ptr(), stream)
+        err = lib.nrnerf_mlp_fwd(embb.data_ptr(), n, width, image.data_ptr(),
+                                 mats, biases, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"mlp_fwd kernel launch failed: CUDA error {err}")
     mlp_fwd.launches += 1
@@ -243,7 +247,8 @@ def _library() -> ctypes.CDLL:
     lib = load_kernel_library("mlp_fwd.cu")
     fn = lib.nrnerf_mlp_fwd
     ptrs = ctypes.POINTER(ctypes.c_void_p)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ptrs, ptrs,
-                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ptrs, ptrs, ctypes.c_void_p,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

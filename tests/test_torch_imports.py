@@ -46,7 +46,10 @@ FUSED_QUERY_FILES = ["ops/kernels/bend_fwd.py", "ops/kernels/bend_bwd.py",
 KERNEL_SOURCES = ["mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpv_bwd.cu",
                   "mlpe_fwd.cu", "mlpe_bwd.cu", "mlp_i8.cu", "mlp_tile.cuh",
                   "bend_fwd.cu", "bend_bwd.cu", "fused_fwd.cu", "fused_bwd.cu",
-                  "bend_tile.cuh"]
+                  "bend_tile.cuh", "mlp_sm90.cuh"]
+# rows 1-2 run their chain on mlp_sm90.cuh; the other kernels on mlp_tile.cuh
+SM90_SOURCES = ("mlp_fwd.cu", "mlp_bwd.cu")
+SM90_FILES = ["ops/kernels/mlp_sm90.py"]
 FORBIDDEN = ("jax", "jaxlib", "nonrigid_nerf_tpu")
 
 
@@ -84,14 +87,15 @@ def test_training_files_are_under_the_import_rule():
 def test_viewdirs_files_are_under_the_import_rule():
     covered = {str(p.relative_to(REPO / "nonrigid_nerf_torch"))
                for p in PACKAGE_FILES}
-    assert set(VIEWDIRS_FILES) <= covered
+    assert set(VIEWDIRS_FILES) <= covered and set(SM90_FILES) <= covered
     csrc = REPO / "nonrigid_nerf_torch" / "ops" / "kernels" / "csrc"
     assert sorted(p.name for p in csrc.iterdir()) == sorted(KERNEL_SOURCES)
     for name in KERNEL_SOURCES:
         text = (csrc / name).read_text()
         assert "torch/extension.h" not in text       # plain C interfaces
         if name.endswith(".cu"):
-            assert '#include "mlp_tile.cuh"' in text and 'extern "C"' in text
+            header = "mlp_sm90.cuh" if name in SM90_SOURCES else "mlp_tile.cuh"
+            assert f'#include "{header}"' in text and 'extern "C"' in text
 
 
 def test_opt_in_mode_files_are_under_the_import_rule():

@@ -865,3 +865,96 @@ def test_baseline_renderer_on_cuda_runs_kernel_and_matches_cpu(model_tc,
     for key in ("rgb_map", "disp_map", "acc_map"):
         np.testing.assert_allclose(gpu[key].cpu().numpy(), cpu[key].numpy(),
                                    rtol=1e-3, atol=1e-3, err_msg=key)
+
+
+# ---- rows 1-2 on the Hopper chain (csrc/mlp_sm90.cuh) at both widths: the
+# persistent grid's edges (fewer tiles than SMs, one tile past a whole wave,
+# the backward's largest call, the forward's fine pass), bit-equal relaunch,
+# the launch counters
+
+SM90_FWD_SIZES = [0, 1, 127, 129, 132 * 128 + 1, 1 << 22]
+SM90_BWD_SIZES = [0, 1, 127, 129, 132 * 128 + 1, 1 << 18]
+
+
+def _width_weights(request, width, device, network):
+    return _model_weights(request.getfixturevalue(
+        "model" if width == 64 else "model_tc"), device, network)
+
+
+def _model_weights(m, device, network):
+    return tuple(w.detach().to(device) for w in
+                 K.cast_mlp_weights(K.pack_mlp_weights(m.network(network))))
+
+
+def _width_emb(width, n, seed):
+    return _emb(n, seed) if width == 64 else _emb_tc(n, seed)
+
+
+@pytest.fixture(scope="module")
+def sm90_fwd_reference(request):
+    """Per width: the weights, an encoding of the largest size and the
+    kernel's output on it, held once against the plain version (the bf16
+    tolerances are statistics over many points)."""
+    cache = {}
+    models = {64: request.getfixturevalue("model"),
+              128: request.getfixturevalue("model_tc")}
+
+    def get(width, device):
+        if width not in cache:
+            mw = _model_weights(models[width], device, "coarse")
+            emb = torch.from_numpy(_width_emb(width, max(SM90_FWD_SIZES),
+                                              21)).to(device)
+            out = K.mlp_fwd(emb, mw)
+            err = (out - K.mlp_fwd_plain(emb, mw)).abs()
+            assert err.max().item() <= K.BF16_TOL_MAX
+            assert err.mean().item() <= K.BF16_TOL_MEAN
+            cache[width] = (mw, emb, out)
+        return cache[width]
+
+    return get
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SM90_FWD_SIZES)
+@pytest.mark.parametrize("width", [64, 128])
+def test_mlp_fwd_on_the_sm90_chain_at_the_grid_edges(sm90_fwd_reference,
+                                                      cuda_device, width, n):
+    """Every size gives bit for bit the rows that the largest launch gives
+    (a point's arithmetic does not depend on its tile, its CTA or the
+    grid), the largest launch agrees with the plain version, and a relaunch
+    is bit-equal."""
+    mw, emb_all, ref = sm90_fwd_reference(width, cuda_device)
+    emb = emb_all[:n]
+    before = dict(K.mlp_fwd.launches_by_width)
+    out = K.mlp_fwd(emb, mw)
+    torch.cuda.synchronize()
+    after = dict(before)
+    after[width] += n > 0
+    assert K.mlp_fwd.launches_by_width == after
+    assert out.shape == (n, K.OUT_PAD) and bool(torch.isfinite(out).all())
+    assert torch.equal(out, ref[:n])
+    assert torch.equal(out, K.mlp_fwd(emb, mw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SM90_BWD_SIZES)
+@pytest.mark.parametrize("width", [64, 128])
+def test_mlp_bwd_on_the_sm90_chain_at_the_grid_edges(request, cuda_device, width, n):
+    mw = _width_weights(request, width, cuda_device, "fine")
+    embb = torch.from_numpy(_width_emb(width, n, 5)).to(cuda_device).to(
+        torch.bfloat16)
+    draw = torch.from_numpy(np.random.RandomState(6).randn(n, 8).astype(
+        np.float32)).to(cuda_device)
+    before = dict(KB.mlp_bwd.launches_by_width)
+    got = KB.mlp_bwd(embb, mw, draw)
+    torch.cuda.synchronize()
+    after = dict(before)
+    after[width] += n > 0
+    assert KB.mlp_bwd.launches_by_width == after
+    assert got[0].shape == (n, width)
+    if n:
+        _assert_bwd_close(got, KB.mlp_bwd_plain(embb, mw, draw))
+    again = KB.mlp_bwd(embb, mw, draw)
+    assert torch.equal(got[0], again[0])
+    for a, b in zip(got[1], again[1]):
+        assert torch.equal(a, b)
