@@ -49,8 +49,10 @@ result line is printed):
    40 dB and 30 dB). For F: a block of rays on the card against the same
    rays on the CPU. With view directions: the frames use finite-difference
    directions, and a block of rays is rendered with exact directions (a jvp
-   through the bender), kernel against "off". Profile one frame: device
-   time by kernel and the device's idle share.
+   through the bender), kernel against "off". Every frame is its own
+   `render_path` call, and its time is printed with the median beside the
+   mean (one frame's stall on the host shows as one). Profile one frame:
+   device time by kernel and the device's idle share.
 4. Per family, and in "pts" mode, train (1024 rays, 64 + 64 samples, a
    test split; all three regularizers, or for B none, as its run had) with
    `apps.train.train` on a synthetic image stack built in memory, launch
@@ -63,7 +65,8 @@ result line is printed):
    and the latents' gradients included, the latents' named on its own: for
    B they learn through the MLP's input alone; with view directions in both
    direction modes); a checkpoint saved, loaded and stepped once, bit-equal
-   to the step without the round trip; a profile of a few steps.
+   to the step without the round trip; a profile of a few steps (device
+   ms a step, idle share, the backward's kernels by name).
 5. The fused point query: each of its four kernels against its plain
    version at a render block's coarse pass (2^21 points, forwards) and a
    training step's two passes (65,536 and 131,072 points, forwards and
@@ -75,9 +78,11 @@ result line is printed):
    and the gradients against the f32 modules'; and `fused_fwd` against what
    the engine spends on the same function (the f32 bender, then
    `mlpe_fwd`).
-6. Print rows 1-2 (`mlp_fwd`, `mlp_bwd`: csrc/mlp_sm90.cuh's chain on
-   wgmma) at every size and width beside their bounds, with rows 3 and 5
-   (`mlpv_fwd`, `mlpe_fwd`: csrc/mlp_tile.cuh's design) from the same call
+6. Print rows 1-2, 4 and 6 (`mlp_fwd`, `mlp_bwd`, `mlpv_bwd`, `mlpe_bwd`:
+   csrc/mlp_sm90.cuh's chain on wgmma) at every size and width beside their
+   bounds (a backward also with its device time, its two-pass floor and its
+   device time by kernel: chain, dW, head sums, reduction), with rows 3 and
+   5 (`mlpv_fwd`, `mlpe_fwd`: csrc/mlp_tile.cuh's design) from the same call
    as a control for the card's drift; the kernels JSON line (eleven rows;
    `mlp_fwd` and `mlp_bwd` carry B's 128-lane checks, timings and launches
    under "lanes_128", and their share of the bound) and, last, the result
@@ -512,18 +517,17 @@ def check_bwd(fam, model, n_points, device):
     chain_ms = cuda_time_ms(lambda: fam.bwd_chain_bf16(inputs, mw, drawb), 10)
     flops = 2.0 * fam.bwd_macs * n_points
     bound_ms, bound_by = roofline(flops, tensor_bytes(*inputs, draw, *flat, *mw))
-    # mlp_bwd's two-pass floor: the bf16 scratch (the encoding copy, nh and
-    # dh) written by the chain kernel and read back by the second pass
-    floor_ms = None
-    if name == "mlp_bwd":
-        scratch_bytes = 2 * n_points * (inputs[0].shape[1] + 16 * 256)
-        floor_ms = 2 * scratch_bytes / PEAK_HBM_BYTES * 1e3
+    # the two-pass floor: the bf16 scratch (the encoding copy, nh and dh;
+    # with view directions also feat, hv and their gradients) written by the
+    # chain kernel and read back by the second pass
+    per_point = getattr(KB, "SCRATCH_PER_POINT",
+                        inputs[0].shape[1] + 16 * 256)   # mlp_bwd: by width
+    floor_ms = 2 * 2 * n_points * per_point / PEAK_HBM_BYTES * 1e3
     log(f"{name} n={n_points}: kernel {ms:.4f} ms (device time "
         f"{kernel_device_ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s), plain "
         f"{plain_ms:.4f} ms, bf16 matmul chain {chain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of it"
-        + ("" if floor_ms is None else
-           f"; the scratch's round trip alone {floor_ms:.4f} ms"))
+        f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of it; the "
+        f"scratch's round trip alone {floor_ms:.4f} ms")
     return dict(max_abs_err=stats["grad_max_rel"], agreement=stats, ms=ms,
                 device_ms=kernel_device_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
@@ -531,10 +535,20 @@ def check_bwd(fam, model, n_points, device):
                 matmul_chain_bf16_ms=chain_ms)
 
 
+def bwd_kernel_part(name: str) -> str:
+    """The part of a backward call a device kernel is: its chain kernel, its
+    dW products, the head (or bias) sums, the reduction over the splits."""
+    return ("chain" if "chain_kernel" in name else
+            "dw" if "mlp_dw_" in name else
+            "heads" if "head_grad" in name or "small_kernel" in name else
+            "reduce")
+
+
 # the device kernels of one backward call (csrc/mlp_tile.cuh; mlp_bwd's
 # chain and dW kernels are csrc/mlp_bwd.cu's, on csrc/mlp_sm90.cuh)
 BWD_KERNEL_NAMES = ("_bwd_chain_kernel", "mlp_dw_kernel", "mlp_dw_sm90_kernel",
-                    "mlp_small_kernel", "mlp_reduce_kernel")
+                    "mlp_head_grad_kernel", "mlp_small_kernel",
+                    "mlp_reduce_kernel")
 
 
 def profile_run(run, what):
@@ -576,6 +590,9 @@ def profile_run(run, what):
             "fwd_share": share("_fwd_kernel") + share("mlp_i8_kernel"),
             "cat_share": share("CatArrayBatchedCopy"),
             "bwd_share": sum(share(k) for k in BWD_KERNEL_NAMES),
+            "bwd_kernels_ms": {e.key[:90]: e.self_device_time_total / 1e3
+                               for e in top
+                               if any(k in e.key for k in BWD_KERNEL_NAMES)},
             "top": [[e.key[:60], e.self_device_time_total / 1e3]
                     for e in top[:12]]}
 
@@ -583,6 +600,27 @@ def profile_run(run, what):
 def psnr(a, b) -> float:
     mse = float(np.mean((np.asarray(a, np.float64) - b) ** 2))
     return float("inf") if mse == 0 else -10.0 * math.log10(mse)
+
+
+def render_frames(model, cfg, rs, poses, intrinsics, latents, device, what):
+    """The frames through `render_path`, one call a frame (each ends in a
+    copy to the host), every frame's time printed with the median beside
+    the mean, so that one frame's stall on the host shows as one. Returns
+    (rgbs, disps, seconds of each frame)."""
+    from nonrigid_nerf_torch.apps.render_path import render_path
+    rgbs, disps, seconds = [], [], []
+    for i in range(len(poses)):
+        t0 = time.perf_counter()
+        rgb, disp = render_path(model, cfg, rs, poses[i:i + 1],
+                                intrinsics[i:i + 1], latents[i:i + 1],
+                                chunk=CHUNK, verbose=False, device=device)
+        seconds.append(time.perf_counter() - t0)
+        rgbs.append(rgb[0])
+        disps.append(disp[0])
+    log(f"render ({what}): s per frame " + ", ".join(f"{t:.4f}" for t in seconds)
+        + f"; median {float(np.median(seconds)):.4f}, mean "
+        f"{float(np.mean(seconds)):.4f}")
+    return np.stack(rgbs), np.stack(disps), seconds
 
 
 def render_phase(fam, cfg, args, device, smi, kernel_ms, off_frames=None):
@@ -608,17 +646,16 @@ def render_phase(fam, cfg, args, device, smi, kernel_ms, off_frames=None):
                     chunk=CHUNK, render_factor=8, verbose=False, device=device)
     torch.cuda.synchronize()
 
+    what = fam.what if "fused_kernel" in fam.what \
+        else f"{fam.what}, fused_kernel={cfg.fused_kernel}"
     reset_launch_counts()
-    t0 = time.perf_counter()
-    rgbs, disps = render_path(model, cfg, rs, poses, intrinsics, latents,
-                              chunk=CHUNK, verbose=True, device=device)
-    t_kernel = time.perf_counter() - t0
+    rgbs, disps, frame_s = render_frames(model, cfg, rs, poses, intrinsics,
+                                         latents, device, f"{name}, {what}")
+    t_kernel = sum(frame_s)
     launches = fam.fwd.launches
     by_width = dict(getattr(fam.fwd, "launches_by_width", {}))
     others = launch_counts(without=(name,))
     blocks = -(-H * W // CHUNK)
-    what = fam.what if "fused_kernel" in fam.what \
-        else f"{fam.what}, fused_kernel={cfg.fused_kernel}"
     log(f"render ({name}, {what}): {FRAMES} frames in {t_kernel:.3f} s, "
         f"{t_kernel / FRAMES:.4f} s/frame, "
         f"{name} launches {launches} (expected {FRAMES * blocks * 2}"
@@ -644,11 +681,10 @@ def render_phase(fam, cfg, args, device, smi, kernel_ms, off_frames=None):
     cfg_off = dataclasses.replace(cfg, fused_kernel="off")
     t_off = None
     if off_frames is None:
-        t0 = time.perf_counter()
-        off_frames, _ = render_path(model, cfg_off, rs, poses, intrinsics,
-                                    latents, chunk=CHUNK, verbose=True,
-                                    device=device)
-        t_off = time.perf_counter() - t0
+        off_frames, _, off_s = render_frames(model, cfg_off, rs, poses,
+                                             intrinsics, latents, device,
+                                             f"{name}, fused_kernel=off")
+        t_off = sum(off_s)
         if fam.fwd.launches != launches:
             raise AssertionError(f"fused_kernel=off launched {name}")
         log(f"render ({name}, fused_kernel=off): {t_off / FRAMES:.4f} s/frame")
@@ -720,6 +756,8 @@ def render_phase(fam, cfg, args, device, smi, kernel_ms, off_frames=None):
                    use_viewdirs=cfg.use_viewdirs, fused_kernel=cfg.fused_kernel,
                    time_conditioned_baseline=cfg.time_conditioned_baseline,
                    s_per_frame_kernel=t_kernel / FRAMES,
+                   s_per_frame_median=float(np.median(frame_s)),
+                   frame_s=frame_s,
                    s_per_frame_off=None if t_off is None else t_off / FRAMES,
                    psnr_kernel_vs_off_db=frame_psnr,
                    rays_per_s_kernel=H * W * FRAMES / t_kernel,
@@ -920,10 +958,20 @@ def train_phase(fam, args, cfg, device, smi, steps):
             step_fn(direct, ds, step_generator(tc.seed, direct.step, device))
 
     prof = profile_run(few_steps, f"{PROFILE_STEPS} training steps ({what})")
+    # the backward's device time by part, a launch on average over the
+    # step's two sizes (4 launches a step)
+    split = dict.fromkeys(("chain", "dw", "heads", "reduce"), 0.0)
+    for name, ms in prof["bwd_kernels_ms"].items():
+        split[bwd_kernel_part(name)] += ms / (4 * PROFILE_STEPS)
     log(f"training-step shares of device time (profiler, {what}): "
         f"{fam.fwd_name} {prof['fwd_share']:.3f}, {fam.bwd_name} "
-        f"{prof['bwd_share']:.3f}")
+        f"{prof['bwd_share']:.3f}; device {prof['device_busy_ms'] / PROFILE_STEPS:.2f} "
+        f"ms a step, idle share {prof['idle_share']:.3f}; the backward's "
+        "kernels, ms a step: " + "; ".join(
+            f"{k} {v / PROFILE_STEPS:.3f}"
+            for k, v in prof["bwd_kernels_ms"].items()))
     return {"steps": steps, "n_rand": tc.N_rand, "use_viewdirs": cfg.use_viewdirs,
+            "bwd_split_ms_per_launch": split,
             "fused_kernel": cfg.fused_kernel,
             "time_conditioned_baseline": cfg.time_conditioned_baseline,
             "frames": TRAIN_FRAMES, "height": H, "width": W,
@@ -1040,10 +1088,10 @@ def int8_render_phase(cfg_plain, args, device, smi, kernel_ms, off_frames):
     torch.cuda.synchronize()
 
     reset_launch_counts()
-    t0 = time.perf_counter()
-    rgbs, disps = render_path(model_q, cfg, rs, poses, intrinsics, latents,
-                              chunk=CHUNK, verbose=True, device=device)
-    t_kernel = time.perf_counter() - t0
+    rgbs, disps, frame_s = render_frames(model_q, cfg, rs, poses, intrinsics,
+                                         latents, device,
+                                         f"{name}, fused_kernel=int8")
+    t_kernel = sum(frame_s)
     counts = launch_counts()
     launches = counts.pop(name)
     blocks = -(-H * W // CHUNK)
@@ -1072,7 +1120,9 @@ def int8_render_phase(cfg_plain, args, device, smi, kernel_ms, off_frames):
     return dict(frames=FRAMES, height=H, width=W, chunk=CHUNK,
                 use_viewdirs=False, fused_kernel="int8",
                 time_conditioned_baseline=False,
-                s_per_frame_kernel=t_kernel / FRAMES, s_per_frame_off=None,
+                s_per_frame_kernel=t_kernel / FRAMES,
+                s_per_frame_median=float(np.median(frame_s)), frame_s=frame_s,
+                s_per_frame_off=None,
                 calibrate_s=t_calibrate, psnr_kernel_vs_off_db=frame_psnr,
                 rays_per_s_kernel=H * W * FRAMES / t_kernel,
                 fwd_share_est=kernel_s / t_kernel, profile=prof,
@@ -1626,6 +1676,7 @@ def main() -> int:
         trains.append(train_results)
         fam_rows = kernel_rows(fam, sizes, fwd_checks, bwd_checks,
                                render_launches, train_counts)
+        fam_rows[1]["split_ms_per_launch"] = train_results["bwd_split_ms_per_launch"]
         if fam.kind == "baseline":
             add_width_rows(rows[:2], fam_rows)
         else:
@@ -1657,18 +1708,20 @@ def main() -> int:
     # the three modes of the flagship side by side, from this run
     by_mode = {r["fused_kernel"]: r for r in renders
                if not r["use_viewdirs"] and not r["time_conditioned_baseline"]}
-    log("flagship frame, s/frame: " + ", ".join(
-        f"{mode} {by_mode[mode]['s_per_frame_kernel']:.4f}"
+    log("flagship frame, s/frame (mean; median): " + ", ".join(
+        f"{mode} {by_mode[mode]['s_per_frame_kernel']:.4f}; "
+        f"{by_mode[mode]['s_per_frame_median']:.4f}"
         for mode in ("auto", "pts", "int8"))
         + f", off {by_mode['auto']['s_per_frame_off']:.4f}; CatArrayBatchedCopy's "
         "share of a frame's device time: " + ", ".join(
             f"{mode} {by_mode[mode]['profile']['cat_share']:.3f}"
             for mode in ("auto", "pts", "int8")) + f"; {smi}")
     log("flagship training, steps/s: " + ", ".join(
-        f"{t['fused_kernel']} {t['steps_per_s']:.2f} (device "
-        f"{t['profile']['device_busy_ms'] / PROFILE_STEPS:.2f} ms/step)"
-        for t in trains if not t["use_viewdirs"]
-        and not t["time_conditioned_baseline"]) + f"; {smi}")
+        f"{'viewdirs' if t['use_viewdirs'] else t['fused_kernel']} "
+        f"{t['steps_per_s']:.2f} (device "
+        f"{t['profile']['device_busy_ms'] / PROFILE_STEPS:.2f} ms/step, idle "
+        f"share {t['profile']['idle_share']:.3f})"
+        for t in trains if not t["time_conditioned_baseline"]) + f"; {smi}")
     render_b = next(r for r in renders if r["time_conditioned_baseline"])
     train_b = next(t for t in trains if t["time_conditioned_baseline"])
     log(f"time-conditioned baseline: {render_b['s_per_frame_kernel']:.4f} s/frame "
@@ -1679,10 +1732,14 @@ def main() -> int:
         f"{smi}")
     if len(rows) != 11:
         raise AssertionError(f"{len(rows)} kernel rows, 11 kernels")
-    # rows 1-2 (csrc/mlp_sm90.cuh's chain) beside rows 3 and 5, which run
-    # mlp_tile.cuh's design in the same call: a control for the card's drift
+    # rows 1-2, 4 and 6 (csrc/mlp_sm90.cuh's chain) beside rows 3 and 5,
+    # which run mlp_tile.cuh's design in the same call: a control for the
+    # card's drift. A backward's line adds its device time and its two-pass
+    # floor at each size, and its device time by kernel, a launch on average
+    # over a training step's two sizes (the profile of 5 steps).
     by_name = {r["name"]: r for r in rows}
-    for name in ("mlp_fwd", "mlp_bwd", "mlpv_fwd", "mlpe_fwd"):
+    for name in ("mlp_fwd", "mlp_bwd", "mlpv_bwd", "mlpe_bwd", "mlpv_fwd",
+                 "mlpe_fwd"):
         r = by_name[name]
         passes = [("", r)] + [(f"{k} ", r[k]) for k in
                               ("fine_pass", "train_pass", "train_fine_pass")
@@ -1692,10 +1749,26 @@ def main() -> int:
                 (f"128 lanes {k} ", r["lanes_128"][k]) for k in
                 ("fine_pass", "train_pass", "train_fine_pass")
                 if k in r["lanes_128"]]
+
+        def detail(p):
+            if "scratch_floor_ms" not in p:
+                return ""
+            return (f" (device {p['device_ms']:.4f} ms; two-pass floor "
+                    f"{p['scratch_floor_ms']:.4f} ms, "
+                    f"{p['scratch_floor_ms'] / p['ms']:.3f} of the time)")
+
+        split = ""
+        if "split_ms_per_launch" in r:
+            split = "; device ms a launch by kernel, over a training step: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in r["split_ms_per_launch"].items())
+            if "lanes_128" in r:
+                split += " (128 lanes: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in
+                    r["lanes_128"]["split_ms_per_launch"].items()) + ")"
         log(f"design check, {name}: " + "; ".join(
             f"{what}{p['points']} pts {p['ms']:.4f} ms, bound "
             f"{p['bound_ms']:.4f} ms, {p['bound_ms'] / p['ms']:.3f} of it"
-            for what, p in passes) + f"; {smi}")
+            + detail(p) for what, p in passes) + split + f"; {smi}")
 
     # ---- phase 5: results
     log(json.dumps({"render": renders}))

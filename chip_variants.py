@@ -3,6 +3,7 @@
 
     python3 chip_variants.py                  # every variant below
     python3 chip_variants.py base no_epilogue_stores
+    python3 chip_variants.py --steps OTHER    # training steps, two trees
 
 A variant is a list of text substitutions applied to a copy of
 `nonrigid_nerf_torch/ops/kernels/csrc/` (the sources in this checkout stay
@@ -22,6 +23,15 @@ it), the script:
 
 It prints the card's name and power limit first and one line per variant,
 size and repetition. It exits non-zero when no CUDA device is present.
+
+With `--steps OTHER`, where OTHER is another checkout of the repository
+(an unpacked `git archive` of another commit, say), it compares whole
+training steps instead: in turns OTHER, this checkout, this checkout,
+OTHER, one child process each (each builds its own tree's kernels), it
+trains the flagship with view directions (V) and in `fused_kernel="pts"`
+mode (P) on `chip_smoke.py`'s synthetic stack for 30 steps, times 50 more
+(steps/s, host clock), and profiles 5 (`chip_smoke.profile_run` of that
+tree: device ms a step, the card's idle share, the top kernels).
 """
 
 import ctypes
@@ -46,9 +56,8 @@ VARIANTS = {
     # what the L2 stream of weights costs
     "no_weight_copies": [(
         "mlp_sm90.cuh",
-        "      mbar_expect_tx(bars + 8 * s, CHUNK_BYTES);\n"
-        "      bulk_load(ring + s * CHUNK_BYTES, image + size_t(c) * CHUNK_ELEMS, CHUNK_BYTES,\n"
-        "                bars + 8 * s);",
+        "      mbar_expect_tx(bars + 8 * s, nb);\n"
+        "      bulk_load(ring + s * CHUNK_BYTES, image + size_t(c) * CHUNK_ELEMS, nb, bars + 8 * s);",
         "      mbar_arrive(bars + 8 * s);")],
     # the layer epilogue computes but does not store its bf16 tile
     "no_epilogue_stores": [(
@@ -65,35 +74,34 @@ VARIANTS = {
     # under chunk c's epilogue (the sources take one chunk at a time)
     "dh_two_accumulators": [(
         "mlp_sm90.cuh",
-        "  float acc[32];\n"
         "#pragma unroll 1\n"
         "  for (int c = 0; c < N; ++c, ++g) {\n"
         "    nt_issue<S>(acc, cur, ring, bars, g, wg);\n"
         "    wgmma_wait<0>();\n"
-        "    fence_acc(acc);\n"
+        "    fence_acc<32>(acc);\n"
         "    ring_release<S>(bars, g, t == 0);\n"
         "    if (gate != nullptr) {\n"
         "      dh_epilogue(acc, gate[c], c, oth, wg, t);\n"
         "    } else {\n"
-        "      demb_epilogue<E>(acc, c, demb, rows_left, add, wg, t);\n"
+        "      sink(acc, c);\n"
         "    }\n"
         "  }\n",
-        "  float acc[2][32];\n"
-        "  nt_issue<S>(acc[0], cur, ring, bars, g, wg);\n"
+        "  float acc2[2][32];\n"
+        "  nt_issue<S>(acc2[0], cur, ring, bars, g, wg);\n"
         "#pragma unroll\n"
         "  for (int c = 0; c < N; ++c) {\n"
         "    if (c + 1 < N) {\n"
-        "      nt_issue<S>(acc[(c + 1) % 2], cur, ring, bars, g + c + 1, wg);\n"
+        "      nt_issue<S>(acc2[(c + 1) % 2], cur, ring, bars, g + c + 1, wg);\n"
         "      wgmma_wait<1>();\n"
         "    } else {\n"
         "      wgmma_wait<0>();\n"
         "    }\n"
-        "    fence_acc(acc[c % 2]);\n"
+        "    fence_acc(acc2[c % 2]);\n"
         "    ring_release<S>(bars, g + c, t == 0);\n"
         "    if (gate != nullptr) {\n"
-        "      dh_epilogue(acc[c % 2], gate[c], c, oth, wg, t);\n"
+        "      dh_epilogue(acc2[c % 2], gate[c], c, oth, wg, t);\n"
         "    } else {\n"
-        "      demb_epilogue<E>(acc[c % 2], c, demb, rows_left, add, wg, t);\n"
+        "      sink(acc2[c % 2], c);\n"
         "    }\n"
         "  }\n"
         "  g += N;\n")],
@@ -246,6 +254,71 @@ def run_variant(name, out_dir):
                       f"{smi()}", flush=True)
 
 
+STEP_WARMUP, STEP_TIMED = 30, 50
+
+
+def run_steps(root):
+    """V's and P's training steps of the tree at `root` (see the top)."""
+    import dataclasses
+    import time
+    os.chdir(root)
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+    from nonrigid_nerf_torch.apps.train import step_generator
+    from nonrigid_nerf_torch.config import (load_args, model_config_from_args,
+                                            render_settings_from_args,
+                                            train_config_from_args)
+    from nonrigid_nerf_torch.engine.train_state import create_train_state
+    from nonrigid_nerf_torch.engine.train_step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    args = load_args(os.path.join(root, "configs", "example_sequence.txt"))
+    args.seed = cs.SEED
+    cfg = model_config_from_args(args)
+    ds = cs.synthetic_dataset(device)
+    tc = train_config_from_args(args)
+    rs = render_settings_from_args(args, ds.near, ds.far)
+    for what, cfg_x in (("V", dataclasses.replace(cfg, use_viewdirs=True)),
+                        ("P", dataclasses.replace(cfg, fused_kernel="pts"))):
+        state = create_train_state(cfg_x, tc, cs.TRAIN_FRAMES, device=device)
+        step_fn = make_train_step(cfg_x, tc, rs, has_test_split=True)
+
+        def steps(k):
+            for _ in range(k):
+                step_fn(state, ds, step_generator(tc.seed, state.step, device))
+
+        steps(STEP_WARMUP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(STEP_TIMED)
+        torch.cuda.synchronize()
+        rate = STEP_TIMED / (time.perf_counter() - t0)
+        prof = cs.profile_run(lambda: steps(cs.PROFILE_STEPS),
+                              f"{cs.PROFILE_STEPS} steps ({what})")
+        top = "; ".join(f"{k[:40]} {v / cs.PROFILE_STEPS:.4f}"
+                        for k, v in prof["top"][:6])
+        print(f"steps {root} {what}: {rate:.2f} steps/s over {STEP_TIMED}, "
+              f"device {prof['device_busy_ms'] / cs.PROFILE_STEPS:.3f} ms a "
+              f"step, idle share {prof['idle_share']:.3f}; top kernels, ms a "
+              f"step: {top}", flush=True)
+
+
+def compare_steps(other) -> int:
+    print(smi(), flush=True)
+    failed = False
+    for root in (other, ROOT, ROOT, other):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--steps-child", os.path.abspath(root)],
+                           capture_output=True, text=True, timeout=600)
+        print("".join(line + "\n" for line in r.stdout.splitlines()
+                      if line.startswith("steps ")), end="", flush=True)
+        if r.returncode:
+            failed = True
+            print(f"{root}: exit {r.returncode}\n{r.stderr[-2000:]}", flush=True)
+    return 1 if failed else 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_variants: no CUDA device; this script runs on a GPU only",
@@ -254,6 +327,11 @@ def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--child":
         run_variant(sys.argv[2], sys.argv[3])
         return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--steps-child":
+        run_steps(sys.argv[2])
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--steps":
+        return compare_steps(sys.argv[2])
     names = sys.argv[1:] or list(VARIANTS)
     unknown = [n for n in names if n not in VARIANTS]
     if unknown:

@@ -95,7 +95,8 @@ mlp_fwd_kernel(const bf16* __restrict__ emb, int n, int n_tiles,
       cp_async_wait_all();
       fence_proxy_async();
       wg_barrier(wg);   // the encoding has landed; the last tile's head is done
-      chain_tile<FWD_STAGES, E>(act, embt, p.bias, ring, bars, g, wg, t, nullptr, 0, 0,
+      float acc[128];
+      chain_tile<FWD_STAGES, E>(acc, act, embt, p.bias, ring, bars, g, wg, t, nullptr, 0, 0,
                                 nullptr, [&] {
                                   if (next < n_tiles) {
                                     load_emb_rows<E>(embt, emb, long(next) * TM, n, wg, t);

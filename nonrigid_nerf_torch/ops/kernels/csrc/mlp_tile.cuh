@@ -1,11 +1,11 @@
 // Shared device code of the canonical-MLP kernels for Hopper (sm_90a):
-// mlpv_fwd.cu, mlpv_bwd.cu, mlpe_fwd.cu, mlpe_bwd.cu and (the cp.async ring
-// only) mlp_i8.cu, the fused point query's (bend_*.cu, fused_*.cu), and
-// from mlp_bwd.cu the single-head gradient layout, the buffer sizes and the
-// reduction over the splits. Rows 1-2 (mlp_fwd.cu and mlp_bwd.cu's chain and
-// dW kernels) run their own chain on wgmma, csrc/mlp_sm90.cuh; the design
-// below is the one they had before, and the one the other kernels keep.
-// What they share:
+// mlpv_fwd.cu, mlpe_fwd.cu and (the cp.async ring only) mlp_i8.cu, the
+// fused point query's (bend_*.cu, fused_*.cu), and from mlp_bwd.cu,
+// mlpe_bwd.cu and mlpv_bwd.cu the single-head gradient layout, the buffer
+// sizes and the reduction over the splits. Rows 1-2, 4 and 6 (mlp_fwd.cu,
+// mlp_bwd.cu, mlpv_bwd.cu, mlpe_bwd.cu) run their own chain on wgmma,
+// csrc/mlp_sm90.cuh; the design below is the one they had before, and the
+// one the other kernels keep. What they share:
 //
 // - the tile: one CTA of 8 warps owns 128 points; a 128 x 256 bf16 activation
 //   tile stays in shared memory and each layer's accumulators live in
@@ -26,9 +26,10 @@
 //   the same row chunks of W as col-major B operands;
 // - the backward's second pass: split-K dW products, column sums and the
 //   8-lane head products, and the fixed-order reduction over the splits;
-// - the in-kernel Fourier encoding of mlpe_fwd.cu and mlpe_bwd.cu;
-// - what mlpe_bwd.cu (and before it mlp_bwd.cu) needs of a single head: the
-//   gradient layout, the dh8 step and the second pass's job list.
+// - the in-kernel Fourier encoding of mlpe_fwd.cu and fused_*.cu;
+// - what fused_bwd.cu needs of a single head: the gradient layout, the dh8
+//   step and the second pass's job list (mlp_bwd.cu and mlpe_bwd.cu read the
+//   gradient layout, the sizes and the reduction).
 //
 // Products use warp-level bf16 tensor-core MMA (nvcuda::wmma 16x16x16) with
 // f32 accumulators. No atomics anywhere: the same inputs give bit-equal
@@ -70,8 +71,8 @@ constexpr int N_BWD_CHUNKS = n_bwd_chunks<EMB>;
 constexpr int SPLIT_ROWS = 2048;   // points per split of the dW products
 constexpr int RK = 64;             // points per staged chunk of the dW kernel
 constexpr int SMALL_GROUPS = 4;    // row groups per block of the small kernel
-constexpr int MAX_DW_TILES = 48;
-constexpr int MAX_SMALL_JOBS = 12;
+constexpr int MAX_DW_TILES = 30;   // fused_bwd.cu's 9 products in 64-row tiles
+constexpr int MAX_SMALL_JOBS = 9;  // its 8 bias sums and the head's job
 
 constexpr size_t ACT_BYTES = size_t(TM) * LDA * sizeof(bf16);
 // the encoding tile of E lanes: row stride E + 8 halves
@@ -96,8 +97,6 @@ static_assert(ACT_BYTES % 128 == 0 && EMB_BYTES % 128 == 0 &&
               WSCR_BYTES % 128 == 0 && DRAW_BYTES % 128 == 0 &&
               DW_A_BYTES % 128 == 0 && DW_B_BYTES % 128 == 0,
               "shared-memory regions stay aligned");
-static_assert(VEMB_BYTES + DRAW_BYTES <= EMB_BYTES,
-              "the view-encoding and draw tiles fit where the encoding tile was");
 
 using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
@@ -136,11 +135,10 @@ __device__ __forceinline__ bf16* stage_of(bf16* stage, int g) {
 }
 
 // a 128-point tile of a (n, COLS) bf16 input into shared memory (row stride
-// LD); rows past n are zero. With `copy`, the tile also goes to a row-padded
-// global copy that the dW products read.
+// LD); rows past n are zero
 template <int COLS, int LD>
 __device__ __forceinline__ void load_points(bf16* dst, const bf16* __restrict__ src,
-                                            long row0, int n, int tid, bf16* copy) {
+                                            long row0, int n, int tid) {
   for (int i = tid; i < TM * COLS / 8; i += THREADS) {
     const int r = i / (COLS / 8);
     const int c = (i % (COLS / 8)) * 8;
@@ -149,9 +147,6 @@ __device__ __forceinline__ void load_points(bf16* dst, const bf16* __restrict__ 
       v = *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * COLS + c);
     }
     *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
-    if (copy != nullptr) {
-      *reinterpret_cast<uint4*>(copy + size_t(row0 + r) * COLS + c) = v;
-    }
   }
 }
 
@@ -276,8 +271,7 @@ __device__ __forceinline__ void chain_forward(bf16* act, const bf16* embs, bf16*
 template <class Prefetch>
 __device__ __forceinline__ void linear_256(const bf16* src, bf16* dst, bf16* stage,
                                            float* wscr, const float* bias, int& g,
-                                           Prefetch& prefetch, bf16* gdst, int warp,
-                                           int lane) {
+                                           Prefetch& prefetch, int warp, int lane) {
   const int wm = warp / 4;
   const int wn = warp % 4;
   AccFrag acc[4][4];
@@ -287,21 +281,19 @@ __device__ __forceinline__ void linear_256(const bf16* src, bf16* dst, bf16* sta
     mma_chunk(acc, src, LDA, c * KC, stage_of(stage, g), wm, wn);
     __syncthreads();
   }
-  store_layer<false>(acc, wscr, bias, dst, gdst, wm, wn, lane);
+  store_layer<false>(acc, wscr, bias, dst, nullptr, wm, wn, lane);
   __syncthreads();
 }
 
 // hv = bf16(relu(feat @ vwf + embv @ vwv + vb)), 128 wide, into columns
 // 0 .. 127 of `dst` (which may be `feat`): chunks g .. g + 4 of the schedule,
 // four 64 x 128 chunks of vwf and the 32 x 128 vwv. Each warp owns a 64 x 32
-// block. With `ghv` (row row0 of a row-padded (n_pad, 128) global array) hv
-// is stored there too.
+// block.
 template <class Prefetch>
 __device__ __forceinline__ void views_forward(const bf16* feat, const bf16* embvs,
                                               bf16* dst, bf16* stage, float* wscr,
                                               const float* __restrict__ vb, int& g,
-                                              Prefetch& prefetch, bf16* ghv, int warp,
-                                              int lane) {
+                                              Prefetch& prefetch, int warp, int lane) {
   const int wm = warp / 4;   // rows wm*64 .. +64
   const int wn = warp % 4;   // cols wn*32 .. +32
   AccFrag acc[4][2];
@@ -349,11 +341,8 @@ __device__ __forceinline__ void views_forward(const bf16* feat, const bf16* embv
         const float v = wscr[er * 16 + ec + e] + __ldg(vb + gcol + e);
         ov[e] = __float2bfloat16(fmaxf(v, 0.0f));
       }
-      const uint4 pk = *reinterpret_cast<const uint4*>(ov);
-      *reinterpret_cast<uint4*>(dst + grow * LDA + gcol) = pk;
-      if (ghv != nullptr) {
-        *reinterpret_cast<uint4*>(ghv + size_t(grow) * VW + gcol) = pk;
-      }
+      *reinterpret_cast<uint4*>(dst + grow * LDA + gcol) =
+          *reinterpret_cast<const uint4*>(ov);
       __syncwarp();
     }
   }
@@ -428,21 +417,19 @@ __device__ __forceinline__ int bwd_layer(int step) {
   return step == 0 ? 7 : step == 1 ? 6 : step == 2 ? 0 : step == 8 ? 0 : 8 - step;
 }
 
-// dh_chain's sink that writes demb to the tile's rows of the (n, E) f32
+// dh_chain's sink that writes demb to the tile's rows of the (n, 64) f32
 // output: step 2 stores, step 8 adds. rows_left = n - row0.
-template <int E>
-struct DembTo {
+struct DembToGlobal {
   float* demb;
   long rows_left;
   __device__ __forceinline__ void operator()(int step, int row, int col,
                                              const float* v) const {
     if (row >= rows_left) return;
-    float* dst = demb + size_t(row) * E + col;
+    float* dst = demb + size_t(row) * EMB + col;
 #pragma unroll
     for (int e = 0; e < 8; ++e) dst[e] = (step == 2) ? v[e] : dst[e] + v[e];
   }
 };
-using DembToGlobal = DembTo<EMB>;
 
 // The dh chain from dh8 (in `cur`) down: chunks g .. g + n_bwd_chunks<E> - 1
 // of the schedule (n7w n6w n5e n5h n4w n3w n2w n1w n0w; n5e and n0w as E/64
@@ -514,22 +501,20 @@ inline int fill_backward_chunks(const bf16* const* m, const bf16** chunk, int g)
 
 struct DwTile {
   const bf16* a;     // activations, row-major (n_pad, lda)
-  const bf16* b;     // dh, row-major (n_pad, b_cols)
-  int lda;           // 32, 64 or 256
-  int a_col;         // first of the a_rows activation columns of this tile
-  int a_rows;        // 64, or 32 for the view encoding
-  int b_cols;        // 256, or 128 for the view-conditioned layer
-  int out_off;       // offset of the tile's a_rows x b_cols block in the grads
+  const bf16* b;     // dh, row-major (n_pad, 256)
+  int lda;           // 64 or 256
+  int a_col;         // first of the tile's 64 activation columns
+  int out_off;       // offset of the tile's 64 x 256 block in the grads
 };
 
 struct DwParams {
   DwTile tile[MAX_DW_TILES];
 };
 
-// dW partials: CTA (tile, split) forms the a_rows x b_cols block
-//   act[rows, a_col : a_col + a_rows]^T @ dh[rows, :]  over the split's rows
+// dW partials: CTA (tile, split) forms the 64 x 256 block
+//   act[rows, a_col : a_col + 64]^T @ dh[rows, :]  over the split's rows
 // (act^T is the col-major A operand of the row-major scratch) and writes it
-// to its own slot of the partials buffer. Warps outside a narrow block idle.
+// to its own slot of the partials buffer.
 __global__ void __launch_bounds__(THREADS)
 mlp_dw_kernel(DwParams p, long n_pad, int grad_floats, float* __restrict__ partials) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -541,7 +526,6 @@ mlp_dw_kernel(DwParams p, long n_pad, int grad_floats, float* __restrict__ parti
   const int warp = tid / 32;
   const int wm = warp / 4;   // output rows wm*32 .. +32
   const int wn = warp % 4;   // output cols wn*64 .. +64
-  const bool active = wm * 32 < t.a_rows && wn * 64 < t.b_cols;
   const long r_begin = long(blockIdx.y) * SPLIT_ROWS;
   const long r_end = (r_begin + SPLIT_ROWS < n_pad) ? r_begin + SPLIT_ROWS : n_pad;
   const int n_k = int((r_end - r_begin) / RK);
@@ -550,17 +534,16 @@ mlp_dw_kernel(DwParams p, long n_pad, int grad_floats, float* __restrict__ parti
     const long r0 = r_begin + long(k) * RK;
     bf16* a_dst = as + s * RK * LDAS;
     bf16* b_dst = bs + s * RK * LDBS;
-    const int a_pieces = t.a_rows / 8;
-    const int b_pieces = t.b_cols / 8;
-    for (int i = tid; i < RK * a_pieces; i += THREADS) {
-      const int r = i / a_pieces;
-      const int c = (i % a_pieces) * 8;
+    constexpr int A_PIECES = EMB / 8, B_PIECES = NW / 8;
+    for (int i = tid; i < RK * A_PIECES; i += THREADS) {
+      const int r = i / A_PIECES;
+      const int c = (i % A_PIECES) * 8;
       cp_async16(a_dst + r * LDAS + c, t.a + size_t(r0 + r) * t.lda + t.a_col + c);
     }
-    for (int i = tid; i < RK * b_pieces; i += THREADS) {
-      const int r = i / b_pieces;
-      const int c = (i % b_pieces) * 8;
-      cp_async16(b_dst + r * LDBS + c, t.b + size_t(r0 + r) * t.b_cols + c);
+    for (int i = tid; i < RK * B_PIECES; i += THREADS) {
+      const int r = i / B_PIECES;
+      const int c = (i % B_PIECES) * 8;
+      cp_async16(b_dst + r * LDBS + c, t.b + size_t(r0 + r) * NW + c);
     }
   };
 
@@ -577,7 +560,7 @@ mlp_dw_kernel(DwParams p, long n_pad, int grad_floats, float* __restrict__ parti
     cp_async_commit();
     cp_async_wait_1();
     __syncthreads();
-    if (active) {
+    {
       const bf16* a_src = as + (k & 1) * RK * LDAS;
       const bf16* b_src = bs + (k & 1) * RK * LDBS;
 #pragma unroll
@@ -600,23 +583,21 @@ mlp_dw_kernel(DwParams p, long n_pad, int grad_floats, float* __restrict__ parti
     __syncthreads();
   }
 
-  if (!active) return;
   float* out = partials + size_t(blockIdx.y) * grad_floats + t.out_off;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(out + (wm * 32 + i * 16) * t.b_cols + wn * 64 + j * 16,
-                              acc[i][j], t.b_cols, wmma::mem_row_major);
+      wmma::store_matrix_sync(out + (wm * 32 + i * 16) * NW + wn * 64 + j * 16,
+                              acc[i][j], NW, wmma::mem_row_major);
     }
 }
 
 struct SmallJob {
-  const bf16* src;    // row-major (n_pad, width)
-  int width;          // 256 or 128 columns
+  const bf16* src;    // row-major (n_pad, 256)
   int out_off;        // where the job's result goes in the flat grads
   int draw_sum_off;   // -1: the job sums src's columns over the points.
-                      // else: the job forms src^T @ bf16(draw) (width x 8),
+                      // else: the job forms src^T @ bf16(draw) (256 x 8),
                       // and columns 0..7 also sum the UNCAST draw to here
 };
 
@@ -634,20 +615,17 @@ mlp_small_kernel(SmallParams p, const float* __restrict__ draw, int n, long n_pa
   const SmallJob job = p.job[blockIdx.y];
   const int col = threadIdx.x % NW;
   const int grp = threadIdx.x / NW;
-  const bool in_width = col < job.width;
   const long r_begin = long(blockIdx.x) * SPLIT_ROWS;
   const long r_end = (r_begin + SPLIT_ROWS < n_pad) ? r_begin + SPLIT_ROWS : n_pad;
   float* out = partials + size_t(blockIdx.x) * grad_floats;
   if (job.draw_sum_off < 0) {
     float s = 0.0f;
-    if (in_width) {
-      for (long r = r_begin + grp; r < r_end; r += SMALL_GROUPS) {
-        s += __bfloat162float(job.src[size_t(r) * job.width + col]);
-      }
+    for (long r = r_begin + grp; r < r_end; r += SMALL_GROUPS) {
+      s += __bfloat162float(job.src[size_t(r) * NW + col]);
     }
     red[grp][col][0] = s;
     __syncthreads();
-    if (grp == 0 && in_width) {
+    if (grp == 0) {
       float t = red[0][col][0];
 #pragma unroll
       for (int q = 1; q < SMALL_GROUPS; ++q) t += red[q][col][0];
@@ -659,21 +637,19 @@ mlp_small_kernel(SmallParams p, const float* __restrict__ draw, int n, long n_pa
 #pragma unroll
   for (int o = 0; o <= OUT; ++o) acc[o] = 0.0f;
   const long r_last = (r_end < n) ? r_end : n;   // rows past n have draw = 0
-  if (in_width) {
-    for (long r = r_begin + grp; r < r_last; r += SMALL_GROUPS) {
-      const float a = __bfloat162float(job.src[size_t(r) * job.width + col]);
+  for (long r = r_begin + grp; r < r_last; r += SMALL_GROUPS) {
+    const float a = __bfloat162float(job.src[size_t(r) * NW + col]);
 #pragma unroll
-      for (int o = 0; o < OUT; ++o) {
-        const float d = __ldg(draw + size_t(r) * OUT + o);   // one address per warp
-        acc[o] += a * __bfloat162float(__float2bfloat16(d));
-      }
-      if (col < OUT) acc[OUT] += __ldg(draw + size_t(r) * OUT + col);
+    for (int o = 0; o < OUT; ++o) {
+      const float d = __ldg(draw + size_t(r) * OUT + o);   // one address per warp
+      acc[o] += a * __bfloat162float(__float2bfloat16(d));
     }
+    if (col < OUT) acc[OUT] += __ldg(draw + size_t(r) * OUT + col);
   }
 #pragma unroll
   for (int o = 0; o <= OUT; ++o) red[grp][col][o] = acc[o];
   __syncthreads();
-  if (grp == 0 && in_width) {
+  if (grp == 0) {
 #pragma unroll
     for (int o = 0; o <= OUT; ++o) {
       float t = red[0][col][o];
@@ -964,6 +940,7 @@ inline int launch_chain_second_pass(bf16* scratch, const float* draw, int n,
                                     float* partials, float* grads,
                                     cudaStream_t stream) {
   using L = GradLayout<E>;
+  static_assert(L::DW_TILES <= MAX_DW_TILES, "the job list holds every tile");
   const long n_pad = padded_rows(n);
   const size_t layer_stride = size_t(n_pad) * NW;
   const bf16* embp = scratch;
@@ -983,7 +960,7 @@ inline int launch_chain_second_pass(bf16* scratch, const float* draw, int n,
   int t = 0;
   for (const Prod& pr : prods) {
     for (int c = 0; c < pr.lda; c += ROWS) {
-      dp.tile[t++] = DwTile{pr.a, pr.b, pr.lda, c, ROWS, NW, pr.off + c * NW};
+      dp.tile[t++] = DwTile{pr.a, pr.b, pr.lda, c, pr.off + c * NW};
     }
   }
   if (t != L::DW_TILES) return int(cudaErrorInvalidValue);
@@ -991,8 +968,8 @@ inline int launch_chain_second_pass(bf16* scratch, const float* draw, int n,
   SmallParams sp;
   const int bias_off[N_LAYERS] = {L::OFF_N0B, L::OFF_N1B, L::OFF_N2B, L::OFF_N3B,
                                   L::OFF_N4B, L::OFF_N5B, L::OFF_N6B, L::OFF_N7B};
-  for (int l = 0; l < N_LAYERS; ++l) sp.job[l] = SmallJob{dh_l(l + 1), NW, bias_off[l], -1};
-  sp.job[N_LAYERS] = SmallJob{nh_l(8), NW, L::OFF_OW, L::OFF_OB};
+  for (int l = 0; l < N_LAYERS; ++l) sp.job[l] = SmallJob{dh_l(l + 1), bias_off[l], -1};
+  sp.job[N_LAYERS] = SmallJob{nh_l(8), L::OFF_OW, L::OFF_OB};
 
   return launch_second_pass(dp, L::DW_TILES, sp, N_LAYERS + 1, draw, n, L::FLOATS,
                             partials, grads, stream);

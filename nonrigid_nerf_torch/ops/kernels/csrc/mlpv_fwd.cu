@@ -91,8 +91,8 @@ mlpv_fwd_kernel(const bf16* __restrict__ emb, const bf16* __restrict__ embv, int
   };
   prefetch(0);
   cp_async_commit();
-  load_points<EMB, LDE>(embs, emb, row0, n, tid, nullptr);
-  load_points<VEMB, LDV>(embvs, embv, row0, n, tid, nullptr);
+  load_points<EMB, LDE>(embs, emb, row0, n, tid);
+  load_points<VEMB, LDV>(embvs, embv, row0, n, tid);
 
   float* wscr = scratch + warp * 256;
   int g = 0;
@@ -116,8 +116,8 @@ mlpv_fwd_kernel(const bf16* __restrict__ emb, const bf16* __restrict__ embv, int
   }
 
   // feat = bf16(nh8 @ fw + fb), in place; hv over columns 0..127
-  linear_256(act, act, stage, wscr, p.fb, g, prefetch, nullptr, warp, lane);
-  views_forward(act, embvs, act, stage, wscr, p.vb, g, prefetch, nullptr, warp, lane);
+  linear_256(act, act, stage, wscr, p.fb, g, prefetch, warp, lane);
+  views_forward(act, embvs, act, stage, wscr, p.vb, g, prefetch, warp, lane);
 
   // rgb head: raw[p, o] = raw_s[p, o] + sum_k hv[p, k] * rw[k, o]
   float s[4];

@@ -21,6 +21,12 @@ multiplies it by cos(pre + phase) and the lane's 2^k and sums the lanes of each
 coordinate on the chip. The factors up to 2^9 amplify the bf16 rounding of the
 chain's dh1 and dh6; the JAX kernel has the same arithmetic, so the plain
 version here is the yardstick, not the f32 step.
+
+The kernels are `mlp_bwd`'s, on `csrc/mlp_sm90.cuh` (the chain kernel's
+template on another input, the same second pass): on a CUDA tensor the
+wrapper packs the same weight image (`mlp_sm90.pack_chain_image` of the
+forward and backward chunks at 64 lanes) and hands over the encoding's
+projection P and phase in f32.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from nonrigid_nerf_torch.ops.kernels.mlp_bwd import (
 from nonrigid_nerf_torch.ops.kernels.mlp_fwd import (
     EMB, N_MLP_W, OUT_PAD, _BIAS_IDX, _MATRIX_IDX, _expected_shape,
     cast_mlp_weights, check_kernel_weights, weight_pointers)
+from nonrigid_nerf_torch.ops.kernels.mlp_sm90 import pack_chain_image
 from nonrigid_nerf_torch.ops.kernels.mlpe_fwd import (
     PTS, _projection_on, check_pts_args, embed_ew, mlpe_fwd)
 
@@ -120,15 +127,18 @@ def mlpe_bwd(pts: torch.Tensor, mw: Sequence[torch.Tensor],
     partials = torch.empty(partial_floats.value, dtype=torch.float32,
                            device=device)
     grads = torch.empty(GRAD_FLOATS, dtype=torch.float32, device=device)
+    image = pack_chain_image(mw, ("fwd", "bwd"))
+    P, phase = _projection(device)
     for t in (draw, scratch, partials, grads, *mw):
         if t.data_ptr() % 16:
             raise ValueError("mlpe_bwd needs 16-byte aligned tensors")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.nrnerf_mlpe_bwd(pts.data_ptr(), draw.data_ptr(), n, mats,
-                                  biases, scratch.data_ptr(),
-                                  partials.data_ptr(), dpts.data_ptr(),
-                                  grads.data_ptr(), stream)
+        err = lib.nrnerf_mlpe_bwd(pts.data_ptr(), draw.data_ptr(), n,
+                                  image.data_ptr(), P.data_ptr(),
+                                  phase.data_ptr(), mats, biases,
+                                  scratch.data_ptr(), partials.data_ptr(),
+                                  dpts.data_ptr(), grads.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"mlpe_bwd kernel launch failed: CUDA error {err}")
     mlpe_bwd.launches += 1
@@ -136,15 +146,24 @@ def mlpe_bwd(pts: torch.Tensor, mw: Sequence[torch.Tensor],
 
 
 mlpe_bwd.launches = 0
+_PROJECTIONS = {}
+
+
+def _projection(device):
+    """P (3, 64) and phase (64,) f32 on `device`, made once."""
+    key = str(device)
+    if key not in _PROJECTIONS:
+        _PROJECTIONS[key] = tuple(t.contiguous() for t in _projection_on(device))
+    return _PROJECTIONS[key]
 
 
 def _library() -> ctypes.CDLL:
     lib = load_kernel_library("mlpe_bwd.cu")
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     lib.nrnerf_mlpe_bwd.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ptrs, ptrs,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ptrs, ptrs, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.nrnerf_mlpe_bwd.restype = ctypes.c_int
     lib.nrnerf_mlpe_bwd_sizes.argtypes = [
         ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),

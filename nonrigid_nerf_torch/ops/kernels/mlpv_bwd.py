@@ -17,7 +17,10 @@ Counterpart of the Pallas kernel `_mlpv_core_bwd` / `_mlpv_bwd_kernel`
   the activations.
 
 The kernel is bound by the tensor cores (3.58 MFLOP per point against 608 B
-of HBM traffic per point); see the source for its design.
+of HBM traffic per point); see the source for its design. It runs on
+`csrc/mlp_sm90.cuh`: on CUDA tensors the wrapper first packs the chain's and
+the heads' chunks into the swizzled image the chain kernel streams
+(`mlp_sm90.pack_views_image`).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from nonrigid_nerf_torch.ops.kernels.mlp_bwd import (
     split_grads)
 from nonrigid_nerf_torch.ops.kernels.mlp_fwd import (
     EMB, OUT_PAD, chain_plain, check_kernel_weights, weight_pointers)
+from nonrigid_nerf_torch.ops.kernels.mlp_sm90 import pack_views_image
 from nonrigid_nerf_torch.ops.kernels.mlpv_fwd import (
     _BIAS_IDX, _MATRIX_IDX, MACS_PER_POINT, N_MLPV_W, VEMB, _check_args,
     _expected_shape, cast_mlpv_weights, heads_plain, mlpv_fwd)
@@ -42,11 +46,11 @@ from nonrigid_nerf_torch.ops.kernels.mlpv_fwd import (
 BWD_MACS_PER_POINT = 3 * MACS_PER_POINT
 _SHAPES = tuple(_expected_shape(i) for i in range(N_MLPV_W))
 GRAD_FLOATS = sum(shape.numel() for shape in _SHAPES)
-# bf16 elements of scratch per point: emb, embv, nh1..nh8, feat, hv, and
-# dh1..dh8, dfeat, dhv
-SCRATCH_PER_POINT = EMB + VEMB + 2 * (8 * 256 + 256 + 128)
-# one call takes at most this many points: the bf16 scratch (9,920 B per
-# point) then stays at 2.42 GiB. The training step gives 131,072 at most.
+# bf16 elements of scratch per point: emb and embv (padded to 64 lanes: one
+# 128-lane array), nh1..nh8, feat, hv, and dh1..dh8, dfeat, dhv
+SCRATCH_PER_POINT = EMB + 64 + 2 * (8 * 256 + 256 + 128)
+# one call takes at most this many points: the bf16 scratch (9,984 B per
+# point) then stays at 2.44 GiB. The training step gives 131,072 at most.
 MAX_POINTS_PER_LAUNCH = 1 << 18
 # Agreement of two implementations (these kernels, the plain version, the
 # JAX math): `mlp_bwd`'s limits (BWD_TOL_*, grad_max_tol, held here under the
@@ -151,13 +155,15 @@ def mlpv_bwd(embb: torch.Tensor, embvb: torch.Tensor,
     partials = torch.empty(partial_floats.value, dtype=torch.float32,
                            device=device)
     grads = torch.empty(GRAD_FLOATS, dtype=torch.float32, device=device)
+    image = pack_views_image(mw)
     for t in (embb, embvb, draw, demb, dembv, scratch, partials, grads, *mw):
         if t.data_ptr() % 16:
             raise ValueError("mlpv_bwd needs 16-byte aligned tensors")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.nrnerf_mlpv_bwd(embb.data_ptr(), embvb.data_ptr(),
-                                  draw.data_ptr(), n, mats, biases,
+                                  draw.data_ptr(), n, image.data_ptr(),
+                                  mats, biases,
                                   scratch.data_ptr(), partials.data_ptr(),
                                   demb.data_ptr(), dembv.data_ptr(),
                                   grads.data_ptr(), stream)
@@ -174,9 +180,9 @@ def _library() -> ctypes.CDLL:
     lib = load_kernel_library("mlpv_bwd.cu")
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     lib.nrnerf_mlpv_bwd.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ptrs,
-        ptrs, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ptrs, ptrs, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.nrnerf_mlpv_bwd.restype = ctypes.c_int
     lib.nrnerf_mlpv_bwd_sizes.argtypes = [
         ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),

@@ -278,10 +278,10 @@ def test_mlpv_bwd_kernel_matches_plain_on_cuda(model_v, cuda_device, n):
 def test_mlpv_bwd_kernel_refuses_more_points_than_one_launch_takes(
         model_v, cuda_device, monkeypatch):
     """One call is one launch: more points than its scratch allows raise,
-    and nothing is launched or counted. The limit keeps the scratch (9,920 B
-    per point) at 2.42 GiB."""
+    and nothing is launched or counted. The limit keeps the scratch (9,984 B
+    per point) at 2.44 GiB."""
     assert KVB.MAX_POINTS_PER_LAUNCH == 1 << 18
-    assert KVB.SCRATCH_PER_POINT * 2 == 9920
+    assert KVB.SCRATCH_PER_POINT * 2 == 9984
     mw = _mlpv_weights(model_v.coarse, cuda_device)
     embb = torch.from_numpy(_emb(700, 7)).to(cuda_device).to(torch.bfloat16)
     embvb = torch.from_numpy(_embv(700, 8)).to(cuda_device).to(torch.bfloat16)
@@ -957,4 +957,92 @@ def test_mlp_bwd_on_the_sm90_chain_at_the_grid_edges(request, cuda_device, width
     again = KB.mlp_bwd(embb, mw, draw)
     assert torch.equal(got[0], again[0])
     for a, b in zip(got[1], again[1]):
+        assert torch.equal(a, b)
+
+
+# ---- rows 4 and 6 on the Hopper chain (csrc/mlp_sm90.cuh): the persistent
+# grid's edges, every size's per-point outputs bit for bit the rows of the
+# largest launch, which alone is held to the plain version (the tolerances
+# are statistics over many points), bit-equal relaunch, the launch counters
+
+
+@pytest.fixture(scope="module")
+def sm90_views_bwd_reference(request):
+    """The weights, inputs of the largest size and the kernel's outputs on
+    them, held once against `mlpv_bwd_plain`."""
+    cache = {}
+
+    def get(device):
+        if not cache:
+            mw = _mlpv_weights(request.getfixturevalue("model_v").fine, device)
+            n = max(SM90_BWD_SIZES)
+            embb = torch.from_numpy(_emb(n, 31)).to(device).to(torch.bfloat16)
+            embvb = torch.from_numpy(_embv(n, 32)).to(device).to(torch.bfloat16)
+            draw = torch.from_numpy(np.random.RandomState(33).randn(n, 8).astype(
+                np.float32)).to(device)
+            got = KVB.mlpv_bwd(embb, embvb, mw, draw)
+            stats = KVB.bwd_agreement(got, KVB.mlpv_bwd_plain(embb, embvb, mw, draw))
+            assert stats["ok"], stats
+            cache.update(mw=mw, inputs=(embb, embvb, draw), out=got)
+        return cache
+
+    return get
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SM90_BWD_SIZES)
+def test_mlpv_bwd_on_the_sm90_chain_at_the_grid_edges(sm90_views_bwd_reference,
+                                                      cuda_device, n):
+    ref = sm90_views_bwd_reference(cuda_device)
+    embb, embvb, draw = (x[:n] for x in ref["inputs"])
+    before = KVB.mlpv_bwd.launches
+    got = KVB.mlpv_bwd(embb, embvb, ref["mw"], draw)
+    torch.cuda.synchronize()
+    assert KVB.mlpv_bwd.launches == before + (n > 0)
+    assert got[0].shape == (n, 64) and got[1].shape == (n, 32)
+    assert len(got[2]) == len(ref["out"][2])
+    assert all(bool(torch.isfinite(g).all()) for g in got[2])
+    assert torch.equal(got[0], ref["out"][0][:n])
+    assert torch.equal(got[1], ref["out"][1][:n])
+    again = KVB.mlpv_bwd(embb, embvb, ref["mw"], draw)
+    for a, b in zip([*got[:2], *got[2]], [*again[:2], *again[2]]):
+        assert torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def sm90_pts_bwd_reference(request):
+    """As `sm90_views_bwd_reference`, for `mlpe_bwd`."""
+    cache = {}
+
+    def get(device):
+        if not cache:
+            mw = _mlp_weights(request.getfixturevalue("model").fine, device)
+            n = max(SM90_BWD_SIZES)
+            pts = torch.from_numpy(_bent_pts(n, 34)).to(device)
+            draw = torch.from_numpy(np.random.RandomState(35).randn(n, 8).astype(
+                np.float32)).to(device)
+            got = KEB.mlpe_bwd(pts, mw, draw)
+            stats = KEB.bwd_agreement(got, KEB.mlpe_bwd_plain(pts, mw, draw))
+            assert stats["ok"], stats
+            cache.update(mw=mw, inputs=(pts, draw), out=got)
+        return cache
+
+    return get
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SM90_BWD_SIZES)
+def test_mlpe_bwd_on_the_sm90_chain_at_the_grid_edges(sm90_pts_bwd_reference,
+                                                      cuda_device, n):
+    ref = sm90_pts_bwd_reference(cuda_device)
+    pts, draw = (x[:n] for x in ref["inputs"])
+    before = KEB.mlpe_bwd.launches
+    got = KEB.mlpe_bwd(pts, ref["mw"], draw)
+    torch.cuda.synchronize()
+    assert KEB.mlpe_bwd.launches == before + (n > 0)
+    assert got[0].shape == (n, 3) and len(got[1]) == len(ref["out"][1])
+    assert all(bool(torch.isfinite(g).all()) for g in got[1])
+    assert torch.equal(got[0], ref["out"][0][:n])
+    again = KEB.mlpe_bwd(pts, ref["mw"], draw)
+    for a, b in zip([got[0], *got[1]], [again[0], *again[1]]):
         assert torch.equal(a, b)

@@ -11,6 +11,14 @@ mirroring `ops/kernels/csrc/mlp_sm90.cuh`) on the CPU.
   math: `_mlp_fwd_math` for the forward and `_mlp_bwd_math` for the
   backward, within the bf16 tolerances of `ops/kernels/mlp_fwd.py` and
   `ops/kernels/mlp_bwd.py`.
+- `mlpv_bwd`'s image (the chain and the view-direction heads, 78 chunks):
+  its schedule reads every chunk once, packing and unpacking returns every
+  weight, and a reader of the whole backward from the image in the kernel's
+  order (recompute, heads, dhv, dfeat, dembv, the dh chain, the second
+  pass) equals `jax.vjp` of `_mlpv_core` in Pallas interpret mode.
+- `mlpe_bwd`'s encoding, written into the swizzled tile by the threads that
+  own its rows, and its fold of demb onto the points in the order the
+  threads sum, against `_embed_ew` and `jax.vjp` of `_mlpe_core`.
 
 The CUDA kernels that read this image are held against their plain versions
 on the card by `tests/test_torch_kernels_cuda.py`.
@@ -20,15 +28,21 @@ import dataclasses
 import os
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 import nonrigid_nerf_tpu.ops.pallas.fused_query as fq
 from nonrigid_nerf_torch.ops.kernels import mlp_bwd as KB
 from nonrigid_nerf_torch.ops.kernels import mlp_fwd as K
 from nonrigid_nerf_torch.ops.kernels import mlp_sm90 as S
+from nonrigid_nerf_torch.ops.kernels import mlpe_bwd as KEB
+from nonrigid_nerf_torch.ops.kernels import mlpe_fwd as KE
+from nonrigid_nerf_torch.ops.kernels import mlpv_bwd as KVB
+from nonrigid_nerf_torch.ops.kernels import mlpv_fwd as KV
 from nonrigid_nerf_torch.weights import params_from_jax
 from nonrigid_nerf_tpu.config import ModelConfig
 from tests.torch_parity import jax_params, torch_cfg
@@ -36,6 +50,8 @@ from tests.torch_parity import jax_params, torch_cfg
 CFG = ModelConfig()
 CFG_TC = dataclasses.replace(CFG, ray_bending=None,
                              time_conditioned_baseline=True)
+CFG_V = dataclasses.replace(CFG, use_viewdirs=True)
+BLOCK = 256                    # the JAX kernels' block in interpret mode
 IN_CH = {64: 63, 128: 63 + 32}
 HEADER = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "nonrigid_nerf_torch", "ops", "kernels", "csrc",
@@ -45,6 +61,22 @@ HEADER = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 @pytest.fixture(scope="module")
 def trees():
     return {64: jax_params(CFG), 128: jax_params(CFG_TC)}
+
+
+@pytest.fixture(scope="module")
+def views_tree():
+    return jax_params(CFG_V)
+
+
+@pytest.fixture
+def interpret_pallas(monkeypatch):
+    orig = pl.pallas_call
+
+    def patched(*args, **kwargs):
+        kwargs["interpret"] = True
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(fq.pl, "pallas_call", patched)
 
 
 def _weights(trees, e, network="coarse"):
@@ -215,7 +247,10 @@ def test_dh_chain_from_image_matches_jax_bwd_math(trees, e):
 
 def test_header_budgets_fit_one_hopper_cta():
     """The stage counts and sizes in the header leave each kernel within a
-    CTA's 232,448 bytes of shared memory at both widths."""
+    CTA's 232,448 bytes of shared memory at both widths: the forward, the
+    backward's chain kernels (rows 2, 4 and 6 share one plan: two tiles,
+    the ring, the barriers), two dW CTAs on an SM; the view layer's chunks
+    fit a ring stage, and the dW kernel's job list holds row 4's 39 jobs."""
     with open(HEADER) as f:
         src = f.read()
 
@@ -230,3 +265,196 @@ def test_header_budgets_fit_one_hopper_cta():
         assert emb_tile <= act
     assert align + 2 * act + bwd * chunk + bars <= 232448
     assert fwd >= 3 and bwd >= 3
+    # row 4's encodings (64 + 32 lanes, padded) share the second tile
+    assert 2 * 128 * 64 * 2 <= act
+    box = 64 * 64 * 2
+    dw = align + const("DW_STAGES") * (box + 4 * box) + bars
+    assert 2 * dw <= 232448
+    assert const("MAX_DW_JOBS") >= 30 + 2 * 4 + 1
+    sizes = S.views_chunk_bytes()
+    assert len(sizes) == 78 and max(sizes) == chunk
+    assert all(b % 1024 == 0 for b in sizes)
+    with open(os.path.join(os.path.dirname(HEADER), "mlpv_bwd.cu")) as f:
+        assert "static_assert(V_CHUNKS == 78" in f.read()
+
+
+# ---- row 4: mlpv_bwd's image and its backward read from it
+
+
+def _views_weights(tree, network="fine"):
+    """The JAX package's packing of the view-direction MLP and the port's
+    cast packing of the same parameters."""
+    jp = fq.pack_viewdirs_mlp_weights(tree, network)
+    model = params_from_jax(tree, torch_cfg(CFG_V), device="cpu")
+    with torch.no_grad():
+        tc = KV.cast_mlpv_weights(
+            KV.pack_viewdirs_mlp_weights(model.network(network)))
+    return jp, tc
+
+
+def _random_views_weights(seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return KV.cast_mlpv_weights([torch.randn(KV._expected_shape(i),
+                                             generator=gen)
+                                 for i in range(KV.N_MLPV_W)])
+
+
+def test_views_schedule_reads_every_chunk_once():
+    sched = S.views_schedule()
+    assert len(sched) == 78 and len(set(sched)) == 78
+    shapes = [(64 if m in (0, 5) else 256, 256) for m in range(9)]
+    shapes += [(256, 256), (256, 128), (32, 128)]
+    for layout in ("fwd", "bwd"):
+        got = sorted((m, c) for l, m, c in sched if l == layout)
+        rows_per_chunk = [64 if layout == "fwd" else min(64, r)
+                          for r, _ in shapes]
+        want = sorted((m, c) for m, (r, _) in enumerate(shapes)
+                      for c in range(-(-r // rows_per_chunk[m])))
+        assert got == want
+    # the kernel's order: the chain's forward, fw, vwf, vwv; vwf, vwv, fw as
+    # B operands of the transposed steps; the chain's backward
+    assert sched[:30] == [("fwd", m, c) for m, c in S.fwd_schedule(64)]
+    assert [m for _, m, _ in sched[30:48]] == [9] * 4 + [10] * 4 + [11] \
+        + [10] * 4 + [11] + [9] * 4
+    assert sched[48:] == [("bwd", m, c) for m, c in S.bwd_schedule(64)]
+    # the bytes each stage receives: 16 KB for the view layer's chunks (8 KB
+    # for vwv's 32 rows as a B operand), 32 KB for the others
+    sizes = S.views_chunk_bytes()
+    assert sizes[34:44] == [16384] * 9 + [8192]
+    assert sizes[:34] == [32768] * 34 and sizes[44:] == [32768] * 34
+
+
+def test_pack_then_unpack_views_image_returns_every_weight():
+    mw = _random_views_weights(3)
+    image = S.pack_views_image(mw)
+    assert image.dtype == torch.bfloat16
+    assert image.shape == (78 * S.CHUNK_ELEMS,)
+    back = S.unpack_views_image(image)
+    for got, i in zip(back, S.VIEWS_MATRIX_IDX):
+        assert torch.equal(got, mw[i])
+    # what the producer does not copy of a chunk's slot is zero, so the
+    # kernel reads nothing it did not receive
+    for slot, nbytes in zip(image.view(-1, S.CHUNK_ELEMS),
+                            S.views_chunk_bytes()):
+        assert not slot[nbytes // 2:].any()
+    # each chunk holds the rows it is scheduled to hold
+    mats = [mw[i] for i in S.VIEWS_MATRIX_IDX]
+    for slot, (layout, m, c) in zip(image.view(-1, S.CHUNK_ELEMS),
+                                    S.views_schedule()):
+        rows, cols = mats[m].shape
+        if layout == "fwd":
+            got = S.fwd_chunk_matrix(slot, cols)
+            want = torch.zeros(64, cols, dtype=torch.bfloat16)
+            part = mats[m][c * 64:(c + 1) * 64]
+            want[:part.shape[0]] = part
+        else:
+            nr = min(64, rows)
+            got = S.bwd_chunk_matrix(slot, nr, cols)
+            want = mats[m][c * nr:(c + 1) * nr]
+        assert torch.equal(got, want)
+
+
+def test_views_bwd_from_image_matches_jax_vjp(views_tree, interpret_pallas):
+    jp, tc = _views_weights(views_tree, "fine")
+    n = 300                       # two whole tiles and a ragged one
+    rng = np.random.RandomState(9)
+    emb = rng.uniform(-1, 1, (n, 64)).astype(np.float32)
+    emb[:, 63] = 0.0
+    embv = rng.uniform(-1, 1, (n, 32)).astype(np.float32)
+    embv[:, 27:] = 0.0
+    draw = rng.randn(n, 8).astype(np.float32)
+    n_pad = -(-n // BLOCK) * BLOCK
+
+    def pad(a):
+        return jnp.asarray(np.pad(a, ((0, n_pad - n), (0, 0))))
+
+    _, vjp = jax.vjp(lambda e, v, w: fq._mlpv_core(e, v, w, BLOCK),
+                     pad(emb), pad(embv), jp)
+    demb_j, dembv_j, grads_j = vjp(pad(draw))
+    image = S.pack_views_image(tc)
+    got = S.views_bwd_from_image(torch.from_numpy(emb).to(torch.bfloat16),
+                                 torch.from_numpy(embv).to(torch.bfloat16),
+                                 image, tc, torch.from_numpy(draw))
+    assert got[0].shape == (n, 64) and got[1].shape == (n, 32)
+    assert len(got[2]) == 26
+    for i, g in enumerate(got[2]):
+        assert g.shape == KV._expected_shape(i)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
+    ref = (t(demb_j)[:n], t(dembv_j)[:n], [t(g) for g in grads_j])
+    stats = KVB.bwd_agreement(got, ref)
+    assert stats["ok"], stats
+
+
+# ---- row 6: mlpe_bwd's encoding in the tile and its fold onto the points
+
+
+def test_mlpe_encoding_tile_and_fold_match_jax(trees, interpret_pallas):
+    jc_full = fq.pack_mlp_pts_weights(trees[64], "fine")
+    _, tc = _weights(trees, 64, "fine")
+    n = 300
+    rng = np.random.RandomState(10)
+    pts = (rng.randn(n, 3) * 1.5).astype(np.float32)
+    draw = rng.randn(n, 8).astype(np.float32)
+    P, phase = KE._projection_on(torch.device("cpu"))
+    Pj, phasej = jc_full[-2], jc_full[-1]
+    n_pad = -(-n // S.TM) * S.TM            # the kernel's tiles
+    n_blk = -(-n // BLOCK) * BLOCK          # the JAX kernel's blocks
+    pts_t = torch.from_numpy(np.pad(pts, ((0, n_pad - n), (0, 0))))
+    # the encoding each tile's threads write, against _embed_ew's
+    pts_blk = np.zeros((n_blk, fq.PTS_PAD), np.float32)
+    pts_blk[:n, :3] = pts
+    emb_j = np.array(fq._embed_ew(jnp.asarray(pts_blk), Pj, phasej)[2])
+    emb_j = torch.from_numpy(emb_j[:n_pad]).to(torch.bfloat16)
+    emb_j[n:] = 0
+    tiles = []
+    for k in range(n_pad // S.TM):
+        rows = slice(k * S.TM, (k + 1) * S.TM)
+        flat = S.encode_tile(pts_t[rows], P, phase, min(S.TM, n - k * S.TM))
+        tile = S._unswizzle(flat.view(S.TM, 64))
+        # sin in another library: at most one bf16 rounding apart, rarely
+        diff = (tile.float() - emb_j[rows].float()).abs()
+        assert (diff <= 2.0 ** -7 * emb_j[rows].float().abs() + 1e-30).all()
+        assert (diff > 0).float().mean().item() < 1e-2
+        tiles.append(tile)
+    embb = torch.cat(tiles)[:n]
+    assert not torch.cat(tiles)[n:].any()
+    # the chain from the image, its two demb products, folded per tile
+    image = S.pack_chain_image(tc, ("fwd", "bwd"))
+    nh = S.chain_from_image(embb, image, [tc[i] for i in _BIASES])
+    drawt = torch.from_numpy(draw)
+    drawb = drawt.to(torch.bfloat16)
+    dh8 = KB.masked(KB.mm_nt(drawb, tc[17]), nh[7])
+    demb, dh = S.dh_chain_from_image(nh, dh8, image, 64)
+    prods = [S._tiles(KB.mm_nt(dh[5], tc[10]), n),
+             S._tiles(KB.mm_nt(dh[0], tc[0]), n)]
+    dpts = torch.cat([S.fold_tile([p[k * S.TM:(k + 1) * S.TM] for p in prods],
+                                  pts_t[k * S.TM:(k + 1) * S.TM], P, phase)
+                      for k in range(n_pad // S.TM)])[:n]
+    # the fold's order moves only f32 roundings of the plain sum
+    pre = pts_t[:n] @ P
+    lane = torch.arange(64)
+    dpre = torch.where(lane < 3, demb, demb * torch.cos(pre + phase))
+    plain = dpre @ P.t()
+    assert torch.allclose(dpts, plain, rtol=1e-5,
+                          atol=1e-5 * plain.abs().max().item())
+    # against the JAX kernel's backward, with the gradients of the second pass
+    _, vjp = jax.vjp(lambda p, w: fq._mlpe_core(p, w, BLOCK),
+                     jnp.asarray(pts_blk), jc_full)
+    jdpts, jgrads = vjp(jnp.asarray(np.pad(draw, ((0, n_blk - n), (0, 0)))))
+    acts = [embb] + nh[:7]
+    grads = []
+    for l in range(8):
+        if l == 5:
+            grads += [KB.mm_tn(embb, dh[5]), KB.mm_tn(nh[4], dh[5]),
+                      KB.bsum(dh[5])]
+        else:
+            grads += [KB.mm_tn(acts[l], dh[l]), KB.bsum(dh[l])]
+    grads += [KB.mm_tn(nh[7], drawb), KB.bsum(drawt)]
+    ref = (torch.from_numpy(np.array(jdpts, np.float32)[:n, :3]),
+           [torch.from_numpy(np.array(g, np.float32))
+            for g in jgrads[:fq.N_MLP_W]])
+    stats = KEB.bwd_agreement((dpts, grads), ref)
+    assert stats["ok"], stats
