@@ -78,12 +78,13 @@ result line is printed):
    and the gradients against the f32 modules'; and `fused_fwd` against what
    the engine spends on the same function (the f32 bender, then
    `mlpe_fwd`).
-6. Print rows 1-2, 4 and 6 (`mlp_fwd`, `mlp_bwd`, `mlpv_bwd`, `mlpe_bwd`:
-   csrc/mlp_sm90.cuh's chain on wgmma) at every size and width beside their
-   bounds (a backward also with its device time, its two-pass floor and its
-   device time by kernel: chain, dW, head sums, reduction), with rows 3 and
-   5 (`mlpv_fwd`, `mlpe_fwd`: csrc/mlp_tile.cuh's design) from the same call
-   as a control for the card's drift; the kernels JSON line (eleven rows;
+6. Print rows 1-6 (`mlp_fwd`, `mlp_bwd`, `mlpv_fwd`, `mlpv_bwd`, `mlpe_fwd`,
+   `mlpe_bwd`: csrc/mlp_sm90.cuh's chains on wgmma) at every size and width,
+   each with its device time and share of the bound (a backward also with
+   its two-pass floor and its device time by kernel: chain, dW, head sums,
+   reduction), with rows 9 and 11 (`fused_fwd`, `mlp_i8`: csrc/mlp_tile.cuh's
+   design) from the same call as a control for the card's drift; the
+   kernels JSON line (eleven rows;
    `mlp_fwd` and `mlp_bwd` carry B's 128-lane checks, timings and launches
    under "lanes_128", and their share of the bound) and, last, the result
    line
@@ -1038,6 +1039,7 @@ def check_i8(fam_plain, model, n_points, device, network="coarse"):
         raise AssertionError(f"{name} is not deterministic")
 
     ms = cuda_time_ms(lambda: KQ.mlp_i8(emb, qw), 10)
+    kernel_device_ms = device_ms(lambda: KQ.mlp_i8(emb, qw))
     plain_ms = cuda_time_ms(lambda: KQ.mlp_i8_plain(emb, qw), 3, warmup=1)
     chain_ms = cuda_time_ms(lambda: int_mm_chain(emb, qw), 10)
     ops = 2.0 * KQ.MACS_PER_POINT * n_points
@@ -1045,11 +1047,13 @@ def check_i8(fam_plain, model, n_points, device, network="coarse"):
     t_bytes = tensor_bytes(emb, out, *qw) / PEAK_HBM_BYTES * 1e3
     bound_ms, bound_by = max(t_ops, t_bytes), \
         "operations" if t_ops >= t_bytes else "bytes"
-    log(f"{name} n={n_points}: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), "
+    log(f"{name} n={n_points}: kernel {ms:.4f} ms (device time "
+        f"{kernel_device_ms:.4f} ms, {ops / ms / 1e9:.1f} TOP/s), "
         f"plain {plain_ms:.4f} ms, torch._int_mm chain {chain_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by}, int8 peak)")
     return dict(max_abs_err=max_err, mean_abs_err=mean_err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                device_ms=kernel_device_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
                 int_mm_chain_ms=chain_ms, mean_gap_to_bf16=bf16_gap)
 
 
@@ -1139,7 +1143,8 @@ def int8_row(sizes, checks, render_launches):
             "launches": render_launches, "launches_render": render_launches,
             "launches_train": 0,
             "max_abs_err": max(k["max_abs_err"] for k in checks),
-            "ms": coarse_k["ms"], "plain_ms": coarse_k["plain_ms"],
+            "ms": coarse_k["ms"], "device_ms": coarse_k["device_ms"],
+            "plain_ms": coarse_k["plain_ms"],
             "bound_ms": coarse_k["bound_ms"], "bound_by": coarse_k["bound_by"],
             "library_ms": None, "points": sizes[0],
             "int_mm_chain_ms": coarse_k["int_mm_chain_ms"],
@@ -1732,18 +1737,20 @@ def main() -> int:
         f"{smi}")
     if len(rows) != 11:
         raise AssertionError(f"{len(rows)} kernel rows, 11 kernels")
-    # rows 1-2, 4 and 6 (csrc/mlp_sm90.cuh's chain) beside rows 3 and 5,
-    # which run mlp_tile.cuh's design in the same call: a control for the
-    # card's drift. A backward's line adds its device time and its two-pass
-    # floor at each size, and its device time by kernel, a launch on average
-    # over a training step's two sizes (the profile of 5 steps).
+    # rows 1-6 (csrc/mlp_sm90.cuh's chains) beside rows 9 and 11, which run
+    # mlp_tile.cuh's design in the same call: a control for the card's
+    # drift. Every size's line has the time, the device time and the share
+    # of the bound; a backward's adds its two-pass floor at each size and its
+    # device time by kernel, a launch on average over a training step's two
+    # sizes (the profile of 5 steps).
     by_name = {r["name"]: r for r in rows}
-    for name in ("mlp_fwd", "mlp_bwd", "mlpv_bwd", "mlpe_bwd", "mlpv_fwd",
-                 "mlpe_fwd"):
+    for name in ("mlp_fwd", "mlp_bwd", "mlpv_fwd", "mlpv_bwd", "mlpe_fwd",
+                 "mlpe_bwd", "fused_fwd", "mlp_i8"):
         r = by_name[name]
         passes = [("", r)] + [(f"{k} ", r[k]) for k in
                               ("fine_pass", "train_pass", "train_fine_pass")
-                              if k in r]
+                              if k in r] + [("", p) for p in
+                                            r.get("other_sizes", ())]
         if "lanes_128" in r:
             passes += [("128 lanes ", r["lanes_128"])] + [
                 (f"128 lanes {k} ", r["lanes_128"][k]) for k in
@@ -1753,9 +1760,8 @@ def main() -> int:
         def detail(p):
             if "scratch_floor_ms" not in p:
                 return ""
-            return (f" (device {p['device_ms']:.4f} ms; two-pass floor "
-                    f"{p['scratch_floor_ms']:.4f} ms, "
-                    f"{p['scratch_floor_ms'] / p['ms']:.3f} of the time)")
+            return (f"; two-pass floor {p['scratch_floor_ms']:.4f} ms, "
+                    f"{p['scratch_floor_ms'] / p['ms']:.3f} of the time")
 
         split = ""
         if "split_ms_per_launch" in r:
@@ -1765,10 +1771,13 @@ def main() -> int:
                 split += " (128 lanes: " + ", ".join(
                     f"{k} {v:.4f}" for k, v in
                     r["lanes_128"]["split_ms_per_launch"].items()) + ")"
-        log(f"design check, {name}: " + "; ".join(
-            f"{what}{p['points']} pts {p['ms']:.4f} ms, bound "
-            f"{p['bound_ms']:.4f} ms, {p['bound_ms'] / p['ms']:.3f} of it"
-            + detail(p) for what, p in passes) + split + f"; {smi}")
+        what_line = ("drift control (mlp_tile.cuh)"
+                     if name in ("fused_fwd", "mlp_i8") else "design check")
+        log(f"{what_line}, {name}: " + "; ".join(
+            f"{what}{p['points']} pts {p['ms']:.4f} ms (device "
+            f"{p['device_ms']:.4f} ms), bound {p['bound_ms']:.4f} ms, "
+            f"{p['bound_ms'] / p['ms']:.3f} of it" + detail(p)
+            for what, p in passes) + split + f"; {smi}")
 
     # ---- phase 5: results
     log(json.dumps({"render": renders}))

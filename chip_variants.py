@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of rows 1-2's CUDA sources on one NVIDIA GPU.
+"""Time variants of rows 1-3 and 5's CUDA sources on one NVIDIA GPU.
 
     python3 chip_variants.py                  # every variant below
     python3 chip_variants.py base no_epilogue_stores
@@ -7,16 +7,18 @@
 
 A variant is a list of text substitutions applied to a copy of
 `nonrigid_nerf_torch/ops/kernels/csrc/` (the sources in this checkout stay
-as they are). Each copy's `mlp_fwd.cu` and `mlp_bwd.cu` are built with the
-port's nvcc flags, one nvcc per source and all started together, into a
-temporary directory. Then, one child process per variant (so that a variant
-that hangs is cut off after `CHILD_TIMEOUT_S` without taking the others with
-it), the script:
+as they are). Each copy's `mlp_fwd.cu`, `mlp_bwd.cu`, `mlpv_fwd.cu` and
+`mlpe_fwd.cu` are built with the port's nvcc flags, one nvcc per source and
+all started together, into a temporary directory. Then, one child process
+per variant (so that a variant that hangs is cut off after
+`CHILD_TIMEOUT_S` without taking the others with it), the script:
 
 - times `mlp_fwd` at a render block's coarse pass (2^21 points) and a
   training step's (65,536) and `mlp_bwd` at a training step's two passes
-  (65,536 and 131,072), at the 64-lane and the 128-lane encoding, as the
-  device time of each kernel under torch.profiler over 5 calls, twice;
+  (65,536 and 131,072), at the 64-lane and the 128-lane encoding, and
+  `mlpv_fwd` and `mlpe_fwd` at 2^21 and 65,536 points, as the device time
+  of each kernel under torch.profiler over 5 calls, twice (a variant of
+  rows 3 and 5 alone times those two and row 1 at 64 lanes);
 - holds the variant's outputs against the plain versions (a variant that
   cuts work out of a kernel is expected to disagree: it measures what that
   work costs).
@@ -26,12 +28,14 @@ size and repetition. It exits non-zero when no CUDA device is present.
 
 With `--steps OTHER`, where OTHER is another checkout of the repository
 (an unpacked `git archive` of another commit, say), it compares whole
-training steps instead: in turns OTHER, this checkout, this checkout,
-OTHER, one child process each (each builds its own tree's kernels), it
-trains the flagship with view directions (V) and in `fused_kernel="pts"`
-mode (P) on `chip_smoke.py`'s synthetic stack for 30 steps, times 50 more
-(steps/s, host clock), and profiles 5 (`chip_smoke.profile_run` of that
-tree: device ms a step, the card's idle share, the top kernels).
+frames and training steps instead: in turns OTHER, this checkout, this
+checkout, OTHER, one child process each (each builds its own tree's
+kernels), for the flagship with view directions (V) and in
+`fused_kernel="pts"` mode (P) it renders `chip_smoke.py`'s two 384 x 512
+frames through `render_path` (s per frame, host clock, each ending in a
+copy to the host), trains on its synthetic stack for 30 steps, times 50
+more (steps/s, host clock), and profiles 5 (`chip_smoke.profile_run` of
+that tree: device ms a step, the card's idle share, the top kernels).
 """
 
 import ctypes
@@ -46,8 +50,11 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(ROOT, "nonrigid_nerf_torch", "ops", "kernels", "csrc")
-SOURCES = ("mlp_fwd.cu", "mlp_bwd.cu")
+SOURCES = ("mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpe_fwd.cu")
 CHILD_TIMEOUT_S = 150
+# variants that change rows 3 and 5 only: the child times rows 3 and 5 and,
+# as the yardstick, row 1 at 64 lanes
+HEADS_ONLY = ("pts_encode_on_consumers", "pts_no_sines", "pts_no_encoding")
 
 # name -> [(file, text, replacement)]
 VARIANTS = {
@@ -105,6 +112,53 @@ VARIANTS = {
         "    }\n"
         "  }\n"
         "  g += N;\n")],
+    # row 5: the consumers encode the next tile themselves once layer 5 has
+    # read the tile (one encoding tile), in place of the producer
+    # warpgroup's three idle warps (PtsFwdIn, two encoding tiles)
+    "pts_encode_on_consumers": [
+        ("mlp_sm90.cuh",
+         "// mlpe_bwd.cu's input: the points, encoded (encode_rows) at the start of",
+         "struct PtsOnConsumersIn {\n"
+         "  static constexpr int FWD_TILES = 1;\n"
+         "  const float* pts;\n"
+         "  const float* P;\n"
+         "  const float* phase;\n"
+         "  float x[3];\n"
+         "  __device__ void init(uint32_t) const {}\n"
+         "  __device__ void encode(uint32_t, uint32_t, int, int, int) const {}\n"
+         "  __device__ void first(uint32_t embt, long row0, int n, int wg, int t) {\n"
+         "    load_point(pts, row0 + wg * WG_ROWS + t / 2, n, x);\n"
+         "    done(embt, 0, 0, row0, n, wg, t);\n"
+         "  }\n"
+         "  __device__ void wait(uint32_t, int) {}\n"
+         "  __device__ void done(uint32_t embt, uint32_t, int, long row0, int n, int wg,\n"
+         "                       int t) {\n"
+         "    if (row0 < 0) return;\n"
+         "    const long r = row0 + wg * WG_ROWS + t / 2;\n"
+         "    encode_rows(embt, x, r < n, P, phase, wg, t);\n"
+         "    load_point(pts, r + long(gridDim.x) * TM, n, x);\n"
+         "  }\n"
+         "};\n"
+         "\n"
+         "// mlpe_bwd.cu's input: the points, encoded (encode_rows) at the start of"),
+        ("mlpe_fwd.cu",
+         "  const sm90::PtsFwdIn in{static_cast<const float*>(pts), "
+         "static_cast<const float*>(P),\n"
+         "                          static_cast<const float*>(phase)};",
+         "  const sm90::PtsOnConsumersIn in{static_cast<const float*>(pts), "
+         "static_cast<const float*>(P),\n"
+         "                                  static_cast<const float*>(phase), {}};")],
+    # row 5: the encoding without its sines (what the sines cost; disagrees)
+    "pts_no_sines": [(
+        "mlp_sm90.cuh",
+        "    const float y = c < 3 ? pre : sinf(pre + __ldg(phase + c));",
+        "    const float y = c < 3 ? pre : pre + __ldg(phase + c);")],
+    # row 5: the encoders write nothing, the handshake stays (what the
+    # encoding costs; disagrees)
+    "pts_no_encoding": [(
+        "mlp_sm90.cuh",
+        "        encode_piece(embt, x, row < n, P, phase, r, (q % (EMB / 8)) * 8);\n",
+        "")],
 }
 
 
@@ -155,7 +209,10 @@ def run_variant(name, out_dir):
     from nonrigid_nerf_torch.models.model import NRNeRF
     from nonrigid_nerf_torch.ops.kernels import mlp_bwd as KB
     from nonrigid_nerf_torch.ops.kernels import mlp_fwd as K
-    from nonrigid_nerf_torch.ops.kernels.mlp_sm90 import pack_chain_image
+    from nonrigid_nerf_torch.ops.kernels import mlpe_fwd as KE
+    from nonrigid_nerf_torch.ops.kernels import mlpv_fwd as KV
+    from nonrigid_nerf_torch.ops.kernels.mlp_sm90 import (pack_chain_image,
+                                                          pack_views_image)
 
     dev = torch.device("cuda")
     ptrs = ctypes.POINTER(ctypes.c_void_p)
@@ -170,6 +227,13 @@ def run_variant(name, out_dir):
     bwd.nrnerf_mlp_bwd_sizes.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
         ctypes.POINTER(ctypes.c_longlong)]
+    vfwd = ctypes.CDLL(os.path.join(out_dir, name, "mlpv_fwd.cu.so"))
+    vfwd.nrnerf_mlpv_fwd.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_void_p, ptrs, ptrs,
+                                     ctypes.c_void_p, ctypes.c_void_p]
+    efwd = ctypes.CDLL(os.path.join(out_dir, name, "mlpe_fwd.cu.so"))
+    efwd.nrnerf_mlpe_fwd.argtypes = [ctypes.c_void_p, ctypes.c_int] + [
+        ctypes.c_void_p] * 3 + [ptrs, ptrs, ctypes.c_void_p, ctypes.c_void_p]
     stream = torch.cuda.current_stream().cuda_stream
 
     def run_fwd(emb, mw, image):
@@ -210,12 +274,70 @@ def run_variant(name, out_dir):
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
                 continue
-            m = re.search(r"(mlp_\w+kernel)", e.key)
+            m = re.search(r"(mlp\w*kernel)", e.key)
             key = m.group(1) if m else "other"
             out[key] = out.get(key, 0.0) + e.self_device_time_total / reps / 1e3
         return out
 
+    def run_vfwd(emb, embv, mw, image):
+        out = torch.empty((emb.shape[0], 8), dtype=torch.float32, device=dev)
+        mats, biases = K.weight_pointers(mw, KV._MATRIX_IDX, KV._BIAS_IDX)
+        if vfwd.nrnerf_mlpv_fwd(emb.data_ptr(), embv.data_ptr(), emb.shape[0],
+                                image.data_ptr(), mats, biases, out.data_ptr(),
+                                stream):
+            raise RuntimeError("mlpv_fwd launch failed")
+        return out
+
+    def run_efwd(pts, mw, image):
+        out = torch.empty((pts.shape[0], 8), dtype=torch.float32, device=dev)
+        mats, biases = K.weight_pointers(mw, K._MATRIX_IDX, K._BIAS_IDX)
+        P, phase = KE._projection_on(dev)
+        if efwd.nrnerf_mlpe_fwd(pts.data_ptr(), pts.shape[0], image.data_ptr(),
+                                P.data_ptr(), phase.data_ptr(), mats, biases,
+                                out.data_ptr(), stream):
+            raise RuntimeError("mlpe_fwd launch failed")
+        return out
+
+    def report(what, n, fn, kernel, err, tol):
+        for rep in (1, 2):
+            t = device_ms_by_kernel(fn)
+            print(f"{name} {what} n={n} rep {rep}: {t.get(kernel, 0.0):.4f} ms; "
+                  f"max abs err {err:.2e} (tol {tol:.0e}); {smi()}", flush=True)
+
+    # rows 3 and 5 on the flagship's parameters (with view directions for
+    # row 3); the points of row 5 where a scene's bent points lie
+    gen = torch.Generator(device=dev).manual_seed(3)
+    model_v = NRNeRF(ModelConfig(use_viewdirs=True), num_timesteps=1,
+                     device="cpu", generator=torch.Generator().manual_seed(1))
+    mwv = tuple(w.detach().to(dev) for w in KV.cast_mlpv_weights(
+        KV.pack_viewdirs_mlp_weights(model_v.coarse)))
+    image_v = pack_views_image(mwv, ("fwd",))
+    model = NRNeRF(ModelConfig(), num_timesteps=1, device="cpu",
+                   generator=torch.Generator().manual_seed(0))
+    mwe = tuple(w.detach().to(dev) for w in
+                K.cast_mlp_weights(K.pack_mlp_weights(model.coarse)))
+    image_e = pack_chain_image(mwe, ("fwd",))
+    for n in (1 << 21, 65536):
+        emb = torch.rand(n, 64, device=dev, generator=gen) * 2 - 1
+        emb[:, 63] = 0
+        embv = torch.rand(n, 32, device=dev, generator=gen) * 2 - 1
+        embv[:, 27:] = 0
+        emb, embv = emb.to(torch.bfloat16), embv.to(torch.bfloat16)
+        err = (run_vfwd(emb, embv, mwv, image_v)
+               - KV.mlpv_fwd_plain(emb, embv, mwv)).abs().max().item()
+        report("mlpv_fwd", n, lambda: run_vfwd(emb, embv, mwv, image_v),
+               "mlpv_fwd_kernel", err, KV.BF16_TOL_MAX)
+        lo = torch.tensor([-0.8, -0.8, -1.0], device=dev)
+        pts = lo + (torch.tensor([0.8, 0.8, 0.5], device=dev) - lo) * torch.rand(
+            n, 3, device=dev, generator=gen)
+        err = (run_efwd(pts, mwe, image_e)
+               - KE.mlpe_fwd_plain(pts, mwe)).abs().max().item()
+        report("mlpe_fwd", n, lambda: run_efwd(pts, mwe, image_e),
+               "mlp_fwd_kernel", err, K.BF16_TOL_MAX)
+
     for width in (64, 128):
+        if name in HEADS_ONLY and width == 128:
+            break
         if width == 64:
             model = NRNeRF(ModelConfig(), num_timesteps=1, device="cpu",
                            generator=torch.Generator().manual_seed(0))
@@ -239,6 +361,8 @@ def run_variant(name, out_dir):
                       f"{t.get('mlp_fwd_kernel', 0.0):.4f} ms; max abs err "
                       f"{err.max().item():.2e} (tol {K.BF16_TOL_MAX:.0e}); "
                       f"{smi()}", flush=True)
+        if name in HEADS_ONLY:
+            continue
         for n in (65536, 131072):
             embb = (torch.rand(n, width, device=dev, generator=gen) * 2
                     - 1).to(torch.bfloat16)
@@ -264,6 +388,7 @@ def run_steps(root):
     os.chdir(root)
     sys.path.insert(0, root)
     import chip_smoke as cs
+    from nonrigid_nerf_torch.apps.render_path import render_path
     from nonrigid_nerf_torch.apps.train import step_generator
     from nonrigid_nerf_torch.config import (load_args, model_config_from_args,
                                             render_settings_from_args,
@@ -281,6 +406,22 @@ def run_steps(root):
     rs = render_settings_from_args(args, ds.near, ds.far)
     for what, cfg_x in (("V", dataclasses.replace(cfg, use_viewdirs=True)),
                         ("P", dataclasses.replace(cfg, fused_kernel="pts"))):
+        # frames first: chip_smoke.py's two poses through render_path, after
+        # a warm-up frame at 1/8 of the size
+        model = cs.flagship_model(cfg_x, device)
+        poses, intrinsics = cs.synthetic_poses()
+        rs_frames = render_settings_from_args(args, near=0.1, far=1.6)
+        latents = model.latents.detach().cpu().numpy()
+        with torch.no_grad():
+            render_path(model, cfg_x, rs_frames, poses[:1], intrinsics[:1],
+                        latents[:1], chunk=cs.CHUNK, render_factor=8,
+                        verbose=False, device=device)
+        torch.cuda.synchronize()
+        _, _, frame_s = cs.render_frames(model, cfg_x, rs_frames, poses,
+                                         intrinsics, latents, device, what)
+        print(f"frames {root} {what}: " + ", ".join(f"{t:.4f}" for t in frame_s)
+              + f" s; mean {sum(frame_s) / len(frame_s):.4f} s", flush=True)
+        del model
         state = create_train_state(cfg_x, tc, cs.TRAIN_FRAMES, device=device)
         step_fn = make_train_step(cfg_x, tc, rs, has_test_split=True)
 
@@ -312,7 +453,8 @@ def compare_steps(other) -> int:
                             "--steps-child", os.path.abspath(root)],
                            capture_output=True, text=True, timeout=600)
         print("".join(line + "\n" for line in r.stdout.splitlines()
-                      if line.startswith("steps ")), end="", flush=True)
+                      if line.startswith(("steps ", "frames "))), end="",
+              flush=True)
         if r.returncode:
             failed = True
             print(f"{root}: exit {r.returncode}\n{r.stderr[-2000:]}", flush=True)

@@ -24,11 +24,11 @@
 // 32 B of f32 raw out), 3,600 FLOP per byte or more, so the tensor cores
 // bound it, never the memory.
 //
-// Design (mlp_sm90.cuh's chain; the other canonical-MLP kernels keep
-// mlp_tile.cuh's):
+// Design (mlp_sm90.cuh's forward chain kernel, `mlp_fwd_kernel<E, In>`, on
+// the input EncodingIn<E>; row 5, mlpe_fwd.cu, runs it on points):
 // - persistent CTAs, one per SM, each walking 128-point tiles on a static
 //   schedule; two consumer warpgroups own 64 rows of a tile each for all 9
-//   layers, a producer warp streams the weights;
+//   layers, a producer thread streams the weights;
 // - the 128 x 256 bf16 activation tile and the 128 x E encoding tile stay in
 //   shared memory in the 128-byte-swizzled K-major layout wgmma reads; each
 //   layer's m64n256k16 accumulators live in registers, and its epilogue
@@ -61,74 +61,12 @@ namespace {
 
 using namespace sm90;
 
-struct FwdArgs {
-  const float* bias[N_LAYERS];   // (256,) f32 per hidden layer
-  const bf16* ow;                // (256, 8) bf16
-  const float* ob;               // (8,) f32
-};
-
-template <int E>
-__global__ void __launch_bounds__(THREADS, 1)
-mlp_fwd_kernel(const bf16* __restrict__ emb, int n, int n_tiles,
-               const bf16* __restrict__ image, FwdArgs p, float* __restrict__ out) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* act = align_smem(smem_raw);
-  const uint32_t embt = smem_u32(act + ACT_BYTES);
-  const uint32_t ring = embt + uint32_t(emb_tile_bytes<E>);
-  const uint32_t bars = ring + FWD_STAGES * CHUNK_BYTES;
-  const int wg = threadIdx.x / 128;
-  const int t = threadIdx.x % 128;
-  if (threadIdx.x == 0) ring_init<FWD_STAGES>(bars);
-  __syncthreads();
-
-  if (wg == CONSUMERS) {   // the producer
-    setmaxnreg_dec<PRODUCER_REGS>();
-    if (t == 0) produce<FWD_STAGES>(image, n_fwd_chunks<E>, n_tiles, ring, bars);
-  } else {                 // a consumer: 64 rows of every tile
-    setmaxnreg_inc<CONSUMER_REGS>();
-    uint32_t g = 0;
-    load_emb_rows<E>(embt, emb, long(blockIdx.x) * TM, n, wg, t);
-    cp_async_commit();
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const long row0 = long(tile) * TM;
-      const int next = tile + gridDim.x;
-      cp_async_wait_all();
-      fence_proxy_async();
-      wg_barrier(wg);   // the encoding has landed; the last tile's head is done
-      float acc[128];
-      chain_tile<FWD_STAGES, E>(acc, act, embt, p.bias, ring, bars, g, wg, t, nullptr, 0, 0,
-                                nullptr, [&] {
-                                  if (next < n_tiles) {
-                                    load_emb_rows<E>(embt, emb, long(next) * TM, n, wg, t);
-                                  }
-                                  cp_async_commit();
-                                });
-      raw_head(act, p.ow, p.ob, out, row0, n, wg, t);
-    }
-  }
-}
-
-// mats: n0w .. n7w, ow as `nrnerf_mlp_fwd` lists them (only ow is read: the
-// image holds the chain's weights); biases: n0b .. n7b, ob
 template <int E>
 int launch_mlp_fwd(const void* emb, int n, const void* image, const void* const* mats,
                    const void* const* biases, void* out, void* stream) {
-  FwdArgs p;
-  for (int i = 0; i < N_LAYERS; ++i) p.bias[i] = static_cast<const float*>(biases[i]);
-  p.ow = static_cast<const bf16*>(mats[9]);
-  p.ob = static_cast<const float*>(biases[8]);
-
-  constexpr size_t smem = fwd_smem_bytes<E>;
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_fwd_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  if (n <= 0) return 0;
-  const int n_tiles = (n + TM - 1) / TM;
-  mlp_fwd_kernel<E><<<persistent_grid(n_tiles), THREADS, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(emb), n, n_tiles, static_cast<const bf16*>(image), p,
-      static_cast<float*>(out));
-  return int(cudaGetLastError());
+  const EncodingIn<E> in{static_cast<const bf16*>(emb), nullptr};
+  return launch_fwd<E>(in, n, image, mats, biases, static_cast<float*>(out),
+                       static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace

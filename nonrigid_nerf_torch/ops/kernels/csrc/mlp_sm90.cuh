@@ -1,9 +1,13 @@
 // The chain of the canonical 8 x 256 NeRF MLP on Hopper's own machinery
-// (sm_90a), for mlp_fwd.cu (row 1) and the backwards mlp_bwd.cu (row 2, at an
-// encoding of E = 64 or 128 lanes), mlpe_bwd.cu (row 6) and mlpv_bwd.cu (row
-// 4). It holds the kernels rows 2 and 6 share (the chain kernel, a template
-// on its input) and the second pass all three backwards launch. The other
-// canonical-MLP kernels keep mlp_tile.cuh's design.
+// (sm_90a), for the forwards mlp_fwd.cu (row 1, at an encoding of E = 64 or
+// 128 lanes), mlpv_fwd.cu (row 3) and mlpe_fwd.cu (row 5) and the backwards
+// mlp_bwd.cu (row 2, E = 64 or 128), mlpv_bwd.cu (row 4) and mlpe_bwd.cu
+// (row 6). It holds the kernels rows 1 and 5 share (the forward's chain
+// kernel, a template on its input), those rows 2 and 6 share (the
+// backward's), the view-direction image's schedule and the views layer's
+// products (rows 3 and 4), and the second pass all three backwards launch.
+// The other canonical-MLP kernels (the fused point query's, mlp_i8.cu) keep
+// mlp_tile.cuh's design.
 //
 // - Persistent CTAs: about one per SM, each walking 128-point tiles on a
 //   static schedule (tile = blockIdx.x + k * gridDim.x), so the same inputs
@@ -14,8 +18,8 @@
 // - Products: wgmma.mma_async bf16 x bf16 -> f32, A and B both read from
 //   shared memory in the 128-byte-swizzled K-major layout. The forward's
 //   layers are m64n256k16 (128 accumulator floats a thread); the backward's
-//   transposed steps dh @ W^T are m64n64k16 over 64-column chunks (row 4's
-//   view-direction heads add m64n128k16 and m64n32k16).
+//   transposed steps dh @ W^T are m64n64k16 over 64-column chunks (the
+//   view-direction heads add m64n128k16, row 4's also m64n32k16).
 // - The weight ring: 32 KB stages with a "full" and an "empty" mbarrier each.
 //   The producer fills a stage with one 1-D cp.async.bulk of a chunk that the
 //   Python wrapper pre-packed into the exact swizzled image wgmma reads
@@ -31,7 +35,9 @@
 // - The next tile's encoding is loaded with cp.async (zero-filled past n) as
 //   soon as the current tile has read its own (after layer 5 in the forward,
 //   at the last step of the backward's dh chain), so the load overlaps the
-//   tile's last products.
+//   tile's last products. Row 5 computes its encoding from the points on the
+//   producer warpgroup's three idle warps instead, into two encoding tiles
+//   in turn; row 6 on the consumers, when its tile starts.
 // - The backward keeps each layer's ReLU gates as bits, moves its bf16
 //   scratch (the encoding copy, nh and dh) between the swizzled tiles and
 //   global memory with TMA bulk tensor copies in boxes of 64 rows x 64
@@ -67,6 +73,9 @@ constexpr int TM = 128;            // points per tile
 constexpr int NW = 256;            // hidden width
 constexpr int KC = 64;             // weight rows per chunk
 constexpr int OUT = 8;             // head width (4 lanes used)
+constexpr int EMB = 64;            // the Fourier encoding's lanes (63 + 1 zero)
+constexpr int VEMB = 32;           // the view encoding's lanes (27 + 5 zero)
+constexpr int VW = 128;            // width of the view-conditioned layer
 constexpr int N_LAYERS = 8;
 constexpr int CONSUMERS = 2;       // consumer warpgroups, 64 tile rows each
 constexpr int WG_ROWS = TM / CONSUMERS;
@@ -94,19 +103,22 @@ template <int E> constexpr int n_fwd_chunks = 2 * (E / KC) + 7 * (NW / KC);
 template <int E> constexpr int n_bwd_chunks = 7 * (NW / KC) + 2 * (E / KC);
 template <int E> constexpr int n_chain_chunks = n_fwd_chunks<E> + n_bwd_chunks<E>;
 
-template <int E>
-constexpr size_t fwd_smem_bytes =
-    SMEM_ALIGN + ACT_BYTES + emb_tile_bytes<E> + FWD_STAGES * CHUNK_BYTES + BAR_BYTES;
+// the forward: the activation tile, TILES encoding tiles (2: row 5's double
+// buffer, or row 3's emb and embv), the ring
+template <int E, int TILES = 1>
+constexpr size_t fwd_smem_bytes = SMEM_ALIGN + ACT_BYTES + TILES * emb_tile_bytes<E> +
+                                  FWD_STAGES * CHUNK_BYTES + BAR_BYTES;
 // two activation tiles (the encoding tile lives in the second until dh8)
 constexpr size_t BWD_SMEM_BYTES =
     SMEM_ALIGN + 2 * ACT_BYTES + BWD_STAGES * CHUNK_BYTES + BAR_BYTES;
-static_assert(fwd_smem_bytes<64> <= SMEM_LIMIT && fwd_smem_bytes<128> <= SMEM_LIMIT,
-              "the forward fits one Hopper CTA at both widths");
+static_assert(fwd_smem_bytes<64> <= SMEM_LIMIT && fwd_smem_bytes<128> <= SMEM_LIMIT &&
+                  fwd_smem_bytes<64, 2> <= SMEM_LIMIT,
+              "the forward fits one Hopper CTA at both widths and with two encoding tiles");
 static_assert(BWD_SMEM_BYTES <= SMEM_LIMIT, "the backward fits one Hopper CTA");
 static_assert(emb_tile_bytes<128> <= ACT_BYTES,
               "the encoding tile fits the second activation tile at both widths");
-static_assert(2 * 8 * (FWD_STAGES > BWD_STAGES ? FWD_STAGES : BWD_STAGES) <= BAR_BYTES,
-              "the ring's barriers fit");
+static_assert(2 * 8 * (FWD_STAGES > BWD_STAGES ? FWD_STAGES : BWD_STAGES) + 4 * 8 <= BAR_BYTES,
+              "the ring's barriers fit, and the forward input's four");
 
 // ---- addresses and layouts
 
@@ -194,6 +206,19 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// this thread's cp.async groups, all but the newest N, have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 16 bytes to a shared-memory address
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
 // shared-memory writes of this thread become visible to the async proxy
@@ -679,34 +704,55 @@ __device__ __forceinline__ void chain_tile(float (&acc)[128], unsigned char* act
   }
 }
 
-// raw[p, o] = sum_k nh8[p, k] * ow[k, o] + ob[o] in f32 for this warpgroup's
-// rows: two threads per point, 4 lanes each, k ascending. Rows past n are not
-// stored.
-__device__ __forceinline__ void raw_head(const unsigned char* act, const bf16* __restrict__ ow,
-                                         const float* __restrict__ ob,
-                                         float* __restrict__ out, long row0, int n, int wg,
-                                         int t) {
+// An 8-lane head on the CUDA cores, two threads per point: thread t of
+// warpgroup wg takes point wg * 64 + t / 2 and lanes (t % 2) * 4 .. + 4, and
+// adds sum_k tile[pt, k] * w[k, o] over the first K lanes of the swizzled
+// tile to s, in f32, k ascending. w: (K, 8) bf16.
+template <int K>
+__device__ __forceinline__ void head_dot(const unsigned char* tile, const bf16* __restrict__ w,
+                                         int wg, int t, float (&s)[4]) {
   const int pt = wg * WG_ROWS + t / 2;
   const int o0 = (t % 2) * 4;
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll 2
-  for (int q = 0; q < NW / 8; ++q) {
-    const uint4 v = *reinterpret_cast<const uint4*>(act + tile_offset(pt, q * 8));
+  for (int q = 0; q < K / 8; ++q) {
+    const uint4 v = *reinterpret_cast<const uint4*>(tile + tile_offset(pt, q * 8));
     const bf16* a = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const float x = __bfloat162float(a[e]);
-      const uint2 wv = __ldg(reinterpret_cast<const uint2*>(ow + (q * 8 + e) * OUT + o0));
-      const bf16* w = reinterpret_cast<const bf16*>(&wv);
+      const uint2 wv = __ldg(reinterpret_cast<const uint2*>(w + (q * 8 + e) * OUT + o0));
+      const bf16* wr = reinterpret_cast<const bf16*>(&wv);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[i] += x * __bfloat162float(w[i]);
+      for (int i = 0; i < 4; ++i) s[i] += x * __bfloat162float(wr[i]);
     }
   }
-  if (row0 + pt < n) {
-    const float4 b = __ldg(reinterpret_cast<const float4*>(ob + o0));
-    *reinterpret_cast<float4*>(out + size_t(row0 + pt) * OUT + o0) =
-        make_float4(s[0] + b.x, s[1] + b.y, s[2] + b.z, s[3] + b.w);
+}
+
+// this thread's 4 lanes of its point's raw row (see head_dot), unless the
+// point is past n
+__device__ __forceinline__ void store_raw(float* __restrict__ out, const float (&s)[4], long row0,
+                                          int n, int wg, int t) {
+  const long r = row0 + wg * WG_ROWS + t / 2;
+  if (r < n) {
+    *reinterpret_cast<float4*>(out + size_t(r) * OUT + (t % 2) * 4) =
+        make_float4(s[0], s[1], s[2], s[3]);
   }
+}
+
+// raw[p, o] = sum_k nh8[p, k] * ow[k, o] + ob[o] in f32 for this warpgroup's
+// rows (head_dot). Rows past n are not stored.
+__device__ __forceinline__ void raw_head(const unsigned char* act, const bf16* __restrict__ ow,
+                                         const float* __restrict__ ob,
+                                         float* __restrict__ out, long row0, int n, int wg,
+                                         int t) {
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  head_dot<NW>(act, ow, wg, t, s);
+  const float4 b = __ldg(reinterpret_cast<const float4*>(ob + (t % 2) * 4));
+  s[0] += b.x;
+  s[1] += b.y;
+  s[2] += b.z;
+  s[3] += b.w;
+  store_raw(out, s, row0, n, wg, t);
 }
 
 // ---- the backward's dh chain
@@ -926,24 +972,40 @@ inline int persistent_grid(int n_tiles) {
   return sms;
 }
 
-// ---- the single-head backward's chain kernel: mlp_bwd.cu (row 2) on the
-// encoding, mlpe_bwd.cu (row 6) on points
+// ---- the chain kernels' inputs, a policy each: the encoding (rows 1 and 2),
+// or points encoded in the kernel (rows 5 and 6).
+//
+// The backward's: a consumer calls `first` for its first tile, `begin` when
+// a tile starts (the encoding tile must then hold this thread's part of the
+// tile's encoding), `next` for the next tile (row0 < 0: none) before the dh
+// chain's last step, when the encoding tile is free; `sink` takes demb.
+//
+// The forward's: FWD_TILES encoding tiles, which the kernel takes in turn
+// tile by tile; thread 0 calls `init` with room for four mbarriers; the
+// producer warpgroup's threads 32 .. 127 (three warps the weight stream
+// leaves idle) call `encode` once; a consumer calls `first` for its first
+// tile, `wait` when its i-th tile starts (its part of the tile's encoding
+// must then be in the tile), `done` once layer 5 has read the tile.
 
-struct ChainArgs {
-  const float* bias[N_LAYERS];   // (256,) f32 per hidden layer
-  const bf16* ow;                // (256, 8) bf16
-};
-
-// mlp_bwd.cu's input: the (n, E) bf16 encoding, loaded into the encoding
-// tile by cp.async (the next tile's during the last step of the dh chain);
-// demb (n, E) f32 goes to global memory as it comes.
+// mlp_fwd.cu's and mlp_bwd.cu's input: the (n, E) bf16 encoding, loaded into
+// the encoding tile by cp.async by the threads that read it (the forward's
+// next tile once layer 5 has read the tile); the backward's demb (n, E) f32
+// goes to global memory as it comes.
 template <int E>
 struct EncodingIn {
+  static constexpr int FWD_TILES = 1;
   const bf16* emb;
   float* demb;
 
   __device__ __forceinline__ void first(uint32_t embt, long row0, int n, int wg, int t) {
     next(embt, row0, n, wg, t);
+  }
+  __device__ __forceinline__ void init(uint32_t) const {}
+  __device__ __forceinline__ void encode(uint32_t, uint32_t, int, int, int) const {}
+  __device__ __forceinline__ void wait(uint32_t, int) { cp_async_wait_all(); }
+  __device__ __forceinline__ void done(uint32_t embt, uint32_t, int, long next_row0, int n,
+                                       int wg, int t) {
+    next(embt, next_row0, n, wg, t);
   }
   // the tile's encoding is in `embt` (this thread's part of it)
   __device__ __forceinline__ void begin(unsigned char*, long, int, int, int) {
@@ -961,20 +1023,113 @@ struct EncodingIn {
   __device__ __forceinline__ void end(long, int, int, int) {}
 };
 
-// mlpe_bwd.cu's input: points (n, 3) f32 and the encoding's projection P
-// (3, 64) and phase (64,) f32, whose entries are 0 or powers of two. Thread
-// t encodes row wg * 64 + t / 2, lanes (t % 2) * 32 .. + 32, of the tile:
+// The in-kernel Fourier encoding of points (n, 3) f32 with the projection P
+// (3, 64) and phase (64,) f32, whose entries are 0 or powers of two: lanes
+// c0 .. c0 + 7 of row r of the encoding tile, from the row's point x,
 //   pre = x0 * P[0] + x1 * P[1] + x2 * P[2]   (three f32 FMAs, exact)
-//   emb = bf16(lane < 3 ? pre : sinf(pre + phase)),  zero past n;
-// its point is loaded into registers one tile ahead. demb never reaches
-// HBM: each value of the two products the dh chain hands over (in the
-// accumulator layout) is folded onto its point,
+//   emb = bf16(lane < 3 ? pre : sinf(pre + phase)),  zero where !valid
+// (past n). The forward (PtsFwdIn) and the backward (PtsIn) share it, so
+// the backward recomputes the forward's encoding bit for bit.
+__device__ __forceinline__ void encode_piece(uint32_t embt, const float (&x)[3], bool valid,
+                                             const float* __restrict__ P,
+                                             const float* __restrict__ phase, int r, int c0) {
+  __align__(16) bf16 v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int c = c0 + e;
+    const float pre = fmaf(x[2], __ldg(P + 2 * EMB + c),
+                           fmaf(x[1], __ldg(P + EMB + c), x[0] * __ldg(P + c)));
+    const float y = c < 3 ? pre : sinf(pre + __ldg(phase + c));
+    v[e] = __float2bfloat16(valid ? y : 0.0f);
+  }
+  st_shared16(embt + tile_offset(r, c0), *reinterpret_cast<const uint4*>(v));
+}
+
+// PtsIn's part of a tile: thread t of warpgroup wg encodes row wg * 64 + t /
+// 2, lanes (t % 2) * 32 .. + 32, 8 at a time. The loop stays rolled: 32
+// inlined sines are more code than the instruction cache holds (see
+// PERF.md).
+__device__ __forceinline__ void encode_rows(uint32_t embt, const float (&x)[3], bool valid,
+                                            const float* __restrict__ P,
+                                            const float* __restrict__ phase, int wg, int t) {
+#pragma unroll 1
+  for (int q = 0; q < 4; ++q) {
+    encode_piece(embt, x, valid, P, phase, wg * WG_ROWS + t / 2, (t % 2) * 32 + q * 8);
+  }
+}
+
+// point r's coordinates, zero past n
+__device__ __forceinline__ void load_point(const float* __restrict__ pts, long r, int n,
+                                           float (&x)[3]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) x[k] = r < n ? __ldg(pts + size_t(r) * 3 + k) : 0.0f;
+}
+
+// mlpe_fwd.cu's input: the points, encoded off the consumers' warps. The
+// producer warpgroup's three warps that the weight stream leaves idle (96
+// threads) encode each tile into one of two encoding tiles, a tile or two
+// ahead of the consumers: 1,024 pieces of 8 lanes a tile, each thread every
+// 96th piece, loading its row's point itself. Two mbarriers a tile: "full"
+// (96 arrivals, after each encoder's fence.proxy.async) and "empty" (one
+// arrival per consumer warpgroup once layer 5 has read the tile). With the
+// encoding on the consumers' warps, wherever it sat in the chain, row 5 ran
+// 11% slower than row 1; this way 3% (PERF.md).
+struct PtsFwdIn {
+  static constexpr int FWD_TILES = 2;
+  static constexpr int ENCODERS = 96;
+  static constexpr int PIECES = TM * EMB / 8;   // 16-byte pieces of a tile
+  const float* pts;
+  const float* P;
+  const float* phase;
+
+  // bars: full[0], full[1], empty[0], empty[1]
+  __device__ __forceinline__ void init(uint32_t bars) const {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(bars + 8 * b, ENCODERS);
+      mbar_init(bars + 8 * (2 + b), CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  // encoder e (0 .. 95): its pieces of every tile of this CTA; the i-th tile
+  // goes to tile i % 2 once the consumers are done with what it held
+  __device__ __forceinline__ void encode(uint32_t emb0, uint32_t bars, int n, int n_tiles,
+                                         int e) const {
+    int i = 0;
+#pragma unroll 1
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+      const int b = i % 2;
+      const uint32_t embt = emb0 + uint32_t(b) * TILE_ATOM_BYTES;
+      mbar_wait(bars + 8 * (2 + b), ((i / 2) & 1) ^ 1);
+#pragma unroll 1
+      for (int q = e; q < PIECES; q += ENCODERS) {
+        const int r = q / (EMB / 8);
+        const long row = long(tile) * TM + r;
+        float x[3];
+        load_point(pts, row, n, x);
+        encode_piece(embt, x, row < n, P, phase, r, (q % (EMB / 8)) * 8);
+      }
+      fence_proxy_async();
+      mbar_arrive(bars + 8 * b);
+    }
+  }
+  __device__ __forceinline__ void first(uint32_t, long, int, int, int) {}
+  __device__ __forceinline__ void wait(uint32_t bars, int i) {
+    mbar_wait(bars + 8 * (i % 2), (i / 2) & 1);
+  }
+  __device__ __forceinline__ void done(uint32_t, uint32_t bars, int i, long, int, int, int t) {
+    if (t == 0) mbar_arrive(bars + 8 * (2 + i % 2));
+  }
+};
+
+// mlpe_bwd.cu's input: the points, encoded (encode_rows) at the start of
+// their tile from the point loaded into registers one tile ahead. demb
+// never reaches HBM: each value of the two products the dh chain hands over
+// (in the accumulator layout) is folded onto its point,
 //   dpts[:, d] += (lane < 3 ? demb : demb * cosf(pre + phase)) * P[d],
 // summed by the thread per row and coordinate, the two products one after
 // the other (the fold is linear), then over the four threads that share a
 // row by a fixed-order shuffle: bit-equal from run to run.
 struct PtsIn {
-  static constexpr int LANES = 64;
   const float* pts;
   const float* P;
   const float* phase;
@@ -986,30 +1141,13 @@ struct PtsIn {
     next(embt, row0, n, wg, t);
   }
   __device__ __forceinline__ void begin(unsigned char* embt, long row0, int n, int wg, int t) {
-    const int r = wg * WG_ROWS + t / 2;
-    const bool valid = row0 + r < n;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c0 = (t % 2) * 32 + q * 8;
-      __align__(16) bf16 v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int c = c0 + e;
-        const float pre = fmaf(x[2], __ldg(P + 2 * LANES + c),
-                               fmaf(x[1], __ldg(P + LANES + c), x[0] * __ldg(P + c)));
-        const float y = c < 3 ? pre : sinf(pre + __ldg(phase + c));
-        v[e] = __float2bfloat16(valid ? y : 0.0f);
-      }
-      *reinterpret_cast<uint4*>(embt + tile_offset(r, c0)) = *reinterpret_cast<const uint4*>(v);
-    }
+    encode_rows(smem_u32(embt), x, row0 + wg * WG_ROWS + t / 2 < n, P, phase, wg, t);
 #pragma unroll
     for (int h = 0; h < 2; ++h) d[h][0] = d[h][1] = d[h][2] = 0.0f;
   }
   __device__ __forceinline__ void next(uint32_t, long row0, int n, int wg, int t) {
     if (row0 < 0) return;
-    const long r = row0 + wg * WG_ROWS + t / 2;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) x[k] = r < n ? __ldg(pts + size_t(r) * 3 + k) : 0.0f;
+    load_point(pts, row0 + wg * WG_ROWS + t / 2, n, x);
   }
   __device__ __forceinline__ void sink(const float (&acc)[32], int c, bool, long row0, int n,
                                        int wg, int t) {
@@ -1028,8 +1166,8 @@ struct PtsIn {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = c * KC + j * 8 + (lane % 4) * 2 + e;
-        const float p0 = __ldg(P + col), p1 = __ldg(P + LANES + col);
-        const float p2 = __ldg(P + 2 * LANES + col), ph = __ldg(phase + col);
+        const float p0 = __ldg(P + col), p1 = __ldg(P + EMB + col);
+        const float p2 = __ldg(P + 2 * EMB + col), ph = __ldg(phase + col);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float v = acc[4 * j + 2 * h + e];
@@ -1064,6 +1202,170 @@ struct PtsIn {
       }
     }
   }
+};
+
+// ---- the forward's chain kernel: mlp_fwd.cu (row 1) on the encoding,
+// mlpe_fwd.cu (row 5) on points
+
+struct FwdArgs {
+  const float* bias[N_LAYERS];   // (256,) f32 per hidden layer
+  const bf16* ow;                // (256, 8) bf16
+  const float* ob;               // (8,) f32
+};
+
+// Persistent CTAs walk 128-point tiles; two consumer warpgroups own 64 rows
+// each for all 9 layers, the producer's first thread streams the image's
+// n_fwd_chunks<E> forward chunks a tile through a ring of FWD_STAGES, and
+// the input policy `In` (see above) may use its other three warps. Per
+// tile: `In::wait` until the tile's encoding is in its encoding tile; nh1
+// .. nh8 in the activation tile (chain_tile), during which, once layer 5
+// has read the encoding tile, `In::done`; the f32 head.
+template <int E, class In>
+__global__ void __launch_bounds__(THREADS, 1)
+mlp_fwd_kernel(const In in_args, int n, int n_tiles, const bf16* __restrict__ image,
+               FwdArgs p, float* __restrict__ out) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* act = align_smem(smem_raw);
+  const uint32_t emb0 = smem_u32(act + ACT_BYTES);
+  const uint32_t ring = emb0 + uint32_t(In::FWD_TILES * emb_tile_bytes<E>);
+  const uint32_t bars = ring + FWD_STAGES * CHUNK_BYTES;
+  const uint32_t in_bars = bars + 2 * 8 * FWD_STAGES;   // the input's own barriers
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    ring_init<FWD_STAGES>(bars);
+    in_args.init(in_bars);
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {   // the producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (t == 0) {
+      produce<FWD_STAGES>(image, n_fwd_chunks<E>, n_tiles, ring, bars);
+    } else if (t >= 32) {
+      in_args.encode(emb0, in_bars, n, n_tiles, t - 32);
+    }
+  } else {                 // a consumer: 64 rows of every tile
+    setmaxnreg_inc<CONSUMER_REGS>();
+    In in = in_args;
+    uint32_t g = 0;
+    in.first(emb0, long(blockIdx.x) * TM, n, wg, t);
+    int i = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+      const long row0 = long(tile) * TM;
+      const int next = tile + gridDim.x;
+      const uint32_t embt = emb0 + uint32_t(i % In::FWD_TILES) * uint32_t(emb_tile_bytes<E>);
+      in.wait(in_bars, i);
+      fence_proxy_async();
+      wg_barrier(wg);   // the encoding is in its tile; the last tile's head is done
+      float acc[128];
+      chain_tile<FWD_STAGES, E>(acc, act, embt, p.bias, ring, bars, g, wg, t, nullptr, 0, 0,
+                                nullptr, [&] {
+                                  in.done(embt, in_bars, i,
+                                          next < n_tiles ? long(next) * TM : -1, n, wg, t);
+                                });
+      raw_head(act, p.ow, p.ob, out, row0, n, wg, t);
+    }
+  }
+}
+
+// Rows 1 and 5: the forward on the input `in` (EncodingIn<E> or PtsFwdIn).
+// image: the chain's forward chunks (pack_chain_image(mw, ("fwd",)),
+// n_fwd_chunks<E> x 32 KB); mats: n0w .. n7w, ow as nrnerf_mlp_fwd lists
+// them (only ow is read: the image holds the chain's weights); biases: n0b
+// .. n7b, ob. Returns the CUDA error code of the launch (0 on success).
+template <int E, class In>
+inline int launch_fwd(const In& in, int n, const void* image, const void* const* mats,
+                      const void* const* biases, float* out, cudaStream_t stream) {
+  FwdArgs p;
+  for (int i = 0; i < N_LAYERS; ++i) p.bias[i] = static_cast<const float*>(biases[i]);
+  p.ow = static_cast<const bf16*>(mats[9]);
+  p.ob = static_cast<const float*>(biases[8]);
+  constexpr size_t smem = fwd_smem_bytes<E, In::FWD_TILES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_fwd_kernel<E, In>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  if (n <= 0) return 0;
+  const int n_tiles = (n + TM - 1) / TM;
+  mlp_fwd_kernel<E, In><<<persistent_grid(n_tiles), THREADS, smem, stream>>>(
+      in, n, n_tiles, static_cast<const bf16*>(image), p, out);
+  return int(cudaGetLastError());
+}
+
+// ---- the view-direction heads: mlpv_fwd.cu (row 3) and mlpv_bwd.cu (row 4)
+
+// The view-direction image's schedule: the chain's forward chunks; fw (4
+// chunks, forward layout), vwf (4, 128 columns), vwv (1, its 32 rows padded
+// to 64) -- the first V_FWD_CHUNKS, all the forward reads; vwf as the B
+// operand of dhv @ vwf^T (4 chunks of 64 rows, 2 k-atoms each), vwv (1: 32
+// rows), fw (4, as the chain's backward chunks); the chain's backward
+// chunks. mlp_sm90.py:views_schedule mirrors it.
+constexpr int V_FW = n_fwd_chunks<EMB>;
+constexpr int V_VWF = V_FW + NW / KC;
+constexpr int V_VWV = V_VWF + NW / KC;
+constexpr int V_FWD_CHUNKS = V_VWV + 1;
+constexpr int V_BVWF = V_FWD_CHUNKS;
+constexpr int V_BVWV = V_BVWF + NW / KC;
+constexpr int V_BFW = V_BVWV + 1;
+constexpr int V_BWD = V_BFW + NW / KC;
+constexpr int V_CHUNKS = V_BWD + n_bwd_chunks<EMB>;
+static_assert(V_FWD_CHUNKS == 39 && V_CHUNKS == 78, "the view-direction schedule");
+constexpr uint32_t VIEW_CHUNK_BYTES = VW * ATOM_ROW_BYTES;           // 16 KB
+constexpr uint32_t VWV_BWD_BYTES = 2 * VEMB * ATOM_ROW_BYTES;        // 8 KB
+static_assert(VIEW_CHUNK_BYTES <= CHUNK_BYTES && VIEW_CHUNK_BYTES % 1024 == 0 &&
+              VWV_BWD_BYTES % 1024 == 0, "the view layer's chunks fit a stage");
+
+// the bytes of chunk c that its stage receives
+__device__ __forceinline__ uint32_t views_chunk_bytes(int c) {
+  return c >= V_VWF && c < V_BVWV ? VIEW_CHUNK_BYTES
+                                  : (c == V_BVWV ? VWV_BWD_BYTES : CHUNK_BYTES);
+}
+
+// acc[0 .. 63] = this warpgroup's 64 rows of feat @ vwf + embv @ vwv (128
+// columns, f32): vwf's 4 chunks on the k-atoms of `feat`, then vwv's on
+// `embv` (K = 32: the rest of its atom is zero). One chunk's products stay in
+// flight while the next chunk's issue.
+template <int S>
+__device__ __forceinline__ void views_products(float (&acc)[128], uint32_t feat, uint32_t embv,
+                                               uint32_t ring, uint32_t bars, uint32_t& g,
+                                               int wg, bool signal) {
+  const uint32_t rows = uint32_t(wg) * WG_ROWS * ATOM_ROW_BYTES;
+#pragma unroll 1
+  for (int c = 0; c < NW / KC; ++c, ++g) {
+    const uint32_t a = feat + uint32_t(c) * TILE_ATOM_BYTES + rows;
+    const uint32_t b = ring_acquire<S>(ring, bars, g);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      wgmma_m64n128(acc, desc_sw128(a + kk * 32), desc_sw128(b + kk * 32), (c | kk) != 0);
+    }
+    wgmma_commit();
+    if (c > 0) {
+      wgmma_wait<1>();
+      ring_release<S>(bars, g - 1, signal);
+    }
+  }
+  const uint32_t b = ring_acquire<S>(ring, bars, g);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < VEMB / 16; ++kk) {
+    wgmma_m64n128(acc, desc_sw128(embv + rows + kk * 32), desc_sw128(b + kk * 32), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<1>();
+  ring_release<S>(bars, g - 1, signal);
+  ++g;
+  wgmma_wait<0>();
+  fence_acc<64>(acc);
+  ring_release<S>(bars, g - 1, signal);
+}
+
+// ---- the single-head backward's chain kernel: mlp_bwd.cu (row 2) on the
+// encoding, mlpe_bwd.cu (row 6) on points
+
+struct ChainArgs {
+  const float* bias[N_LAYERS];   // (256,) f32 per hidden layer
+  const bf16* ow;                // (256, 8) bf16
 };
 
 // Persistent CTAs walk 128-point tiles; two consumer warpgroups own 64 rows

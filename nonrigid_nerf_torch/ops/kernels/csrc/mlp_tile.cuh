@@ -1,9 +1,9 @@
-// Shared device code of the canonical-MLP kernels for Hopper (sm_90a):
-// mlpv_fwd.cu, mlpe_fwd.cu and (the cp.async ring only) mlp_i8.cu, the
-// fused point query's (bend_*.cu, fused_*.cu), and from mlp_bwd.cu,
-// mlpe_bwd.cu and mlpv_bwd.cu the single-head gradient layout, the buffer
-// sizes and the reduction over the splits. Rows 1-2, 4 and 6 (mlp_fwd.cu,
-// mlp_bwd.cu, mlpv_bwd.cu, mlpe_bwd.cu) run their own chain on wgmma,
+// Shared device code of the canonical-MLP kernels for Hopper (sm_90a) that
+// keep the first design: the fused point query's (bend_*.cu, fused_*.cu)
+// and (the cp.async ring only) mlp_i8.cu; and from mlp_bwd.cu, mlpe_bwd.cu
+// and mlpv_bwd.cu the single-head gradient layout, the buffer sizes and the
+// reduction over the splits. Rows 1-6 (mlp_fwd.cu, mlp_bwd.cu, mlpv_fwd.cu,
+// mlpv_bwd.cu, mlpe_fwd.cu, mlpe_bwd.cu) run their own chains on wgmma,
 // csrc/mlp_sm90.cuh; the design below is the one they had before, and the
 // one the other kernels keep. What they share:
 //
@@ -26,7 +26,8 @@
 //   the same row chunks of W as col-major B operands;
 // - the backward's second pass: split-K dW products, column sums and the
 //   8-lane head products, and the fixed-order reduction over the splits;
-// - the in-kernel Fourier encoding of mlpe_fwd.cu and fused_*.cu;
+// - the in-kernel Fourier encoding of fused_*.cu (and the bender's,
+//   bend_tile.cuh);
 // - what fused_bwd.cu needs of a single head: the gradient layout, the dh8
 //   step and the second pass's job list (mlp_bwd.cu and mlpe_bwd.cu read the
 //   gradient layout, the sizes and the reduction).
@@ -58,7 +59,6 @@ constexpr int KC = 64;         // weight rows per staged chunk
 constexpr int THREADS = 256;   // 8 warps
 constexpr int LDA = NW + 8;    // padded shared-memory row strides (halves)
 constexpr int LDE = EMB + 8;
-constexpr int LDV = VEMB + 8;
 constexpr int LDW = NW + 8;
 constexpr int N_LAYERS = 8;
 // forward chunks: E/64 (n0w) + 4*4 + (4 + E/64) + 2*4: 30 at 64 lanes, 32 at 128
@@ -79,7 +79,6 @@ constexpr size_t ACT_BYTES = size_t(TM) * LDA * sizeof(bf16);
 template <int E> constexpr int ld_emb = E + 8;
 template <int E> constexpr size_t emb_tile_bytes = size_t(TM) * ld_emb<E> * sizeof(bf16);
 constexpr size_t EMB_BYTES = emb_tile_bytes<EMB>;
-constexpr size_t VEMB_BYTES = size_t(TM) * LDV * sizeof(bf16);
 constexpr size_t STAGE_BYTES = size_t(KC) * LDW * sizeof(bf16);
 constexpr size_t WSCR_BYTES = size_t(THREADS / 32) * 16 * 16 * sizeof(float);
 constexpr size_t DRAW_BYTES = size_t(TM) * OUT * sizeof(float);
@@ -93,7 +92,7 @@ constexpr size_t DW_SMEM_BYTES = 2 * (DW_A_BYTES + DW_B_BYTES);
 
 static_assert(ACT_BYTES % 128 == 0 && EMB_BYTES % 128 == 0 &&
               emb_tile_bytes<EMB_TC> % 128 == 0 &&
-              VEMB_BYTES % 128 == 0 && STAGE_BYTES % 128 == 0 &&
+              STAGE_BYTES % 128 == 0 &&
               WSCR_BYTES % 128 == 0 && DRAW_BYTES % 128 == 0 &&
               DW_A_BYTES % 128 == 0 && DW_B_BYTES % 128 == 0,
               "shared-memory regions stay aligned");
@@ -132,22 +131,6 @@ __device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src, int tid) 
 
 __device__ __forceinline__ bf16* stage_of(bf16* stage, int g) {
   return stage + (g & 1) * KC * LDW;
-}
-
-// a 128-point tile of a (n, COLS) bf16 input into shared memory (row stride
-// LD); rows past n are zero
-template <int COLS, int LD>
-__device__ __forceinline__ void load_points(bf16* dst, const bf16* __restrict__ src,
-                                            long row0, int n, int tid) {
-  for (int i = tid; i < TM * COLS / 8; i += THREADS) {
-    const int r = i / (COLS / 8);
-    const int c = (i % (COLS / 8)) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n) {
-      v = *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * COLS + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
-  }
 }
 
 // Wait for chunk g of the schedule, with chunk g + 1 put in flight first.
@@ -263,90 +246,6 @@ __device__ __forceinline__ void chain_forward(bf16* act, const bf16* embs, bf16*
                       wm, wn, lane);
     __syncthreads();
   }
-}
-
-// dst = bf16(src @ W + bias) with no activation, W (256, 256) as chunks
-// g .. g + 3 of the schedule (the feature head of the view-direction MLP).
-// `dst` may be `src`.
-template <class Prefetch>
-__device__ __forceinline__ void linear_256(const bf16* src, bf16* dst, bf16* stage,
-                                           float* wscr, const float* bias, int& g,
-                                           Prefetch& prefetch, int warp, int lane) {
-  const int wm = warp / 4;
-  const int wn = warp % 4;
-  AccFrag acc[4][4];
-  zero_acc(acc);
-  for (int c = 0; c < NW / KC; ++c, ++g) {
-    ring_next(prefetch, g);
-    mma_chunk(acc, src, LDA, c * KC, stage_of(stage, g), wm, wn);
-    __syncthreads();
-  }
-  store_layer<false>(acc, wscr, bias, dst, nullptr, wm, wn, lane);
-  __syncthreads();
-}
-
-// hv = bf16(relu(feat @ vwf + embv @ vwv + vb)), 128 wide, into columns
-// 0 .. 127 of `dst` (which may be `feat`): chunks g .. g + 4 of the schedule,
-// four 64 x 128 chunks of vwf and the 32 x 128 vwv. Each warp owns a 64 x 32
-// block.
-template <class Prefetch>
-__device__ __forceinline__ void views_forward(const bf16* feat, const bf16* embvs,
-                                              bf16* dst, bf16* stage, float* wscr,
-                                              const float* __restrict__ vb, int& g,
-                                              Prefetch& prefetch, int warp, int lane) {
-  const int wm = warp / 4;   // rows wm*64 .. +64
-  const int wn = warp % 4;   // cols wn*32 .. +32
-  AccFrag acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  for (int c = 0; c < NW / KC + 1; ++c, ++g) {
-    ring_next(prefetch, g);
-    const bool from_v = (c == NW / KC);
-    const bf16* a_src = from_v ? embvs : feat;
-    const int lda = from_v ? LDV : LDA;
-    const int k0 = from_v ? 0 : c * KC;
-    const int k_len = from_v ? VEMB : KC;
-    const bf16* b_src = stage_of(stage, g);
-    for (int kk = 0; kk < k_len; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        wmma::load_matrix_sync(a[i], a_src + (wm * 64 + i * 16) * lda + k0 + kk, lda);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, b_src + kk * LDW + wn * 32 + j * 16, LDW);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-  const int er = lane / 2;
-  const int ec = (lane % 2) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(wscr, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int grow = wm * 64 + i * 16 + er;
-      const int gcol = wn * 32 + j * 16 + ec;
-      __align__(16) bf16 ov[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float v = wscr[er * 16 + ec + e] + __ldg(vb + gcol + e);
-        ov[e] = __float2bfloat16(fmaxf(v, 0.0f));
-      }
-      *reinterpret_cast<uint4*>(dst + grow * LDA + gcol) =
-          *reinterpret_cast<const uint4*>(ov);
-      __syncwarp();
-    }
-  }
-  __syncthreads();
 }
 
 // acc (16 rows of this warp x 16*NJ columns) = cur[:, 0:K] @ Wc^T for the
@@ -704,7 +603,7 @@ inline int launch_second_pass(const DwParams& dp, int n_tiles, const SmallParams
 }
 
 
-// ---- the single-head forward kernels (mlp_fwd.cu, mlpe_fwd.cu)
+// ---- the single-head forward on this design (fused_fwd.cu)
 
 // activation tile + encoding tile + ring + warp scratch: 162,816 B at 64
 // lanes, 178,176 B at 128
@@ -762,7 +661,7 @@ __device__ __forceinline__ void raw_head(const bf16* act, const bf16* __restrict
   }
 }
 
-// ---- the in-kernel Fourier encoding (mlpe_fwd.cu, mlpe_bwd.cu)
+// ---- the in-kernel Fourier encoding (fused_*.cu, bend_tile.cuh)
 //
 // Lane c of the 64-lane encoding of a point x (3 f32), multires 10:
 //   c < 3:        x[c]
@@ -786,18 +685,10 @@ __device__ __forceinline__ void encoding_lane(int c, int& j, float& scale,
   phase = rem >= 3 ? HALF_PI : 0.0f;
 }
 
-// the tile's 128 x 3 f32 coordinates of pts (n, 3) into shared memory; rows
-// past n are zero
-__device__ __forceinline__ void load_coords(float* xs, const float* __restrict__ pts,
-                                            long row0, int n, int tid) {
-  for (int i = tid; i < TM * PTS; i += THREADS) {
-    xs[i] = (row0 + i / PTS < n) ? pts[size_t(row0) * PTS + i] : 0.0f;
-  }
-}
-
-// the bf16 encoding tile (row stride LDE) from the coordinate tile; rows at
-// and past rows_left are zero. With `copy` (the tile's rows of a row-padded
-// (n_pad, 64) global array) the tile is stored there too, for the dW products.
+// the bf16 encoding tile (row stride LDE) from a 128 x 3 f32 coordinate tile
+// in shared memory; rows at and past rows_left are zero. With `copy` (the
+// tile's rows of a row-padded (n_pad, 64) global array) the tile is stored
+// there too, for the dW products.
 __device__ __forceinline__ void encode_tile(bf16* embs, const float* xs, long rows_left,
                                             int tid, bf16* copy) {
   for (int i = tid; i < TM * EMB / 8; i += THREADS) {

@@ -17,67 +17,35 @@
 // against mlp_fwd.cu's 160: the tensor cores bound it. What the mode saves is
 // outside the kernel: no encoding tensor between the stages.
 //
-// Design: mlp_fwd.cu with another prologue. The tile's 128 x 3 coordinates
-// are read as they stand (the TPU kernel pads them to 8 lanes; no pad copy
-// here) into the warp scratch, each thread then computes 8 lanes of one row
-// at a time and stores them as one 16-byte piece of the shared-memory
-// encoding tile. Everything after that is mlp_tile.cuh's chain and head.
+// Design: row 1's kernel (mlp_sm90.cuh's `mlp_fwd_kernel<E, In>`: persistent
+// CTAs, two consumer warpgroups of 64 rows, wgmma, the mbarrier weight ring
+// of row 1's 30-chunk image) on another input, `sm90::PtsFwdIn`:
+// - the encoding runs off the consumers' warps: the producer warpgroup's
+//   three warps that the weight stream leaves idle encode each tile into
+//   one of two encoding tiles (three FMAs against P, sinf past lane 2,
+//   bf16), a tile or two ahead, with a full / empty mbarrier pair per tile.
+//   197,760 B of shared memory. On the consumers' warps, before the chain
+//   or once layer 5 had read the tile, the sines stayed on the chain's
+//   critical path (see PERF.md);
+// - the arithmetic is `encode_piece`, which row 6 (mlpe_bwd.cu) recomputes
+//   for the same points: the backward sees the forward's encoding bit for
+//   bit. The coordinates are read one f32 at a time, as they stand (the
+//   TPU kernel pads them to 8 lanes; no pad copy here, any alignment).
 //
 // Plain C interface, bound with ctypes (see ../mlpe_fwd.py).
 
-#include "mlp_tile.cuh"
+#include "mlp_sm90.cuh"
 
-namespace {
-
-__global__ void __launch_bounds__(THREADS, 1)
-mlpe_fwd_kernel(const float* __restrict__ pts, int n, FwdParams p,
-                float* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* act = reinterpret_cast<bf16*>(smem);
-  bf16* embs = reinterpret_cast<bf16*>(smem + ACT_BYTES);
-  bf16* stage = reinterpret_cast<bf16*>(smem + ACT_BYTES + EMB_BYTES);
-  float* scratch =
-      reinterpret_cast<float*>(smem + ACT_BYTES + EMB_BYTES + 2 * STAGE_BYTES);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const long row0 = long(blockIdx.x) * TM;
-
-  auto prefetch = [&](int g) {
-    if (g < N_FWD_CHUNKS) load_chunk(stage_of(stage, g), p.chunk[g], tid);
-  };
-  prefetch(0);
-  cp_async_commit();
-  // the encoding: coordinates into the warp scratch, then the tile. The
-  // chain's first barrier comes before the scratch is written again.
-  load_coords(scratch, pts, row0, n, tid);
-  __syncthreads();
-  encode_tile(embs, scratch, long(n) - row0, tid, nullptr);
-
-  int g = 0;
-  chain_forward(act, embs, stage, scratch + warp * 256, p.bias, g, prefetch, nullptr,
-                0, warp, lane);
-  raw_head(act, p.ow, p.ob, out, row0, n, tid);
-}
-
-}  // namespace
-
-// pts (n, 3) f32, out (n, 8) f32; mats and biases as `fill_fwd_params`
-// (mlp_tile.cuh) lists them.
+// pts (n, 3) f32, out (n, 8) f32; image: the chain's forward chunks at 64
+// lanes (ops/kernels/mlp_sm90.py:pack_chain_image(mw, ("fwd",))), 30 x 32
+// KB; P (3, 64) and phase (64,) f32: the encoding's projection; mats and
+// biases as nrnerf_mlp_fwd lists them (of mats only ow is read).
 // Returns the CUDA error code of the launch (0 on success).
-extern "C" int nrnerf_mlpe_fwd(const void* pts, int n, const void* const* mats,
-                               const void* const* biases, void* out,
-                               void* stream) {
-  FwdParams p;
-  if (!fill_fwd_params(mats, biases, p)) return int(cudaErrorInvalidValue);
-
-  cudaError_t err = cudaFuncSetAttribute(
-      mlpe_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(FWD_SMEM_BYTES));
-  if (err != cudaSuccess) return int(err);
-  if (n <= 0) return 0;
-  const dim3 grid((n + TM - 1) / TM);
-  mlpe_fwd_kernel<<<grid, THREADS, FWD_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pts), n, p, static_cast<float*>(out));
-  return int(cudaGetLastError());
+extern "C" int nrnerf_mlpe_fwd(const void* pts, int n, const void* image, const void* P,
+                               const void* phase, const void* const* mats,
+                               const void* const* biases, void* out, void* stream) {
+  const sm90::PtsFwdIn in{static_cast<const float*>(pts), static_cast<const float*>(P),
+                          static_cast<const float*>(phase)};
+  return sm90::launch_fwd<sm90::EMB>(in, n, image, mats, biases, static_cast<float*>(out),
+                                     static_cast<cudaStream_t>(stream));
 }

@@ -114,31 +114,6 @@ static_assert(OFF_RB + OUT == GRAD_FLOATS, "pack-order layout");
 namespace sm90 {
 namespace {
 
-// the weight image's schedule: the chain's forward chunks; fw (4 chunks,
-// forward layout), vwf (4, 128 columns), vwv (1, its 32 rows padded to 64);
-// vwf as the B operand of dhv @ vwf^T (4 chunks of 64 rows, 2 k-atoms each),
-// vwv (1: 32 rows), fw (4, as the chain's backward chunks); the chain's
-// backward chunks. mlp_sm90.py:views_schedule mirrors it.
-constexpr int V_FW = n_fwd_chunks<EMB>;
-constexpr int V_VWF = V_FW + NW / KC;
-constexpr int V_VWV = V_VWF + NW / KC;
-constexpr int V_BVWF = V_VWV + 1;
-constexpr int V_BVWV = V_BVWF + NW / KC;
-constexpr int V_BFW = V_BVWV + 1;
-constexpr int V_BWD = V_BFW + NW / KC;
-constexpr int V_CHUNKS = V_BWD + n_bwd_chunks<EMB>;
-static_assert(V_CHUNKS == 78, "the view-direction schedule");
-constexpr uint32_t VIEW_CHUNK_BYTES = VW * ATOM_ROW_BYTES;           // 16 KB
-constexpr uint32_t VWV_BWD_BYTES = 2 * VEMB * ATOM_ROW_BYTES;        // 8 KB
-static_assert(VIEW_CHUNK_BYTES <= CHUNK_BYTES && VIEW_CHUNK_BYTES % 1024 == 0 &&
-              VWV_BWD_BYTES % 1024 == 0, "the view layer's chunks fit a stage");
-
-// the bytes of chunk c that its stage receives
-__device__ __forceinline__ uint32_t views_chunk_bytes(int c) {
-  return c >= V_VWF && c < V_BVWV ? VIEW_CHUNK_BYTES
-                                  : (c == V_BVWV ? VWV_BWD_BYTES : CHUNK_BYTES);
-}
-
 struct ViewArgs {
   const float* bias[N_LAYERS];   // (256,) f32 per hidden layer
   const float* fb;               // (256,) f32
@@ -180,45 +155,6 @@ __device__ __forceinline__ void head_row(const bf16* __restrict__ w, int row, fl
   const bf16* e = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
   for (int o = 0; o < OUT; ++o) out[o] = __bfloat162float(e[o]);
-}
-
-// acc[0 .. 63] = this warpgroup's 64 rows of feat @ vwf + embv @ vwv (128
-// columns, f32): vwf's 4 chunks on the k-atoms of `feat`, then vwv's on
-// `embv` (K = 32: the rest of its atom is zero). One chunk's products stay in
-// flight while the next chunk's issue.
-template <int S>
-__device__ __forceinline__ void views_products(float (&acc)[128], uint32_t feat, uint32_t embv,
-                                               uint32_t ring, uint32_t bars, uint32_t& g,
-                                               int wg, bool signal) {
-  const uint32_t rows = uint32_t(wg) * WG_ROWS * ATOM_ROW_BYTES;
-#pragma unroll 1
-  for (int c = 0; c < NW / KC; ++c, ++g) {
-    const uint32_t a = feat + uint32_t(c) * TILE_ATOM_BYTES + rows;
-    const uint32_t b = ring_acquire<S>(ring, bars, g);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      wgmma_m64n128(acc, desc_sw128(a + kk * 32), desc_sw128(b + kk * 32), (c | kk) != 0);
-    }
-    wgmma_commit();
-    if (c > 0) {
-      wgmma_wait<1>();
-      ring_release<S>(bars, g - 1, signal);
-    }
-  }
-  const uint32_t b = ring_acquire<S>(ring, bars, g);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < VEMB / 16; ++kk) {
-    wgmma_m64n128(acc, desc_sw128(embv + rows + kk * 32), desc_sw128(b + kk * 32), 1);
-  }
-  wgmma_commit();
-  wgmma_wait<1>();
-  ring_release<S>(bars, g - 1, signal);
-  ++g;
-  wgmma_wait<0>();
-  fence_acc<64>(acc);
-  ring_release<S>(bars, g - 1, signal);
 }
 
 // From hv's accumulators (acc[0 .. 63]: this warpgroup's rows, 128 columns):

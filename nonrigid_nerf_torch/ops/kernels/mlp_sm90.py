@@ -24,12 +24,15 @@ its 16-byte pieces are permuted by XOR with the row's index mod 8.
   n, so that the CPU tests pin the layout and the schedule against the JAX
   math.
 - `views_schedule`, `pack_views_image`, `unpack_views_image`,
-  `views_bwd_from_image`: the same for `mlpv_bwd`'s image (the chain and the
-  view-direction heads fw, vwf, vwv; 78 chunks, the view layer's 8 or 16 KB
-  of their 32 KB slots, `views_chunk_bytes`).
-- `encode_tile`, `fold_tile`: `mlpe_bwd`'s in-kernel encoding, written into
-  the swizzled tile by the threads that own its rows, and its fold of demb
-  onto the points in the order the threads sum.
+  `views_fwd_from_image`, `views_bwd_from_image`: the same for the
+  view-direction images (the chain and the heads fw, vwf, vwv; the view
+  layer's 8 or 16 KB of their 32 KB slots, `views_chunk_bytes`): `mlpv_bwd`
+  reads all 78 chunks, `mlpv_fwd` the first 39 (the "fwd" part).
+- `encoding_pieces`, `encode_tile`, `fold_tile`: the in-kernel encoding of
+  `mlpe_fwd` and `mlpe_bwd` (one device function), written into the
+  swizzled tile piece by piece by the threads that write it (`mlpe_fwd`'s 96
+  encoding warps' threads, `mlpe_bwd`'s consumer threads by row), and
+  `mlpe_bwd`'s fold of demb onto the points in the order the threads sum.
 """
 
 from __future__ import annotations
@@ -94,18 +97,27 @@ def bwd_schedule(e: int) -> List[Tuple[int, int]]:
     return out
 
 
-def views_schedule() -> List[Tuple[str, int, int]]:
-    """(layout, matrix, chunk) of every chunk of `mlpv_bwd`'s image in the
-    kernel's order (matrices as in `VIEWS_MATRIX_IDX`'s order): the chain's
-    forward chunks; fw (4), vwf (4), vwv (1) in the forward layout; vwf (4),
-    vwv (1), fw (4) as the B operands of dhv @ vwf^T, dhv @ vwv^T and dfeat @
-    fw^T; the chain's backward chunks."""
-    out = [("fwd", m, c) for m, c in fwd_schedule(64)]
-    out += [("fwd", FW, c) for c in range(NW // KC)]
-    out += [("fwd", VWF, c) for c in range(NW // KC)] + [("fwd", VWV, 0)]
-    out += [("bwd", VWF, c) for c in range(NW // KC)] + [("bwd", VWV, 0)]
-    out += [("bwd", FW, c) for c in range(NW // KC)]
-    return out + [("bwd", m, c) for m, c in bwd_schedule(64)]
+def views_schedule(parts: Sequence[str] = IMAGE_PARTS
+                   ) -> List[Tuple[str, int, int]]:
+    """(layout, matrix, chunk) of every chunk of a view-direction image in
+    the kernels' order (matrices as in `VIEWS_MATRIX_IDX`'s order). The
+    "fwd" part, all that `mlpv_fwd` reads: the chain's forward chunks; fw
+    (4), vwf (4), vwv (1) in the forward layout. The "bwd" part, which
+    `mlpv_bwd` reads after it: vwf (4), vwv (1), fw (4) as the B operands of
+    dhv @ vwf^T, dhv @ vwv^T and dfeat @ fw^T; the chain's backward chunks."""
+    out = []
+    for part in parts:
+        if part == "fwd":
+            out += [("fwd", m, c) for m, c in fwd_schedule(64)]
+            out += [("fwd", FW, c) for c in range(NW // KC)]
+            out += [("fwd", VWF, c) for c in range(NW // KC)] + [("fwd", VWV, 0)]
+        elif part == "bwd":
+            out += [("bwd", VWF, c) for c in range(NW // KC)] + [("bwd", VWV, 0)]
+            out += [("bwd", FW, c) for c in range(NW // KC)]
+            out += [("bwd", m, c) for m, c in bwd_schedule(64)]
+        else:
+            raise ValueError(f"image parts are {IMAGE_PARTS}, got {part!r}")
+    return out
 
 
 def _chunk_elems(layout: str, shape: Tuple[int, int]) -> int:
@@ -113,12 +125,12 @@ def _chunk_elems(layout: str, shape: Tuple[int, int]) -> int:
     return cols * KC if layout == "fwd" else min(KC, rows) * cols
 
 
-def views_chunk_bytes() -> List[int]:
-    """The bytes of each chunk of the view-direction image that the kernel's
+def views_chunk_bytes(parts: Sequence[str] = IMAGE_PARTS) -> List[int]:
+    """The bytes of each chunk of a view-direction image that the kernel's
     producer copies (the rest of its 32 KB slot is zero)."""
     shapes = _matrix_shapes(64, views=True)
     return [2 * _chunk_elems(layout, shapes[m])
-            for layout, m, _ in views_schedule()]
+            for layout, m, _ in views_schedule(parts)]
 
 
 def _chunk_index(layout: str, base: int, shape: Tuple[int, int],
@@ -168,25 +180,27 @@ def image_index(e: int, parts: Sequence[str]) -> np.ndarray:
     return np.concatenate(pieces)
 
 
-def views_index() -> np.ndarray:
-    """For each element of the view-direction image, its index in the
+def views_index(parts: Sequence[str] = IMAGE_PARTS) -> np.ndarray:
+    """For each element of a view-direction image, its index in the
     concatenation of its twelve flattened matrices, or -1 (zero)."""
     shapes = _matrix_shapes(64, views=True)
     bases = _bases(shapes)
     return np.concatenate([_chunk_index(layout, bases[m], shapes[m], c)
-                           for layout, m, c in views_schedule()])
+                           for layout, m, c in views_schedule(parts)])
 
 
 _INDEX: Dict[tuple, torch.Tensor] = {}
 
 
-def _cached_index(e: int, parts: Tuple[str, ...], device) -> torch.Tensor:
+def _cached_index(e: int, parts: Tuple[str, ...], device,
+                  views: bool = False) -> torch.Tensor:
     """The image's index, -1 replaced by the position of a zero appended to
     the concatenated matrices."""
-    key = (e, parts, str(device))
+    key = (e, parts, views, str(device))
     if key not in _INDEX:
-        if parts == ("views",):
-            index, total = views_index(), _bases(_matrix_shapes(e, True))[-1]
+        if views:
+            index = views_index(parts)
+            total = _bases(_matrix_shapes(e, True))[-1]
         else:
             index, total = image_index(e, parts), _bases(_matrix_shapes(e))[-1]
         _INDEX[key] = torch.from_numpy(np.where(index < 0, total, index)).to(
@@ -215,17 +229,24 @@ def pack_chain_image(mw: Sequence[torch.Tensor],
                                        mats[0].device))
 
 
-def pack_views_image(mw: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The chunks of `mlpv_bwd`'s image from its 26 cast weights, in the
-    kernel's order (`views_schedule`), 16,384 bf16 elements a chunk."""
+def pack_views_image(mw: Sequence[torch.Tensor],
+                     parts: Sequence[str] = IMAGE_PARTS) -> torch.Tensor:
+    """The chunks of a view-direction image from the 26 cast weights, in
+    the kernels' order (`views_schedule(parts)`), 16,384 bf16 elements a
+    chunk: `("fwd",)` is what `mlpv_fwd` reads (39 chunks), both parts what
+    `mlpv_bwd` reads (78)."""
     mats = [mw[i] for i in VIEWS_MATRIX_IDX]
-    return _gather(mats, _cached_index(64, ("views",), mats[0].device))
+    return _gather(mats, _cached_index(64, tuple(parts), mats[0].device,
+                                       views=True))
 
 
-def unpack_views_image(image: torch.Tensor) -> List[torch.Tensor]:
-    """The twelve matrices back from a view-direction image."""
+def unpack_views_image(image: torch.Tensor,
+                       parts: Sequence[str] = IMAGE_PARTS
+                       ) -> List[torch.Tensor]:
+    """The twelve matrices back from a view-direction image (each of its
+    parts holds every element of every matrix once)."""
     shapes = _matrix_shapes(64, views=True)
-    index = _cached_index(64, ("views",), image.device)
+    index = _cached_index(64, tuple(parts), image.device, views=True)
     total = int(_bases(shapes)[-1])
     flat = torch.zeros(total + 1, dtype=image.dtype, device=image.device)
     flat[index] = image
@@ -354,6 +375,44 @@ def dh_chain_from_image(nh: Sequence[torch.Tensor], dh8: torch.Tensor,
 _CHAIN_BIASES = (1, 3, 5, 7, 9, 12, 14, 16)
 
 
+def views_fwd_from_image(embb: torch.Tensor, embvb: torch.Tensor,
+                         image: torch.Tensor, mw: Sequence[torch.Tensor]
+                         ) -> torch.Tensor:
+    """raw (n, 8) f32 of `mlpv_fwd`, reading the chain's and the heads'
+    matrices out of its image (`pack_views_image(mw, ("fwd",))`) chunk by
+    chunk in the kernel's order, on 128-point tiles with rows past n zero:
+    nh1 .. nh8; the alpha sums nh8 @ aw + ab + rb; feat over fw's 4 chunks;
+    hv over vwf's 4 chunks, then vwv's; the rgb sums hv @ rw added to the
+    alpha sums. Each product is summed in f32. The biases, aw and rw come
+    from mw (the 26 cast weights), the rest from the image."""
+    bf16 = torch.bfloat16
+    n = embb.shape[0]
+    sched = views_schedule(("fwd",))
+    slots = image.view(-1, CHUNK_ELEMS)
+    if slots.shape[0] != len(sched):
+        raise ValueError(f"the forward's image has {len(sched)} chunks, got "
+                         f"{slots.shape[0]}")
+    shapes = _matrix_shapes(64, views=True)
+
+    def chunk(m, c):
+        return fwd_chunk_matrix(slots[sched.index(("fwd", m, c))], shapes[m][1])
+
+    fb, aw, ab, vb, rw, rb = (mw[i] for i in (18, 19, 20, 23, 24, 25))
+    nh8 = _tiles(chain_from_image(embb, image,
+                                  [mw[i] for i in _CHAIN_BIASES])[7], n)
+    s = _mm(nh8, aw) + ab.float() + rb.float()
+    acc = 0.0
+    for c in range(NW // KC):
+        acc = acc + _mm(nh8[:, c * KC:(c + 1) * KC], chunk(FW, c))
+    feat = (acc + fb.float()).to(bf16)
+    acc = 0.0
+    for c in range(NW // KC):
+        acc = acc + _mm(feat[:, c * KC:(c + 1) * KC], chunk(VWF, c))
+    acc = acc + _mm(_tiles(embvb.to(bf16), n), chunk(VWV, 0)[:VEMB])
+    hv = torch.relu(acc + vb.float()).to(bf16)
+    return (s + _mm(hv, rw))[:n]
+
+
 def _mask(g, act):
     return (g * (act.float() > 0)).to(torch.bfloat16)
 
@@ -425,25 +484,54 @@ def views_bwd_from_image(embb: torch.Tensor, embvb: torch.Tensor,
     return demb[:n], dembv[:n], grads
 
 
+ENCODERS = 96       # the forward's encoding warps: the producer's idle three
+
+
+def encoding_pieces(writer: str = "rows") -> np.ndarray:
+    """(writer, piece, 2): the (row, first lane) of every 8-lane piece of a
+    128 x 64 encoding tile, by the thread that writes it. "rows" (`mlpe_bwd`,
+    `PtsIn`): thread t of warpgroup w writes row 64 w + t // 2, lanes (t %
+    2) * 32 .. + 32, 4 pieces. "encoders" (`mlpe_fwd`, `PtsFwdIn`): encoder
+    e of 96 writes pieces q = e, e + 96, ... of the 1,024 (row q // 8,
+    lanes (q % 8) * 8), 11 or 10 of them (-1 rows pad the shorter lists)."""
+    if writer == "rows":
+        w, t, q = np.meshgrid(np.arange(2), np.arange(128), np.arange(4),
+                              indexing="ij")
+        rows = (w * 64 + t // 2).reshape(256, 4)
+        lanes = ((t % 2) * 32 + q * 8).reshape(256, 4)
+        return np.stack([rows, lanes], axis=-1)
+    if writer == "encoders":
+        pieces = TM * KC // 8
+        q = np.arange(ENCODERS)[:, None] + ENCODERS * np.arange(
+            -(-pieces // ENCODERS))[None, :]
+        out = np.stack([q // 8, (q % 8) * 8], axis=-1)
+        out[q >= pieces] = -1
+        return out
+    raise ValueError(f"writer is 'rows' or 'encoders', got {writer!r}")
+
+
 def encode_tile(pts: torch.Tensor, P: torch.Tensor, phase: torch.Tensor,
-                rows: int) -> torch.Tensor:
-    """`mlpe_bwd`'s encoding tile as the kernel writes it: thread t of
-    warpgroup w encodes row 64 w + t // 2, lanes (t % 2) * 32 .. + 32, from
-    its point (pts (128, 3) f32): pre = x0 P[0] + x1 P[1] + x2 P[2] (exact:
-    P's entries are 0 or powers of two), lane < 3 ? pre : sin(pre + phase),
-    rounded to bf16, zero from row `rows` on, each 8-lane piece stored at
-    `tile_offset`. Returns the flat bf16 tile (128 x 64)."""
+                rows: int, writer: str = "rows") -> torch.Tensor:
+    """The encoding tile of `mlpe_fwd` ("encoders") and `mlpe_bwd` ("rows")
+    as the kernels write it (`encode_piece`), each thread its pieces of
+    `encoding_pieces(writer)`, from their rows' points (pts (128, 3) f32):
+    pre = x0 P[0] + x1 P[1] + x2 P[2] (exact: P's entries are 0 or powers of
+    two), lane < 3 ? pre : sin(pre + phase), rounded to bf16, zero from row
+    `rows` on, each 8-lane piece stored at `tile_offset`. Every element is
+    written once. Returns the flat bf16 tile (128 x 64)."""
     pre = pts.float() @ P.float()
     lanes = torch.arange(KC)
     enc = torch.where(lanes < 3, pre, torch.sin(pre + phase)).to(torch.bfloat16)
     enc[rows:] = 0
-    w, t, q = np.meshgrid(np.arange(2), np.arange(128), np.arange(4),
-                          indexing="ij")
-    r = (w * 64 + t // 2).reshape(-1, 1)
-    cols = ((t % 2) * 32 + q * 8).reshape(-1, 1) + np.arange(8)
+    pieces = encoding_pieces(writer).reshape(-1, 2)
+    pieces = pieces[pieces[:, 0] >= 0]
+    r = np.repeat(pieces[:, :1], 8, axis=1)
+    cols = pieces[:, 1:] + np.arange(8)
+    offsets = tile_offset(r, cols).ravel()
+    if len(offsets) != TM * KC or len(set(offsets.tolist())) != TM * KC:
+        raise AssertionError(f"the {writer!r} pieces do not cover the tile once")
     out = torch.zeros(TM * KC, dtype=torch.bfloat16)
-    r, cols = np.broadcast_arrays(r, cols)
-    out[torch.from_numpy(tile_offset(r, cols).ravel())] = \
+    out[torch.from_numpy(offsets)] = \
         enc[torch.from_numpy(r.ravel()), torch.from_numpy(cols.ravel())]
     return out
 

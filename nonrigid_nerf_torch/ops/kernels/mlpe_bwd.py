@@ -128,7 +128,7 @@ def mlpe_bwd(pts: torch.Tensor, mw: Sequence[torch.Tensor],
                            device=device)
     grads = torch.empty(GRAD_FLOATS, dtype=torch.float32, device=device)
     image = pack_chain_image(mw, ("fwd", "bwd"))
-    P, phase = _projection(device)
+    P, phase = _projection_on(device)
     for t in (draw, scratch, partials, grads, *mw):
         if t.data_ptr() % 16:
             raise ValueError("mlpe_bwd needs 16-byte aligned tensors")
@@ -146,15 +146,6 @@ def mlpe_bwd(pts: torch.Tensor, mw: Sequence[torch.Tensor],
 
 
 mlpe_bwd.launches = 0
-_PROJECTIONS = {}
-
-
-def _projection(device):
-    """P (3, 64) and phase (64,) f32 on `device`, made once."""
-    key = str(device)
-    if key not in _PROJECTIONS:
-        _PROJECTIONS[key] = tuple(t.contiguous() for t in _projection_on(device))
-    return _PROJECTIONS[key]
 
 
 def _library() -> ctypes.CDLL:

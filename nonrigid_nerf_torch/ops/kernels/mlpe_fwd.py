@@ -20,7 +20,9 @@ nonrigid_nerf_tpu/ops/pallas/fused_query.py:86-102,875-947).
   here).
 
 The kernel is bound by the tensor cores (0.987 MFLOP per point, as `mlp_fwd`)
-and moves 44 B per point against `mlp_fwd`'s 160; see the source.
+and moves 44 B per point against `mlp_fwd`'s 160; see the source. It runs
+`mlp_fwd`'s chain, so the wrapper passes `mlp_fwd`'s weight image
+(`mlp_sm90.pack_chain_image(mw, ("fwd",))`) and the encoding's P and phase.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from nonrigid_nerf_torch.ops.kernels.mlp_fwd import (
     BF16_TOL_MAX, BF16_TOL_MEAN, EMB, MACS_PER_POINT, N_MLP_W, OUT_PAD,
     _BIAS_IDX, _MATRIX_IDX, _expected_shape, check_kernel_weights,
     mlp_fwd_plain, weight_pointers)
+from nonrigid_nerf_torch.ops.kernels.mlp_sm90 import pack_chain_image
 
 # the chain is `mlp_fwd`'s: its work per point and its bf16 tolerances hold
 __all__ = ["BF16_TOL_MAX", "BF16_TOL_MEAN", "MACS_PER_POINT", "MULTIRES",
@@ -71,9 +74,10 @@ def embedding_projection(multires: int = MULTIRES
 
 @functools.lru_cache(maxsize=None)
 def _projection_on(device: torch.device):
-    """(P[:3] (3, 64), phase (64,)) as tensors on `device`; read only."""
+    """(P[:3] (3, 64), phase (64,)) as contiguous f32 tensors on `device`,
+    made once: what the kernels read. Read only."""
     P, phase = embedding_projection()
-    return (torch.from_numpy(P[:PTS]).to(device),
+    return (torch.from_numpy(np.ascontiguousarray(P[:PTS])).to(device),
             torch.from_numpy(phase).to(device))
 
 
@@ -132,11 +136,14 @@ def mlpe_fwd(pts: torch.Tensor, mw: Sequence[torch.Tensor]) -> torch.Tensor:
     if n == 0:      # nothing to launch, nothing to count
         return out
     lib = _library()
+    image = pack_chain_image(mw, ("fwd",))
+    P, phase = _projection_on(pts.device)
     mats, biases = weight_pointers(mw, _MATRIX_IDX, _BIAS_IDX)
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream(pts.device).cuda_stream
-        err = lib.nrnerf_mlpe_fwd(pts.data_ptr(), n, mats, biases,
-                                  out.data_ptr(), stream)
+        err = lib.nrnerf_mlpe_fwd(pts.data_ptr(), n, image.data_ptr(),
+                                  P.data_ptr(), phase.data_ptr(), mats,
+                                  biases, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"mlpe_fwd kernel launch failed: CUDA error {err}")
     mlpe_fwd.launches += 1
@@ -150,7 +157,8 @@ def _library() -> ctypes.CDLL:
     lib = load_kernel_library("mlpe_fwd.cu")
     fn = lib.nrnerf_mlpe_fwd
     ptrs = ctypes.POINTER(ctypes.c_void_p)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ptrs, ptrs,
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ptrs, ptrs,
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

@@ -17,7 +17,10 @@ Counterpart of the Pallas kernel `_mlpv_core` (forward `_mlpv_pallas_fwd` /
   falls back: a CUDA tensor either launches the kernel or raises.
 
 The kernel is bound by the tensor cores (1.194 MFLOP per point against
-224 B of HBM traffic); see the source for its design.
+224 B of HBM traffic); see the source for its design. On CUDA tensors the
+wrapper first packs the chain's and the heads' weights into the swizzled
+image the kernel streams (`mlp_sm90.pack_views_image(mw, ("fwd",))`, one
+gather).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from nonrigid_nerf_torch.ops.kernels.build import load_kernel_library
 from nonrigid_nerf_torch.ops.kernels.mlp_fwd import (
     BF16_TOL_MAX, BF16_TOL_MEAN, EMB, NW, OUT_PAD, _pad_b, _pad_w, chain_plain,
     check_kernel_weights, mm_bf16, pack_chain_weights, weight_pointers)
+from nonrigid_nerf_torch.ops.kernels.mlp_sm90 import pack_views_image
 
 VEMB = 32         # 27 view-encoding channels (multires_views = 4) padded
 VW = 128          # width of the view-conditioned layer = netwidth // 2
@@ -157,11 +161,13 @@ def mlpv_fwd(emb: torch.Tensor, embv: torch.Tensor,
     if n == 0:      # nothing to launch, nothing to count
         return out
     lib = _library()
+    image = pack_views_image(mw, ("fwd",))
     mats, biases = weight_pointers(mw, _MATRIX_IDX, _BIAS_IDX)
     with torch.cuda.device(emb.device):
         stream = torch.cuda.current_stream(emb.device).cuda_stream
-        err = lib.nrnerf_mlpv_fwd(embb.data_ptr(), embvb.data_ptr(), n, mats,
-                                  biases, out.data_ptr(), stream)
+        err = lib.nrnerf_mlpv_fwd(embb.data_ptr(), embvb.data_ptr(), n,
+                                  image.data_ptr(), mats, biases,
+                                  out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"mlpv_fwd kernel launch failed: CUDA error {err}")
     mlpv_fwd.launches += 1
@@ -175,7 +181,8 @@ def _library() -> ctypes.CDLL:
     lib = load_kernel_library("mlpv_fwd.cu")
     fn = lib.nrnerf_mlpv_fwd
     ptrs = ctypes.POINTER(ctypes.c_void_p)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ptrs, ptrs,
-                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ptrs, ptrs, ctypes.c_void_p,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

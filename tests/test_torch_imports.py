@@ -47,9 +47,10 @@ KERNEL_SOURCES = ["mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpv_bwd.cu",
                   "mlpe_fwd.cu", "mlpe_bwd.cu", "mlp_i8.cu", "mlp_tile.cuh",
                   "bend_fwd.cu", "bend_bwd.cu", "fused_fwd.cu", "fused_bwd.cu",
                   "bend_tile.cuh", "mlp_sm90.cuh"]
-# rows 1-2, 4 and 6 run their chain on mlp_sm90.cuh; the other kernels on
+# rows 1-6 run their chain on mlp_sm90.cuh; the other kernels on
 # mlp_tile.cuh
-SM90_SOURCES = ("mlp_fwd.cu", "mlp_bwd.cu", "mlpv_bwd.cu", "mlpe_bwd.cu")
+SM90_SOURCES = ("mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpv_bwd.cu",
+                "mlpe_fwd.cu", "mlpe_bwd.cu")
 # mlp_tile.cuh's chain, which the sources on mlp_sm90.cuh do not run
 TILE_CHAIN = ("chain_forward(", "dh_chain(", "mlp_dw_kernel", "mlp_small_kernel")
 SM90_FILES = ["ops/kernels/mlp_sm90.py"]
@@ -101,11 +102,15 @@ def test_viewdirs_files_are_under_the_import_rule():
             assert f'#include "{header}"' in text and 'extern "C"' in text
         if name in SM90_SOURCES:
             assert not any(f in text for f in TILE_CHAIN), name
-    # rows 2 and 6 share the chain kernel: one template, two inputs
-    for name, policy in (("mlp_bwd.cu", "EncodingIn<E>"),
-                         ("mlpe_bwd.cu", "PtsIn")):
+    # rows 2 and 6 share the chain kernel: one template, two inputs; rows 1
+    # and 5 likewise the forward's
+    for name, launch, policy in (
+            ("mlp_bwd.cu", "launch_single_head_bwd", "EncodingIn<E>"),
+            ("mlpe_bwd.cu", "launch_single_head_bwd", "PtsIn"),
+            ("mlp_fwd.cu", "launch_fwd", "EncodingIn<E>"),
+            ("mlpe_fwd.cu", "launch_fwd", "PtsFwdIn")):
         text = (csrc / name).read_text()
-        assert "launch_single_head_bwd" in text and policy in text
+        assert launch in text and policy in text
         assert "__global__" not in text
 
 

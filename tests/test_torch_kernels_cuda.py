@@ -1046,3 +1046,110 @@ def test_mlpe_bwd_on_the_sm90_chain_at_the_grid_edges(sm90_pts_bwd_reference,
     again = KEB.mlpe_bwd(pts, ref["mw"], draw)
     for a, b in zip([got[0], *got[1]], [again[0], *again[1]]):
         assert torch.equal(a, b)
+
+
+# ---- rows 3 and 5 on the Hopper chain (csrc/mlp_sm90.cuh): the persistent
+# grid's edges (one point, a tile less one, one tile, a tile and one, one
+# tile past a whole wave of CTAs, a render block's fine pass: more tiles
+# than CTAs), every size's rows bit for bit those of the largest launch,
+# which alone is held to the plain version within the limits of
+# `test_mlpv_kernel_matches_plain_on_cuda` and
+# `test_mlpe_kernel_matches_plain_on_cuda`, bit-equal relaunch, the launch
+# counters
+
+SM90_HEADS_FWD_SIZES = [0, 1, 127, 128, 129, 132 * 128 + 1, 1 << 22]
+
+
+@pytest.fixture(scope="module")
+def sm90_views_fwd_reference(request):
+    """The weights, inputs of the largest size and `mlpv_fwd`'s output on
+    them, held once against `mlpv_fwd_plain`."""
+    cache = {}
+
+    def get(device):
+        if not cache:
+            mw = _mlpv_weights(request.getfixturevalue("model_v").coarse, device)
+            n = max(SM90_HEADS_FWD_SIZES)
+            emb = torch.from_numpy(_emb(n, 41)).to(device)
+            embv = torch.from_numpy(_embv(n, 42)).to(device)
+            out = KV.mlpv_fwd(emb, embv, mw)
+            err = (out - KV.mlpv_fwd_plain(emb, embv, mw)).abs()
+            assert err.max().item() <= KV.BF16_TOL_MAX
+            assert err.mean().item() <= KV.BF16_TOL_MEAN
+            cache.update(mw=mw, inputs=(emb, embv), out=out)
+        return cache
+
+    return get
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SM90_HEADS_FWD_SIZES)
+def test_mlpv_fwd_on_the_sm90_chain_at_the_grid_edges(sm90_views_fwd_reference,
+                                                      cuda_device, n):
+    ref = sm90_views_fwd_reference(cuda_device)
+    emb, embv = (x[:n] for x in ref["inputs"])
+    before = KV.mlpv_fwd.launches
+    out = KV.mlpv_fwd(emb, embv, ref["mw"])
+    torch.cuda.synchronize()
+    assert KV.mlpv_fwd.launches == before + (n > 0)
+    assert out.shape == (n, K.OUT_PAD) and bool(torch.isfinite(out).all())
+    assert torch.equal(out, ref["out"][:n])
+    assert torch.equal(out, KV.mlpv_fwd(emb, embv, ref["mw"]))
+
+
+@pytest.fixture(scope="module")
+def sm90_pts_fwd_reference(request):
+    """As `sm90_views_fwd_reference`, for `mlpe_fwd`; the points are a view
+    that starts 4 bytes into its allocation, so no row is 16-byte aligned
+    the way a fresh tensor's is."""
+    cache = {}
+
+    def get(device):
+        if not cache:
+            mw = _mlp_weights(request.getfixturevalue("model").coarse, device)
+            n = max(SM90_HEADS_FWD_SIZES)
+            flat = torch.from_numpy(_bent_pts(n + 1, 43)).to(device).reshape(-1)
+            pts = flat[1:1 + 3 * n].view(n, 3)
+            assert pts.data_ptr() % 16 == 4 and pts.is_contiguous()
+            out = KE.mlpe_fwd(pts, mw)
+            err = (out - KE.mlpe_fwd_plain(pts, mw)).abs()
+            assert err.max().item() <= K.BF16_TOL_MAX
+            assert err.mean().item() <= K.BF16_TOL_MEAN
+            cache.update(mw=mw, pts=pts, out=out)
+        return cache
+
+    return get
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SM90_HEADS_FWD_SIZES)
+def test_mlpe_fwd_on_the_sm90_chain_at_the_grid_edges(sm90_pts_fwd_reference,
+                                                      cuda_device, n):
+    """... and on an unaligned view of the points as on an aligned copy."""
+    ref = sm90_pts_fwd_reference(cuda_device)
+    pts = ref["pts"][:n]
+    before = KE.mlpe_fwd.launches
+    out = KE.mlpe_fwd(pts, ref["mw"])
+    torch.cuda.synchronize()
+    assert KE.mlpe_fwd.launches == before + (n > 0)
+    assert out.shape == (n, K.OUT_PAD) and bool(torch.isfinite(out).all())
+    assert torch.equal(out, ref["out"][:n])
+    assert torch.equal(out, KE.mlpe_fwd(pts, ref["mw"]))
+    assert torch.equal(out, KE.mlpe_fwd(pts.clone(), ref["mw"]))
+
+
+@pytest.mark.cuda
+def test_mlpe_fwd_matches_mlp_fwd_on_its_encoding(model, cuda_device):
+    """Row 5 runs row 1's kernel on another input: on the points it agrees
+    with row 1 on the encoding that `embed_ew` computes in PyTorch and
+    rounds to bf16 (the same arithmetic but for the sines of another
+    library, which flip an occasional bf16 rounding), within `mlp_fwd`'s
+    tolerances."""
+    mw = _mlp_weights(model.coarse, cuda_device)
+    pts = torch.from_numpy(_bent_pts(4096 + 5, 44)).to(cuda_device)
+    emb = KE.embed_ew(pts)[1].to(torch.bfloat16)
+    got = KE.mlpe_fwd(pts, mw)
+    via_emb = K.mlp_fwd(emb, mw)
+    err = (got - via_emb).abs()
+    assert err.max().item() <= K.BF16_TOL_MAX
+    assert err.mean().item() <= K.BF16_TOL_MEAN

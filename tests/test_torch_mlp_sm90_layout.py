@@ -16,9 +16,16 @@ mirroring `ops/kernels/csrc/mlp_sm90.cuh`) on the CPU.
   weight, and a reader of the whole backward from the image in the kernel's
   order (recompute, heads, dhv, dfeat, dembv, the dh chain, the second
   pass) equals `jax.vjp` of `_mlpv_core` in Pallas interpret mode.
-- `mlpe_bwd`'s encoding, written into the swizzled tile by the threads that
-  own its rows, and its fold of demb onto the points in the order the
-  threads sum, against `_embed_ew` and `jax.vjp` of `_mlpe_core`.
+- `mlpv_fwd`'s image, the forward-only part (the first 39 chunks), and a
+  reader of the forward from it in the kernel's order (chain, alpha from
+  nh8, feat, hv over vwf then vwv, rgb), against `_mlpv_fwd_math` and the
+  Pallas kernel in interpret mode.
+- The in-kernel encoding of `mlpe_fwd` and `mlpe_bwd` (one device
+  function), written into the swizzled tile by the threads that own its
+  rows, through the forward's chain from the image, against
+  `_mlpe_pallas_fwd` in interpret mode; and `mlpe_bwd`'s fold of demb onto
+  the points in the order the threads sum, against `_embed_ew` and
+  `jax.vjp` of `_mlpe_core`.
 
 The CUDA kernels that read this image are held against their plain versions
 on the card by `tests/test_torch_kernels_cuda.py`.
@@ -247,7 +254,9 @@ def test_dh_chain_from_image_matches_jax_bwd_math(trees, e):
 
 def test_header_budgets_fit_one_hopper_cta():
     """The stage counts and sizes in the header leave each kernel within a
-    CTA's 232,448 bytes of shared memory at both widths: the forward, the
+    CTA's 232,448 bytes of shared memory at both widths: the forward (row 1;
+    row 5 with two encoding tiles), the view-direction forward (row 3: the
+    activation tile, emb's and embv's k-atoms, the ring, the barriers), the
     backward's chain kernels (rows 2, 4 and 6 share one plan: two tiles,
     the ring, the barriers), two dW CTAs on an SM; the view layer's chunks
     fit a ring stage, and the dW kernel's job list holds row 4's 39 jobs."""
@@ -263,6 +272,14 @@ def test_header_budgets_fit_one_hopper_cta():
         emb_tile = 128 * e * 2
         assert align + act + emb_tile + fwd * chunk + bars <= 232448
         assert emb_tile <= act
+    # rows 3 and 5: two k-atoms beside the activation tile (emb and embv;
+    # the double-buffered encoding), 197,760 B each
+    atom = 128 * 64 * 2
+    two_atoms = align + act + 2 * atom + fwd * chunk + bars
+    assert two_atoms == 197760 <= 232448
+    assert "fwd_smem_bytes<64, 2> <= SMEM_LIMIT" in src
+    # the ring's full and empty barriers and the forward input's four
+    assert 2 * 8 * max(fwd, bwd) + 4 * 8 <= bars
     assert align + 2 * act + bwd * chunk + bars <= 232448
     assert fwd >= 3 and bwd >= 3
     # row 4's encodings (64 + 32 lanes, padded) share the second tile
@@ -274,8 +291,16 @@ def test_header_budgets_fit_one_hopper_cta():
     sizes = S.views_chunk_bytes()
     assert len(sizes) == 78 and max(sizes) == chunk
     assert all(b % 1024 == 0 for b in sizes)
-    with open(os.path.join(os.path.dirname(HEADER), "mlpv_bwd.cu")) as f:
-        assert "static_assert(V_CHUNKS == 78" in f.read()
+    assert "static_assert(V_FWD_CHUNKS == 39 && V_CHUNKS == 78" in src
+    # the kernels that run these plans launch with them
+    csrc = os.path.dirname(HEADER)
+    for name, budget in (("mlpv_fwd.cu", "SMEM_BYTES = fwd_smem_bytes<EMB, 2>;"),
+                         ("mlpe_fwd.cu", "launch_fwd<sm90::EMB>"),
+                         ("mlp_fwd.cu", "launch_fwd<E>")):
+        with open(os.path.join(csrc, name)) as f:
+            assert budget in f.read(), name
+    assert "constexpr size_t smem = fwd_smem_bytes<E, In::FWD_TILES>;" in src
+    assert "static constexpr int FWD_TILES = 2;" in src    # PtsFwdIn
 
 
 # ---- row 4: mlpv_bwd's image and its backward read from it
@@ -458,3 +483,145 @@ def test_mlpe_encoding_tile_and_fold_match_jax(trees, interpret_pallas):
             for g in jgrads[:fq.N_MLP_W]])
     stats = KEB.bwd_agreement((dpts, grads), ref)
     assert stats["ok"], stats
+
+
+# ---- row 3: mlpv_fwd's image (the forward-only part) and its forward
+
+
+def test_views_fwd_image_is_the_first_39_chunks_of_the_views_image():
+    sched = S.views_schedule(("fwd",))
+    assert len(sched) == 39 and len(set(sched)) == 39
+    assert sched == S.views_schedule()[:39]
+    assert S.views_schedule(("bwd",)) == S.views_schedule()[39:]
+    # every chunk of every matrix once, in the forward layout: the chain's 30
+    # in its forward order, then fw (4), vwf (4), vwv (1)
+    shapes = [(64 if m in (0, 5) else 256) for m in range(9)] + [256, 256, 32]
+    assert sorted((m, c) for _, m, c in sched) == sorted(
+        (m, c) for m, r in enumerate(shapes) for c in range(-(-r // 64)))
+    assert all(layout == "fwd" for layout, _, _ in sched)
+    assert sched[:30] == [("fwd", m, c) for m, c in S.fwd_schedule(64)]
+    assert [m for _, m, _ in sched[30:]] == [9] * 4 + [10] * 4 + [11]
+    # the bytes each stage expects: 32 KB, then 16 KB for the view layer
+    assert S.views_chunk_bytes(("fwd",)) == [32768] * 34 + [16384] * 5
+    assert S.views_chunk_bytes(("fwd",)) == S.views_chunk_bytes()[:39]
+    mw = _random_views_weights(5)
+    image = S.pack_views_image(mw, ("fwd",))
+    assert image.dtype == torch.bfloat16
+    assert image.shape == (39 * S.CHUNK_ELEMS,)
+    assert torch.equal(image, S.pack_views_image(mw)[:39 * S.CHUNK_ELEMS])
+    for got, i in zip(S.unpack_views_image(image, ("fwd",)),
+                      S.VIEWS_MATRIX_IDX):
+        assert torch.equal(got, mw[i])
+    with pytest.raises(ValueError, match="image parts"):
+        S.views_schedule(("heads",))
+
+
+@pytest.mark.parametrize("network", ["coarse", "fine"])
+def test_views_fwd_from_image_matches_jax_math_and_pallas(views_tree,
+                                                          interpret_pallas,
+                                                          network):
+    """The forward read from the image chunk by chunk, on 128-point tiles
+    with a ragged last one, against `_mlpv_fwd_math` and `_mlpv_pallas_fwd`
+    in interpret mode, within `mlpv_fwd`'s bf16 tolerances (BF16_TOL_MAX /
+    BF16_TOL_MEAN: an f32 sum in another order flips an occasional bf16
+    rounding)."""
+    jp, tc = _views_weights(views_tree, network)
+    n = 300                       # two whole tiles and a ragged one
+    rng = np.random.RandomState(11)
+    emb = rng.uniform(-1, 1, (n, 64)).astype(np.float32)
+    emb[:, 63] = 0.0
+    embv = rng.uniform(-1, 1, (n, 32)).astype(np.float32)
+    embv[:, 27:] = 0.0
+    embb = torch.from_numpy(emb).to(torch.bfloat16)
+    embvb = torch.from_numpy(embv).to(torch.bfloat16)
+    image = S.pack_views_image(tc, ("fwd",))
+    raw = S.views_fwd_from_image(embb, embvb, image, tc)
+    assert raw.shape == (n, 8) and raw.dtype == torch.float32
+    jc = fq._cast_matmul_weights(jp)
+    ref_math = np.asarray(fq._mlpv_fwd_math(jnp.asarray(emb),
+                                            jnp.asarray(embv), jc))
+    n_blk = -(-n // BLOCK) * BLOCK
+
+    def pad(a):
+        return jnp.asarray(np.pad(a, ((0, n_blk - n), (0, 0)))).astype(
+            jnp.bfloat16)
+
+    ref_pallas = np.asarray(fq._mlpv_pallas_fwd(pad(emb), pad(embv), jc,
+                                                BLOCK))[:n]
+    for ref in (ref_math, ref_pallas):
+        err = np.abs(raw.numpy() - ref)
+        assert err.max() <= KV.BF16_TOL_MAX, err.max()
+        assert err.mean() <= KV.BF16_TOL_MEAN, err.mean()
+    # the heads' lanes: rgb 0:3 and alpha 3 carry signal, the pad lanes none
+    assert raw[:, :4].abs().max() > 0 and not raw[:, 4:].any()
+    # and against the kernel's plain version (the same arithmetic in
+    # another order of the f32 sums)
+    plain = KV.mlpv_fwd_plain(embb, embvb, tc)
+    err = (raw - plain).abs()
+    assert err.max() <= KV.BF16_TOL_MAX and err.mean() <= KV.BF16_TOL_MEAN
+
+
+# ---- row 5: mlpe_fwd's encoding in the tile, through the forward's chain
+
+
+@pytest.mark.parametrize("network", ["coarse", "fine"])
+def test_mlpe_fwd_encoding_tile_through_the_chain_matches_pallas(
+        trees, interpret_pallas, network):
+    """Each tile's encoding as the forward's 96 encoding threads write it
+    (the device function the backward shares; the same tile as the
+    backward's threads write), then row 1's chain from row 1's image and the
+    head, against `_mlpe_pallas_fwd` in interpret mode within `mlp_fwd`'s
+    bf16 tolerances."""
+    jc_full = fq.pack_mlp_pts_weights(trees[64], network)
+    _, tc = _weights(trees, 64, network)
+    n = 300
+    pts = (np.random.RandomState(12).randn(n, 3) * 1.5).astype(np.float32)
+    P, phase = KE._projection_on(torch.device("cpu"))
+    n_pad = -(-n // S.TM) * S.TM
+    pts_t = torch.from_numpy(np.pad(pts, ((0, n_pad - n), (0, 0))))
+    flat = [S.encode_tile(pts_t[k * S.TM:(k + 1) * S.TM], P, phase,
+                          min(S.TM, n - k * S.TM), "encoders")
+            for k in range(n_pad // S.TM)]
+    # the forward's 96 encoders write the same tile as the backward's rows
+    for k, tile in enumerate(flat):
+        assert torch.equal(tile, S.encode_tile(pts_t[k * S.TM:(k + 1) * S.TM],
+                                               P, phase, min(S.TM, n - k * S.TM)))
+    embb = torch.cat([S._unswizzle(f.view(S.TM, 64)) for f in flat])
+    assert not embb[n:].any()          # rows past n are zero
+    image = S.pack_chain_image(tc, ("fwd",))
+    nh = S.chain_from_image(embb[:n], image, [tc[i] for i in _BIASES])
+    raw = K.mm_bf16(nh[-1], tc[17]) + tc[18]
+    n_blk = -(-n // BLOCK) * BLOCK
+    pts_blk = np.zeros((n_blk, fq.PTS_PAD), np.float32)
+    pts_blk[:n, :3] = pts
+    ref = np.asarray(fq._mlpe_pallas_fwd(jnp.asarray(pts_blk),
+                                         fq._cast_mlpe_weights(jc_full),
+                                         BLOCK))[:n]
+    err = np.abs(raw.numpy() - ref)
+    assert err.max() <= K.BF16_TOL_MAX, err.max()
+    assert err.mean() <= K.BF16_TOL_MEAN, err.mean()
+    # the same as the kernel's plain version up to the order of the sums
+    plain = KE.mlpe_fwd_plain(torch.from_numpy(pts), tc)
+    err = (raw - plain).abs()
+    assert err.max() <= K.BF16_TOL_MAX and err.mean() <= K.BF16_TOL_MEAN
+
+
+@pytest.mark.parametrize("writer", ["rows", "encoders"])
+def test_encoding_pieces_cover_the_tile_once(writer):
+    """The pieces of the encoding tile, by writer: every (row, 8-lane piece)
+    once; the forward's 96 encoders take 11 or 10 pieces each, the
+    backward's 256 consumer threads 4 of their own warpgroup's rows."""
+    pieces = S.encoding_pieces(writer)
+    flat = pieces.reshape(-1, 2)
+    flat = flat[flat[:, 0] >= 0]
+    assert sorted(map(tuple, flat)) == [(r, c) for r in range(S.TM)
+                                        for c in range(0, 64, 8)]
+    if writer == "encoders":
+        assert pieces.shape[:2] == (S.ENCODERS, 11)
+        counts = (pieces[:, :, 0] >= 0).sum(1)
+        assert set(counts.tolist()) == {10, 11}
+    else:
+        assert pieces.shape[:2] == (256, 4)
+        assert all((pieces[t, :, 0] // 64 == t // 128).all() for t in range(256))
+    with pytest.raises(ValueError, match="writer"):
+        S.encoding_pieces("warps")
