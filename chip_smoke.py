@@ -78,13 +78,14 @@ result line is printed):
    and the gradients against the f32 modules'; and `fused_fwd` against what
    the engine spends on the same function (the f32 bender, then
    `mlpe_fwd`).
-6. Print rows 1-6 (`mlp_fwd`, `mlp_bwd`, `mlpv_fwd`, `mlpv_bwd`, `mlpe_fwd`,
-   `mlpe_bwd`: csrc/mlp_sm90.cuh's chains on wgmma) at every size and width,
-   each with its device time and share of the bound (a backward also with
-   its two-pass floor and its device time by kernel: chain, dW, head sums,
-   reduction), with rows 9 and 11 (`fused_fwd`, `mlp_i8`: csrc/mlp_tile.cuh's
-   design) from the same call as a control for the card's drift; the
-   kernels JSON line (eleven rows;
+6. Print rows 1-6 and 11 (`mlp_fwd`, `mlp_bwd`, `mlpv_fwd`, `mlpv_bwd`,
+   `mlpe_fwd`, `mlpe_bwd`, `mlp_i8`: csrc/mlp_sm90.cuh's chains on wgmma) at
+   every size and width, each with its device time and share of the bound (a
+   backward also with its two-pass floor and its device time by kernel:
+   chain, dW, head sums, reduction; row 11 with the registers, spills and
+   wgmma serialization ptxas reported in phase 1), with row 9 (`fused_fwd`:
+   csrc/mlp_tile.cuh's design) from the same call as a control for the
+   card's drift; the kernels JSON line (eleven rows;
    `mlp_fwd` and `mlp_bwd` carry B's 128-lane checks, timings and launches
    under "lanes_128", and their share of the bound) and, last, the result
    line
@@ -96,6 +97,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1010,6 +1012,27 @@ def int_mm_chain(emb, qw):
     return h.to(torch.bfloat16).float() @ owb.float() + ob
 
 
+def ptxas_report(source: str, kernel: str) -> str:
+    """What ptxas said in phase 1's build of `source` of the entry function
+    whose name holds `kernel`: registers, stack and spill bytes, and whether
+    it serialized the function's wgmma (C7510-C7512)."""
+    from nonrigid_nerf_torch.ops.kernels import build
+    lines = build.BUILD_INFO[source]["log"].splitlines()
+    serialized = any("C751" in l and kernel in l for l in lines)
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            props = " ".join(lines[i + 1:i + 4])
+            regs = re.search(r"Used (\d+) registers", props)
+            spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", props)
+            if regs and spill:
+                return (f"ptxas: {regs.group(1)} registers, {spill.group(1)} B "
+                        f"stack, {spill.group(2)} B spill stores, "
+                        f"{spill.group(3)} B spill loads, wgmma "
+                        f"{'serialized' if serialized else 'not serialized'}")
+    return "ptxas: not reported (the library was built before this run)"
+
+
 def check_i8(fam_plain, model, n_points, device, network="coarse"):
     """`mlp_i8` against its plain version at n_points, with timings. The
     encodings are the first family's; the scales are calibrated on the first
@@ -1148,6 +1171,7 @@ def int8_row(sizes, checks, render_launches):
             "bound_ms": coarse_k["bound_ms"], "bound_by": coarse_k["bound_by"],
             "library_ms": None, "points": sizes[0],
             "int_mm_chain_ms": coarse_k["int_mm_chain_ms"],
+            "ptxas": ptxas_report("mlp_i8.cu", "mlp_i8_kernel"),
             "fine_pass": {"points": sizes[1], **fine_k}}
 
 
@@ -1737,7 +1761,7 @@ def main() -> int:
         f"{smi}")
     if len(rows) != 11:
         raise AssertionError(f"{len(rows)} kernel rows, 11 kernels")
-    # rows 1-6 (csrc/mlp_sm90.cuh's chains) beside rows 9 and 11, which run
+    # rows 1-6 and 11 (csrc/mlp_sm90.cuh's chains) beside row 9, which runs
     # mlp_tile.cuh's design in the same call: a control for the card's
     # drift. Every size's line has the time, the device time and the share
     # of the bound; a backward's adds its two-pass floor at each size and its
@@ -1771,8 +1795,10 @@ def main() -> int:
                 split += " (128 lanes: " + ", ".join(
                     f"{k} {v:.4f}" for k, v in
                     r["lanes_128"]["split_ms_per_launch"].items()) + ")"
-        what_line = ("drift control (mlp_tile.cuh)"
-                     if name in ("fused_fwd", "mlp_i8") else "design check")
+        what_line = ("drift control (mlp_tile.cuh)" if name == "fused_fwd"
+                     else "design check")
+        if name == "mlp_i8":
+            split = "; " + ptxas_report("mlp_i8.cu", "mlp_i8_kernel")
         log(f"{what_line}, {name}: " + "; ".join(
             f"{what}{p['points']} pts {p['ms']:.4f} ms (device "
             f"{p['device_ms']:.4f} ms), bound {p['bound_ms']:.4f} ms, "

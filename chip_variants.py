@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Time variants of rows 1-3 and 5's CUDA sources on one NVIDIA GPU.
+"""Time variants of rows 1-3, 5 and 11's CUDA sources on one NVIDIA GPU.
 
     python3 chip_variants.py                  # every variant below
     python3 chip_variants.py base no_epilogue_stores
     python3 chip_variants.py --steps OTHER    # training steps, two trees
+    python3 chip_variants.py --steps OTHER I  # int8 frames and mlp_i8, two trees
 
 A variant is a list of text substitutions applied to a copy of
 `nonrigid_nerf_torch/ops/kernels/csrc/` (the sources in this checkout stay
-as they are). Each copy's `mlp_fwd.cu`, `mlp_bwd.cu`, `mlpv_fwd.cu` and
-`mlpe_fwd.cu` are built with the port's nvcc flags, one nvcc per source and
-all started together, into a temporary directory. Then, one child process
-per variant (so that a variant that hangs is cut off after
-`CHILD_TIMEOUT_S` without taking the others with it), the script:
+as they are). Each copy's `mlp_fwd.cu`, `mlp_bwd.cu`, `mlpv_fwd.cu`,
+`mlpe_fwd.cu` and `mlp_i8.cu` (a variant of row 11: that one alone) are
+built with the port's nvcc flags, one nvcc per source and all started
+together, into a temporary directory. Then, one child process per variant
+(so that a variant that hangs is cut off after `CHILD_TIMEOUT_S` without
+taking the others with it), the script:
 
+- times `mlp_i8` at a render block's two passes (2^21 and 2^22 points), and
+  for a variant of row 11 nothing else;
 - times `mlp_fwd` at a render block's coarse pass (2^21 points) and a
   training step's (65,536) and `mlp_bwd` at a training step's two passes
   (65,536 and 131,072), at the 64-lane and the 128-lane encoding, and
@@ -31,11 +35,15 @@ With `--steps OTHER`, where OTHER is another checkout of the repository
 frames and training steps instead: in turns OTHER, this checkout, this
 checkout, OTHER, one child process each (each builds its own tree's
 kernels), for the flagship with view directions (V) and in
-`fused_kernel="pts"` mode (P) it renders `chip_smoke.py`'s two 384 x 512
-frames through `render_path` (s per frame, host clock, each ending in a
-copy to the host), trains on its synthetic stack for 30 steps, times 50
-more (steps/s, host clock), and profiles 5 (`chip_smoke.profile_run` of
-that tree: device ms a step, the card's idle share, the top kernels).
+`fused_kernel="pts"` mode (P), or the modes named after OTHER, it renders
+`chip_smoke.py`'s two 384 x 512 frames through `render_path` (s per frame,
+host clock, each ending in a copy to the host), trains on its synthetic
+stack for 30 steps, times 50 more (steps/s, host clock), and profiles 5
+(`chip_smoke.profile_run` of that tree: device ms a step, the card's idle
+share, the top kernels). In `fused_kernel="int8"` mode (I), which does not
+train, it calibrates on the first pose as `chip_smoke.py` does, renders the
+frames and times the tree's `mlp_i8` at 2^21 and 2^22 points (CUDA events,
+10 calls) on the coarse network's packed weights.
 """
 
 import ctypes
@@ -50,11 +58,14 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(ROOT, "nonrigid_nerf_torch", "ops", "kernels", "csrc")
-SOURCES = ("mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpe_fwd.cu")
+SOURCES = ("mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpe_fwd.cu",
+           "mlp_i8.cu")
 CHILD_TIMEOUT_S = 150
 # variants that change rows 3 and 5 only: the child times rows 3 and 5 and,
 # as the yardstick, row 1 at 64 lanes
 HEADS_ONLY = ("pts_encode_on_consumers", "pts_no_sines", "pts_no_encoding")
+# variants that change row 11 only: the child times row 11 alone
+I8_ONLY = ("i8_2_stages", "i8_quantize_on_consumers", "i8_head_on_cuda_cores")
 
 # name -> [(file, text, replacement)]
 VARIANTS = {
@@ -64,7 +75,7 @@ VARIANTS = {
     "no_weight_copies": [(
         "mlp_sm90.cuh",
         "      mbar_expect_tx(bars + 8 * s, nb);\n"
-        "      bulk_load(ring + s * CHUNK_BYTES, image + size_t(c) * CHUNK_ELEMS, nb, bars + 8 * s);",
+        "      bulk_load(ring + s * CHUNK_BYTES, chunks + size_t(c) * CHUNK_BYTES, nb, bars + 8 * s);",
         "      mbar_arrive(bars + 8 * s);")],
     # the layer epilogue computes but does not store its bf16 tile
     "no_epilogue_stores": [(
@@ -159,6 +170,33 @@ VARIANTS = {
         "mlp_sm90.cuh",
         "        encode_piece(embt, x, row < n, P, phase, r, (q % (EMB / 8)) * 8);\n",
         "")],
+    # row 11: a 2-stage ring (the source: 3)
+    "i8_2_stages": [(
+        "mlp_i8.cu", "constexpr int I8_STAGES = 3;", "constexpr int I8_STAGES = 2;")],
+    # row 11: each consumer warpgroup quantizes its 64 rows of the tile's
+    # encoding itself when the tile starts (the source: the producer
+    # warpgroup's three idle warps, a tile ahead); the encoders keep the
+    # handshake and write nothing
+    "i8_quantize_on_consumers": [
+        ("mlp_i8.cu",
+         "      quantize_piece(embt, emb, long(tile) * TM, n, m, q / 4, (q % 4) * 16);\n",
+         ""),
+        ("mlp_i8.cu",
+         "      fence_proxy_async();\n"
+         "      wg_barrier(wg);   // ... and the last tile's head is done\n",
+         "      for (int q = t; q < EMB_PIECES / CONSUMERS; q += 128) {\n"
+         "        quantize_piece(emb0 + uint32_t(i % 2) * I8_EMB_BYTES, emb, row0, n,\n"
+         "                       __ldg(p.qm), wg * WG_ROWS + q / 4, (q % 4) * 16);\n"
+         "      }\n"
+         "      fence_proxy_async();\n"
+         "      wg_barrier(wg);   // ... and the last tile's head is done\n")],
+    # row 11: the 8-lane head as rows 1 and 5 take it, a per-thread f32 dot
+    # product on the CUDA cores from the bf16 h8 tile (the source: 16
+    # m64n8k16 on the tensor cores)
+    "i8_head_on_cuda_cores": [(
+        "mlp_i8.cu",
+        "      i8_head(act_s + rows, smem_u32(owt), p.ob, out, row0, n, wg, t);\n",
+        "      raw_head(act, p.ow, p.ob, out, row0, n, wg, t);\n")],
 }
 
 
@@ -184,7 +222,7 @@ def build(names, out_dir):
                 raise AssertionError(f"variant {name}: {f} has no {text[:60]!r}")
             with open(path, "w") as fh:
                 fh.write(src.replace(text, repl))
-        for s in SOURCES:
+        for s in (("mlp_i8.cu",) if name in I8_ONLY else SOURCES):
             procs[(name, s)] = subprocess.Popen(
                 [nvcc, *B.NVCC_FLAGS, "-o", os.path.join(d, s + ".so"),
                  os.path.join(d, s)],
@@ -202,9 +240,6 @@ def build(names, out_dir):
 def run_variant(name, out_dir):
     """The child: time and check one built variant."""
     sys.path.insert(0, ROOT)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from nonrigid_nerf_torch.config import ModelConfig
     from nonrigid_nerf_torch.models.model import NRNeRF
     from nonrigid_nerf_torch.ops.kernels import mlp_bwd as KB
@@ -216,6 +251,9 @@ def run_variant(name, out_dir):
 
     dev = torch.device("cuda")
     ptrs = ctypes.POINTER(ctypes.c_void_p)
+    time_i8(name, out_dir, dev)
+    if name in I8_ONLY:
+        return
     fwd = ctypes.CDLL(os.path.join(out_dir, name, "mlp_fwd.cu.so"))
     fwd.nrnerf_mlp_fwd.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_void_p, ptrs, ptrs,
@@ -263,22 +301,6 @@ def run_variant(name, out_dir):
             raise RuntimeError("mlp_bwd launch failed")
         return demb, KB.split_grads(grads, shapes)
 
-    def device_ms_by_kernel(fn, reps=5):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        out = {}
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
-                continue
-            m = re.search(r"(mlp\w*kernel)", e.key)
-            key = m.group(1) if m else "other"
-            out[key] = out.get(key, 0.0) + e.self_device_time_total / reps / 1e3
-        return out
-
     def run_vfwd(emb, embv, mw, image):
         out = torch.empty((emb.shape[0], 8), dtype=torch.float32, device=dev)
         mats, biases = K.weight_pointers(mw, KV._MATRIX_IDX, KV._BIAS_IDX)
@@ -300,7 +322,7 @@ def run_variant(name, out_dir):
 
     def report(what, n, fn, kernel, err, tol):
         for rep in (1, 2):
-            t = device_ms_by_kernel(fn)
+            t = device_ms_of(fn)
             print(f"{name} {what} n={n} rep {rep}: {t.get(kernel, 0.0):.4f} ms; "
                   f"max abs err {err:.2e} (tol {tol:.0e}); {smi()}", flush=True)
 
@@ -356,7 +378,7 @@ def run_variant(name, out_dir):
                    - 1).to(torch.bfloat16)
             err = (run_fwd(emb, mw, image_f) - K.mlp_fwd_plain(emb, mw)).abs()
             for rep in (1, 2):
-                t = device_ms_by_kernel(lambda: run_fwd(emb, mw, image_f))
+                t = device_ms_of(lambda: run_fwd(emb, mw, image_f))
                 print(f"{name} mlp_fwd {width} lanes n={n} rep {rep}: "
                       f"{t.get('mlp_fwd_kernel', 0.0):.4f} ms; max abs err "
                       f"{err.max().item():.2e} (tol {K.BF16_TOL_MAX:.0e}); "
@@ -370,7 +392,7 @@ def run_variant(name, out_dir):
             stats = KB.bwd_agreement(run_bwd(embb, mw, draw, image_b),
                                      KB.mlp_bwd_plain(embb, mw, draw))
             for rep in (1, 2):
-                t = device_ms_by_kernel(lambda: run_bwd(embb, mw, draw, image_b))
+                t = device_ms_of(lambda: run_bwd(embb, mw, draw, image_b))
                 print(f"{name} mlp_bwd {width} lanes n={n} rep {rep}: "
                       f"{sum(t.values()):.4f} ms in all: " + ", ".join(
                           f"{k} {v:.4f}" for k, v in sorted(t.items()))
@@ -378,11 +400,78 @@ def run_variant(name, out_dir):
                       f"{smi()}", flush=True)
 
 
+def device_ms_of(fn, reps=5):
+    """Device ms a call of fn by kernel (`mlp*kernel` names), torch.profiler
+    over `reps` calls after one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        m = re.search(r"(mlp\w*kernel)", e.key)
+        key = m.group(1) if m else "other"
+        out[key] = out.get(key, 0.0) + e.self_device_time_total / reps / 1e3
+    return out
+
+
+def time_i8(name, out_dir, dev):
+    """Row 11 (`mlp_i8`) of a built variant at a render block's two passes
+    (2^21 and 2^22 points) on the flagship's coarse parameters, calibrated
+    on 65,536 encodings from a seed; device ms twice, and the largest
+    difference to `mlp_i8_plain`."""
+    from nonrigid_nerf_torch.config import ModelConfig
+    from nonrigid_nerf_torch.models.model import NRNeRF
+    from nonrigid_nerf_torch.ops.kernels import quant_mlp as KQ
+    from nonrigid_nerf_torch.ops.kernels.mlp_sm90 import (pack_i8_epilogue,
+                                                          pack_i8_image)
+    lib = ctypes.CDLL(os.path.join(out_dir, name, "mlp_i8.cu.so"))
+    lib.nrnerf_mlp_i8.argtypes = [ctypes.c_void_p, ctypes.c_int] + [
+        ctypes.c_void_p] * 7
+    model = NRNeRF(ModelConfig(), num_timesteps=1, device="cpu",
+                   generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    emb = torch.rand(1 << 22, 64, device=dev, generator=gen) * 2 - 1
+    emb[:, 63] = 0
+    emb = emb.to(torch.bfloat16)
+    scales = KQ.calibrate_act_scales(model.coarse, emb[:65536].float().cpu())
+    qw = tuple(w.to(dev) for w in KQ.pack_int8_mlp_weights(model.coarse, scales))
+    image = pack_i8_image([qw[i] for i in KQ._I8_MATRIX_IDX])
+    epi = pack_i8_epilogue([qw[i] for i in KQ._I8_DEQ_IDX],
+                           [qw[i] for i in KQ._I8_BIAS_IDX])
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(e):
+        out = torch.empty((e.shape[0], 8), dtype=torch.float32, device=dev)
+        if lib.nrnerf_mlp_i8(e.data_ptr(), e.shape[0], image.data_ptr(),
+                             epi.data_ptr(), qw[KQ._I8_OW].data_ptr(),
+                             qw[KQ._I8_OB].data_ptr(), qw[KQ._I8_QM].data_ptr(),
+                             out.data_ptr(), stream):
+            raise RuntimeError("mlp_i8 launch failed")
+        return out
+
+    for n in (1 << 21, 1 << 22):
+        e = emb[:n]
+        err = (run(e) - KQ.mlp_i8_plain(e, qw)).abs().max().item()
+        for rep in (1, 2):
+            t = device_ms_of(lambda: run(e))
+            print(f"{name} mlp_i8 n={n} rep {rep}: "
+                  f"{t.get('mlp_i8_kernel', 0.0):.4f} ms; max abs err "
+                  f"{err:.2e} (tol {KQ.I8_TOL_MAX:.0e}); {smi()}", flush=True)
+
+
 STEP_WARMUP, STEP_TIMED = 30, 50
 
 
-def run_steps(root):
-    """V's and P's training steps of the tree at `root` (see the top)."""
+def run_steps(root, modes):
+    """The frames and training steps of the tree at `root` (see the top) in
+    `modes` (V, P; I renders only, and times the tree's `mlp_i8`)."""
     import dataclasses
     import time
     os.chdir(root)
@@ -404,14 +493,26 @@ def run_steps(root):
     ds = cs.synthetic_dataset(device)
     tc = train_config_from_args(args)
     rs = render_settings_from_args(args, ds.near, ds.far)
-    for what, cfg_x in (("V", dataclasses.replace(cfg, use_viewdirs=True)),
-                        ("P", dataclasses.replace(cfg, fused_kernel="pts"))):
+    configs = {"V": dataclasses.replace(cfg, use_viewdirs=True),
+               "P": dataclasses.replace(cfg, fused_kernel="pts"),
+               "I": dataclasses.replace(cfg, fused_kernel="int8")}
+    for what in modes:
+        cfg_x = configs[what]
         # frames first: chip_smoke.py's two poses through render_path, after
         # a warm-up frame at 1/8 of the size
-        model = cs.flagship_model(cfg_x, device)
+        model = cs.flagship_model(cfg if what == "I" else cfg_x, device)
         poses, intrinsics = cs.synthetic_poses()
         rs_frames = render_settings_from_args(args, near=0.1, far=1.6)
         latents = model.latents.detach().cpu().numpy()
+        if what == "I":     # calibrated on the first pose, as chip_smoke.py does
+            from nonrigid_nerf_torch.ops.kernels import quant_mlp as KQ
+            from nonrigid_nerf_torch.ops.rays import get_rays
+            rays_o, rays_d = get_rays(torch.as_tensor(poses[0], device=device),
+                                      intrinsics[0])
+            model = KQ.quantize_for_inference(
+                model, cfg, rays_o, rays_d,
+                model.latents[:1].detach().expand(cs.H * cs.W, -1),
+                rs_frames.near, rs_frames.far)
         with torch.no_grad():
             render_path(model, cfg_x, rs_frames, poses[:1], intrinsics[:1],
                         latents[:1], chunk=cs.CHUNK, render_factor=8,
@@ -421,6 +522,15 @@ def run_steps(root):
                                          intrinsics, latents, device, what)
         print(f"frames {root} {what}: " + ", ".join(f"{t:.4f}" for t in frame_s)
               + f" s; mean {sum(frame_s) / len(frame_s):.4f} s", flush=True)
+        if what == "I":     # rendering only: the tree's kernel, then no steps
+            qw = model.quant["coarse"].packed
+            gen = torch.Generator(device=device).manual_seed(11)
+            emb = (torch.rand(1 << 22, 64, device=device, generator=gen) * 2
+                   - 1).to(torch.bfloat16)
+            for n in (1 << 21, 1 << 22):
+                ms = cs.cuda_time_ms(lambda: KQ.mlp_i8(emb[:n], qw), 10)
+                print(f"frames {root} I: mlp_i8 n={n} {ms:.4f} ms", flush=True)
+            continue
         del model
         state = create_train_state(cfg_x, tc, cs.TRAIN_FRAMES, device=device)
         step_fn = make_train_step(cfg_x, tc, rs, has_test_split=True)
@@ -445,12 +555,12 @@ def run_steps(root):
               f"step: {top}", flush=True)
 
 
-def compare_steps(other) -> int:
+def compare_steps(other, modes) -> int:
     print(smi(), flush=True)
     failed = False
     for root in (other, ROOT, ROOT, other):
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--steps-child", os.path.abspath(root)],
+                            "--steps-child", os.path.abspath(root), *modes],
                            capture_output=True, text=True, timeout=600)
         print("".join(line + "\n" for line in r.stdout.splitlines()
                       if line.startswith(("steps ", "frames "))), end="",
@@ -469,11 +579,16 @@ def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--child":
         run_variant(sys.argv[2], sys.argv[3])
         return 0
-    if len(sys.argv) == 3 and sys.argv[1] == "--steps-child":
-        run_steps(sys.argv[2])
+    if len(sys.argv) >= 3 and sys.argv[1] == "--steps-child":
+        run_steps(sys.argv[2], sys.argv[3:])
         return 0
-    if len(sys.argv) == 3 and sys.argv[1] == "--steps":
-        return compare_steps(sys.argv[2])
+    if len(sys.argv) >= 3 and sys.argv[1] == "--steps":
+        modes = sys.argv[3:] or ["V", "P"]
+        if any(m not in ("V", "P", "I") for m in modes):
+            print(f"chip_variants: modes are V, P and I, got {modes}",
+                  file=sys.stderr)
+            return 2
+        return compare_steps(sys.argv[2], modes)
     names = sys.argv[1:] or list(VARIANTS)
     unknown = [n for n in names if n not in VARIANTS]
     if unknown:

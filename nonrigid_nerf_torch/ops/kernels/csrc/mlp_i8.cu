@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas TPU kernel `mlp_i8_core` / `_i8_fwd_kernel`
 // (nonrigid_nerf_tpu/ops/pallas/quant_mlp.py:238-257), whose math is
-// `_i8_fwd_math` (quant_mlp.py:198-235):
+// `_i8_fwd_math` (quant_mlp.py:212-235):
 //
 //   qemb = int8(round(clip(emb * qm[0], -127, 127)))          (symmetric)
 //   h1   = relu(f32(qemb @ qw0) * d0 + b0)
@@ -13,343 +13,536 @@
 //   raw  = bf16(h8) @ owb + ob                                (f32, 8 lanes)
 //
 // int8 x int8 products accumulate in int32 (exact: at most 256 * 127 * 127 <
-// 2^24, so the conversion to f32 is exact too). d_l are per-output-channel
+// 2^22, so the conversion to f32 is exact too). d_l are per-output-channel
 // dequantization rows with the previous layer's activation step folded in,
 // b_l the biases with the zero-point correction folded in, qm the nine
-// quantization multipliers. The rounding is to nearest even (rintf), after
-// the clip, before the shift by 127.
+// quantization multipliers. The rounding is to nearest even, after the clip,
+// before the shift by 127.
 //
-// The epilogue multiplies and adds with __fmul_rn / __fadd_rn, never a fused
-// multiply-add, in the order of the formula above: every layer up to h8 is
-// then bit-equal to the plain PyTorch version, and only the order of the f32
-// sums of the bf16 head differs.
+// Contract: the epilogues multiply and add with __fmul_rn / __fadd_rn, never
+// a fused multiply-add, in the order of the formula above, so every layer up
+// to h8 is bit-equal to the plain PyTorch version (ops/kernels/quant_mlp.py:
+// mlp_i8_plain); only the order of the f32 sums of the bf16 head differs.
 //
-// What bounds it: 493,568 MACs per point = 0.987 MOP, 160 bytes of HBM
-// traffic per point (128 B of bf16 encoding in, 32 B of raw out): the tensor
-// cores bound it, at the card's int8 rate.
+// What bounds it: 493,568 MACs per point = 0.987 MOP, against 160 bytes of
+// HBM traffic per point (128 B of bf16 encoding in, 32 B of raw out): the
+// tensor cores at the card's int8 rate, 1,979 TOP/s.
 //
-// Design (simple and correct first):
-// - one CTA of 8 warps owns 128 points for all layers; each warp owns a
-//   64 x 64 block of a layer's 128 x 256 output as 4 x 8 tiles of 16 x 8
-//   int32 accumulators. The products are `mma.sync.m16n8k32` on s8 operands,
-//   written as PTX: the 32-deep instruction is the one that runs at the int8
-//   rate (nvcuda::wmma offers int8 only 16 deep, at the bf16 instruction
-//   rate);
-// - the int8 activation tile (128 x 256, 32 KB) and the int8 encoding tile
-//   (128 x 64, kept for layer 0 and for the skip) stay in shared memory. Both
-//   are stored in blocks of 16 k-values, [k / 16][row][16], and so is a weight
-//   chunk, [k / 16][output column][16]: a thread's four consecutive k-values
-//   of either operand are one aligned 32-bit word, which is how the
-//   instruction takes them, and the 8 rows (or columns) that a warp reads at
-//   once are 128 contiguous bytes, so no bank is hit twice;
-// - for that the weights come TRANSPOSED, (out, in) with the k-values of an
-//   output column contiguous (the wrapper transposes the packed (in, out)
-//   matrices; cp.async moves 16-byte pieces and cannot). They are 0.49 MB in
-//   all, L2-resident, and stream through mlp_tile.cuh's cp.async ring in
-//   chunks of 64 k-values (16 KB), one schedule of 30 chunks across all
-//   layers;
-// - a layer's epilogue works on the accumulators where they are (a thread
-//   holds two neighbouring columns of two rows of each tile): it dequantizes,
-//   adds the bias, applies ReLU, requantizes and overwrites the activation
-//   tile in place, two int8 values per store (after a barrier: the
-//   accumulators live in registers);
-// - layer 5 sums two integer products with different dequantization rows, so
-//   they cannot be added as integers, and a second set of accumulators does
-//   not fit the registers. The 64-deep product of the skip is one chunk, the
-//   last of layer 5's schedule: it is not accumulated in the main loop but
-//   stays in its stage through the epilogue, where each 16 x 8 tile of it is
-//   formed (2 instructions) right before that tile is dequantized;
-// - h8 is written as a bf16 tile and the 8-lane head is mlp_tile.cuh's
-//   per-thread dot product;
-// - rows past n are zero-filled on load and masked on store. No atomics.
+// Design: row 1's skeleton (mlp_sm90.cuh): persistent CTAs on a static tile
+// schedule, two consumer warpgroups of 64 rows each for the whole chain, a
+// producer warpgroup whose first thread streams a pre-packed weight image
+// through the mbarrier ring, setmaxnreg 232 / 40. What is int8's own:
+// - products: wgmma m64n256k32 s8 x s8 -> s32, both operands K-major in the
+//   128-byte swizzle, whose rows hold 128 k-values at this width: a weight
+//   chunk is 128 k-values of all 256 columns, 32 KB, one ring stage. The
+//   image (ops/kernels/mlp_sm90.py:pack_i8_image, 17 chunks) holds element
+//   (n, k) of a chunk as W[k0 + k, n], so no weight is transposed per launch;
+//   one `int acc[128]` a thread serves every product;
+// - the two consumer warpgroups take turns at the tensor cores (a named
+//   barrier pair), so one's epilogue runs under the other's products;
+// - shared memory (220,288 B): two int8 activation tiles (32 KB each, half
+//   of bf16's), two encoding tiles, a 3-stage ring (2 stages run as fast,
+//   chip_variants.py; 4 leave no room for the next two), ow^T for the head
+//   and the epilogues' parameters;
+// - the 64-lane encoding is quantized (symmetric, qm[0]) by the producer
+//   warpgroup's three idle warps into two int8 encoding tiles taken in turn,
+//   as row 5 encodes its points (PtsFwdIn): ALU work on the consumers stays on
+//   the chain's critical path (quantized by the consumers when their tile
+//   starts, the kernel runs 1.16x as long: chip_variants.py). A tile is one
+//   128-lane atom of which the products read the first 64 lanes (two k-steps):
+//   no zero padding is multiplied, and the 128-byte swizzle serves every
+//   operand. qw0's chunk and qw5e's likewise hold 64 k-values in 128-byte
+//   rows;
+// - layer 5's two integer products have different dequantization rows, so
+//   they cannot share an s32 sum, and a second m64n256 accumulator does not
+//   fit the registers: the layer runs in two halves of 128 output columns.
+//   In each, e = qemb @ qw5e[:, half] on m64n128k32 into acc[0..63], kept as
+//   the f32 bits of f32(e) d5e in acc[64..127]; then a = q5 @ qw5h[:, half]
+//   into acc[0..63]; the epilogue adds in the plain version's order,
+//   ((f32(a) d5h) + (f32(e) d5e)) + b5. (Products into acc[64..127] made
+//   ptxas serialize every wgmma of the kernel, C7511.) The first half's q6
+//   must not overwrite q5, which the second half still reads, so q1 .. q5
+//   live in tile 0 and q6, q7 in tile 1. Layer 5's chunks are qw5e's half
+//   (16 KB copied) and qw5h's half (two k-atoms, 32 KB), twice;
+// - the requantizing epilogue works from the accumulator layout, about eight
+//   instructions an element: the int-to-float conversion (exact below 2^24),
+//   dequantization, bias, ReLU, * qm, the rounding by adding 1.5 * 2^23
+//   (ties to even, as rintf), one DPX instruction for the shift by 127 and
+//   the clip at 254, and the low bytes of a thread's two neighbouring columns
+//   packed into one 16-bit store into the next layer's swizzled A tile. (A
+//   lane exchange to 32-bit stores would put rows r and r + 8 of a warp on
+//   the same banks: no fewer wavefronts.) The epilogue's d and b are one
+//   float4 per column pair (pack_i8_epilogue), copied into shared memory
+//   when the CTA starts: one LDS a column pair, its offset an immediate,
+//   issued two column groups ahead (at the point of use, the LDS latency
+//   stalled every group);
+// - the 8-lane head on the tensor cores: h8 as a bf16 tile laid over the two
+//   int8 tiles (both are free by then), 16 m64n8k16 against ow^T, which the
+//   CTA lays out in shared memory when it starts. Its f32 sums run in the
+//   tensor cores' order, within I8_TOL_MAX of the plain version's; with
+//   the per-thread dot product of rows 1 and 5 (raw_head) the kernel runs
+//   1.29x as long (chip_variants.py);
+// - rows past n are zero-filled by the encoders and not stored. No atomics:
+//   the result is deterministic.
 //
 // Plain C interface, bound with ctypes (see ../quant_mlp.py).
 
-#include "mlp_tile.cuh"
+#include "mlp_sm90.cuh"
 
+namespace sm90 {
 namespace {
 
-using i8 = signed char;
+constexpr int I8_STAGES = 3;
+constexpr int I8_K = 128;                                   // k-values of a swizzle row
+constexpr uint32_t I8_TILE_BYTES = (NW / I8_K) * TILE_ATOM_BYTES;   // 128 x 256 int8
+constexpr uint32_t I8_EMB_BYTES = TILE_ATOM_BYTES;          // 128 rows x 64 (of 128) lanes
+constexpr uint32_t I8_HALF_BYTES = (NW / 2) * ATOM_ROW_BYTES;  // qw5e's half: 128 columns
+constexpr int I8_CHUNKS = 17;      // qw0; qw1..qw4 x 2; (qw5e, qw5h) halves; qw6, qw7 x 2
+constexpr int I8_SKIP = 9;        // layer 5's first chunk: after qw0's 1, qw1..qw4's 8
+constexpr int ENCODERS = 96;       // the producer warpgroup's three idle warps
+constexpr int EMB_PIECES = TM * EMB / 16;   // 16-lane pieces of an encoding tile
+constexpr float MAGIC = 12582912.0f;        // 1.5 * 2^23
+constexpr uint32_t OWT_BYTES = (NW / 64) * 8 * ATOM_ROW_BYTES;   // ow^T: 4 k-atoms of 8 rows
+constexpr int EPI_ROWS = N_LAYERS + 1;                     // d, b of layers 0 .. 7; d5e
+constexpr uint32_t EPI_ROW_BYTES = (NW / 2) * 16;          // a float4 per column pair
+constexpr size_t I8_SMEM_BYTES = SMEM_ALIGN + 2 * I8_TILE_BYTES + 2 * I8_EMB_BYTES +
+                                 I8_STAGES * CHUNK_BYTES + OWT_BYTES +
+                                 EPI_ROWS * EPI_ROW_BYTES + BAR_BYTES;
+static_assert(I8_SMEM_BYTES <= SMEM_LIMIT, "row 11 fits one Hopper CTA");
+static_assert(2 * I8_TILE_BYTES == ACT_BYTES, "h8's bf16 tile covers the two int8 tiles");
+static_assert(2 * 8 * I8_STAGES + 4 * 8 <= BAR_BYTES, "the ring's barriers and the encoders'");
+static_assert(I8_HALF_BYTES % 1024 == 0 && 2 * I8_HALF_BYTES == CHUNK_BYTES,
+              "a half of layer 5's columns in 128-byte rows");
 
-constexpr int BLK = 16;                     // bytes of one blocked row
-constexpr int N_MATS = 9;                   // n0w n1w..n4w n5e n5h n6w n7w
-constexpr int SKIP_LAYER = 5;
-constexpr int G_SKIP = 1 + 4 * 4 + 4;       // the skip's chunk in the schedule
-constexpr int MT = 4;                       // 16-row tiles of a warp's block
-constexpr int NT = 8;                       // 8-column tiles of a warp's block
-constexpr size_t Q_BYTES = size_t(TM) * NW;          // int8 activations
-constexpr size_t QEMB_BYTES = size_t(TM) * EMB;      // int8 encoding
-constexpr size_t QSTAGE_BYTES = size_t(KC) * NW;     // one int8 weight chunk
-constexpr size_t SMEM_BYTES = ACT_BYTES + Q_BYTES + QEMB_BYTES + 2 * QSTAGE_BYTES;
-static_assert(SMEM_BYTES <= SMEM_LIMIT, "fits one Hopper CTA");
-static_assert(ACT_BYTES % 128 == 0 && Q_BYTES % 128 == 0 && QEMB_BYTES % 128 == 0 &&
-                  QSTAGE_BYTES % 128 == 0,
-              "shared-memory regions stay aligned");
-
-struct I8Params {
-  const i8* chunk[N_FWD_CHUNKS];   // source of each chunk of 64 k-values
-  const float* deq[N_MATS];        // (256,) f32 dequantization row per matrix
-  const float* bias[N_LAYERS];     // (256,) f32 folded bias per hidden layer
-  const bf16* ow;                  // (256, 8) bf16
-  const float* ob;                 // (8,) f32
-  const float* qm;                 // (16,) f32: 127/s_emb, 254/s_1 .. 254/s_8
+struct I8Args {
+  const float4* epi;   // (9, 128): per layer and column pair (d, d', b, b'); row 8 d5e
+  const float* qm;     // (16,): 127/s_emb, 254/s_1 .. 254/s_8
+  const bf16* ow;      // (256, 8) bf16
+  const float* ob;     // (8,) f32
 };
 
-// 64 k-values of all 256 output columns of a transposed int8 matrix (row
-// stride `ldk`: the matrix's depth, 64 or 256) into a stage, blocked by 16
-// k-values: 1024 16-byte pieces, 4 per thread
-__device__ __forceinline__ void load_chunk_i8(i8* dst, const i8* src, int ldk, int tid) {
-#pragma unroll
-  for (int i = tid; i < KC * NW / BLK; i += THREADS) {
-    const int col = i / (KC / BLK);
-    const int kb = i % (KC / BLK);
-    cp_async16(dst + (kb * NW + col) * BLK, src + col * ldk + kb * BLK);
+// byte offset of element (row, col) of an int8 tile of 128 rows: k-atoms of
+// 128 lanes, 16-byte pieces XOR row % 8 (tile_offset in bytes of int8)
+__device__ __forceinline__ uint32_t i8_offset(int row, int col) {
+  return uint32_t(col >> 7) * TILE_ATOM_BYTES + uint32_t(row) * ATOM_ROW_BYTES +
+         ((uint32_t((col >> 4) & 7) ^ uint32_t(row & 7)) << 4) + uint32_t(col & 15);
+}
+
+// q = rint(clip(relu(v) * m, 0, 254)) - 127 (zero-point -127), as an int in
+// [-127, 127] whose low byte is the int8: adding 1.5 * 2^23 to relu(v) * m
+// rounds it to an integer (to even on a tie, as rintf) held in the low
+// mantissa bits, and one DPX instruction subtracts 1.5 * 2^23 + 127 from
+// those bits and clips above at 127 (past 254 the rounding need not be
+// exact: rint is monotone, 254 is an integer, and the bits of a positive
+// float order as the float does)
+__device__ __forceinline__ int requant(float v, float m) {
+  const int bits = __float_as_int(__fadd_rn(__fmul_rn(fmaxf(v, 0.0f), m), MAGIC));
+  return __viaddmin_s32(bits, -(0x4B400000 + 127), 127);
+}
+
+// 16 bytes of shared memory as a float4
+__device__ __forceinline__ float4 ld_shared16f(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// rint(clip(x * m, -127, 127)) in the low byte (two's complement)
+__device__ __forceinline__ uint32_t quant_sym(float x, float m) {
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(__fmul_rn(x, m), -127.0f), 127.0f), MAGIC));
+}
+
+// four bf16 lanes (two words) -> four int8 lanes (one word)
+__device__ __forceinline__ uint32_t quant_sym4(uint32_t w0, uint32_t w1, float m) {
+  const uint32_t a = __byte_perm(quant_sym(__uint_as_float(w0 << 16), m),
+                                 quant_sym(__uint_as_float(w0 & 0xffff0000u), m), 0x0040);
+  const uint32_t b = __byte_perm(quant_sym(__uint_as_float(w1 << 16), m),
+                                 quant_sym(__uint_as_float(w1 & 0xffff0000u), m), 0x0040);
+  return __byte_perm(a, b, 0x5410);
+}
+
+// lanes c0 .. c0 + 15 of row r of a tile's encoding (rows past n zero),
+// quantized into the int8 encoding tile
+__device__ __forceinline__ void quantize_piece(uint32_t embt, const bf16* __restrict__ emb,
+                                              long row0, int n, float m, int r, int c0) {
+  uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
+  if (row0 + r < n) {
+    const uint4* src = reinterpret_cast<const uint4*>(emb + size_t(row0 + r) * EMB + c0);
+    lo = __ldg(src);
+    hi = __ldg(src + 1);
+  }
+  st_shared16(embt + i8_offset(r, c0),
+              make_uint4(quant_sym4(lo.x, lo.y, m), quant_sym4(lo.z, lo.w, m),
+                         quant_sym4(hi.x, hi.y, m), quant_sym4(hi.z, hi.w, m)));
+}
+
+// Encoder e (0 .. 95): its pieces of every tile of this CTA (piece q = row q
+// / 4, lanes (q % 4) * 16), the i-th tile into encoding tile i % 2 once the
+// consumers are done with what it held. Two mbarriers a tile: "full" (96
+// arrivals, after each encoder's fence.proxy.async) and "empty" (one
+// arrival per consumer warpgroup once layer 5 has read the tile).
+__device__ __forceinline__ void quantize_encodings(const bf16* __restrict__ emb, float m,
+                                                   uint32_t emb0, uint32_t bars, int n,
+                                                   int n_tiles, int e) {
+  int i = 0;
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+    const int b = i % 2;
+    const uint32_t embt = emb0 + uint32_t(b) * I8_EMB_BYTES;
+    mbar_wait(bars + 8 * (2 + b), ((i / 2) & 1) ^ 1);
+#pragma unroll 1
+    for (int q = e; q < EMB_PIECES; q += ENCODERS) {
+      quantize_piece(embt, emb, long(tile) * TM, n, m, q / 4, (q % 4) * 16);
+    }
+    fence_proxy_async();
+    mbar_arrive(bars + 8 * b);
   }
 }
 
-// d (16 x 8, s32) += a (16 x 32, s8, row) @ b (32 x 8, s8, col). With
-// gid = lane / 4 and tig = lane % 4 a thread holds
-//   a[0]: row gid, k tig*4..+3    a[1]: row gid + 8, same k
-//   a[2], a[3]: the same rows, k + 16
-//   b[0]: k tig*4..+3, column gid    b[1]: k + 16
-//   d[0], d[1]: row gid, columns tig*2, tig*2 + 1    d[2], d[3]: row gid + 8
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// The two consumer warpgroups take turns at the tensor cores: a warpgroup
+// issues a layer's products once the other has issued its previous ones
+// (named barriers of both warpgroups' 256 threads, one per warpgroup), so
+// one warpgroup's epilogue runs under the other's products. Left alone, the
+// two start a tile together and stay in step, both issuing, then both in
+// their epilogues. Warpgroup 1 passes the first turn before its first tile;
+// warpgroup 0 takes one more turn after its last.
+constexpr int BAR_TURN0 = BAR_WG0 + CONSUMERS;
+
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(BAR_TURN0 + wg) : "memory");
 }
 
-// the A operand of rows row .. and row + 8 .., k-values 32 * ks .. + 32, from a
-// tile blocked by 16 k-values
-__device__ __forceinline__ void load_a_s8(uint32_t (&a)[4], const i8* tile, int row,
-                                          int ks, int tig) {
-  const i8* lo = tile + ((2 * ks) * TM + row) * BLK + tig * 4;
-  const i8* hi = lo + TM * BLK;
-  a[0] = *reinterpret_cast<const uint32_t*>(lo);
-  a[1] = *reinterpret_cast<const uint32_t*>(lo + 8 * BLK);
-  a[2] = *reinterpret_cast<const uint32_t*>(hi);
-  a[3] = *reinterpret_cast<const uint32_t*>(hi + 8 * BLK);
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(BAR_TURN0 + 1 - wg) : "memory");
 }
 
-// the B operand of output column col, k-values 32 * ks .. + 32 of a staged chunk
-__device__ __forceinline__ void load_b_s8(uint32_t (&b)[2], const i8* chunk, int col,
-                                          int ks, int tig) {
-  const i8* lo = chunk + ((2 * ks) * NW + col) * BLK + tig * 4;
-  b[0] = *reinterpret_cast<const uint32_t*>(lo);
-  b[1] = *reinterpret_cast<const uint32_t*>(lo + NW * BLK);
-}
-
-// acc (this warp's 64 x 64 block: rows wm*64, cols wn*64) +=
-//   A[:, k0 : k0 + 64] @ (the staged chunk)
-__device__ __forceinline__ void mma_chunk_i8(int (&acc)[MT][NT][4], const i8* a_src,
-                                             int k0, const i8* b_src, int wm, int wn,
-                                             int lane) {
-  const int gid = lane / 4;
-  const int tig = lane % 4;
+// acc = this warpgroup's rows of A @ W over CHUNKS chunks from g: A's k-atom
+// c at a + c * 16 KB (rows already offset), KSTEPS 32-deep steps a chunk (4;
+// layer 0: 2, the encoding's 64 lanes). One chunk's products stay in flight
+// while the next chunk's issue. (Every count is a constant: a wgmma under a
+// runtime condition makes ptxas serialize the pipeline.)
+template <int S, int CHUNKS, int KSTEPS>
+__device__ __forceinline__ void i8_products(int (&acc)[128], uint32_t a, uint32_t ring,
+                                            uint32_t bars, uint32_t& g, int wg, bool signal) {
+  turn_wait(wg);
+#pragma unroll 1
+  for (int c = 0; c < CHUNKS; ++c, ++g) {
+    const uint32_t b = ring_acquire<S>(ring, bars, g);
+    wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < KC / 32; ++ks) {
-    uint32_t a[MT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      load_a_s8(a[i], a_src, wm * 64 + i * 16 + gid, k0 / 32 + ks, tig);
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      wgmma_m64n256_s8(acc, desc_sw128(a + c * TILE_ATOM_BYTES + kk * 32),
+                       desc_sw128(b + kk * 32), (c | kk) != 0);
     }
+    wgmma_commit();
+    if (c == CHUNKS - 1) turn_pass(wg);
+    if (c > 0) {
+      wgmma_wait<1>();
+      ring_release<S>(bars, g - 1, signal);
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  ring_release<S>(bars, g - 1, signal);
+}
+
+// layer 5's half of 128 columns, two products on acc[0..63]: e = qemb @
+// qw5e[:, half] (chunk g), kept as the f32 bits of f32(e) * d5e in
+// acc[64..127] (epi_e: d5e's row of the parameters), then a = q5 @ qw5h[:,
+// half] (chunk g + 1: two k-atoms of 128 rows). Each product takes its own
+// turn at the tensor cores.
+template <int S>
+__device__ __forceinline__ void i8_skip_products(int (&acc)[128], uint32_t q5, uint32_t embt,
+                                                 uint32_t epi_e, int half, uint32_t ring,
+                                                 uint32_t bars, uint32_t& g, int wg, int t) {
+  const bool signal = t == 0;
+  turn_wait(wg);
+  uint32_t b = ring_acquire<S>(ring, bars, g);
+  wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      uint32_t b[2];
-      load_b_s8(b, b_src, wn * 64 + j * 8 + gid, ks, tig);
+  for (int kk = 0; kk < EMB / 32; ++kk) {
+    wgmma_m64n128_s8(acc, desc_sw128(embt + kk * 32), desc_sw128(b + kk * 32), kk != 0);
+  }
+  wgmma_commit();
+  turn_pass(wg);
+  wgmma_wait<0>();
+  fence_acc(acc);
+  ring_release<S>(bars, g, signal);
+  epi_e += (half * (NW / 4) + t % 4) * 16;
+  float4 next[2] = {ld_shared16f(epi_e), ld_shared16f(epi_e + 64)};
 #pragma unroll
-      for (int i = 0; i < MT; ++i) mma_s8(acc[i][j], a[i], b);
+  for (int j = 0; j < NW / 16; ++j) {
+    const float4 pe = next[j % 2];
+    if (j + 2 < NW / 16) next[j % 2] = ld_shared16f(epi_e + (j + 2) * 64);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 4 * j + 2 * h;
+      acc[64 + i] = __float_as_int(__fmul_rn(__int2float_rn(acc[i]), pe.x));
+      acc[64 + i + 1] = __float_as_int(__fmul_rn(__int2float_rn(acc[i + 1]), pe.y));
+    }
+  }
+  turn_wait(wg);
+  b = ring_acquire<S>(ring, bars, g + 1);
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < NW / I8_K; ++c) {
+#pragma unroll
+    for (int kk = 0; kk < I8_K / 32; ++kk) {
+      wgmma_m64n128_s8(acc, desc_sw128(q5 + c * TILE_ATOM_BYTES + kk * 32),
+                       desc_sw128(b + c * I8_HALF_BYTES + kk * 32), (c | kk) != 0);
+    }
+  }
+  wgmma_commit();
+  turn_pass(wg);
+  wgmma_wait<0>();
+  fence_acc(acc);
+  ring_release<S>(bars, g + 1, signal);
+  g += 2;
+}
+
+// The epilogue from the accumulator layout (thread t of the warpgroup holds
+// rows w*16 + t%32/4 (+8) and columns 8j + 2(t%4) (+1), acc[4j + 2h + e]):
+// q = requant(f32(acc) * d + b, m) into this warpgroup's rows of the int8
+// tile `dst`, which the layer's products have finished reading.
+__device__ __forceinline__ void i8_epilogue(const int (&acc)[128], uint32_t epi, float m,
+                                            unsigned char* dst, int wg, int t) {
+  const int lane = t % 32;
+  const int r0 = wg * WG_ROWS + (t / 32) * 16 + lane / 4;
+  epi += (lane % 4) * 16;
+  float4 next[2] = {ld_shared16f(epi), ld_shared16f(epi + 64)};
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j) {
+    const int col = j * 8 + (lane % 4) * 2;
+    const float4 p = next[j % 2];
+    if (j + 2 < NW / 8) next[j % 2] = ld_shared16f(epi + (j + 2) * 64);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v0 = __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), p.x), p.z);
+      const float v1 = __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), p.y), p.w);
+      *reinterpret_cast<uint16_t*>(dst + i8_offset(r0 + 8 * h, col)) =
+          uint16_t(__byte_perm(uint32_t(requant(v0, m)), uint32_t(requant(v1, m)), 0x0040));
     }
   }
 }
 
-// A layer's epilogue for this warp's 64 x 64 block:
-//   h = relu(f32(acc) * d + [f32(qemb @ skip_w) * skip_d] + b)
-// then, with `qdst`, q = int8(rint(clip(h * m, 0, 254)) - 127) into the
-// blocked activation tile, else bf16(h) into the tile `hdst`. `skip_w`: the
-// staged chunk of the skip's weight, or nullptr. All reads of `qdst` by the
-// layer's products must have finished (a barrier) before.
-__device__ __forceinline__ void store_layer_i8(int (&acc)[MT][NT][4],
-                                               const float* __restrict__ d,
-                                               const float* __restrict__ bias,
-                                               const i8* qemb, const i8* skip_w,
-                                               const float* __restrict__ skip_d,
-                                               float m, i8* qdst, bf16* hdst, int wm,
-                                               int wn, int lane) {
-  const int gid = lane / 4;
-  const int tig = lane % 4;
+// layer 5's half: q6 = requant((f32(a) * d5h + f32(e) * d5e) + b5, m) for
+// columns half * 128 .. + 127 (a = acc[0..63], f32(e) * d5e in acc[64..])
+__device__ __forceinline__ void i8_skip_epilogue(const int (&acc)[128], uint32_t epi, float m,
+                                                 int half, unsigned char* dst, int wg, int t) {
+  const int lane = t % 32;
+  const int r0 = wg * WG_ROWS + (t / 32) * 16 + lane / 4;
+  epi += (half * (NW / 4) + lane % 4) * 16;
+  float4 next[2] = {ld_shared16f(epi), ld_shared16f(epi + 64)};
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int col = wn * 64 + j * 8 + tig * 2;   // this thread's two columns
-    const float d0 = __ldg(d + col), d1 = __ldg(d + col + 1);
-    const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
-    float e0 = 0.0f, e1 = 0.0f;
-    if (skip_w != nullptr) {
-      e0 = __ldg(skip_d + col);
-      e1 = __ldg(skip_d + col + 1);
-    }
+  for (int j = 0; j < NW / 16; ++j) {
+    const int col = half * (NW / 2) + j * 8 + (lane % 4) * 2;
+    const float4 p = next[j % 2];
+    if (j + 2 < NW / 16) next[j % 2] = ld_shared16f(epi + (j + 2) * 64);
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      int acc_e[4] = {0, 0, 0, 0};
-      if (skip_w != nullptr) {
-#pragma unroll
-        for (int ks = 0; ks < EMB / 32; ++ks) {
-          uint32_t a[4], b[2];
-          load_a_s8(a, qemb, wm * 64 + i * 16 + gid, ks, tig);
-          load_b_s8(b, skip_w, wn * 64 + j * 8 + gid, ks, tig);
-          mma_s8(acc_e, a, b);
-        }
-      }
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {     // rows gid and gid + 8
-        const int row = wm * 64 + i * 16 + gid + half * 8;
-        float v0 = __fmul_rn(float(acc[i][j][half * 2]), d0);
-        float v1 = __fmul_rn(float(acc[i][j][half * 2 + 1]), d1);
-        if (skip_w != nullptr) {
-          v0 = __fadd_rn(v0, __fmul_rn(float(acc_e[half * 2]), e0));
-          v1 = __fadd_rn(v1, __fmul_rn(float(acc_e[half * 2 + 1]), e1));
-        }
-        const float h0 = fmaxf(__fadd_rn(v0, b0), 0.0f);
-        const float h1 = fmaxf(__fadd_rn(v1, b1), 0.0f);
-        if (qdst != nullptr) {
-          const int q0 = int(rintf(fminf(fmaxf(__fmul_rn(h0, m), 0.0f), 254.0f))) - 127;
-          const int q1 = int(rintf(fminf(fmaxf(__fmul_rn(h1, m), 0.0f), 254.0f))) - 127;
-          *reinterpret_cast<uint16_t*>(qdst + ((col / 16) * TM + row) * BLK + col % 16) =
-              uint16_t((q0 & 0xff) | ((q1 & 0xff) << 8));
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(hdst + row * LDA + col) =
-              __halves2bfloat162(__float2bfloat16(h0), __float2bfloat16(h1));
-        }
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int i = 4 * j + 2 * h;
+      const float v0 = __fadd_rn(
+          __fadd_rn(__fmul_rn(__int2float_rn(acc[i]), p.x), __int_as_float(acc[64 + i])), p.z);
+      const float v1 = __fadd_rn(
+          __fadd_rn(__fmul_rn(__int2float_rn(acc[i + 1]), p.y), __int_as_float(acc[64 + i + 1])),
+          p.w);
+      *reinterpret_cast<uint16_t*>(dst + i8_offset(r0 + 8 * h, col)) =
+          uint16_t(__byte_perm(uint32_t(requant(v0, m)), uint32_t(requant(v1, m)), 0x0040));
     }
   }
 }
 
+// h8 = bf16(relu(f32(acc) * d7 + b7)) into this warpgroup's rows of the bf16
+// tile laid over both int8 tiles (row 1's layout)
+__device__ __forceinline__ void i8_h8_epilogue(const int (&acc)[128], uint32_t epi,
+                                               unsigned char* act, int wg, int t) {
+  const int lane = t % 32;
+  const int r0 = wg * WG_ROWS + (t / 32) * 16 + lane / 4;
+  epi += (lane % 4) * 16;
+  float4 next[2] = {ld_shared16f(epi), ld_shared16f(epi + 64)};
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j) {
+    const int col = j * 8 + (lane % 4) * 2;
+    const float4 p = next[j % 2];
+    if (j + 2 < NW / 8) next[j % 2] = ld_shared16f(epi + (j + 2) * 64);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v0 = __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), p.x), p.z);
+      const float v1 = __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), p.y), p.w);
+      *reinterpret_cast<__nv_bfloat162*>(act + tile_offset(r0 + 8 * h, col)) =
+          __floats2bfloat162_rn(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
+    }
+  }
+}
+
+// ow^T (8 x 256 bf16) as the K-major B operand of the head: 4 k-atoms of 8
+// rows in the 128-byte swizzle, element (o, k) at (k / 64) * 1 KB + o * 128
+// + (((k / 8) % 8) ^ o) * 16 + (k % 8) * 2. Thread k (of 256) writes column
+// k of it from row k of ow.
+__device__ __forceinline__ void load_owt(unsigned char* owt, const bf16* __restrict__ ow, int k) {
+  const uint4 w = __ldg(reinterpret_cast<const uint4*>(ow + k * OUT));
+  const bf16* e = reinterpret_cast<const bf16*>(&w);
+#pragma unroll
+  for (int o = 0; o < OUT; ++o) {
+    *reinterpret_cast<bf16*>(owt + (k / 64) * (8 * ATOM_ROW_BYTES) + o * ATOM_ROW_BYTES +
+                             ((((k / 8) % 8) ^ o) << 4) + (k % 8) * 2) = e[o];
+  }
+}
+
+// raw = h8 @ ow + ob for this warpgroup's 64 rows: 16 m64n8k16 on its rows of
+// the bf16 h8 tile (the f32 sums in the tensor cores' order), then the bias
+// and the store of rows below n (thread t holds rows w*16 + t%32/4 (+8),
+// lanes 2(t%4) (+1))
+__device__ __forceinline__ void i8_head(uint32_t h8_rows, uint32_t owt, const float* __restrict__ ob,
+                                        float* __restrict__ out, long row0, int n, int wg,
+                                        int t) {
+  float h[4];
+  wgmma_fence();
+#pragma unroll
+  for (int q = 0; q < NW / 64; ++q) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_m64n8(h, desc_sw128(h8_rows + q * TILE_ATOM_BYTES + kk * 32),
+                  desc_sw128(owt + q * 8 * ATOM_ROW_BYTES + kk * 32), (q | kk) != 0);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(h);
+  const int lane = t % 32;
+  const int c = (lane % 4) * 2;
+  const long r = row0 + wg * WG_ROWS + (t / 32) * 16 + lane / 4;
+  const float2 b = __ldg(reinterpret_cast<const float2*>(ob + c));
+  if (r < n) {
+    *reinterpret_cast<float2*>(out + size_t(r) * OUT + c) = make_float2(h[0] + b.x, h[1] + b.y);
+  }
+  if (r + 8 < n) {
+    *reinterpret_cast<float2*>(out + size_t(r + 8) * OUT + c) =
+        make_float2(h[2] + b.x, h[3] + b.y);
+  }
+}
+
+// Persistent CTAs walk 128-point tiles. Per tile, a consumer warpgroup waits
+// for the tile's int8 encoding, runs q1 .. q5 in tile 0 (in place), layer 5
+// in two halves into tile 1, q7 in tile 1 (in place), h8 as a bf16 tile over
+// both, and the head; it releases the encoding tile once layer 5 has read it.
 __global__ void __launch_bounds__(THREADS, 1)
-mlp_i8_kernel(const bf16* __restrict__ emb, int n, I8Params p, float* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* h8 = reinterpret_cast<bf16*>(smem);
-  i8* q = reinterpret_cast<i8*>(smem + ACT_BYTES);
-  i8* qemb = q + Q_BYTES;
-  i8* stage = qemb + QEMB_BYTES;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int wm = warp / 4;   // rows wm*64 .. +64
-  const int wn = warp % 4;   // cols wn*64 .. +64
-  const long row0 = long(blockIdx.x) * TM;
-
-  auto stage_i8 = [&](int g) { return stage + (g & 1) * QSTAGE_BYTES; };
-  auto prefetch = [&](int g) {
-    if (g >= N_FWD_CHUNKS) return;
-    // the two products on the encoding are 64 deep, all others 256
-    load_chunk_i8(stage_i8(g), p.chunk[g], (g == 0 || g == G_SKIP) ? EMB : NW, tid);
-  };
-  prefetch(0);
-  cp_async_commit();
-
-  // qemb = int8(rint(clip(emb * qm[0], -127, 127))), blocked; rows past n zero
-  {
-    const float m0 = __ldg(p.qm);
-    for (int i = tid; i < TM * EMB / 8; i += THREADS) {
-      const int r = i / (EMB / 8);
-      const int c0 = (i % (EMB / 8)) * 8;
-      uint4 raw = make_uint4(0, 0, 0, 0);
-      if (row0 + r < n) {
-        raw = *reinterpret_cast<const uint4*>(emb + size_t(row0 + r) * EMB + c0);
-      }
-      const bf16* x = reinterpret_cast<const bf16*>(&raw);
-      __align__(8) i8 ov[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float t = __fmul_rn(__bfloat162float(x[e]), m0);
-        ov[e] = i8(int(rintf(fminf(fmaxf(t, -127.0f), 127.0f))));
-      }
-      *reinterpret_cast<uint2*>(qemb + ((c0 / 16) * TM + r) * BLK + c0 % 16) =
-          *reinterpret_cast<const uint2*>(ov);
+mlp_i8_kernel(const bf16* __restrict__ emb, int n, int n_tiles, const void* __restrict__ image,
+              I8Args p, float* __restrict__ out) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* act = align_smem(smem_raw);   // tile 0, tile 1 (or h8, bf16)
+  unsigned char* act1 = act + I8_TILE_BYTES;
+  const uint32_t act_s = smem_u32(act);
+  const uint32_t emb0 = act_s + 2 * I8_TILE_BYTES;   // two int8 encoding tiles
+  const uint32_t ring = emb0 + 2 * I8_EMB_BYTES;
+  unsigned char* owt = act + 2 * I8_TILE_BYTES + 2 * I8_EMB_BYTES + I8_STAGES * CHUNK_BYTES;
+  const uint32_t epi = smem_u32(owt) + OWT_BYTES;        // the epilogues' parameters
+  const uint32_t bars = epi + EPI_ROWS * EPI_ROW_BYTES;
+  const uint32_t enc_bars = bars + 2 * 8 * I8_STAGES;   // full[0], full[1], empty[0], empty[1]
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    ring_init<I8_STAGES>(bars);
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(enc_bars + 8 * b, ENCODERS);
+      mbar_init(enc_bars + 8 * (2 + b), CONSUMERS);
     }
+    mbar_init_fence();
   }
-
-  int acc[MT][NT][4];
-  int g = 0;
-  for (int layer = 0; layer < N_LAYERS; ++layer) {
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-    const int n_chunks = layer == 0 ? 1 : NW / KC;
-    for (int c = 0; c < n_chunks; ++c, ++g) {
-      ring_next(prefetch, g);   // its barrier also covers qemb's stores
-      mma_chunk_i8(acc, layer == 0 ? qemb : q, c * KC, stage_i8(g), wm, wn, lane);
-      __syncthreads();          // all reads of this stage and of q are done
-    }
-    const i8* skip_w = nullptr;
-    if (layer == SKIP_LAYER) {
-      // the skip's chunk: it lands now and stays through the epilogue; the
-      // next prefetch into its stage comes after the epilogue's barrier
-      ring_next(prefetch, g);
-      skip_w = stage_i8(g);
-      ++g;
-    }
-    const bool last = layer == N_LAYERS - 1;
-    // deq[] follows the order of the matrices: d5e sits before d5h
-    store_layer_i8(acc, p.deq[layer < SKIP_LAYER ? layer : layer + 1],
-                   p.bias[layer], qemb, skip_w, p.deq[SKIP_LAYER],
-                   last ? 0.0f : __ldg(p.qm + layer + 1),
-                   last ? nullptr : q, h8, wm, wn, lane);
-    __syncthreads();
+  if (threadIdx.x < NW) load_owt(owt, p.ow, threadIdx.x);
+  for (int i = threadIdx.x; i < EPI_ROWS * NW / 2; i += THREADS) {
+    st_shared16(epi + i * 16, __ldg(reinterpret_cast<const uint4*>(p.epi) + i));
   }
+  fence_proxy_async();
+  __syncthreads();
 
-  // head: raw = bf16(h8) @ owb + ob, in f32
-  raw_head(h8, p.ow, p.ob, out, row0, n, tid);
+  if (wg == CONSUMERS) {   // the producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (t == 0) {
+      produce<I8_STAGES>(image, I8_CHUNKS, n_tiles, ring, bars, [](int c) {
+        return c == I8_SKIP || c == I8_SKIP + 2 ? I8_HALF_BYTES : CHUNK_BYTES;
+      });
+    } else if (t >= 32) {
+      quantize_encodings(emb, __ldg(p.qm), emb0, enc_bars, n, n_tiles, t - 32);
+    }
+  } else {                 // a consumer: 64 rows of every tile
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const uint32_t rows = uint32_t(wg) * WG_ROWS * ATOM_ROW_BYTES;
+    const bool signal = t == 0;
+    int acc[128];
+    uint32_t g = 0;
+    int i = 0;
+    if (wg == 1) turn_pass(wg);   // warpgroup 0 issues first
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+      const long row0 = long(tile) * TM;
+      const uint32_t embt = emb0 + uint32_t(i % 2) * I8_EMB_BYTES + rows;
+      mbar_wait(enc_bars + 8 * (i % 2), (i / 2) & 1);   // the encoding is in its tile
+      fence_proxy_async();
+      wg_barrier(wg);   // ... and the last tile's head is done
+      // one copy of each epilogue in the code: the layers are a rolled loop
+#pragma unroll 1
+      for (int layer = 0; layer < N_LAYERS; ++layer) {
+        if (layer == 5) {
+#pragma unroll 1
+          for (int half = 0; half < 2; ++half) {
+            i8_skip_products<I8_STAGES>(acc, act_s + rows, embt, epi + 8 * EPI_ROW_BYTES, half,
+                                        ring, bars, g, wg, t);
+            if (half == 1 && signal) mbar_arrive(enc_bars + 8 * (2 + i % 2));
+            i8_skip_epilogue(acc, epi + 5 * EPI_ROW_BYTES, __ldg(p.qm + 6), half, act1, wg, t);
+          }
+        } else {
+          // the layer's A: the encoding (64 lanes), or tile 0 (q1 .. q4), or
+          // tile 1 (q6, q7)
+          if (layer == 0) {
+            i8_products<I8_STAGES, 1, EMB / 32>(acc, embt, ring, bars, g, wg, signal);
+          } else {
+            i8_products<I8_STAGES, NW / I8_K, I8_K / 32>(
+                acc, act_s + (layer > 5 ? I8_TILE_BYTES : 0) + rows, ring, bars, g, wg, signal);
+          }
+          if (layer == N_LAYERS - 1) {
+            i8_h8_epilogue(acc, epi + layer * EPI_ROW_BYTES, act, wg, t);
+          } else {
+            i8_epilogue(acc, epi + layer * EPI_ROW_BYTES, __ldg(p.qm + layer + 1),
+                        layer > 5 ? act1 : act, wg, t);
+          }
+        }
+        fence_proxy_async();
+        wg_barrier(wg);
+      }
+      i8_head(act_s + rows, smem_u32(owt), p.ob, out, row0, n, wg, t);
+    }
+    if (wg == 0) turn_wait(wg);   // warpgroup 1's last pass
+  }
 }
 
 }  // namespace
+}  // namespace sm90
 
-// emb (n, 64) bf16, out (n, 8) f32.
-// mats: the int8 matrices TRANSPOSED, row-major (out, in): qw0 (256x64),
-//       qw1..qw4 (256x256), qw5e (256x64), qw5h, qw6, qw7 (256x256);
-// deqs: their dequantization rows d0, d1..d4, d5e, d5h, d6, d7 (256 f32 each);
-// biases: b0..b4, b5, b6, b7 (256 f32 each, zero-point correction folded in);
+// emb (n, 64) bf16, out (n, 8) f32;
+// image: the int8 chain's 17 chunks, 32 KB apart (ops/kernels/mlp_sm90.py:
+//   pack_i8_image, from qw0, qw1..qw4, qw5e, qw5h, qw6, qw7);
+// epi: (9, 128, 4) f32 (mlp_sm90.py:pack_i8_epilogue): for layers 0..7 and
+//   each column pair (d, d', b, b') with d5h in layer 5's; then (d5e, d5e', 0, 0);
 // ow (256x8) bf16, ob (8 f32), qm (16 f32).
 // Returns the CUDA error code of the launch (0 on success).
-extern "C" int nrnerf_mlp_i8(const void* emb, int n, const void* const* mats,
-                             const void* const* deqs, const void* const* biases,
-                             const void* ow, const void* ob, const void* qm,
-                             void* out, void* stream) {
-  I8Params p;
-  const i8* m[N_MATS];
-  for (int i = 0; i < N_MATS; ++i) {
-    m[i] = static_cast<const i8*>(mats[i]);
-    p.deq[i] = static_cast<const float*>(deqs[i]);
-  }
-  // the schedule: qw0; qw1..qw4; qw5h, then qw5e; qw6, qw7. A chunk of a
-  // transposed matrix is a range of 64 columns.
-  int g = 0;
-  p.chunk[g++] = m[0];
-  const int deep[7] = {1, 2, 3, 4, 6, 7, 8};
-  for (int d = 0; d < 7; ++d) {
-    for (int c = 0; c < NW / KC; ++c) p.chunk[g++] = m[deep[d]] + c * KC;
-    if (deep[d] == 6) p.chunk[g++] = m[5];
-  }
-  if (g != N_FWD_CHUNKS || p.chunk[G_SKIP] != m[5]) return int(cudaErrorInvalidValue);
-  for (int i = 0; i < N_LAYERS; ++i) p.bias[i] = static_cast<const float*>(biases[i]);
-  p.ow = static_cast<const bf16*>(ow);
-  p.ob = static_cast<const float*>(ob);
+extern "C" int nrnerf_mlp_i8(const void* emb, int n, const void* image, const void* epi,
+                             const void* ow, const void* ob, const void* qm, void* out,
+                             void* stream) {
+  sm90::I8Args p;
+  p.epi = static_cast<const float4*>(epi);
   p.qm = static_cast<const float*>(qm);
-
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_i8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
+  p.ow = static_cast<const sm90::bf16*>(ow);
+  p.ob = static_cast<const float*>(ob);
+  cudaError_t err = cudaFuncSetAttribute(sm90::mlp_i8_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(sm90::I8_SMEM_BYTES));
   if (err != cudaSuccess) return int(err);
   if (n <= 0) return 0;
-  const dim3 grid((n + TM - 1) / TM);
-  mlp_i8_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(emb), n, p, static_cast<float*>(out));
+  const int n_tiles = (n + sm90::TM - 1) / sm90::TM;
+  sm90::mlp_i8_kernel<<<sm90::persistent_grid(n_tiles), sm90::THREADS, sm90::I8_SMEM_BYTES,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const sm90::bf16*>(emb), n, n_tiles, image, p, static_cast<float*>(out));
   return int(cudaGetLastError());
 }

@@ -1,13 +1,13 @@
 // The chain of the canonical 8 x 256 NeRF MLP on Hopper's own machinery
 // (sm_90a), for the forwards mlp_fwd.cu (row 1, at an encoding of E = 64 or
-// 128 lanes), mlpv_fwd.cu (row 3) and mlpe_fwd.cu (row 5) and the backwards
-// mlp_bwd.cu (row 2, E = 64 or 128), mlpv_bwd.cu (row 4) and mlpe_bwd.cu
-// (row 6). It holds the kernels rows 1 and 5 share (the forward's chain
-// kernel, a template on its input), those rows 2 and 6 share (the
-// backward's), the view-direction image's schedule and the views layer's
-// products (rows 3 and 4), and the second pass all three backwards launch.
-// The other canonical-MLP kernels (the fused point query's, mlp_i8.cu) keep
-// mlp_tile.cuh's design.
+// 128 lanes), mlpv_fwd.cu (row 3), mlpe_fwd.cu (row 5) and mlp_i8.cu (row
+// 11, int8) and the backwards mlp_bwd.cu (row 2, E = 64 or 128), mlpv_bwd.cu
+// (row 4) and mlpe_bwd.cu (row 6). It holds the kernels rows 1 and 5 share
+// (the forward's chain kernel, a template on its input), those rows 2 and 6
+// share (the backward's), the view-direction image's schedule and the views
+// layer's products (rows 3 and 4), the int8 products (row 11), and the
+// second pass all three backwards launch. The other canonical-MLP kernels
+// (the fused point query's) keep mlp_tile.cuh's design.
 //
 // - Persistent CTAs: about one per SM, each walking 128-point tiles on a
 //   static schedule (tile = blockIdx.x + k * gridDim.x), so the same inputs
@@ -19,7 +19,8 @@
 //   shared memory in the 128-byte-swizzled K-major layout. The forward's
 //   layers are m64n256k16 (128 accumulator floats a thread); the backward's
 //   transposed steps dh @ W^T are m64n64k16 over 64-column chunks (the
-//   view-direction heads add m64n128k16, row 4's also m64n32k16).
+//   view-direction heads add m64n128k16, row 4's also m64n32k16). Row 11
+//   runs s8 x s8 -> s32 (m64n256k32, and m64n128k32 for its layer 5).
 // - The weight ring: 32 KB stages with a "full" and an "empty" mbarrier each.
 //   The producer fills a stage with one 1-D cp.async.bulk of a chunk that the
 //   Python wrapper pre-packed into the exact swizzled image wgmma reads
@@ -264,6 +265,13 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < (N ? N : R); ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int N = 0, int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+  static_assert(N <= R, "the fence covers the array");
+#pragma unroll
+  for (int i = 0; i < (N ? N : R); ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // ---- products: d (+)= A (64 x 16, K-major) @ B (16 x N, K-major), scale_d 0
 // overwrites d. The narrower products take the first N/2 floats of a larger
 // array as well: a kernel whose sections all share one accumulator array
@@ -383,6 +391,19 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[M], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// m64n8k16, both operands K-major: row 11's 8-lane head on the tensor cores
+__device__ __forceinline__ void wgmma_m64n8(float (&d)[4], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // m64n32k16, both operands K-major: the 32 lanes of the view encoding's gradient
 template <int M>
 __device__ __forceinline__ void wgmma_m64n32(float (&d)[M], uint64_t da, uint64_t db,
@@ -423,6 +444,72 @@ __device__ __forceinline__ void wgmma_m64n128_mn(float (&d)[128], uint64_t da, u
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// ---- int8 products (mlp_i8.cu, row 11): d (+)= A (64 x 32, s8, K-major) @
+// B (32 x N, s8, K-major), exact in s32; scale_d 0 overwrites d. Both
+// operands are read from shared memory in the 128-byte swizzle, whose rows
+// hold 128 k-values at this width: a 32-byte k-step is one instruction at
+// either width, so desc_sw128(a + kk * 32) carries over. s8 operands have no
+// transpose, and the integer form takes no scale or transpose immediates.
+// A kernel keeps one `int acc[128]` for both shapes: m64n128 takes its
+// first 64, so ptxas gives the two shapes the same registers (products on
+// the second 64 made it serialize the wgmma pipeline).
+
+__device__ __forceinline__ void wgmma_m64n256_s8(int (&d)[128], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128_s8(int (&d)[128], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // ---- the weight ring: stages of CHUNK_BYTES from `ring`; at `bars`, S "full"
 // barriers (one producer arrival plus the chunk's bytes), then S "empty"
 // barriers (one arrival per consumer warpgroup). Chunk g of a CTA's run
@@ -438,13 +525,15 @@ __device__ __forceinline__ void ring_init(uint32_t bars) {
 }
 
 // the producer: every chunk of the schedule for every tile of this CTA.
-// Chunk c sits at c * CHUNK_ELEMS of the image and `bytes(c)` of it (a
-// multiple of 16, at most CHUNK_BYTES) are copied: the byte count the stage
-// expects is the copy's, or the consumers wait for ever.
+// Chunk c sits at c * CHUNK_BYTES of the image (bf16, or int8 for row 11)
+// and `bytes(c)` of it (a multiple of 16, at most CHUNK_BYTES) are copied:
+// the byte count the stage expects is the copy's, or the consumers wait for
+// ever.
 template <int S, class Bytes>
-__device__ __forceinline__ void produce(const bf16* __restrict__ image, int n_chunks,
+__device__ __forceinline__ void produce(const void* __restrict__ image, int n_chunks,
                                         int n_tiles, uint32_t ring, uint32_t bars,
                                         Bytes&& bytes) {
+  const unsigned char* chunks = static_cast<const unsigned char*>(image);
   uint32_t g = 0;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     for (int c = 0; c < n_chunks; ++c, ++g) {
@@ -452,14 +541,14 @@ __device__ __forceinline__ void produce(const bf16* __restrict__ image, int n_ch
       const uint32_t nb = bytes(c);
       mbar_wait(bars + 8 * (S + s), ((g / S) & 1) ^ 1);   // the stage is free
       mbar_expect_tx(bars + 8 * s, nb);
-      bulk_load(ring + s * CHUNK_BYTES, image + size_t(c) * CHUNK_ELEMS, nb, bars + 8 * s);
+      bulk_load(ring + s * CHUNK_BYTES, chunks + size_t(c) * CHUNK_BYTES, nb, bars + 8 * s);
     }
   }
 }
 
 // ... every chunk whole
 template <int S>
-__device__ __forceinline__ void produce(const bf16* __restrict__ image, int n_chunks,
+__device__ __forceinline__ void produce(const void* __restrict__ image, int n_chunks,
                                         int n_tiles, uint32_t ring, uint32_t bars) {
   produce<S>(image, n_chunks, n_tiles, ring, bars, [](int) { return CHUNK_BYTES; });
 }

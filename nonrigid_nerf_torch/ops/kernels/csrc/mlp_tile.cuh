@@ -1,11 +1,11 @@
 // Shared device code of the canonical-MLP kernels for Hopper (sm_90a) that
-// keep the first design: the fused point query's (bend_*.cu, fused_*.cu)
-// and (the cp.async ring only) mlp_i8.cu; and from mlp_bwd.cu, mlpe_bwd.cu
-// and mlpv_bwd.cu the single-head gradient layout, the buffer sizes and the
-// reduction over the splits. Rows 1-6 (mlp_fwd.cu, mlp_bwd.cu, mlpv_fwd.cu,
-// mlpv_bwd.cu, mlpe_fwd.cu, mlpe_bwd.cu) run their own chains on wgmma,
-// csrc/mlp_sm90.cuh; the design below is the one they had before, and the
-// one the other kernels keep. What they share:
+// keep the first design: the fused point query's (bend_*.cu, fused_*.cu);
+// and from mlp_bwd.cu, mlpe_bwd.cu and mlpv_bwd.cu the single-head gradient
+// layout, the buffer sizes and the reduction over the splits. Rows 1-6 and
+// 11 (mlp_fwd.cu, mlp_bwd.cu, mlpv_fwd.cu, mlpv_bwd.cu, mlpe_fwd.cu,
+// mlpe_bwd.cu, mlp_i8.cu) run their own chains on wgmma, csrc/mlp_sm90.cuh;
+// the design below is the one they had before, and the one the other
+// kernels keep. What they share:
 //
 // - the tile: one CTA of 8 warps owns 128 points; a 128 x 256 bf16 activation
 //   tile stays in shared memory and each layer's accumulators live in

@@ -1,6 +1,6 @@
-"""The layouts of the Hopper chain (`csrc/mlp_sm90.cuh`) that `mlp_fwd` and
-`mlp_bwd` launch, mirrored in Python, and the weight image the wrappers
-pre-pack for it.
+"""The layouts of the Hopper chain (`csrc/mlp_sm90.cuh`) that `mlp_fwd`,
+`mlp_bwd` and the other chain kernels launch, mirrored in Python, and the
+weight images the wrappers pre-pack for them.
 
 The kernels' products are `wgmma` operands read from shared memory in the
 128-byte-swizzled K-major layout: a row of 64 bf16 lanes is 128 bytes, and
@@ -28,6 +28,14 @@ its 16-byte pieces are permuted by XOR with the row's index mod 8.
   view-direction images (the chain and the heads fw, vwf, vwv; the view
   layer's 8 or 16 KB of their 32 KB slots, `views_chunk_bytes`): `mlpv_bwd`
   reads all 78 chunks, `mlpv_fwd` the first 39 (the "fwd" part).
+- `i8_schedule`, `pack_i8_image`, `unpack_i8_image`, `pack_i8_epilogue`,
+  `i8_chain_from_image`: row 11's (`mlp_i8`) int8 image, whose swizzle rows
+  hold 128 k-values (`tile_offset_i8`; 17 chunks of 32 KB, layer 5 in
+  halves of 128 columns, qw5e's halves 16 KB copied), its epilogues'
+  parameters (one float4 per column pair), and the chain read out of them
+  with the kernel's integer sums and roundings (`requant_i8`,
+  `quant_sym_i8`), which the CPU tests hold bit for bit against
+  `mlp_i8_plain` up to h8.
 - `encoding_pieces`, `encode_tile`, `fold_tile`: the in-kernel encoding of
   `mlpe_fwd` and `mlpe_bwd` (one device function), written into the
   swizzled tile piece by piece by the threads that write it (`mlpe_fwd`'s 96
@@ -560,3 +568,189 @@ def fold_tile(products: Sequence[torch.Tensor], pts: torch.Tensor,
                     s = s + v[:, None] * P[:, col].float()[None, :]
         sums.append(s)
     return (sums[0] + sums[1]) + (sums[2] + sums[3])
+
+
+# ---- row 11 (`mlp_i8`): the int8 chain's image, its epilogue parameters and
+# a reader of the chain from them. An int8 swizzle row holds 128 k-values
+# (128 bytes): a chunk is 128 k-values of 256 columns (32 KB, a ring stage),
+# element (n, k) at `n * 128 + (k // 16 ^ n % 8) * 16 + k % 16` of its
+# k-atom, holding W[k0 + k, n0 + n].
+
+I8_K = 128                      # int8 k-values of a swizzle row
+I8_CHUNK_BYTES = I8_K * NW      # 32 KB
+# the rows of the nine int8 matrices as `nrnerf_mlp_i8` reads them: qw0,
+# qw1 .. qw4, qw5e, qw5h, qw6, qw7
+I8_ROWS = (64, NW, NW, NW, NW, 64, NW, NW, NW)
+I8_MAGIC = 12582912.0           # 1.5 * 2^23
+EMB = 64                        # the encoding's lanes
+
+
+def tile_offset_i8(row, col):
+    """Byte offset of (row, col) in an int8 tile of 128 rows (numpy arrays or
+    ints): k-atom col // 128, row, 16-byte piece XOR row % 8."""
+    return ((col // I8_K) * TM * I8_K + row * I8_K
+            + (((col // 16) % 8) ^ (row % 8)) * 16 + col % 16)
+
+
+def i8_schedule() -> List[Tuple[int, int, int, int, int]]:
+    """(matrix, k0, n0, columns, k-atoms) of every chunk of the int8 image in
+    the kernel's order, matrices as in `I8_ROWS`: qw0 (its 64 rows in one
+    128-deep atom); qw1 .. qw4 in two chunks of 128 rows; layer 5 in halves of
+    128 columns, each qw5e's (64 rows) then qw5h's (256 rows as two k-atoms of
+    128 columns); qw6, qw7 as qw1. 17 chunks."""
+    half = NW // 2
+    out = [(0, 0, 0, NW, 1)]
+    for m in (1, 2, 3, 4):
+        out += [(m, c * I8_K, 0, NW, 1) for c in range(NW // I8_K)]
+    for h in range(2):
+        out += [(5, 0, h * half, half, 1), (6, 0, h * half, half, NW // I8_K)]
+    for m in (7, 8):
+        out += [(m, c * I8_K, 0, NW, 1) for c in range(NW // I8_K)]
+    return out
+
+
+def i8_chunk_bytes() -> List[int]:
+    """The bytes of each chunk that the kernel's producer copies (the rest of
+    its 32 KB slot is zero): 16 KB for qw5e's halves, 32 KB for the rest."""
+    return [cols * I8_K * atoms for _, _, _, cols, atoms in i8_schedule()]
+
+
+def _i8_pos(cols: int, atoms: int) -> np.ndarray:
+    """(cols, atoms * 128): the byte of element (n, k) of a chunk."""
+    n = np.arange(cols)[:, None]
+    k = np.arange(atoms * I8_K)[None, :]
+    return (k // I8_K) * (cols * I8_K) + tile_offset_i8(n, k % I8_K)
+
+
+def i8_image_index() -> np.ndarray:
+    """For each byte of the int8 image, its index in the concatenation of the
+    nine flattened matrices, or -1 (zero: rows past a matrix's end, and the
+    rest of qw5e's slots)."""
+    bases = _bases([(r, NW) for r in I8_ROWS])
+    pieces = []
+    for m, k0, n0, cols, atoms in i8_schedule():
+        out = np.full(I8_CHUNK_BYTES, -1, np.int64)
+        k = np.arange(atoms * I8_K)[None, :]
+        n = np.arange(cols)[:, None]
+        src = np.where(k0 + k < I8_ROWS[m], bases[m] + (k0 + k) * NW + n0 + n, -1)
+        out[_i8_pos(cols, atoms).ravel()] = src.ravel()
+        pieces.append(out)
+    return np.concatenate(pieces)
+
+
+def _cached_i8_index(device) -> torch.Tensor:
+    key = ("i8", str(device))
+    if key not in _INDEX:
+        index = i8_image_index()
+        total = _bases([(r, NW) for r in I8_ROWS])[-1]
+        _INDEX[key] = torch.from_numpy(np.where(index < 0, total, index)).to(
+            device)
+    return _INDEX[key]
+
+
+def pack_i8_image(mats: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The int8 chain's image from its nine int8 matrices (qw0, qw1 .. qw4,
+    qw5e, qw5h, qw6, qw7, each (in, 256)): 17 chunks of 32 KB in the
+    kernel's order and layout (`i8_schedule`). One gather from a cached
+    index; no matrix is transposed."""
+    return _gather(mats, _cached_i8_index(mats[0].device))
+
+
+def unpack_i8_image(image: torch.Tensor) -> List[torch.Tensor]:
+    """The nine int8 matrices back from the image (it holds every element of
+    every matrix once)."""
+    index = _cached_i8_index(image.device)
+    total = sum(r * NW for r in I8_ROWS)
+    flat = torch.zeros(total + 1, dtype=image.dtype, device=image.device)
+    flat[index] = image
+    out, off = [], 0
+    for r in I8_ROWS:
+        out.append(flat[off:off + r * NW].view(r, NW))
+        off += r * NW
+    return out
+
+
+def pack_i8_epilogue(deqs: Sequence[torch.Tensor],
+                     biases: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The epilogues' parameters as the kernel reads them, one float4 per
+    column pair: (9, 128, 4) f32, row l < 8 (d[2p], d[2p + 1], b[2p], b[2p +
+    1]) of layer l (layer 5: d5h, b5), row 8 (d5e[2p], d5e[2p + 1], 0, 0).
+    deqs: d0, d1 .. d4, d5e, d5h, d6, d7; biases: b0 .. b7."""
+    d = torch.stack([x.reshape(NW) for x in
+                     (*deqs[:5], deqs[6], deqs[7], deqs[8], deqs[5])]).float()
+    b = torch.stack([x.reshape(NW) for x in biases]
+                    + [biases[0].new_zeros(NW)]).float()
+    return torch.stack([d.view(9, NW // 2, 2), b.view(9, NW // 2, 2)],
+                       dim=2).reshape(9, NW // 2, 4)
+
+
+def i8_chunk_matrix(slot: torch.Tensor, cols: int = NW,
+                    atoms: int = 1) -> torch.Tensor:
+    """A chunk of the int8 image as the (128 * atoms, cols) weight rows it
+    holds (rows past the matrix's end are zero)."""
+    return slot[torch.from_numpy(_i8_pos(cols, atoms))].t()
+
+
+def requant_i8(v: torch.Tensor, m) -> torch.Tensor:
+    """The kernel's requantization of a pre-activation, rint(min(relu(v) *
+    m, 254)) - 127: relu(v) * m plus 1.5 * 2^23 rounds to an integer in the
+    low mantissa bits; 1.5 * 2^23 + 127 less, clipped above at 127."""
+    y = torch.relu(v) * m + I8_MAGIC
+    q = torch.clamp(y.view(torch.int32) - (0x4B400000 + 127), max=127)
+    return q.to(torch.int8)
+
+
+def quant_sym_i8(x: torch.Tensor, m) -> torch.Tensor:
+    """The encoders' symmetric quantization rint(clip(x * m, -127, 127)),
+    rounded as `requant_i8` and read off the low byte of the float's bits."""
+    y = torch.clamp(x * m, -127.0, 127.0) + I8_MAGIC
+    return (y.view(torch.int32) & 0xFF).to(torch.uint8).view(torch.int8)
+
+
+def _mm_s32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return (a.long() @ w.long()).int()
+
+
+def i8_chain_from_image(embb: torch.Tensor, image: torch.Tensor,
+                        epi: torch.Tensor, qm: torch.Tensor, ow: torch.Tensor,
+                        ob: torch.Tensor):
+    """`mlp_i8`'s chain as the kernel runs it, on 128-point tiles (zero past
+    n), reading the weights out of its image chunk by chunk in its order and
+    the epilogues' parameters out of `pack_i8_epilogue`'s rows, with its
+    integer sums and its roundings: qemb; q1 .. q5; layer 5
+    in halves of 128 columns, ((f32(a) d5h) + (f32(e) d5e)) + b5; q7; h8;
+    the bf16 head. Returns ([qemb, q1 .. q7] int8, h8 f32, raw f32), rows
+    past n dropped."""
+    n = embb.shape[0]
+    m = qm.reshape(-1).float()
+    d = epi[..., :2].reshape(9, NW)
+    b = epi[..., 2:].reshape(9, NW)
+    sched = i8_schedule()
+    chunks = iter(i8_chunk_matrix(slot, cols, atoms) for slot, (_, _, _, cols, atoms)
+                  in zip(image.view(-1, I8_CHUNK_BYTES), sched))
+    qemb = quant_sym_i8(_tiles(embb.to(torch.bfloat16).float(), n), m[0])
+    acts, q, h8 = [qemb], qemb, None
+    for layer in range(8):
+        if layer == 5:
+            q6 = torch.empty_like(q)
+            for h in range(2):
+                cols = slice(h * NW // 2, (h + 1) * NW // 2)
+                e = _mm_s32(qemb, next(chunks)[:EMB])
+                a = _mm_s32(q, next(chunks))
+                v = (a.float() * d[5, cols] + e.float() * d[8, cols]) + b[5, cols]
+                q6[:, cols] = requant_i8(v, m[6])
+            q = q6
+        else:
+            if layer == 0:
+                acc = _mm_s32(qemb, next(chunks)[:EMB])
+            else:
+                acc = sum(_mm_s32(q[:, c * I8_K:(c + 1) * I8_K], next(chunks))
+                          for c in range(NW // I8_K))
+            v = acc.float() * d[layer] + b[layer]
+            if layer == 7:
+                h8 = torch.relu(v)
+                break
+            q = requant_i8(v, m[layer + 1])
+        acts.append(q)
+    raw = h8.to(torch.bfloat16).float() @ ow.float() + ob.float()
+    return [a[:n] for a in acts], h8[:n], raw[:n]

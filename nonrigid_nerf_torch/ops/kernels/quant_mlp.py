@@ -23,9 +23,13 @@ Inference only: training never quantizes (`make_train_step` rejects the mode).
   calibrates on scene content and returns a model that shares the parameters
   and holds the state (`NRNeRF.quant`); render it with
   `dataclasses.replace(cfg, fused_kernel="int8")`.
-- `mlp_i8(emb, qw)` runs the kernel (`csrc/mlp_i8.cu`) on a CUDA tensor and
-  the plain version `mlp_i8_plain` on a CPU tensor. It never falls back: a
-  CUDA tensor either launches the kernel or raises.
+- `mlp_i8(emb, qw)` runs the kernel (`csrc/mlp_i8.cu`, on
+  `csrc/mlp_sm90.cuh`: int8 wgmma fed by the weight ring) on a CUDA tensor
+  and the plain version `mlp_i8_plain` on a CPU tensor. It never falls back:
+  a CUDA tensor either launches the kernel or raises. Each call derives the
+  kernel's int8 weight image and its epilogues' parameters from the packed
+  tuple (`mlp_sm90.pack_i8_image`, `pack_i8_epilogue`): one gather and a few
+  small copies, no transposes.
 
 The kernel is bound by the tensor cores at their int8 rate (0.987 MOP per
 point against 160 B of HBM traffic); see the source for its design.
@@ -44,6 +48,8 @@ from nonrigid_nerf_torch.ops.kernels.build import load_kernel_library
 from nonrigid_nerf_torch.ops.kernels.mlp_fwd import (
     EMB, MACS_PER_POINT, NW, OUT_PAD, cast_mlp_weights, chain_plain,
     pack_mlp_weights)
+from nonrigid_nerf_torch.ops.kernels.mlp_sm90 import (pack_i8_epilogue,
+                                                      pack_i8_image)
 
 N_QW = 28            # packed weights before the quantization multipliers
 N_SCALES = 9         # s_emb, s1 .. s8
@@ -207,24 +213,36 @@ def _quant_relu(x, m):
     return (torch.round(torch.clamp(x * m, 0.0, 254.0)) - 127.0).to(torch.int8)
 
 
+def i8_chain_plain(emb: torch.Tensor, qw: Sequence[torch.Tensor]):
+    """The int8 chain of `_i8_fwd_math` line for line up to h8: ([qemb, q1
+    .. q7] int8, h8 f32). emb (n, 64) (bf16 or f32 holding bf16 values), qw
+    the 29 packed weights."""
+    (qw0, d0, b0, qw1, d1, b1, qw2, d2, b2, qw3, d3, b3, qw4, d4, b4,
+     qw5h, d5h, b5, qw5e, d5e, qw6, d6, b6, qw7, d7, b7, owb, ob, qm) = qw
+    qemb = _quant_sym(emb.float(), qm[0, 0])
+    acts = [qemb]
+    h = torch.relu(_mm_i8(qemb, qw0) * d0 + b0)
+    for l, (w, d, b) in enumerate(((qw1, d1, b1), (qw2, d2, b2),
+                                   (qw3, d3, b3), (qw4, d4, b4)), start=1):
+        acts.append(_quant_relu(h, qm[0, l]))
+        h = torch.relu(_mm_i8(acts[-1], w) * d + b)
+    acts.append(_quant_relu(h, qm[0, 5]))
+    h = torch.relu(_mm_i8(acts[-1], qw5h) * d5h
+                   + _mm_i8(qemb, qw5e) * d5e + b5)
+    for l, (w, d, b) in enumerate(((qw6, d6, b6), (qw7, d7, b7)), start=6):
+        acts.append(_quant_relu(h, qm[0, l]))
+        h = torch.relu(_mm_i8(acts[-1], w) * d + b)
+    return acts, h
+
+
 def mlp_i8_plain(emb: torch.Tensor, qw: Sequence[torch.Tensor]
                  ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: `_i8_fwd_math` line for line.
 
     emb (n, 64) (bf16 or f32 holding bf16 values), qw the 29 packed weights.
     Returns (n, 8) f32."""
-    (qw0, d0, b0, qw1, d1, b1, qw2, d2, b2, qw3, d3, b3, qw4, d4, b4,
-     qw5h, d5h, b5, qw5e, d5e, qw6, d6, b6, qw7, d7, b7, owb, ob, qm) = qw
-    qemb = _quant_sym(emb.float(), qm[0, 0])
-    h = torch.relu(_mm_i8(qemb, qw0) * d0 + b0)
-    for l, (w, d, b) in enumerate(((qw1, d1, b1), (qw2, d2, b2),
-                                   (qw3, d3, b3), (qw4, d4, b4)), start=1):
-        h = torch.relu(_mm_i8(_quant_relu(h, qm[0, l]), w) * d + b)
-    h = torch.relu(_mm_i8(_quant_relu(h, qm[0, 5]), qw5h) * d5h
-                   + _mm_i8(qemb, qw5e) * d5e + b5)
-    for l, (w, d, b) in enumerate(((qw6, d6, b6), (qw7, d7, b7)), start=6):
-        h = torch.relu(_mm_i8(_quant_relu(h, qm[0, l]), w) * d + b)
-    return h.to(torch.bfloat16).float() @ owb.float() + ob
+    _, h8 = i8_chain_plain(emb, qw)
+    return h8.to(torch.bfloat16).float() @ qw[_I8_OW].float() + qw[_I8_OB]
 
 
 def _expected_i8(i: int):
@@ -278,19 +296,15 @@ def mlp_i8(emb: torch.Tensor, qw: Sequence[torch.Tensor]) -> torch.Tensor:
     if n == 0:      # nothing to launch, nothing to count
         return out
     lib = _library()
-
-    def pointers(tensors):
-        return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
-
-    # the kernel reads a matrix with the k-values of an output column
-    # contiguous: (out, in). Nine small copies per launch (0.49 MB in all).
-    mats_t = [qw[i].t().contiguous() for i in _I8_MATRIX_IDX]
+    # the kernel's image of the nine int8 matrices (17 chunks of 32 KB) and
+    # its epilogues' parameters, derived on each call
+    image = pack_i8_image([qw[i] for i in _I8_MATRIX_IDX])
+    epi = pack_i8_epilogue([qw[i] for i in _I8_DEQ_IDX],
+                           [qw[i] for i in _I8_BIAS_IDX])
     with torch.cuda.device(emb.device):
         stream = torch.cuda.current_stream(emb.device).cuda_stream
         err = lib.nrnerf_mlp_i8(
-            embb.data_ptr(), n, pointers(mats_t),
-            pointers([qw[i] for i in _I8_DEQ_IDX]),
-            pointers([qw[i] for i in _I8_BIAS_IDX]),
+            embb.data_ptr(), n, image.data_ptr(), epi.data_ptr(),
             qw[_I8_OW].data_ptr(), qw[_I8_OB].data_ptr(),
             qw[_I8_QM].data_ptr(), out.data_ptr(), stream)
     if err != 0:
@@ -305,9 +319,6 @@ mlp_i8.launches = 0
 def _library() -> ctypes.CDLL:
     lib = load_kernel_library("mlp_i8.cu")
     fn = lib.nrnerf_mlp_i8
-    ptrs = ctypes.POINTER(ctypes.c_void_p)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ptrs, ptrs, ptrs,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
     fn.restype = ctypes.c_int
     return lib

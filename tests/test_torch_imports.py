@@ -47,10 +47,10 @@ KERNEL_SOURCES = ["mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpv_bwd.cu",
                   "mlpe_fwd.cu", "mlpe_bwd.cu", "mlp_i8.cu", "mlp_tile.cuh",
                   "bend_fwd.cu", "bend_bwd.cu", "fused_fwd.cu", "fused_bwd.cu",
                   "bend_tile.cuh", "mlp_sm90.cuh"]
-# rows 1-6 run their chain on mlp_sm90.cuh; the other kernels on
+# rows 1-6 and 11 run their chain on mlp_sm90.cuh; the other kernels on
 # mlp_tile.cuh
 SM90_SOURCES = ("mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpv_bwd.cu",
-                "mlpe_fwd.cu", "mlpe_bwd.cu")
+                "mlpe_fwd.cu", "mlpe_bwd.cu", "mlp_i8.cu")
 # mlp_tile.cuh's chain, which the sources on mlp_sm90.cuh do not run
 TILE_CHAIN = ("chain_forward(", "dh_chain(", "mlp_dw_kernel", "mlp_small_kernel")
 SM90_FILES = ["ops/kernels/mlp_sm90.py"]

@@ -578,6 +578,67 @@ def test_int8_renderer_on_cuda_runs_mlp_i8_and_matches_cpu(model, cuda_device):
         assert np.abs(gpu[key].cpu().numpy() - cpu[key].numpy()).mean() < 5e-3
 
 
+# ---- row 11 on the Hopper chain (csrc/mlp_i8.cu on mlp_sm90.cuh): the
+# persistent grid's edges (one point, one tile, a tile and one, one tile past
+# a whole wave of CTAs, a render block's fine pass: more tiles than CTAs),
+# every size's rows bit for bit those of the largest launch, which alone is
+# held to the plain version, bit-equal relaunch, the launch counter
+
+SM90_I8_SIZES = [0, 1, 128, 129, 132 * 128 + 1, 1 << 22]
+
+
+@pytest.fixture(scope="module")
+def sm90_i8_reference(request):
+    """The packed int8 weights, an encoding of the largest size and
+    `mlp_i8`'s output on it, held once against `mlp_i8_plain`."""
+    cache = {}
+
+    def get(device):
+        if not cache:
+            qw = _int8_weights(request.getfixturevalue("model").coarse, device)
+            emb = torch.from_numpy(_emb(max(SM90_I8_SIZES), 51)).to(
+                device).to(torch.bfloat16)
+            out = KQ.mlp_i8(emb, qw)
+            err = (out - KQ.mlp_i8_plain(emb, qw)).abs().max().item()
+            assert err <= KQ.I8_TOL_MAX
+            cache.update(qw=qw, emb=emb, out=out)
+        return cache
+
+    return get
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SM90_I8_SIZES)
+def test_mlp_i8_on_the_sm90_chain_at_the_grid_edges(sm90_i8_reference,
+                                                     cuda_device, n):
+    ref = sm90_i8_reference(cuda_device)
+    emb = ref["emb"][:n]
+    before = KQ.mlp_i8.launches
+    out = KQ.mlp_i8(emb, ref["qw"])
+    torch.cuda.synchronize()
+    assert KQ.mlp_i8.launches == before + (n > 0)
+    assert out.shape == (n, K.OUT_PAD) and bool(torch.isfinite(out).all())
+    assert torch.equal(out, ref["out"][:n])
+    assert torch.equal(out, KQ.mlp_i8(emb, ref["qw"]))
+
+
+@pytest.mark.cuda
+def test_mlp_i8_refuses_an_unaligned_cuda_tensor(model, cuda_device):
+    """A bf16 encoding that starts 2 bytes into its allocation raises and
+    launches nothing; an aligned copy of it runs."""
+    qw = _int8_weights(model.coarse, cuda_device)
+    flat = torch.from_numpy(_emb(9, 52)).to(cuda_device).to(
+        torch.bfloat16).reshape(-1)
+    emb = flat[1:1 + 8 * 64].view(8, 64)
+    assert emb.data_ptr() % 16 == 2 and emb.is_contiguous()
+    before = KQ.mlp_i8.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        KQ.mlp_i8(emb, qw)
+    assert KQ.mlp_i8.launches == before
+    out = KQ.mlp_i8(emb.clone(), qw)
+    assert (out - KQ.mlp_i8_plain(emb, qw)).abs().max().item() <= KQ.I8_TOL_MAX
+
+
 # ---- the fused point query: bend_fwd, bend_bwd, fused_fwd, fused_bwd
 
 def _bend_inputs(n, device, seed):
