@@ -83,9 +83,11 @@ result line is printed):
    every size and width, each with its device time and share of the bound (a
    backward also with its two-pass floor and its device time by kernel:
    chain, dW, head sums, reduction; row 11 with the registers, spills and
-   wgmma serialization ptxas reported in phase 1), with row 9 (`fused_fwd`:
-   csrc/mlp_tile.cuh's design) from the same call as a control for the
-   card's drift; the kernels JSON line (eleven rows;
+   wgmma serialization ptxas reported in phase 1), and rows 9 and 10
+   (`fused_fwd`, `fused_bwd`, on csrc/mlp_sm90.cuh) likewise:
+   ptxas's report of their chain kernels, row 10's two-pass floor and its
+   device time by kernel (pre-pass, chain, dW, heads, reductions, the
+   bender's backward); the kernels JSON line (eleven rows;
    `mlp_fwd` and `mlp_bwd` carry B's 128-lane checks, timings and launches
    under "lanes_128", and their share of the bound) and, last, the result
    line
@@ -540,18 +542,39 @@ def check_bwd(fam, model, n_points, device):
 
 def bwd_kernel_part(name: str) -> str:
     """The part of a backward call a device kernel is: its chain kernel, its
-    dW products, the head (or bias) sums, the reduction over the splits."""
+    dW products, the head sums, the reduction over the splits; row 10's
+    bender pre-pass and the bender's backward."""
     return ("chain" if "chain_kernel" in name else
             "dw" if "mlp_dw_" in name else
-            "heads" if "head_grad" in name or "small_kernel" in name else
+            "heads" if "head_grad" in name else
+            "bend_prepass" if "bend_encode_kernel" in name else
+            "bend_bwd" if "bend_bwd_kernel" in name else
             "reduce")
 
 
-# the device kernels of one backward call (csrc/mlp_tile.cuh; mlp_bwd's
-# chain and dW kernels are csrc/mlp_bwd.cu's, on csrc/mlp_sm90.cuh)
-BWD_KERNEL_NAMES = ("_bwd_chain_kernel", "mlp_dw_kernel", "mlp_dw_sm90_kernel",
-                    "mlp_head_grad_kernel", "mlp_small_kernel",
-                    "mlp_reduce_kernel")
+# the device kernels of a backward call (csrc/mlp_sm90.cuh's chain kernels,
+# dW products and head sums; csrc/mlp_tile.cuh's reduction)
+BWD_KERNEL_NAMES = ("_bwd_chain_kernel", "mlp_dw_sm90_kernel",
+                    "mlp_head_grad_kernel", "mlp_reduce_kernel")
+
+
+def device_ms_by_part(fn, reps: int = 5) -> dict:
+    """Device ms a call of fn by `bwd_kernel_part`, torch.profiler over
+    `reps` calls after one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            part = bwd_kernel_part(e.key)
+            out[part] = out.get(part, 0.0) + e.self_device_time_total / reps / 1e3
+    return out
 
 
 def profile_run(run, what):
@@ -1455,6 +1478,15 @@ def check_fused_backwards(model, n, device, network):
                     tensor_bytes(pts, lat, *cots, got[0], got[1], *got[2],
                                  *weights[:16], *weights[18:]))
         log_timing(name, n, t)
+        if name == "fused_bwd":
+            # row 2's two-pass floor (its scratch written and read back) and
+            # the device time by kernel: the pre-pass, row 2's kernels, row 8's
+            t["scratch_floor_ms"] = 2 * 2 * n * (64 + 16 * 256) / PEAK_HBM_BYTES * 1e3
+            t["split_ms_per_launch"] = device_ms_by_part(
+                lambda: fn(pts, lat, weights, *cots))
+            log(f"fused_bwd n={n}: device ms by kernel " + ", ".join(
+                f"{k} {v:.4f}" for k, v in t["split_ms_per_launch"].items())
+                + f"; the scratch's round trip alone {t['scratch_floor_ms']:.4f} ms")
         results.append(dict(max_abs_err=stats["grad_max_rel"], agreement=stats,
                             **t))
     return results
@@ -1607,6 +1639,9 @@ def fused_query_phase(cfg, device, smi, sizes):
                      "other_sizes": [{"points": p, **{k: v for k, v in c.items()
                                                       if k != "agreement"}}
                                      for p, c in zip(points[1:], checks[1:])]})
+        for key in ("scratch_floor_ms", "split_ms_per_launch"):
+            if key in head:
+                rows[-1][key] = head[key]
     return rows, dict(engine_stage1_mlpe_ms=engine_ms, bender_f32_ms=bender_ms,
                       fused_fwd_ms=fused_ms, points=n_render, gpu=smi)
 
@@ -1761,15 +1796,18 @@ def main() -> int:
         f"{smi}")
     if len(rows) != 11:
         raise AssertionError(f"{len(rows)} kernel rows, 11 kernels")
-    # rows 1-6 and 11 (csrc/mlp_sm90.cuh's chains) beside row 9, which runs
-    # mlp_tile.cuh's design in the same call: a control for the card's
-    # drift. Every size's line has the time, the device time and the share
-    # of the bound; a backward's adds its two-pass floor at each size and its
-    # device time by kernel, a launch on average over a training step's two
-    # sizes (the profile of 5 steps).
+    # rows 1-6 and 9-11 (csrc/mlp_sm90.cuh's chains). Every size's line has
+    # the time, the device time and the share of the bound; a backward's adds
+    # its two-pass floor at each size and its device time by kernel (rows 2,
+    # 4 and 6: a launch on average over a training step's two sizes, the
+    # profile of 5 steps; row 10: a call at 65,536 points); rows 9-11 what
+    # ptxas reported in phase 1 of their chain kernels.
     by_name = {r["name"]: r for r in rows}
+    ptxas_of = {"mlp_i8": ("mlp_i8.cu", "mlp_i8_kernel"),
+                "fused_fwd": ("fused_fwd.cu", "mlp_fwd_kernel"),
+                "fused_bwd": ("fused_bwd.cu", "mlp_bwd_chain_kernel")}
     for name in ("mlp_fwd", "mlp_bwd", "mlpv_fwd", "mlpv_bwd", "mlpe_fwd",
-                 "mlpe_bwd", "fused_fwd", "mlp_i8"):
+                 "mlpe_bwd", "fused_fwd", "fused_bwd", "mlp_i8"):
         r = by_name[name]
         passes = [("", r)] + [(f"{k} ", r[k]) for k in
                               ("fine_pass", "train_pass", "train_fine_pass")
@@ -1789,17 +1827,17 @@ def main() -> int:
 
         split = ""
         if "split_ms_per_launch" in r:
-            split = "; device ms a launch by kernel, over a training step: " + ", ".join(
+            over = (f"a call at {r['points']} points" if name == "fused_bwd"
+                    else "over a training step")
+            split = f"; device ms a launch by kernel, {over}: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in r["split_ms_per_launch"].items())
             if "lanes_128" in r:
                 split += " (128 lanes: " + ", ".join(
                     f"{k} {v:.4f}" for k, v in
                     r["lanes_128"]["split_ms_per_launch"].items()) + ")"
-        what_line = ("drift control (mlp_tile.cuh)" if name == "fused_fwd"
-                     else "design check")
-        if name == "mlp_i8":
-            split = "; " + ptxas_report("mlp_i8.cu", "mlp_i8_kernel")
-        log(f"{what_line}, {name}: " + "; ".join(
+        if name in ptxas_of:
+            split += "; " + ptxas_report(*ptxas_of[name])
+        log(f"design check, {name}: " + "; ".join(
             f"{what}{p['points']} pts {p['ms']:.4f} ms (device "
             f"{p['device_ms']:.4f} ms), bound {p['bound_ms']:.4f} ms, "
             f"{p['bound_ms'] / p['ms']:.3f} of it" + detail(p)

@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
-"""Time variants of rows 1-3, 5 and 11's CUDA sources on one NVIDIA GPU.
+"""Time variants of rows 1-3, 5, 9 and 11's CUDA sources on one NVIDIA GPU.
 
     python3 chip_variants.py                  # every variant below
     python3 chip_variants.py base no_epilogue_stores
+    python3 chip_variants.py base fused_bender_in_registers fused_bender_on_encoders
     python3 chip_variants.py --steps OTHER    # training steps, two trees
     python3 chip_variants.py --steps OTHER I  # int8 frames and mlp_i8, two trees
 
 A variant is a list of text substitutions applied to a copy of
 `nonrigid_nerf_torch/ops/kernels/csrc/` (the sources in this checkout stay
-as they are). Each copy's `mlp_fwd.cu`, `mlp_bwd.cu`, `mlpv_fwd.cu`,
-`mlpe_fwd.cu` and `mlp_i8.cu` (a variant of row 11: that one alone) are
-built with the port's nvcc flags, one nvcc per source and all started
-together, into a temporary directory. Then, one child process per variant
+as they are; a substitution whose text is a pair (start, end) replaces
+everything from start up to end). Each copy's `mlp_fwd.cu`, `mlp_bwd.cu`,
+`mlpv_fwd.cu`, `mlpe_fwd.cu`, `mlp_i8.cu`, `fused_fwd.cu` and `fused_bwd.cu`
+(a variant of row 11: `mlp_i8.cu` alone; of row 9: `fused_fwd.cu` alone)
+are built with the port's nvcc flags, one nvcc per source and all started
+together, into a temporary directory; a variant that does not build is
+reported and skipped. Then, one child process per variant
 (so that a variant that hangs is cut off after `CHILD_TIMEOUT_S` without
 taking the others with it), the script:
 
 - times `mlp_i8` at a render block's two passes (2^21 and 2^22 points), and
   for a variant of row 11 nothing else;
+- times `fused_fwd` (row 9) at 2^21 and 65,536 points and `fused_bwd` (row
+  10) at 65,536 and 131,072, row 10 by kernel, on the flagship's fine
+  network with its deformation perturbed (a variant of row 9: row 9
+  alone), through the port's wrappers on the variant's libraries;
 - times `mlp_fwd` at a render block's coarse pass (2^21 points) and a
   training step's (65,536) and `mlp_bwd` at a training step's two passes
   (65,536 and 131,072), at the 64-lane and the 128-lane encoding, and
@@ -59,13 +67,389 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(ROOT, "nonrigid_nerf_torch", "ops", "kernels", "csrc")
 SOURCES = ("mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpe_fwd.cu",
-           "mlp_i8.cu")
-CHILD_TIMEOUT_S = 150
+           "mlp_i8.cu", "fused_fwd.cu", "fused_bwd.cu")
+CHILD_TIMEOUT_S = 180
 # variants that change rows 3 and 5 only: the child times rows 3 and 5 and,
 # as the yardstick, row 1 at 64 lanes
 HEADS_ONLY = ("pts_encode_on_consumers", "pts_no_sines", "pts_no_encoding")
 # variants that change row 11 only: the child times row 11 alone
 I8_ONLY = ("i8_2_stages", "i8_quantize_on_consumers", "i8_head_on_cuda_cores")
+# variants that change row 9 only: the child times row 9 alone
+FUSED_ONLY = ("fused_bender_on_encoders", "fused_bender_in_registers",
+              "fused_regs_216_72", "fused_no_sines", "fused_ahead_no_loads",
+              "fused_ahead_no_products", "fused_ahead_handshake_only",
+              "fused_no_offsets")
+
+# row 9 with the whole deformation field on the producer warpgroup's three
+# idle warps (mma.sync m16n8k16, a warp 16 rows at a time, the activations
+# in those rows of the encoding tile, the producer's 40 registers) and
+# nothing on the consumers: it replaces FusedFwdIn, from its struct to the
+# plan that follows it
+FUSED_ON_ENCODERS = r"""// variant (c): the whole bender on the producer warpgroup's three idle warps
+// (mma.sync m16n8k16, a warp 16 rows at a time, its activations in those
+// rows of the encoding tile, 40 registers), nothing on the consumers
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(addr) : "memory");
+}
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+template <int K>
+__device__ __forceinline__ uint32_t kmajor_offset(int n, int k) {
+  const uint32_t sw = K == 64 ? uint32_t(n & 7) : uint32_t((n >> 1) & 3);
+  return uint32_t(n) * (2 * K) + (((uint32_t(k) >> 3) ^ sw) << 4) + (uint32_t(k & 7) << 1);
+}
+template <int KS>
+__device__ __forceinline__ void load_a(uint32_t (&a)[KS][4], uint32_t rows, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    ldmatrix_x4(a[ks], rows + tile_offset(lane % 16, ks * 16 + (lane / 16) * 8));
+  }
+}
+template <int K, int N, class Pre>
+__device__ __forceinline__ void warp_layer(const uint32_t (&a)[K / 16][4], uint32_t rows,
+                                           uint32_t w, uint32_t bias, int lane, Pre&& pre) {
+  const int q = lane % 4;
+#pragma unroll 1
+  for (int j = 0; j < N / 8; ++j) {
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int ks = 0; ks < K / 16; ++ks) {
+      uint32_t b[2];
+      ldmatrix_x2(b, w + kmajor_offset<K>(j * 8 + (lane & 7), ks * 16 + ((lane >> 3) & 1) * 8));
+      mma_16816(acc, a[ks], b[0], b[1]);
+    }
+    const int col = j * 8 + 2 * q;
+    const float b0 = ld_shared_f32(bias + 4 * col), b1 = ld_shared_f32(bias + 4 * col + 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v0 = fmaxf(__fadd_rn(__fadd_rn(pre(h, col), acc[2 * h]), b0), 0.0f);
+      const float v1 = fmaxf(__fadd_rn(__fadd_rn(pre(h, col + 1), acc[2 * h + 1]), b1), 0.0f);
+      st_shared32(rows + tile_offset(lane / 4 + 8 * h, col), pack_bf16(v0, v1));
+    }
+  }
+}
+
+struct FusedFwdIn {
+  static constexpr int FWD_TILES = 2;
+  static constexpr int ENCODERS = 96;
+  static constexpr int WARPS = ENCODERS / 32;
+  static constexpr int BLOCKS = TM / 16;
+  const float* pts;
+  const float* lat;
+  const bf16* image;
+  float* off;
+  float* rig;
+
+  __device__ __forceinline__ void init(uint32_t bars) const {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(bars + 8 * b, ENCODERS);
+      mbar_init(bars + 8 * (2 + b), CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __device__ __forceinline__ void encode(uint32_t emb0, uint32_t bars, uint32_t wimg, int n,
+                                         int n_tiles, int e) const {
+    for (int i = e; i < int(BEND_IMAGE_BYTES / 16); i += ENCODERS) {
+      st_shared16(wimg + 16 * i, __ldg(reinterpret_cast<const uint4*>(image) + i));
+    }
+    encoders_barrier();
+    const int warp = e / 32;
+    const int lane = e % 32;
+    int i = 0;
+#pragma unroll 1
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+      const int b = i % 2;
+      const uint32_t embt = emb0 + uint32_t(b) * TILE_ATOM_BYTES;
+      mbar_wait(bars + 8 * (2 + b), ((i / 2) & 1) ^ 1);
+#pragma unroll 1
+      for (int blk = (warp + i) % WARPS; blk < BLOCKS; blk += WARPS) {
+        bend_block(embt, wimg, long(tile) * TM, blk * 16, n, lane);
+      }
+      fence_proxy_async();
+      mbar_arrive(bars + 8 * b);
+    }
+  }
+  __device__ __forceinline__ void first(uint32_t, long, int, int, int) {}
+  __device__ __forceinline__ void wait(uint32_t bars, int i) {
+    mbar_wait(bars + 8 * (i % 2), (i / 2) & 1);
+  }
+  __device__ __forceinline__ void done(uint32_t, uint32_t bars, int i, long, int, int, int t) {
+    if (t == 0) mbar_arrive(bars + 8 * (2 + i % 2));
+  }
+  template <int R>
+  __device__ __forceinline__ void ahead(float (&)[R], unsigned char*, uint32_t, uint32_t,
+                                        uint32_t, int, long, int, int, int) {}
+
+  __device__ __forceinline__ void bend_block(uint32_t embt, uint32_t wimg, long row0,
+                                             int r_blk, int n, int lane) const {
+    const int q = lane % 4;
+    const uint32_t rows = embt + uint32_t(r_blk) * ATOM_ROW_BYTES;
+    const long r0 = row0 + r_blk + lane / 4;
+    const long r1 = r0 + 8;
+    float xb[2][3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      xb[0][j] = round_bf16(r0 < n ? __ldg(pts + size_t(r0) * 3 + j) : 0.0f);
+      xb[1][j] = round_bf16(r1 < n ? __ldg(pts + size_t(r1) * 3 + j) : 0.0f);
+    }
+    auto nopre = [](int, int) { return 0.0f; };
+    {
+      uint32_t a[RIG_W / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < RIG_W / 16; ++ks) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int c = ks * 16 + (f / 2) * 8 + 2 * q;
+          float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            const uint32_t wv = ld_shared32(wimg + BIMG_R0W + 2 * (j * RIG_W + c));
+            s0 += xb[f % 2][j] * bf16_lo(wv);
+            s1 += xb[f % 2][j] * bf16_hi(wv);
+          }
+          a[ks][f] = pack_bf16(fmaxf(__fadd_rn(s0, ld_shared_f32(wimg + BIMG_R0B + 4 * c)), 0.0f),
+                               fmaxf(__fadd_rn(s1, ld_shared_f32(wimg + BIMG_R0B + 4 * c + 4)),
+                                     0.0f));
+        }
+      }
+      warp_layer<RIG_W, RIG_W>(a, rows, wimg + BIMG_R1W, wimg + BIMG_R1B, lane, nopre);
+    }
+    __syncwarp();
+    const int r = lane % 16;
+    const float th = tanhf(
+        __fadd_rn(row_dot<RIG_W>(rows, r, wimg + BIMG_ROWT), ld_shared_f32(wimg + BIMG_ROB)));
+    const float rig0 = __fmul_rn(__fadd_rn(th, 1.0f), 0.5f);
+    __syncwarp();
+    {
+      uint32_t al[LAT_W / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < LAT_W / 16; ++ks) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const long rf = f % 2 ? r1 : r0;
+          const int c = ks * 16 + (f / 2) * 8 + 2 * q;
+          const float2 v = rf < n ? __ldg(reinterpret_cast<const float2*>(lat + size_t(rf) * LAT_W + c))
+                                  : make_float2(0.0f, 0.0f);
+          al[ks][f] = pack_bf16(v.x, v.y);
+        }
+      }
+      warp_layer<LAT_W, BEND_W>(al, rows, wimg + BIMG_B0L, wimg + BIMG_BB, lane, [&](int h, int col) {
+        float s = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const uint32_t wv = ld_shared32(wimg + BIMG_B0P + 2 * (j * BEND_W + (col & ~1)));
+          s += xb[h][j] * (col & 1 ? bf16_hi(wv) : bf16_lo(wv));
+        }
+        return s;
+      });
+    }
+#pragma unroll 1
+    for (int l = 1; l < 4; ++l) {
+      uint32_t a[BEND_W / 16][4];
+      __syncwarp();
+      load_a(a, rows, lane);
+      __syncwarp();
+      warp_layer<BEND_W, BEND_W>(a, rows, wimg + BIMG_BW + uint32_t(l - 1) * BEND_W * BEND_W * 2,
+                                 wimg + BIMG_BB + uint32_t(l) * BEND_W * 4, lane, nopre);
+    }
+    __syncwarp();
+    const float o_lane = row_dot<BEND_W>(rows, r, wimg + BIMG_BOWT + (lane / 16) * BEND_W * 2);
+    const float o2 = row_dot<BEND_W>(rows, r, wimg + BIMG_BOWT + 2 * BEND_W * 2);
+    const float offs[3] = {__shfl_sync(0xffffffffu, o_lane, r),
+                           __shfl_sync(0xffffffffu, o_lane, r + 16), o2};
+    const long row = row0 + r_blk + r;
+    const bool valid = row < n;
+    float bent[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float x = valid ? __ldg(pts + size_t(row) * 3 + j) : 0.0f;
+      bent[j] = __fadd_rn(x, __fmul_rn(rig0, offs[j]));
+      if (valid && lane < 16) off[size_t(row) * 3 + j] = offs[j];
+    }
+    if (valid && lane < 16) rig[row] = rig0;
+    __syncwarp();
+#pragma unroll 1
+    for (int p = 0; p < 4; ++p) {
+      encode_piece_with(embt, bent, valid, [&](int c, float (&pc)[4]) {
+        pc[0] = ld_shared_f32(wimg + BIMG_P + 4 * c);
+        pc[1] = ld_shared_f32(wimg + BIMG_P + 4 * (EMB + c));
+        pc[2] = ld_shared_f32(wimg + BIMG_P + 4 * (2 * EMB + c));
+        pc[3] = ld_shared_f32(wimg + BIMG_PHASE + 4 * c);
+      }, r_blk + r, ((lane / 16) * 4 + p) * 8);
+    }
+  }
+};
+
+"""
+
+# row 9, variant (a): FUSED_ON_ENCODERS with the activations in registers: a
+# layer's accumulator fragments, rounded to bf16, are the next layer's A
+# fragments (m16n8k16: n-tiles 2 ks and 2 ks + 1 make k-step ks); only rh1
+# and bh3 go to the warp's rows of the encoding tile, for the sequential
+# 3-lane sums. Inserted before `bend_block`; the encoders call it instead.
+FUSED_IN_REGISTERS = r"""  // acc[j] (n-tile j of N / 8) = a (K / 16 k-steps) @ the K-major matrix at w,
+  // the k-steps in ascending order from 0
+  template <int K, int N, int NA, int NJ>
+  static __device__ __forceinline__ void reg_products(float (&acc)[NJ][4],
+                                                      const uint32_t (&a)[NA][4], uint32_t w,
+                                                      int lane) {
+    static_assert(NA >= K / 16 && NJ >= N / 8, "the fragments hold the layer");
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < K / 16; ++ks) {
+        uint32_t b[2];
+        ldmatrix_x2(b, w + kmajor_offset<K>(j * 8 + (lane & 7), ks * 16 + ((lane >> 3) & 1) * 8));
+        mma_16816(acc[j], a[ks], b[0], b[1]);
+      }
+    }
+  }
+  // bf16(relu((pre(h, col) + acc) + bias)) of N columns, each pair to
+  // put(j, h, col, packed)
+  template <int N, int NJ, class Pre, class Put>
+  static __device__ __forceinline__ void reg_epilogue(const float (&acc)[NJ][4], uint32_t bias,
+                                                      int lane, Pre&& pre, Put&& put) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int col = j * 8 + 2 * (lane % 4);
+      const float b0 = ld_shared_f32(bias + 4 * col), b1 = ld_shared_f32(bias + 4 * col + 4);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v0 = fmaxf(__fadd_rn(__fadd_rn(pre(h, col), acc[j][2 * h]), b0), 0.0f);
+        const float v1 =
+            fmaxf(__fadd_rn(__fadd_rn(pre(h, col + 1), acc[j][2 * h + 1]), b1), 0.0f);
+        put(j, h, col, pack_bf16(v0, v1));
+      }
+    }
+  }
+
+  __device__ __forceinline__ void bend_block_regs(uint32_t embt, uint32_t wimg, long row0,
+                                                  int r_blk, int n, int lane) const {
+    const int q = lane % 4;
+    const uint32_t rows = embt + uint32_t(r_blk) * ATOM_ROW_BYTES;
+    const long r0 = row0 + r_blk + lane / 4;
+    const long r1 = r0 + 8;
+    float xb[2][3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      xb[0][j] = round_bf16(r0 < n ? __ldg(pts + size_t(r0) * 3 + j) : 0.0f);
+      xb[1][j] = round_bf16(r1 < n ? __ldg(pts + size_t(r1) * 3 + j) : 0.0f);
+    }
+    auto nopre = [](int, int) { return 0.0f; };
+    auto to_rows = [&](int, int h, int col, uint32_t v) {
+      st_shared32(rows + tile_offset(lane / 4 + 8 * h, col), v);
+    };
+    auto to_a = [&](uint32_t (&a)[BEND_W / 16][4]) {
+      return [&a](int j, int h, int, uint32_t v) { a[j / 2][2 * (j % 2) + h] = v; };
+    };
+    uint32_t a[BEND_W / 16][4];
+    float acc[BEND_W / 8][4];
+    // rh0 (CUDA cores) as A fragments, rh1 to the rows, the rigidity
+#pragma unroll
+    for (int ks = 0; ks < RIG_W / 16; ++ks) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int c = ks * 16 + (f / 2) * 8 + 2 * q;
+        float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const uint32_t wv = ld_shared32(wimg + BIMG_R0W + 2 * (j * RIG_W + c));
+          s0 += xb[f % 2][j] * bf16_lo(wv);
+          s1 += xb[f % 2][j] * bf16_hi(wv);
+        }
+        a[ks][f] = pack_bf16(fmaxf(__fadd_rn(s0, ld_shared_f32(wimg + BIMG_R0B + 4 * c)), 0.0f),
+                             fmaxf(__fadd_rn(s1, ld_shared_f32(wimg + BIMG_R0B + 4 * c + 4)),
+                                   0.0f));
+      }
+    }
+    reg_products<RIG_W, RIG_W>(acc, a, wimg + BIMG_R1W, lane);
+    reg_epilogue<RIG_W>(acc, wimg + BIMG_R1B, lane, nopre, to_rows);
+    __syncwarp();
+    const int r = lane % 16;
+    const float th = tanhf(
+        __fadd_rn(row_dot<RIG_W>(rows, r, wimg + BIMG_ROWT), ld_shared_f32(wimg + BIMG_ROB)));
+    const float rig0 = __fmul_rn(__fadd_rn(th, 1.0f), 0.5f);
+    // bh0 from the latents' A fragments, bh1, bh2 in registers, bh3 to the rows
+#pragma unroll
+    for (int ks = 0; ks < LAT_W / 16; ++ks) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const long rf = f % 2 ? r1 : r0;
+        const int c = ks * 16 + (f / 2) * 8 + 2 * q;
+        const float2 v = rf < n ? __ldg(reinterpret_cast<const float2*>(lat + size_t(rf) * LAT_W + c))
+                                : make_float2(0.0f, 0.0f);
+        a[ks][f] = pack_bf16(v.x, v.y);
+      }
+    }
+    reg_products<LAT_W, BEND_W>(acc, a, wimg + BIMG_B0L, lane);
+    reg_epilogue<BEND_W>(acc, wimg + BIMG_BB, lane, [&](int h, int col) {
+      float s = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const uint32_t wv = ld_shared32(wimg + BIMG_B0P + 2 * (j * BEND_W + (col & ~1)));
+        s += xb[h][j] * (col & 1 ? bf16_hi(wv) : bf16_lo(wv));
+      }
+      return s;
+    }, to_a(a));
+#pragma unroll 1
+    for (int l = 1; l < 3; ++l) {
+      reg_products<BEND_W, BEND_W>(acc, a, wimg + BIMG_BW + uint32_t(l - 1) * BEND_W * BEND_W * 2,
+                                   lane);
+      reg_epilogue<BEND_W>(acc, wimg + BIMG_BB + uint32_t(l) * BEND_W * 4, lane, nopre, to_a(a));
+    }
+    reg_products<BEND_W, BEND_W>(acc, a, wimg + BIMG_BW + 2u * BEND_W * BEND_W * 2, lane);
+    __syncwarp();   // every lane has read rh1
+    reg_epilogue<BEND_W>(acc, wimg + BIMG_BB + 3u * BEND_W * 4, lane, nopre, to_rows);
+    __syncwarp();
+    const float o_lane = row_dot<BEND_W>(rows, r, wimg + BIMG_BOWT + (lane / 16) * BEND_W * 2);
+    const float o2 = row_dot<BEND_W>(rows, r, wimg + BIMG_BOWT + 2 * BEND_W * 2);
+    const float offs[3] = {__shfl_sync(0xffffffffu, o_lane, r),
+                           __shfl_sync(0xffffffffu, o_lane, r + 16), o2};
+    const long row = row0 + r_blk + r;
+    const bool valid = row < n;
+    float bent[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float x = valid ? __ldg(pts + size_t(row) * 3 + j) : 0.0f;
+      bent[j] = __fadd_rn(x, __fmul_rn(rig0, offs[j]));
+      if (valid && lane < 16) off[size_t(row) * 3 + j] = offs[j];
+    }
+    if (valid && lane < 16) rig[row] = rig0;
+    __syncwarp();
+#pragma unroll 1
+    for (int p = 0; p < 4; ++p) {
+      encode_piece_with(embt, bent, valid, [&](int c, float (&pc)[4]) {
+        pc[0] = ld_shared_f32(wimg + BIMG_P + 4 * c);
+        pc[1] = ld_shared_f32(wimg + BIMG_P + 4 * (EMB + c));
+        pc[2] = ld_shared_f32(wimg + BIMG_P + 4 * (2 * EMB + c));
+        pc[3] = ld_shared_f32(wimg + BIMG_PHASE + 4 * c);
+      }, r_blk + r, ((lane / 16) * 4 + p) * 8);
+    }
+  }
+
+"""
+
+# the register split 216 / 72 in place of the chain's 232 / 40
+REGS_216_72 = [
+    ("mlp_sm90.cuh",
+     "    setmaxnreg_dec<PRODUCER_REGS>();\n    if (t == 0) {\n      produce<S>(",
+     "    setmaxnreg_dec<72>();\n    if (t == 0) {\n      produce<S>("),
+    ("mlp_sm90.cuh",
+     "    setmaxnreg_inc<CONSUMER_REGS>();\n    In in = in_args;\n    uint32_t g = 0;\n"
+     "    float acc[128];",
+     "    setmaxnreg_inc<216>();\n    In in = in_args;\n    uint32_t g = 0;\n"
+     "    float acc[128];")]
 
 # name -> [(file, text, replacement)]
 VARIANTS = {
@@ -88,6 +472,10 @@ VARIANTS = {
     "fwd_4_stages": [(
         "mlp_sm90.cuh", "constexpr int FWD_STAGES = 3;",
         "constexpr int FWD_STAGES = 4;")],
+    # a 2-stage forward ring for rows 1, 3 and 5 (the depth row 9 runs at)
+    "fwd_2_stages": [(
+        "mlp_sm90.cuh", "constexpr int FWD_STAGES = 3;",
+        "constexpr int FWD_STAGES = 2;")],
     # the dh chain two accumulators deep: chunk c + 1's products in flight
     # under chunk c's epilogue (the sources take one chunk at a time)
     "dh_two_accumulators": [(
@@ -136,7 +524,7 @@ VARIANTS = {
          "  const float* phase;\n"
          "  float x[3];\n"
          "  __device__ void init(uint32_t) const {}\n"
-         "  __device__ void encode(uint32_t, uint32_t, int, int, int) const {}\n"
+         "  __device__ void encode(uint32_t, uint32_t, uint32_t, int, int, int) const {}\n"
          "  __device__ void first(uint32_t embt, long row0, int n, int wg, int t) {\n"
          "    load_point(pts, row0 + wg * WG_ROWS + t / 2, n, x);\n"
          "    done(embt, 0, 0, row0, n, wg, t);\n"
@@ -162,8 +550,8 @@ VARIANTS = {
     # row 5: the encoding without its sines (what the sines cost; disagrees)
     "pts_no_sines": [(
         "mlp_sm90.cuh",
-        "    const float y = c < 3 ? pre : sinf(pre + __ldg(phase + c));",
-        "    const float y = c < 3 ? pre : pre + __ldg(phase + c);")],
+        "    const float y = c < 3 ? pre : sinf(pre + p[3]);",
+        "    const float y = c < 3 ? pre : pre + p[3];")],
     # row 5: the encoders write nothing, the handshake stays (what the
     # encoding costs; disagrees)
     "pts_no_encoding": [(
@@ -190,6 +578,78 @@ VARIANTS = {
          "      }\n"
          "      fence_proxy_async();\n"
          "      wg_barrier(wg);   // ... and the last tile's head is done\n")],
+    # row 9, variant (c) of its design: the whole bender on the producer's
+    # idle warps at 40 registers, its activations in shared memory
+    # (FUSED_ON_ENCODERS), the consumers' `ahead` a no-op; the same
+    # arithmetic (agrees bit for bit)
+    "fused_bender_on_encoders": [(
+        "mlp_sm90.cuh",
+        ("struct FusedFwdIn {",
+         "// What the forward kernel gives its input beyond the tiles"),
+        FUSED_ON_ENCODERS)],
+    # row 9, variant (a): the whole bender on the producer's idle warps with
+    # its activations in registers (FUSED_IN_REGISTERS), at the register
+    # split 216 / 72; agrees bit for bit
+    "fused_bender_in_registers": [
+        ("mlp_sm90.cuh",
+         ("struct FusedFwdIn {",
+          "// What the forward kernel gives its input beyond the tiles"),
+         FUSED_ON_ENCODERS),
+        ("mlp_sm90.cuh",
+         "  __device__ __forceinline__ void bend_block(uint32_t embt,",
+         FUSED_IN_REGISTERS
+         + "  __device__ __forceinline__ void bend_block(uint32_t embt,"),
+        ("mlp_sm90.cuh",
+         "        bend_block(embt, wimg, long(tile) * TM, blk * 16, n, lane);",
+         "        bend_block_regs(embt, wimg, long(tile) * TM, blk * 16, n, lane);"),
+        *REGS_216_72],
+    # row 9: the sources at the register split 216 / 72 in place of the
+    # chain's 232 / 40 (what registers given to the encoders cost the
+    # consumers' chain)
+    "fused_regs_216_72": REGS_216_72,
+    # row 9: the consumers' `ahead` reduced to its handshake (no A tiles,
+    # products, epilogues or rigidity: what the bender costs the consumers
+    # in all; disagrees)
+    "fused_ahead_handshake_only": [(
+        "mlp_sm90.cuh",
+        ("    wg_barrier(wg);   // the last tile's head has read the activation tile",
+         "    if (t == 0) mbar_arrive(bars + 8 * (2 + slot));"),
+        "    wg_barrier(wg);\n")],
+    # row 9: the encoders without the offsets and bent points (what they
+    # cost the encoders; disagrees)
+    "fused_no_offsets": [(
+        "mlp_sm90.cuh",
+        ("      for (int p = e; p < TM * 3; p += ENCODERS) {",
+         "      encoders_barrier();   // every bh3 row is read"),
+        "")],
+    # row 9: the encoding without its sines (what the encoders' sines cost;
+    # disagrees)
+    "fused_no_sines": [(
+        "mlp_sm90.cuh",
+        "    const float y = c < 3 ? pre : sinf(pre + p[3]);",
+        "    const float y = c < 3 ? pre : pre + p[3];")],
+    # row 9: the consumers' `ahead` without its loads of the points and
+    # latents (zeros; what their latency costs; disagrees)
+    "fused_ahead_no_loads": [
+        ("mlp_sm90.cuh",
+         "      const long row = row0 + wg * WG_ROWS + r;\n      const bool valid = row < n;",
+         "      const long row = row0 + wg * WG_ROWS + r;\n      const bool valid = row < 0;"),
+        ("mlp_sm90.cuh",
+         "        xa[h][k] = round_bf16(row < n ? __ldg(pts + size_t(row) * 3 + k) : 0.0f);",
+         "        xa[h][k] = 0.0f * float(row);")],
+    # row 9: the consumers' `ahead` without its five products (what the
+    # bender's layers cost the chain; disagrees)
+    "fused_ahead_no_products": [
+        ("mlp_sm90.cuh",
+         "      wgmma_m64n32(acc, desc_sw64(rh0_t + kk * 32), desc_sw64(extra + BIMG_R1W + kk * 32),\n"
+         "                   kk != 0);", ""),
+        ("mlp_sm90.cuh",
+         "      wgmma_m64n64(acc, desc_sw64(lat_t + kk * 32), desc_sw64(extra + BIMG_B0L + kk * 32),\n"
+         "                   kk != 0);", ""),
+        ("mlp_sm90.cuh",
+         "        wgmma_m64n64(acc, desc_sw128(bh_t + kk * 32),\n"
+         "                     desc_sw128(extra + BIMG_BW + uint32_t(l - 1) * BEND_W * BEND_W * 2 + kk * 32),\n"
+         "                     kk != 0);", "")],
     # row 11: the 8-lane head as rows 1 and 5 take it, a per-thread f32 dot
     # product on the CUDA cores from the bf16 h8 tile (the source: 16
     # m64n8k16 on the tensor cores)
@@ -206,8 +666,22 @@ def smi() -> str:
                           text=True).stdout.strip()
 
 
+def substitute(src, text, repl, what):
+    """src with `text` (or the span from text[0] up to text[1]) replaced."""
+    if isinstance(text, tuple):
+        start = src.find(text[0])
+        end = src.find(text[1], start)
+        if start < 0 or end < 0:
+            raise AssertionError(f"{what} has no {text[0][:60]!r} .. {text[1][:60]!r}")
+        return src[:start] + repl + src[end:]
+    if text not in src:
+        raise AssertionError(f"{what} has no {text[:60]!r}")
+    return src.replace(text, repl)
+
+
 def build(names, out_dir):
-    """Patched copies of csrc/, both sources built side by side."""
+    """Patched copies of csrc/, every source built side by side; returns the
+    variants that did not build."""
     from nonrigid_nerf_torch.ops.kernels import build as B
     nvcc = B.find_nvcc()
     procs = {}
@@ -218,23 +692,26 @@ def build(names, out_dir):
             path = os.path.join(d, f)
             with open(path) as fh:
                 src = fh.read()
-            if text not in src:
-                raise AssertionError(f"variant {name}: {f} has no {text[:60]!r}")
             with open(path, "w") as fh:
-                fh.write(src.replace(text, repl))
-        for s in (("mlp_i8.cu",) if name in I8_ONLY else SOURCES):
+                fh.write(substitute(src, text, repl, f"variant {name}: {f}"))
+        for s in (("mlp_i8.cu",) if name in I8_ONLY else
+                  ("fused_fwd.cu",) if name in FUSED_ONLY else SOURCES):
             procs[(name, s)] = subprocess.Popen(
                 [nvcc, *B.NVCC_FLAGS, "-o", os.path.join(d, s + ".so"),
                  os.path.join(d, s)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    failed = set()
     for (name, s), p in procs.items():
         log = p.communicate()[0]
         if p.returncode:
-            raise RuntimeError(f"nvcc failed on {name}/{s}:\n{log}")
+            failed.add(name)
+            print(f"build {name}/{s}: nvcc failed:\n{log[-3000:]}", flush=True)
+            continue
         notes = [l.strip() for l in log.splitlines()
                  if "C75" in l or ("spill" in l and " 0 bytes spill" not in l)]
         print(f"build {name}/{s}: " + (" | ".join(notes)[:400] or "no spills"),
               flush=True)
+    return failed
 
 
 def run_variant(name, out_dir):
@@ -251,9 +728,13 @@ def run_variant(name, out_dir):
 
     dev = torch.device("cuda")
     ptrs = ctypes.POINTER(ctypes.c_void_p)
+    if name in FUSED_ONLY:
+        time_fused(name, out_dir, dev, backward=False)
+        return
     time_i8(name, out_dir, dev)
     if name in I8_ONLY:
         return
+    time_fused(name, out_dir, dev, backward=True)
     fwd = ctypes.CDLL(os.path.join(out_dir, name, "mlp_fwd.cu.so"))
     fwd.nrnerf_mlp_fwd.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_void_p, ptrs, ptrs,
@@ -401,7 +882,7 @@ def run_variant(name, out_dir):
 
 
 def device_ms_of(fn, reps=5):
-    """Device ms a call of fn by kernel (`mlp*kernel` names), torch.profiler
+    """Device ms a call of fn by kernel (`...kernel` names), torch.profiler
     over `reps` calls after one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -415,10 +896,74 @@ def device_ms_of(fn, reps=5):
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
-        m = re.search(r"(mlp\w*kernel)", e.key)
+        m = re.search(r"(\w*kernel)", e.key)
         key = m.group(1) if m else "other"
         out[key] = out.get(key, 0.0) + e.self_device_time_total / reps / 1e3
     return out
+
+
+def time_fused(name, out_dir, dev, backward):
+    """Row 9 (`fused_fwd`) of a built variant at 2^21 and 65,536 points and,
+    with `backward`, row 10 (`fused_bwd`) at 65,536 and 131,072, on the
+    flagship's fine network (seed 0, its deformation's output layers
+    perturbed so that it bends), through the port's wrappers on the
+    variant's libraries; device ms twice each (row 10 by kernel), whether
+    the outputs agree with the plain versions and whether row 9's equal the
+    base's bit for bit (where "base" ran first)."""
+    from nonrigid_nerf_torch.config import ModelConfig
+    from nonrigid_nerf_torch.models.model import NRNeRF
+    from nonrigid_nerf_torch.ops.kernels import build as B
+    from nonrigid_nerf_torch.ops.kernels import fused_bwd as FB
+    from nonrigid_nerf_torch.ops.kernels import fused_fwd as FF
+    from nonrigid_nerf_torch.ops.kernels import fused_query as FQ
+    for source in ("fused_fwd.cu",) + (("fused_bwd.cu",) if backward else ()):
+        B._LIBS[source] = ctypes.CDLL(os.path.join(out_dir, name, source + ".so"))
+    gen = torch.Generator().manual_seed(0)
+    model = NRNeRF(ModelConfig(), num_timesteps=1, device="cpu", generator=gen)
+    with torch.no_grad():
+        for layer, scale in ((model.bender.bend[-1], 0.05),
+                             (model.bender.rigidity[-1], 0.3)):
+            layer.weight.copy_(scale * torch.randn(layer.weight.shape,
+                                                   generator=gen))
+        w = tuple(t.to(dev) for t in FF.cast_fused_weights(
+            FQ.pack_fused_weights(model, network="fine")))
+    g = torch.Generator(device=dev).manual_seed(9)
+    lo = torch.tensor([-0.8, -0.8, -1.0], device=dev)
+    hi = torch.tensor([0.8, 0.8, 0.5], device=dev)
+    n_all = 1 << 21
+    pts = lo + (hi - lo) * torch.rand(n_all, 3, device=dev, generator=g)
+    lat = 0.1 * torch.randn(n_all, 32, device=dev, generator=g)
+    for n in (1 << 21, 65536):
+        p, l = pts[:n], lat[:n]
+        out = FF.fused_fwd(p, l, w)
+        ok = FF.fused_fwd_agreement(out, FF.fused_fwd_plain(p, l, w))["ok"]
+        if n == 65536:
+            # the outputs beside the base's, where "base" ran before
+            torch.save([t.cpu() for t in out],
+                       os.path.join(out_dir, f"{name}.fused_fwd.pt"))
+            ref = os.path.join(out_dir, "base.fused_fwd.pt")
+            if name != "base" and os.path.exists(ref):
+                same = all(torch.equal(a.cpu(), b) for a, b in
+                           zip(out, torch.load(ref)))
+                print(f"{name} fused_fwd n={n}: bit-equal to base: {same}",
+                      flush=True)
+        for rep in (1, 2):
+            t = device_ms_of(lambda: FF.fused_fwd(p, l, w))
+            print(f"{name} fused_fwd n={n} rep {rep}: "
+                  f"{t.get('mlp_fwd_kernel', 0.0):.4f} ms; agrees with the "
+                  f"plain version: {ok}; {smi()}", flush=True)
+    if not backward:
+        return
+    for n in (65536, 131072):
+        p, l = pts[:n], lat[:n]
+        cots = [torch.randn(n, c, device=dev, generator=g) for c in (8, 3, 1)]
+        ok = FB.fused_bwd_agreement(FB.fused_bwd(p, l, w, *cots),
+                                    FB.fused_bwd_plain(p, l, w, *cots))["ok"]
+        for rep in (1, 2):
+            t = device_ms_of(lambda: FB.fused_bwd(p, l, w, *cots))
+            print(f"{name} fused_bwd n={n} rep {rep}: {sum(t.values()):.4f} ms "
+                  "in all: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(t.items()))
+                  + f"; agrees with the plain version: {ok}; {smi()}", flush=True)
 
 
 def time_i8(name, out_dir, dev):
@@ -597,10 +1142,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     print(smi(), flush=True)
-    failed = False
     with tempfile.TemporaryDirectory() as out_dir:
-        build(names, out_dir)
+        not_built = build(names, out_dir)
+        failed = bool(not_built)
         for name in names:
+            if name in not_built:
+                continue
             try:
                 r = subprocess.run([sys.executable, os.path.abspath(__file__),
                                     "--child", name, out_dir],

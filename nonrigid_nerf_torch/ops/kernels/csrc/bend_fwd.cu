@@ -40,7 +40,7 @@ bend_fwd_kernel(BendParams p, const float* __restrict__ pts, const float* __rest
                 int n, float* __restrict__ emb, float* __restrict__ off,
                 float* __restrict__ rig) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const BendTile t = forward_tile(smem, p, nullptr);
+  const BendTile t = forward_tile(smem, p);
   float* scratch = reinterpret_cast<float*>(smem + BEND_FWD_TILE_BYTES);
   const int tid = threadIdx.x;
   const int warp = tid / 32;

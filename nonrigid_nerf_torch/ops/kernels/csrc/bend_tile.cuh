@@ -1,8 +1,9 @@
 // Shared device code of the deformation kernels for Hopper (sm_90a):
-// bend_fwd.cu, bend_bwd.cu, fused_fwd.cu and fused_bwd.cu. The split
-// (bend_fwd + mlp_fwd, mlp_bwd + bend_bwd) and the monolith (fused_fwd,
-// fused_bwd) run this same code for the bender, so their results agree bit for
-// bit on the card, as the JAX package holds its two variants
+// bend_fwd.cu, bend_bwd.cu and fused_bwd.cu. The split (bend_fwd + mlp_fwd,
+// mlp_bwd + bend_bwd) and the monolith's backward (fused_bwd) run this same
+// code for the bender; the monolith's forward (fused_fwd.cu) runs the same
+// arithmetic in registers on mlp_sm90.cuh (`FusedFwdIn`). So their results
+// agree bit for bit on the card, as the JAX package holds its two variants
 // (tests/test_fused_kernel.py:397-419).
 //
 // The math, per point, of the flagship deformation field (bending 5 x 64 with
@@ -30,19 +31,15 @@
 // 16x16x16 bf16, f32 accumulators); the products with 3 inner or 3 outer
 // lanes (pts @ b0p, pts @ r0w, bh3 @ bow, rh1 @ row and their transposes) run
 // on the CUDA cores, reading those small weights from global memory (L1).
-// In the chain kernels (fused_fwd.cu, fused_bwd.cu) the 30 KB of 64-lane
-// weights (b0l, b1w..b3w) are staged into shared memory with cp.async, into
-// the second stage of the weight ring, free until the chain starts (5% off
-// fused_fwd's time on an H100); bend_fwd.cu and bend_bwd.cu read them from
-// global memory.
+// The 64-lane weights (b0l, b1w..b3w) are read from global memory too.
 //
 // The weight gradients are summed over the points with no atomics:
 // `bend_bwd_kernel` walks a split of BEND_SPLIT_TILES tiles, adds each tile's
 // products into an f32 accumulator of all 16 gradients in shared memory
 // (tensor-core fragments loaded, advanced and stored back), writes it to its
 // split's slot of a partials buffer, and `mlp_reduce_kernel` sums the slots in
-// ascending order. Chosen over the split-K second pass of mlp_tile.cuh
-// because the bender's activations are narrow (64 lanes): storing them and
+// ascending order. Chosen over the canonical MLP's split-K second pass
+// (mlp_sm90.cuh) because the bender's activations are narrow (64 lanes): storing them and
 // their gradients (1.2 KB per point) would cost more HBM traffic than
 // recomputing the bender, which is 3% of the chain's work. The same inputs
 // give bit-equal outputs.
@@ -125,8 +122,9 @@ inline BendParams fill_bend_params(const void* const* mats, const void* const* b
 }
 
 // The bender's shared-memory tiles of one 128-point tile, and where its
-// 64-lane weights are read. A forward-only kernel may point bh[0..3] at one
-// tile and rh[0..1] at another: each layer then overwrites its input.
+// 64-lane weights are read (global memory, row stride ldw). A forward-only
+// kernel may point bh[0..3] at one tile and rh[0..1] at another: each layer
+// then overwrites its input.
 struct BendTile {
   float* xs;       // 128 x 3 f32 points (rows past n zero)
   bf16* lat;       // 128 x LDL bf16 latents
@@ -136,8 +134,6 @@ struct BendTile {
   float* tanh_rr;  // 128 f32: tanh of the rigidity's raw output
   float* rig0;     // 128 f32 rigidity
   float* bent;     // 128 x 3 f32 bent points
-  // b0l and b1w..b3w: in shared memory (row stride LDBH, `stage_big_weights`)
-  // or in global memory (row stride BW)
   const bf16* b0l;
   const bf16* bw[3];
   int ldw;
@@ -149,35 +145,19 @@ constexpr size_t ROWF_BYTES = pad128(size_t(TM) * sizeof(float));
 constexpr size_t LAT_BYTES = pad128(size_t(TM) * LDL * sizeof(bf16));
 constexpr size_t BH_BYTES = pad128(size_t(TM) * LDBH * sizeof(bf16));
 constexpr size_t RH_BYTES = pad128(size_t(TM) * LDR * sizeof(bf16));
-// b0l, b1w, b2w, b3w: 224 rows of 64 lanes
-constexpr int BIG_W_ROWS = LAT + 3 * BW;
-constexpr size_t BIG_W_BYTES = pad128(size_t(BIG_W_ROWS) * LDBH * sizeof(bf16));
-static_assert(BIG_W_BYTES <= STAGE_BYTES,
-              "the big weights fit one stage of the chain's weight ring");
 // a forward-only tile: one bh and one rh tile
 constexpr size_t BEND_FWD_TILE_BYTES =
     3 * XS_BYTES + 2 * ROWF_BYTES + LAT_BYTES + BH_BYTES + RH_BYTES;
-static_assert(BEND_FWD_TILE_BYTES <= ACT_BYTES,
-              "the bender's forward tile fits where the chain's activations go");
 
-// b0l and b1w..b3w read from `big` (BIG_W_BYTES of shared memory that
-// `stage_big_weights` fills), or from global memory where `big` is null
-__device__ __forceinline__ void point_big_weights(BendTile& t, const BendParams& p,
-                                                  bf16* big) {
-  if (big == nullptr) {
-    t.b0l = p.b0l;
-    for (int i = 0; i < 3; ++i) t.bw[i] = p.bw[i];
-    t.ldw = BW;
-  } else {
-    t.b0l = big;
-    for (int i = 0; i < 3; ++i) t.bw[i] = big + (LAT + i * BW) * LDBH;
-    t.ldw = LDBH;
-  }
+// b0l and b1w..b3w read from global memory
+__device__ __forceinline__ void point_big_weights(BendTile& t, const BendParams& p) {
+  t.b0l = p.b0l;
+  for (int i = 0; i < 3; ++i) t.bw[i] = p.bw[i];
+  t.ldw = BW;
 }
 
 // carve a forward-only tile out of `base` (BEND_FWD_TILE_BYTES)
-__device__ __forceinline__ BendTile forward_tile(unsigned char* base, const BendParams& p,
-                                                 bf16* big) {
+__device__ __forceinline__ BendTile forward_tile(unsigned char* base, const BendParams& p) {
   BendTile t;
   t.xs = reinterpret_cast<float*>(base);
   t.off = reinterpret_cast<float*>(base + XS_BYTES);
@@ -189,24 +169,8 @@ __device__ __forceinline__ BendTile forward_tile(unsigned char* base, const Bend
   bf16* bh = reinterpret_cast<bf16*>(q + LAT_BYTES);
   for (int i = 0; i < 4; ++i) t.bh[i] = bh;
   t.rh[0] = t.rh[1] = reinterpret_cast<bf16*>(q + LAT_BYTES + BH_BYTES);
-  point_big_weights(t, p, big);
+  point_big_weights(t, p);
   return t;
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// cp.async of b0l, b1w, b2w, b3w into `big` (row stride LDBH); the caller
-// commits the group, and `bend_forward` waits for it
-__device__ __forceinline__ void stage_big_weights(bf16* big, const BendParams& p, int tid) {
-  for (int i = tid; i < BIG_W_ROWS * BW / 8; i += THREADS) {
-    const int r = i / (BW / 8);
-    const int c = (i % (BW / 8)) * 8;
-    const bf16* src = r < LAT ? p.b0l + r * BW
-                              : p.bw[(r - LAT) / BW] + ((r - LAT) % BW) * BW;
-    cp_async16(big + r * LDBH + c, src + c);
-  }
 }
 
 __device__ __forceinline__ float bf16r(float x) {
@@ -283,10 +247,9 @@ __device__ __forceinline__ void warp_store_bf16(AccFrag (&acc)[NJ], float* wscr,
 }
 
 // The forward of the tile starting at row0: fills the activation members of
-// `t` (its 64-lane weights staged or pointed at global memory; pending
-// cp.async groups are waited for here). Rows past n carry zero points and
-// latents; their outputs are not stored by the callers, and their cotangents
-// are zero in a backward. Ends with a barrier.
+// `t`. Rows past n carry zero points and latents; their outputs are not
+// stored by the callers, and their cotangents are zero in a backward. Ends
+// with a barrier.
 //
 // The products with 32 or 64 inner lanes run on the tensor cores. The ones
 // with 3 useful lanes (pts @ b0p, pts @ r0w, bh3 @ bow, rh1 @ row) run on the
@@ -295,6 +258,8 @@ __device__ __forceinline__ void warp_store_bf16(AccFrag (&acc)[NJ], float* wscr,
 // all but about one point in a thousand (measured on an H100: with those
 // products on zero-padded tensor-core tiles a quarter of the points differ
 // in the last bit, and the sines' 2^9 carries that into the encoding).
+// mlp_sm90.cuh's `FusedFwdIn` repeats this arithmetic and order in registers:
+// a change here must be made there too.
 __device__ __forceinline__ void bend_forward(const BendTile& t, const BendParams& p,
                                              const float* __restrict__ pts,
                                              const float* __restrict__ lat, long row0,
@@ -312,7 +277,6 @@ __device__ __forceinline__ void bend_forward(const BendTile& t, const BendParams
                                __float2bfloat16(v.z), __float2bfloat16(v.w)};
     *reinterpret_cast<uint2*>(t.lat + r * LDL + c) = *reinterpret_cast<const uint2*>(ov);
   }
-  cp_async_wait_all();
   __syncthreads();
 
   AccFrag acc[4];
@@ -391,8 +355,8 @@ __device__ __forceinline__ void store_bend_outputs(const BendTile& t, float* __r
   if (tid < TM && tid < rows_left) rig[row0 + tid] = t.rig0[tid];
 }
 
-// lane c of the f32 encoding of the point x (3 f32): mlp_tile.cuh's
-// `encode_tile` before its bf16 rounding
+// lane c of the f32 encoding of the point x (3 f32), multires 10 (see
+// `encoding_lane`)
 __device__ __forceinline__ float encoding_value(const float* x, int c) {
   if (c < PTS) return x[c];
   if (c >= EMB - 1) return 0.0f;
@@ -670,8 +634,7 @@ bend_bwd_kernel(BendParams p, const float* __restrict__ pts, const float* __rest
   d.db = reinterpret_cast<bf16*>(q + BH_BYTES);
   q += 2 * BH_BYTES;
   float* scratch = reinterpret_cast<float*>(q);
-  // no room left to stage the 64-lane weights: read from global memory
-  point_big_weights(t, p, nullptr);
+  point_big_weights(t, p);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;

@@ -13,81 +13,44 @@
 // chain's 493,568) against 188 bytes per point that the function must move
 // (12 B of points and 128 B of latents in, 48 B out): the tensor cores.
 //
-// Design: mlpe_fwd.cu with a bender prologue. Before the chain starts, the
-// activation tile (66 KB) and the second stage of the weight ring (33 KB)
-// are free: bend_tile.cuh's forward runs in the first (44 KB), its 64-lane
-// weights are staged into the second, the bent points go through
-// mlp_tile.cuh's `encode_tile` into the encoding tile, and the chain and the
-// head follow unchanged. The chain's first weight chunk is in flight during
-// the prologue. The encoding is bit-equal to the one bend_fwd.cu writes and
-// mlp_fwd.cu rounds, so this kernel and the split variant give bit-equal
-// outputs.
+// Design: row 1's kernel (mlp_sm90.cuh's `mlp_fwd_kernel<E, In>`: persistent
+// CTAs, two consumer warpgroups of 64 rows, wgmma, the mbarrier weight ring of
+// row 1's 30-chunk image) on the input `sm90::FusedFwdIn`, on a 2-stage ring:
+// - each consumer warpgroup runs the bender's products for its 64 rows of
+//   the next tile on wgmma (m64n32k16, m64n64k16) before it waits for this
+//   tile's encoding; bh3 goes into its rows of the next tile's encoding tile,
+//   the rigidity to shared memory and to rig;
+// - the producer warpgroup's three idle warps, once both warpgroups are done
+//   with a tile, sum the offsets (the 3-lane product bh3 @ bow), bend the
+//   points and write the encoding over bh3 (row 5's handshake on two
+//   encoding tiles);
+// - the chain and the head are row 1's.
+// Everything the bender reads but the points and latents is staged once per
+// CTA (34,064 B); 204,176 B of shared memory in all, which leaves no room
+// for a third stage (rows 1 and 5 run about 3% slower on two stages than on
+// three on an H100, chip_variants.py fwd_2_stages).
+// The bender's arithmetic is bend_tile.cuh's (its wmma products sum in the
+// same order as wgmma's), so this kernel and the split variant
+// (bend_fwd.cu, then mlp_fwd.cu) give bit-equal outputs.
 //
 // Plain C interface, bound with ctypes (see ../fused_fwd.py).
 
-#include "mlp_tile.cuh"
-#include "bend_tile.cuh"
+#include "mlp_sm90.cuh"
 
-namespace {
-
-__global__ void __launch_bounds__(THREADS, 1)
-fused_fwd_kernel(BendParams bp, FwdParams p, const float* __restrict__ pts,
-                 const float* __restrict__ lat, int n, float* __restrict__ raw,
-                 float* __restrict__ off, float* __restrict__ rig) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* act = reinterpret_cast<bf16*>(smem);
-  bf16* embs = reinterpret_cast<bf16*>(smem + ACT_BYTES);
-  bf16* stage = reinterpret_cast<bf16*>(smem + ACT_BYTES + EMB_BYTES);
-  float* scratch =
-      reinterpret_cast<float*>(smem + ACT_BYTES + EMB_BYTES + 2 * STAGE_BYTES);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const long row0 = long(blockIdx.x) * TM;
-  float* wscr = scratch + warp * 256;
-
-  auto prefetch = [&](int g) {
-    if (g < N_FWD_CHUNKS) load_chunk(stage_of(stage, g), p.chunk[g], tid);
-  };
-  prefetch(0);
-  cp_async_commit();
-  // the bender in the activation tile, its 64-lane weights in the ring's
-  // second stage (chunk 1 goes there when the chain starts); the chain's
-  // first barrier comes after the bender's last read of either
-  const BendTile t = forward_tile(smem, bp, stage_of(stage, 1));
-  stage_big_weights(stage_of(stage, 1), bp, tid);
-  cp_async_commit();
-  bend_forward(t, bp, pts, lat, row0, n, wscr, tid, warp, lane);
-  store_bend_outputs(t, off, rig, row0, n, tid);
-  encode_tile(embs, t.bent, long(n) - row0, tid, nullptr);
-
-  int g = 0;
-  chain_forward(act, embs, stage, wscr, p.bias, g, prefetch, nullptr, 0, warp, lane);
-  raw_head(act, p.ow, p.ob, raw, row0, n, tid);
-}
-
-}  // namespace
-
-// pts (n, 3) f32, lat (n, 32) f32; bend_mats and bend_biases as
-// `fill_bend_params` (bend_tile.cuh) lists them, mats and biases as
-// `fill_fwd_params` (mlp_tile.cuh); raw (n, 8), off (n, 3), rig (n, 1) f32.
+// pts (n, 3) f32, lat (n, 32) f32 (16-byte aligned); bend_image: the bender's
+// weights, biases and encoding projection (ops/kernels/mlp_sm90.py:
+// pack_bend_image), 34,064 B, 16-byte aligned;
+// image: the chain's forward chunks (pack_chain_image(mw, ("fwd",))), 30 x
+// 32 KB; mats and biases as nrnerf_mlp_fwd lists them (of mats only ow is
+// read); raw (n, 8), off (n, 3), rig (n, 1) f32.
 // Returns the CUDA error code of the launch (0 on success).
 extern "C" int nrnerf_fused_fwd(const void* pts, const void* lat, int n,
-                                const void* const* bend_mats,
-                                const void* const* bend_biases,
+                                const void* bend_image, const void* image,
                                 const void* const* mats, const void* const* biases,
                                 void* raw, void* off, void* rig, void* stream) {
-  FwdParams p;
-  if (!fill_fwd_params(mats, biases, p)) return int(cudaErrorInvalidValue);
-  const BendParams bp = fill_bend_params(bend_mats, bend_biases);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(FWD_SMEM_BYTES));
-  if (err != cudaSuccess) return int(err);
-  if (n <= 0) return 0;
-  fused_fwd_kernel<<<dim3((n + TM - 1) / TM), THREADS, FWD_SMEM_BYTES,
-                     static_cast<cudaStream_t>(stream)>>>(
-      bp, p, static_cast<const float*>(pts), static_cast<const float*>(lat), n,
-      static_cast<float*>(raw), static_cast<float*>(off), static_cast<float*>(rig));
-  return int(cudaGetLastError());
+  const sm90::FusedFwdIn in{static_cast<const float*>(pts), static_cast<const float*>(lat),
+                            static_cast<const sm90::bf16*>(bend_image),
+                            static_cast<float*>(off), static_cast<float*>(rig)};
+  return sm90::launch_fwd<sm90::EMB>(in, n, image, mats, biases, static_cast<float*>(raw),
+                                     static_cast<cudaStream_t>(stream));
 }

@@ -84,8 +84,6 @@ namespace {
 using namespace single_head;   // the gradient layout, the reduce kernel
 
 static_assert(sm90::DW_SPLIT == SPLIT_ROWS, "the partials hold one slot per split");
-static_assert(sm90::SUM_GROUPS == SMALL_GROUPS && sm90::DW_RK % SMALL_GROUPS == 0,
-              "the sums over the points keep the second pass's order");
 
 template <int E>
 int launch_mlp_bwd(const void* emb, const void* draw, int n, const void* image,

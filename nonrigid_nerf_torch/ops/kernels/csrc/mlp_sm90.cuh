@@ -1,13 +1,15 @@
 // The chain of the canonical 8 x 256 NeRF MLP on Hopper's own machinery
 // (sm_90a), for the forwards mlp_fwd.cu (row 1, at an encoding of E = 64 or
-// 128 lanes), mlpv_fwd.cu (row 3), mlpe_fwd.cu (row 5) and mlp_i8.cu (row
-// 11, int8) and the backwards mlp_bwd.cu (row 2, E = 64 or 128), mlpv_bwd.cu
-// (row 4) and mlpe_bwd.cu (row 6). It holds the kernels rows 1 and 5 share
-// (the forward's chain kernel, a template on its input), those rows 2 and 6
-// share (the backward's), the view-direction image's schedule and the views
-// layer's products (rows 3 and 4), the int8 products (row 11), and the
-// second pass all three backwards launch. The other canonical-MLP kernels
-// (the fused point query's) keep mlp_tile.cuh's design.
+// 128 lanes), mlpv_fwd.cu (row 3), mlpe_fwd.cu (row 5), fused_fwd.cu (row 9)
+// and mlp_i8.cu (row 11, int8) and the backwards mlp_bwd.cu (row 2, E = 64
+// or 128), mlpv_bwd.cu (row 4), mlpe_bwd.cu (row 6) and fused_bwd.cu (row
+// 10). It holds the kernels rows 1, 5 and 9 share (the forward's chain
+// kernel, a template on its input; row 9's input runs the deformation field
+// beside the chain), those rows 2, 6 and 10 share (the backward's), the
+// view-direction image's schedule and the views layer's products (rows 3 and
+// 4), the int8 products (row 11), and the second pass all four backwards
+// launch. Only the deformation field's own kernels (bend_*.cu, rows 7 and 8,
+// and row 10's pre-pass) keep mlp_tile.cuh's design.
 //
 // - Persistent CTAs: about one per SM, each walking 128-point tiles on a
 //   static schedule (tile = blockIdx.x + k * gridDim.x), so the same inputs
@@ -38,7 +40,8 @@
 //   at the last step of the backward's dh chain), so the load overlaps the
 //   tile's last products. Row 5 computes its encoding from the points on the
 //   producer warpgroup's three idle warps instead, into two encoding tiles
-//   in turn; row 6 on the consumers, when its tile starts.
+//   in turn, and row 9 the deformation field and the encoding of the bent
+//   points there; row 6 on the consumers, when its tile starts.
 // - The backward keeps each layer's ReLU gates as bits, moves its bf16
 //   scratch (the encoding copy, nh and dh) between the swizzled tiles and
 //   global memory with TMA bulk tensor copies in boxes of 64 rows x 64
@@ -105,10 +108,10 @@ template <int E> constexpr int n_bwd_chunks = 7 * (NW / KC) + 2 * (E / KC);
 template <int E> constexpr int n_chain_chunks = n_fwd_chunks<E> + n_bwd_chunks<E>;
 
 // the forward: the activation tile, TILES encoding tiles (2: row 5's double
-// buffer, or row 3's emb and embv), the ring
-template <int E, int TILES = 1>
+// buffer, or row 3's emb and embv), a ring of S stages
+template <int E, int TILES = 1, int S = FWD_STAGES>
 constexpr size_t fwd_smem_bytes = SMEM_ALIGN + ACT_BYTES + TILES * emb_tile_bytes<E> +
-                                  FWD_STAGES * CHUNK_BYTES + BAR_BYTES;
+                                  S * CHUNK_BYTES + BAR_BYTES;
 // two activation tiles (the encoding tile lives in the second until dh8)
 constexpr size_t BWD_SMEM_BYTES =
     SMEM_ALIGN + 2 * ACT_BYTES + BWD_STAGES * CHUNK_BYTES + BAR_BYTES;
@@ -118,8 +121,8 @@ static_assert(fwd_smem_bytes<64> <= SMEM_LIMIT && fwd_smem_bytes<128> <= SMEM_LI
 static_assert(BWD_SMEM_BYTES <= SMEM_LIMIT, "the backward fits one Hopper CTA");
 static_assert(emb_tile_bytes<128> <= ACT_BYTES,
               "the encoding tile fits the second activation tile at both widths");
-static_assert(2 * 8 * (FWD_STAGES > BWD_STAGES ? FWD_STAGES : BWD_STAGES) + 4 * 8 <= BAR_BYTES,
-              "the ring's barriers fit, and the forward input's four");
+static_assert(2 * 8 * (FWD_STAGES > BWD_STAGES ? FWD_STAGES : BWD_STAGES) + 5 * 8 <= BAR_BYTES,
+              "the ring's barriers fit, and the forward input's (up to five)");
 
 // ---- addresses and layouts
 
@@ -1072,17 +1075,23 @@ inline int persistent_grid(int n_tiles) {
 // The forward's: FWD_TILES encoding tiles, which the kernel takes in turn
 // tile by tile; thread 0 calls `init` with room for four mbarriers; the
 // producer warpgroup's threads 32 .. 127 (three warps the weight stream
-// leaves idle) call `encode` once; a consumer calls `first` for its first
-// tile, `wait` when its i-th tile starts (its part of the tile's encoding
-// must then be in the tile), `done` once layer 5 has read the tile.
+// leaves idle) call `encode` once, with FwdPlan<In>::EXTRA_BYTES of shared
+// memory of the input's own; a consumer calls `first` for its first tile,
+// (with FwdPlan<In>::AHEAD) `ahead` for the next tile before it waits for
+// its i-th, `wait` when its i-th tile starts (its part of the tile's
+// encoding must then be in the tile), `done` once layer 5 has read the tile.
+// FwdPlan<In> also holds the ring's depth.
 
 // mlp_fwd.cu's and mlp_bwd.cu's input: the (n, E) bf16 encoding, loaded into
 // the encoding tile by cp.async by the threads that read it (the forward's
 // next tile once layer 5 has read the tile); the backward's demb (n, E) f32
-// goes to global memory as it comes.
-template <int E>
+// goes to global memory as it comes. The backward copies the tile to the
+// scratch's encoding rows for the dW products unless STORE_EMB is false:
+// fused_bwd.cu's pre-pass writes the encoding there, and `emb` points at it.
+template <int E, bool STORE = true>
 struct EncodingIn {
   static constexpr int FWD_TILES = 1;
+  static constexpr bool STORE_EMB = STORE;
   const bf16* emb;
   float* demb;
 
@@ -1090,7 +1099,7 @@ struct EncodingIn {
     next(embt, row0, n, wg, t);
   }
   __device__ __forceinline__ void init(uint32_t) const {}
-  __device__ __forceinline__ void encode(uint32_t, uint32_t, int, int, int) const {}
+  __device__ __forceinline__ void encode(uint32_t, uint32_t, uint32_t, int, int, int) const {}
   __device__ __forceinline__ void wait(uint32_t, int) { cp_async_wait_all(); }
   __device__ __forceinline__ void done(uint32_t embt, uint32_t, int, long next_row0, int n,
                                        int wg, int t) {
@@ -1119,19 +1128,33 @@ struct EncodingIn {
 //   emb = bf16(lane < 3 ? pre : sinf(pre + phase)),  zero where !valid
 // (past n). The forward (PtsFwdIn) and the backward (PtsIn) share it, so
 // the backward recomputes the forward's encoding bit for bit.
-__device__ __forceinline__ void encode_piece(uint32_t embt, const float (&x)[3], bool valid,
-                                             const float* __restrict__ P,
-                                             const float* __restrict__ phase, int r, int c0) {
+// `coef(c, p)` gives P[0 .. 2][c] and phase[c] as p[0 .. 3].
+template <class Coef>
+__device__ __forceinline__ void encode_piece_with(uint32_t embt, const float (&x)[3], bool valid,
+                                                  Coef&& coef, int r, int c0) {
   __align__(16) bf16 v[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
     const int c = c0 + e;
-    const float pre = fmaf(x[2], __ldg(P + 2 * EMB + c),
-                           fmaf(x[1], __ldg(P + EMB + c), x[0] * __ldg(P + c)));
-    const float y = c < 3 ? pre : sinf(pre + __ldg(phase + c));
+    float p[4];
+    coef(c, p);
+    const float pre = fmaf(x[2], p[2], fmaf(x[1], p[1], x[0] * p[0]));
+    const float y = c < 3 ? pre : sinf(pre + p[3]);
     v[e] = __float2bfloat16(valid ? y : 0.0f);
   }
   st_shared16(embt + tile_offset(r, c0), *reinterpret_cast<const uint4*>(v));
+}
+
+// ... P and phase read from global memory
+__device__ __forceinline__ void encode_piece(uint32_t embt, const float (&x)[3], bool valid,
+                                             const float* __restrict__ P,
+                                             const float* __restrict__ phase, int r, int c0) {
+  encode_piece_with(embt, x, valid, [&](int c, float (&p)[4]) {
+    p[0] = __ldg(P + c);
+    p[1] = __ldg(P + EMB + c);
+    p[2] = __ldg(P + 2 * EMB + c);
+    p[3] = __ldg(phase + c);
+  }, r, c0);
 }
 
 // PtsIn's part of a tile: thread t of warpgroup wg encodes row wg * 64 + t /
@@ -1181,8 +1204,8 @@ struct PtsFwdIn {
   }
   // encoder e (0 .. 95): its pieces of every tile of this CTA; the i-th tile
   // goes to tile i % 2 once the consumers are done with what it held
-  __device__ __forceinline__ void encode(uint32_t emb0, uint32_t bars, int n, int n_tiles,
-                                         int e) const {
+  __device__ __forceinline__ void encode(uint32_t emb0, uint32_t bars, uint32_t, int n,
+                                         int n_tiles, int e) const {
     int i = 0;
 #pragma unroll 1
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
@@ -1219,6 +1242,7 @@ struct PtsFwdIn {
 // the other (the fold is linear), then over the four threads that share a
 // row by a fixed-order shuffle: bit-equal from run to run.
 struct PtsIn {
+  static constexpr bool STORE_EMB = true;
   const float* pts;
   const float* P;
   const float* phase;
@@ -1293,8 +1317,449 @@ struct PtsIn {
   }
 };
 
+// ---- row 9's input (fused_fwd.cu): the deformation field and the encoding of
+// the bent points, split between the consumers and the producer's idle warps.
+//
+// The arithmetic is bend_tile.cuh's `bend_forward` (fused_query.py's
+// `_bend_fwd_math`), so the encoding is bit-equal to the one bend_fwd.cu
+// writes and mlp_fwd.cu reads, and this kernel equals the split variant bit
+// for bit:
+// - each consumer warpgroup runs the products of its 64 rows of the NEXT
+//   tile (`ahead`, before it waits for this tile's encoding) on wgmma: rh1 =
+//   relu(rh0 @ r1w + r1b) (m64n32k16), bh0 = relu((pts @ b0p + lat @ b0l) +
+//   b0b) (m64n64k16, pts @ b0p on the CUDA cores in the epilogue), bh1 ..
+//   bh3 (m64n64k16 over the bh tile, in place); f32 sums over ascending
+//   k-steps of 16, as the wmma and the mma.sync products sum them. Its A
+//   tiles (bf16 lat, rh0, rh1, bh) live in its own rows of the activation
+//   tile, free between the last tile's head and this tile's first layer;
+//   bh3 goes into its rows of the next tile's encoding tile, and the
+//   rigidity (tanh of the sequential sum rh1 @ row, its thread a row) to a
+//   row of shared memory and to rig (n, 1). Then one arrival a warpgroup on
+//   the tile's "ready" mbarrier;
+// - the producer warpgroup's three idle warps, once a tile is ready: off =
+//   bh3 @ bow (each (row, lane) a sequential f32 sum over the 64 lanes),
+//   bent = x + rig0 * off (rounded twice) into shared memory and off to (n,
+//   3); then the encoding of the bent points (`encode_piece_with`, which
+//   equals `encoding_value`: P's entries are 0 or powers of two) over bh3,
+//   and one arrival each on the tile's "full" mbarrier (row 5's handshake).
+// Every weight, bias and P and the phase are staged once per CTA into
+// shared memory (`pack_bend_image`, 34,064 B), the 32- and 64-lane matrices
+// as the K-major B operands wgmma reads (128-byte swizzle at 64 lanes,
+// 64-byte at 32). The kernel runs a 2-stage ring, which leaves room for the
+// image beside the chain.
+// The consumers' chain is row 1's. No "empty" barrier is needed: a consumer
+// warpgroup writes a tile's bh3 into its own rows of an encoding tile only
+// after it has waited for that tile's encoding two tiles back, so the
+// encoders and its own products are done with it.
+
+constexpr int BEND_W = 64;        // the bending network's hidden width
+constexpr int RIG_W = 32;         // the rigidity network's hidden width
+constexpr int LAT_W = 32;         // the latent's lanes
+constexpr int FUSED_STAGES = 2;   // row 9's weight ring
+constexpr int BAR_ENCODERS = BAR_WG0 + CONSUMERS;   // named barrier of the 96 encoders
+// the bender's image (bytes): W^T of b0l (64 x 32 lanes), b1w, b2w, b3w (64 x
+// 64) and r1w (32 x 32), each as K-major rows (row n holds column n of W) in
+// wgmma's swizzle; then bf16 bow^T's rows 0 .. 2 (64 lanes each), row's lane
+// 0 (32), b0p's rows 0 .. 2 (64 each) and r0w's rows 0 .. 2 (32 each); then
+// f32 b0b .. b3b (64 each), r0b, r1b (32 each), rob's lane 0 (padded to 16
+// bytes), P's rows 0 .. 2 and the phase (64 each)
+constexpr uint32_t BIMG_B0L = 0;
+constexpr uint32_t BIMG_BW = BIMG_B0L + BEND_W * LAT_W * 2;
+constexpr uint32_t BIMG_R1W = BIMG_BW + 3 * BEND_W * BEND_W * 2;
+constexpr uint32_t BIMG_BOWT = BIMG_R1W + RIG_W * RIG_W * 2;
+constexpr uint32_t BIMG_ROWT = BIMG_BOWT + 3 * BEND_W * 2;
+constexpr uint32_t BIMG_B0P = BIMG_ROWT + RIG_W * 2;
+constexpr uint32_t BIMG_R0W = BIMG_B0P + 3 * BEND_W * 2;
+constexpr uint32_t BIMG_BB = BIMG_R0W + 3 * RIG_W * 2;
+constexpr uint32_t BIMG_R0B = BIMG_BB + 4 * BEND_W * 4;
+constexpr uint32_t BIMG_R1B = BIMG_R0B + RIG_W * 4;
+constexpr uint32_t BIMG_ROB = BIMG_R1B + RIG_W * 4;
+constexpr uint32_t BIMG_P = BIMG_ROB + 16;
+constexpr uint32_t BIMG_PHASE = BIMG_P + 3 * EMB * 4;
+constexpr uint32_t BEND_IMAGE_BYTES = BIMG_PHASE + EMB * 4;
+static_assert(BEND_IMAGE_BYTES == 34064 && BIMG_BW % 1024 == 0 && BIMG_R1W % 512 == 0 &&
+                  BIMG_BOWT % 16 == 0 && BIMG_ROWT % 16 == 0 && BIMG_B0P % 16 == 0 &&
+                  BIMG_R0W % 16 == 0 && BIMG_BB % 16 == 0 && BIMG_P % 16 == 0,
+              "the bender's image: the swizzled matrices on their atoms' alignment");
+// after the image: rig0 of two tiles (128 f32 each), the bent points of two
+// tiles (128 x 4 f32 each)
+constexpr uint32_t FUSED_RIG_BYTES = 2 * TM * 4;
+constexpr uint32_t FUSED_BENT_BYTES = 2 * TM * 4 * 4;
+constexpr uint32_t FUSED_EXTRA_BYTES = BEND_IMAGE_BYTES + FUSED_RIG_BYTES + FUSED_BENT_BYTES;
+static_assert(fwd_smem_bytes<EMB, 2, FUSED_STAGES> + FUSED_EXTRA_BYTES <= SMEM_LIMIT,
+              "row 9 fits one Hopper CTA: the chain on a 2-stage ring, two encoding "
+              "tiles, the bender's image and its rows");
+// a consumer warpgroup's bender tiles in its own rows of the activation
+// tile (its 8 KB of each 16 KB k-atom): bf16 lat and rh0 (64 rows x 32
+// lanes, 64-byte swizzle) in atom 0, rh1 (64 x 32, row-major) in atom 1,
+// the bh tile (64 x 64, 128-byte swizzle) in atom 2
+constexpr uint32_t WG_ATOM_BYTES = WG_ROWS * ATOM_ROW_BYTES;   // 8 KB
+
+__device__ __forceinline__ uint32_t ld_shared32(uint32_t src) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(src) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float ld_shared_f32(uint32_t src) {
+  return __uint_as_float(ld_shared32(src));
+}
+
+__device__ __forceinline__ uint4 ld_shared16(uint32_t src) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(src)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_shared32(uint32_t dst, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_f32(uint32_t dst, float v) {
+  st_shared32(dst, __float_as_uint(v));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the low (the lower lane) and high bf16 of a packed pair, exactly
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ void encoders_barrier() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(BAR_ENCODERS), "n"(96) : "memory");
+}
+
+// wgmma descriptor of a K-major operand of 32 lanes (64-byte rows) in the
+// 64-byte swizzle: 8-row groups 512 bytes apart, layout type 2 (B64)
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t saddr) {
+  return uint64_t((saddr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t((8 * 64) >> 4) << 32) | (uint64_t(2) << 62);
+}
+
+// byte offset of (row, lane) in a 64-byte-swizzled tile of 32 lanes: pieces
+// of 8 lanes XORed with (row / 2) % 4
+__device__ __forceinline__ uint32_t sw64_offset(int row, int col) {
+  return uint32_t(row) * 64 + ((uint32_t((col >> 3) ^ ((row >> 1) & 3))) << 4) +
+         (uint32_t(col & 7) << 1);
+}
+
+// sum over k ascending of act[r][k] * wt[k], k < K, in f32 from 0: row r of a
+// 128-byte-swizzled tile (bf16), wt K bf16 in shared memory; exact products
+template <int K>
+__device__ __forceinline__ float row_dot(uint32_t tile, int r, uint32_t wt) {
+  float s = 0.0f;
+#pragma unroll
+  for (int c = 0; c < K / 8; ++c) {
+    const uint4 av = ld_shared16(tile + tile_offset(r, c * 8));
+    const uint4 wv = ld_shared16(wt + c * 16);
+    const uint32_t ap[4] = {av.x, av.y, av.z, av.w};
+    const uint32_t wp[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s += bf16_lo(ap[e]) * bf16_lo(wp[e]);
+      s += bf16_hi(ap[e]) * bf16_hi(wp[e]);
+    }
+  }
+  return s;
+}
+
+// The epilogue of a bender layer on a consumer warpgroup: N columns of the
+// wgmma accumulators (acc[4 j + 2 h + e]: row w * 16 + l / 4 + 8 h, column
+// 8 j + 2 (l % 4) + e of its 64 rows), bf16(relu((pre(h, col) + acc) +
+// bias)), each pair of columns to `store(h, col, packed)`
+template <int N, int M, class Pre, class Store>
+__device__ __forceinline__ void bend_epilogue(const float (&acc)[M], uint32_t bias, int t,
+                                              Pre&& pre, Store&& store) {
+  const int q = t % 4;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = j * 8 + 2 * q;
+    const float b0 = ld_shared_f32(bias + 4 * col), b1 = ld_shared_f32(bias + 4 * col + 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v0 = fmaxf(__fadd_rn(__fadd_rn(pre(h, col), acc[4 * j + 2 * h]), b0), 0.0f);
+      const float v1 =
+          fmaxf(__fadd_rn(__fadd_rn(pre(h, col + 1), acc[4 * j + 2 * h + 1]), b1), 0.0f);
+      store(h, col, pack_bf16(v0, v1));
+    }
+  }
+}
+
+struct FusedFwdIn {
+  static constexpr int FWD_TILES = 2;
+  static constexpr int ENCODERS = 96;
+  static constexpr int PIECES = TM * EMB / 8;   // 16-byte pieces of a tile
+  const float* pts;      // (n, 3)
+  const float* lat;      // (n, 32), 16-byte aligned
+  const bf16* image;     // the bender's image, BEND_IMAGE_BYTES, 16-byte aligned
+  float* off;            // (n, 3) out
+  float* rig;            // (n, 1) out
+
+  // shared memory after the image (the kernel's `in_smem`)
+  static __device__ __forceinline__ uint32_t rig_row(uint32_t extra, int slot, int r) {
+    return extra + BEND_IMAGE_BYTES + uint32_t(slot * TM + r) * 4;
+  }
+  static __device__ __forceinline__ uint32_t bent_row(uint32_t extra, int slot, int r) {
+    return extra + BEND_IMAGE_BYTES + FUSED_RIG_BYTES + uint32_t(slot * TM + r) * 16;
+  }
+
+  // bars: full[0], full[1] (the encoders), ready[0], ready[1] (the
+  // consumers), the image's (one arrival)
+  __device__ __forceinline__ void init(uint32_t bars) const {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(bars + 8 * b, ENCODERS);
+      mbar_init(bars + 8 * (2 + b), CONSUMERS);
+    }
+    mbar_init(bars + 8 * 4, 1);
+    mbar_init_fence();
+  }
+
+  // encoder e (0 .. 95): stage the image into `extra`, then for the i-th
+  // tile of this CTA, once it is ready: the offsets and bent points of
+  // (row, lane) pairs e, e + 96, ... of the 384, a barrier of the encoders,
+  // then pieces e, e + 96, ... of the tile's 1,024 encoding pieces
+  __device__ __forceinline__ void encode(uint32_t emb0, uint32_t bars, uint32_t extra, int n,
+                                         int n_tiles, int e) const {
+    for (int i = e; i < int(BEND_IMAGE_BYTES / 16); i += ENCODERS) {
+      st_shared16(extra + 16 * i, __ldg(reinterpret_cast<const uint4*>(image) + i));
+    }
+    fence_proxy_async();   // the consumers' wgmma read the image
+    encoders_barrier();
+    if (e == 0) mbar_arrive(bars + 8 * 4);   // the image is in place
+    int i = 0;
+#pragma unroll 1
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+      const int b = i % 2;
+      const uint32_t embt = emb0 + uint32_t(b) * TILE_ATOM_BYTES;   // bh3, then the encoding
+      const long row0 = long(tile) * TM;
+      mbar_wait(bars + 8 * (2 + b), (i / 2) & 1);
+#pragma unroll 1
+      for (int p = e; p < TM * 3; p += ENCODERS) {
+        const int r = p / 3, j = p % 3;
+        const float o = row_dot<BEND_W>(embt, r, extra + BIMG_BOWT + j * BEND_W * 2);
+        const bool valid = row0 + r < n;
+        const float x = valid ? __ldg(pts + size_t(row0 + r) * 3 + j) : 0.0f;
+        st_shared_f32(bent_row(extra, b, r) + 4 * j,
+                      __fadd_rn(x, __fmul_rn(ld_shared_f32(rig_row(extra, b, r)), o)));
+        if (valid) off[size_t(row0 + r) * 3 + j] = o;
+      }
+      encoders_barrier();   // every bh3 row is read, every bent point written
+#pragma unroll 1
+      for (int q = e; q < PIECES; q += ENCODERS) {
+        const int r = q / (EMB / 8);
+        const uint4 bv = ld_shared16(bent_row(extra, b, r));
+        const float x[3] = {__uint_as_float(bv.x), __uint_as_float(bv.y), __uint_as_float(bv.z)};
+        encode_piece_with(embt, x, row0 + r < n, [&](int c, float (&pc)[4]) {
+          pc[0] = ld_shared_f32(extra + BIMG_P + 4 * c);
+          pc[1] = ld_shared_f32(extra + BIMG_P + 4 * (EMB + c));
+          pc[2] = ld_shared_f32(extra + BIMG_P + 4 * (2 * EMB + c));
+          pc[3] = ld_shared_f32(extra + BIMG_PHASE + 4 * c);
+        }, r, (q % (EMB / 8)) * 8);
+      }
+      fence_proxy_async();
+      mbar_arrive(bars + 8 * b);
+    }
+  }
+
+  // a consumer: the bender's products of its rows of the CTA's j-th tile
+  // (rows from row0; past the last tile every row is past n and the
+  // products run on zeros: a wgmma under a branch would serialize them all),
+  // into encoding tile j % 2. acc: the chain's accumulators (the products
+  // use the first 32).
+  template <int R>
+  __device__ __forceinline__ void ahead(float (&acc)[R], unsigned char* act, uint32_t emb0,
+                                        uint32_t bars, uint32_t extra, int j, long row0, int n,
+                                        int wg, int t) {
+    if (j == 0) mbar_wait(bars + 8 * 4, 0);   // the encoders have staged the image
+    const int slot = j % 2;
+    const uint32_t act_s = smem_u32(act);
+    const uint32_t lat_t = act_s + uint32_t(wg) * WG_ATOM_BYTES;   // atom 0
+    const uint32_t rh0_t = lat_t + WG_ATOM_BYTES / 2;
+    const uint32_t rh1_t = lat_t + TILE_ATOM_BYTES;                  // atom 1
+    const uint32_t bh_t = lat_t + 2 * TILE_ATOM_BYTES;               // atom 2
+    const uint32_t bh3_t = emb0 + uint32_t(slot) * TILE_ATOM_BYTES + uint32_t(wg) * WG_ATOM_BYTES;
+    const int lane = t % 32;
+    const int rw = (t / 32) * 16 + lane / 4;   // the accumulators' first row (of 64)
+
+    wg_barrier(wg);   // the last tile's head has read the activation tile
+    // ---- the A tiles: thread t takes row t / 2, lanes (t % 2) * 16 .. + 15 of
+    // bf16(lat) and of rh0 = relu(bf16(pts) @ r0w + r0b)
+    {
+      const int r = t / 2, c0 = (t % 2) * 16;
+      const long row = row0 + wg * WG_ROWS + r;
+      const bool valid = row < n;
+      float xb[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) xb[k] = round_bf16(valid ? __ldg(pts + size_t(row) * 3 + k) : 0.0f);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = c0 + 8 * h;
+        float4 v0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), v1 = v0;
+        if (valid) {
+          v0 = __ldg(reinterpret_cast<const float4*>(lat + size_t(row) * LAT_W + c));
+          v1 = __ldg(reinterpret_cast<const float4*>(lat + size_t(row) * LAT_W + c + 4));
+        }
+        st_shared16(lat_t + sw64_offset(r, c),
+                    make_uint4(pack_bf16(v0.x, v0.y), pack_bf16(v0.z, v0.w),
+                               pack_bf16(v1.x, v1.y), pack_bf16(v1.z, v1.w)));
+        uint32_t w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float s[2] = {0.0f, 0.0f};
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            const uint32_t wv = ld_shared32(extra + BIMG_R0W + 2 * (k * RIG_W + c + 2 * e));
+            s[0] += xb[k] * bf16_lo(wv);
+            s[1] += xb[k] * bf16_hi(wv);
+          }
+          w[e] = pack_bf16(
+              fmaxf(__fadd_rn(s[0], ld_shared_f32(extra + BIMG_R0B + 4 * (c + 2 * e))), 0.0f),
+              fmaxf(__fadd_rn(s[1], ld_shared_f32(extra + BIMG_R0B + 4 * (c + 2 * e + 1))),
+                    0.0f));
+        }
+        st_shared16(rh0_t + sw64_offset(r, c), make_uint4(w[0], w[1], w[2], w[3]));
+      }
+    }
+    // bf16(pts) of the accumulators' two rows, for bh0's pts @ b0p
+    float xa[2][3];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long row = row0 + wg * WG_ROWS + rw + 8 * h;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        xa[h][k] = round_bf16(row < n ? __ldg(pts + size_t(row) * 3 + k) : 0.0f);
+      }
+    }
+    fence_proxy_async();
+    wg_barrier(wg);
+
+    // ---- rh1 = relu(rh0 @ r1w + r1b) (m64n32k16 x 2) into rh1_t
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < RIG_W / 16; ++kk) {
+      wgmma_m64n32(acc, desc_sw64(rh0_t + kk * 32), desc_sw64(extra + BIMG_R1W + kk * 32),
+                   kk != 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc<16>(acc);
+    bend_epilogue<RIG_W>(acc, extra + BIMG_R1B, t, [](int, int) { return 0.0f; },
+                         [&](int h, int col, uint32_t v) {
+                           st_shared32(rh1_t + uint32_t(rw + 8 * h) * (RIG_W * 2) + col * 2, v);
+                         });
+    // ---- bh0 = relu((pts @ b0p + lat @ b0l) + b0b) (m64n64k16 x 2) into bh_t
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < LAT_W / 16; ++kk) {
+      wgmma_m64n64(acc, desc_sw64(lat_t + kk * 32), desc_sw64(extra + BIMG_B0L + kk * 32),
+                   kk != 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc<32>(acc);
+    bend_epilogue<BEND_W>(acc, extra + BIMG_BB, t,
+                          [&](int h, int col) {
+                            const uint32_t pair = extra + BIMG_B0P + 2 * (col & ~1);
+                            float s = 0.0f;
+#pragma unroll
+                            for (int k = 0; k < 3; ++k) {
+                              const uint32_t wv = ld_shared32(pair + 2 * k * BEND_W);
+                              s += xa[h][k] * (col & 1 ? bf16_hi(wv) : bf16_lo(wv));
+                            }
+                            return s;
+                          },
+                          [&](int h, int col, uint32_t v) {
+                            st_shared32(bh_t + tile_offset(rw + 8 * h, col), v);
+                          });
+    fence_proxy_async();
+    wg_barrier(wg);   // bh0 and rh1 are written
+
+    // ---- the rigidity of row t / 2 (even threads): tanh(rh1 @ row + rob),
+    // a sequential sum, then (t + 1) * 0.5
+    if (t % 2 == 0) {
+      const int r = t / 2;
+      float s = 0.0f;
+#pragma unroll
+      for (int c = 0; c < RIG_W / 8; ++c) {
+        const uint4 av = ld_shared16(rh1_t + uint32_t(r) * (RIG_W * 2) + c * 16);
+        const uint4 wv = ld_shared16(extra + BIMG_ROWT + c * 16);
+        const uint32_t ap[4] = {av.x, av.y, av.z, av.w};
+        const uint32_t wp[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s += bf16_lo(ap[e]) * bf16_lo(wp[e]);
+          s += bf16_hi(ap[e]) * bf16_hi(wp[e]);
+        }
+      }
+      const float th = tanhf(__fadd_rn(s, ld_shared_f32(extra + BIMG_ROB)));
+      const float rig0 = __fmul_rn(__fadd_rn(th, 1.0f), 0.5f);
+      st_shared_f32(rig_row(extra, slot, wg * WG_ROWS + r), rig0);
+      const long row = row0 + wg * WG_ROWS + r;
+      if (row < n) rig[row] = rig0;
+    }
+
+    // ---- bh1 .. bh3 (m64n64k16 x 4 each) over the bh tile; bh3 into this
+    // warpgroup's rows of the tile's encoding tile
+#pragma unroll 1
+    for (int l = 1; l < 4; ++l) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BEND_W / 16; ++kk) {
+        wgmma_m64n64(acc, desc_sw128(bh_t + kk * 32),
+                     desc_sw128(extra + BIMG_BW + uint32_t(l - 1) * BEND_W * BEND_W * 2 + kk * 32),
+                     kk != 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc<32>(acc);
+      const uint32_t dst = l < 3 ? bh_t : bh3_t;
+      bend_epilogue<BEND_W>(acc, extra + BIMG_BB + uint32_t(l) * BEND_W * 4, t,
+                            [](int, int) { return 0.0f; },
+                            [&](int h, int col, uint32_t v) {
+                              st_shared32(dst + tile_offset(rw + 8 * h, col), v);
+                            });
+      fence_proxy_async();
+      wg_barrier(wg);
+    }
+    if (t == 0) mbar_arrive(bars + 8 * (2 + slot));
+  }
+
+  __device__ __forceinline__ void first(uint32_t, long, int, int, int) {}
+  __device__ __forceinline__ void wait(uint32_t bars, int i) {
+    mbar_wait(bars + 8 * (i % 2), (i / 2) & 1);
+  }
+  __device__ __forceinline__ void done(uint32_t, uint32_t, int, long, int, int, int) {}
+};
+
+// What the forward kernel gives its input beyond the tiles: the ring's
+// stages, shared memory of the input's own, and whether its consumers run
+// `ahead` for the next tile before they wait for a tile (row 9's only)
+template <class In>
+struct FwdPlan {
+  static constexpr int STAGES = FWD_STAGES;
+  static constexpr size_t EXTRA_BYTES = 0;
+  static constexpr bool AHEAD = false;
+};
+
+template <>
+struct FwdPlan<FusedFwdIn> {
+  static constexpr int STAGES = FUSED_STAGES;
+  static constexpr size_t EXTRA_BYTES = FUSED_EXTRA_BYTES;
+  static constexpr bool AHEAD = true;
+};
+
 // ---- the forward's chain kernel: mlp_fwd.cu (row 1) on the encoding,
-// mlpe_fwd.cu (row 5) on points
+// mlpe_fwd.cu (row 5) on points, fused_fwd.cu (row 9) on points and latents
 
 struct FwdArgs {
   const float* bias[N_LAYERS];   // (256,) f32 per hidden layer
@@ -1313,16 +1778,18 @@ template <int E, class In>
 __global__ void __launch_bounds__(THREADS, 1)
 mlp_fwd_kernel(const In in_args, int n, int n_tiles, const bf16* __restrict__ image,
                FwdArgs p, float* __restrict__ out) {
+  constexpr int S = FwdPlan<In>::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* act = align_smem(smem_raw);
   const uint32_t emb0 = smem_u32(act + ACT_BYTES);
   const uint32_t ring = emb0 + uint32_t(In::FWD_TILES * emb_tile_bytes<E>);
-  const uint32_t bars = ring + FWD_STAGES * CHUNK_BYTES;
-  const uint32_t in_bars = bars + 2 * 8 * FWD_STAGES;   // the input's own barriers
+  const uint32_t in_smem = ring + S * CHUNK_BYTES;   // the input's own shared memory
+  const uint32_t bars = in_smem + uint32_t(FwdPlan<In>::EXTRA_BYTES);
+  const uint32_t in_bars = bars + 2 * 8 * S;         // ... and barriers
   const int wg = threadIdx.x / 128;
   const int t = threadIdx.x % 128;
   if (threadIdx.x == 0) {
-    ring_init<FWD_STAGES>(bars);
+    ring_init<S>(bars);
     in_args.init(in_bars);
   }
   __syncthreads();
@@ -1330,35 +1797,42 @@ mlp_fwd_kernel(const In in_args, int n, int n_tiles, const bf16* __restrict__ im
   if (wg == CONSUMERS) {   // the producer
     setmaxnreg_dec<PRODUCER_REGS>();
     if (t == 0) {
-      produce<FWD_STAGES>(image, n_fwd_chunks<E>, n_tiles, ring, bars);
+      produce<S>(image, n_fwd_chunks<E>, n_tiles, ring, bars);
     } else if (t >= 32) {
-      in_args.encode(emb0, in_bars, n, n_tiles, t - 32);
+      in_args.encode(emb0, in_bars, in_smem, n, n_tiles, t - 32);
     }
   } else {                 // a consumer: 64 rows of every tile
     setmaxnreg_inc<CONSUMER_REGS>();
     In in = in_args;
     uint32_t g = 0;
+    float acc[128];
     in.first(emb0, long(blockIdx.x) * TM, n, wg, t);
+    if constexpr (FwdPlan<In>::AHEAD) {
+      in.ahead(acc, act, emb0, in_bars, in_smem, 0, long(blockIdx.x) * TM, n, wg, t);
+    }
     int i = 0;
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
       const long row0 = long(tile) * TM;
       const int next = tile + gridDim.x;
       const uint32_t embt = emb0 + uint32_t(i % In::FWD_TILES) * uint32_t(emb_tile_bytes<E>);
+      if constexpr (FwdPlan<In>::AHEAD) {
+        in.ahead(acc, act, emb0, in_bars, in_smem, i + 1, long(next) * TM, n, wg, t);
+      }
       in.wait(in_bars, i);
       fence_proxy_async();
       wg_barrier(wg);   // the encoding is in its tile; the last tile's head is done
-      float acc[128];
-      chain_tile<FWD_STAGES, E>(acc, act, embt, p.bias, ring, bars, g, wg, t, nullptr, 0, 0,
-                                nullptr, [&] {
-                                  in.done(embt, in_bars, i,
-                                          next < n_tiles ? long(next) * TM : -1, n, wg, t);
-                                });
+      chain_tile<S, E>(acc, act, embt, p.bias, ring, bars, g, wg, t, nullptr, 0, 0, nullptr,
+                       [&] {
+                         in.done(embt, in_bars, i, next < n_tiles ? long(next) * TM : -1, n,
+                                 wg, t);
+                       });
       raw_head(act, p.ow, p.ob, out, row0, n, wg, t);
     }
   }
 }
 
-// Rows 1 and 5: the forward on the input `in` (EncodingIn<E> or PtsFwdIn).
+// Rows 1, 5 and 9: the forward on the input `in` (EncodingIn<E>, PtsFwdIn or
+// FusedFwdIn).
 // image: the chain's forward chunks (pack_chain_image(mw, ("fwd",)),
 // n_fwd_chunks<E> x 32 KB); mats: n0w .. n7w, ow as nrnerf_mlp_fwd lists
 // them (only ow is read: the image holds the chain's weights); biases: n0b
@@ -1370,7 +1844,9 @@ inline int launch_fwd(const In& in, int n, const void* image, const void* const*
   for (int i = 0; i < N_LAYERS; ++i) p.bias[i] = static_cast<const float*>(biases[i]);
   p.ow = static_cast<const bf16*>(mats[9]);
   p.ob = static_cast<const float*>(biases[8]);
-  constexpr size_t smem = fwd_smem_bytes<E, In::FWD_TILES>;
+  constexpr size_t smem =
+      fwd_smem_bytes<E, In::FWD_TILES, FwdPlan<In>::STAGES> + FwdPlan<In>::EXTRA_BYTES;
+  static_assert(smem <= SMEM_LIMIT, "the forward and its input fit one Hopper CTA");
   cudaError_t err = cudaFuncSetAttribute(
       mlp_fwd_kernel<E, In>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
@@ -1449,8 +1925,8 @@ __device__ __forceinline__ void views_products(float (&acc)[128], uint32_t feat,
   ring_release<S>(bars, g - 1, signal);
 }
 
-// ---- the single-head backward's chain kernel: mlp_bwd.cu (row 2) on the
-// encoding, mlpe_bwd.cu (row 6) on points
+// ---- the single-head backward's chain kernel: mlp_bwd.cu (row 2) and
+// fused_bwd.cu (row 10) on the encoding, mlpe_bwd.cu (row 6) on points
 
 struct ChainArgs {
   const float* bias[N_LAYERS];   // (256,) f32 per hidden layer
@@ -1501,7 +1977,7 @@ mlp_bwd_chain_kernel(const __grid_constant__ ScratchMaps maps, const In in_args,
       fence_proxy_async();
       wg_barrier(wg);   // the encoding is in its tile; the last tile is done
       // the padded copy of the encoding that the dW products read
-      if (t == 0) store_rows(&maps.emb, b_s, E / BOX, wrow, wg);
+      if (In::STORE_EMB && t == 0) store_rows(&maps.emb, b_s, E / BOX, wrow, wg);
 
       // ---- recompute nh1 .. nh8 (as mlp_fwd.cu), each stored to the scratch
       {
@@ -1539,13 +2015,14 @@ constexpr int DW_RK = 64;           // points per staged chunk
 constexpr int DW_STAGES = 2;
 constexpr int DW_SPLIT = 2048;      // points per split (mlp_tile.cuh's SPLIT_ROWS)
 constexpr int DW_THREADS = 128;
-constexpr int SUM_GROUPS = 4;       // mlp_tile.cuh's SMALL_GROUPS
+constexpr int SUM_GROUPS = 4;       // partial sums of the bias and head gradients
 constexpr int MAX_DW_JOBS = 40;
 constexpr uint32_t DW_A_BYTES = BOX_BYTES;                   // 64 points x 64 act lanes
 constexpr uint32_t DW_B_BYTES = (NW / BOX) * BOX_BYTES;      // 64 points x 256 dh lanes
 constexpr uint32_t DW_STAGE_BYTES = DW_A_BYTES + DW_B_BYTES;
 constexpr size_t DW_SMEM_BYTES = SMEM_ALIGN + DW_STAGES * DW_STAGE_BYTES + BAR_BYTES;
 static_assert(2 * DW_SMEM_BYTES <= SMEM_LIMIT, "two dW CTAs share an SM");
+static_assert(DW_RK % SUM_GROUPS == 0, "point p of a split goes to sum p % SUM_GROUPS");
 static_assert(DW_STAGE_BYTES % SMEM_ALIGN == 0 && DW_A_BYTES % SMEM_ALIGN == 0,
               "every staged box starts on the swizzle's 1024 bytes");
 
@@ -1656,10 +2133,9 @@ mlp_dw_sm90_kernel(const __grid_constant__ ScratchMaps maps, const DwJobs jobs, 
   }
 
   float acc[128];
-  // the column sums in mlp_tile.cuh's order (mlp_small_kernel): SUM_GROUPS
-  // partial sums, point p of the split into sum p % SUM_GROUPS, added in
-  // ascending order at the end, so mlp_bwd's bias gradients are bit-equal to
-  // those of the kernels that keep that second pass (fused_bwd.cu)
+  // the column sums: SUM_GROUPS partial sums, point p of the split into sum
+  // p % SUM_GROUPS, added in ascending order at the end (every backward
+  // sums in this order)
   float bsum[2][SUM_GROUPS] = {};
   const int bcol = 2 * t;   // this thread's two dh columns of the sums
   const bool bias = job.bias_off >= 0 && bcol < job.b_width;
@@ -1713,7 +2189,7 @@ struct HeadBlocks {
 // CTA (split, block): one column a thread in each of HG_GROUPS row groups;
 // the rows pass through shared memory HG_ROWS at a time (coalesced 16-byte
 // loads). Group g takes every HG_GROUPS-th row from g on, in ascending order,
-// and the groups are added in order: the order of mlp_tile.cuh's head job.
+// and the groups are added in order (the dW products' order of the sums).
 // Rows past n have draw = 0 and are skipped.
 constexpr int HG_COLS = 128;
 constexpr int HG_GROUPS = SUM_GROUPS;
@@ -1829,8 +2305,9 @@ inline int launch_dw_heads(const ScratchMaps& maps, const DwJobs& jobs, int n_jo
   return int(cudaGetLastError());
 }
 
-// Rows 2 and 6 but for the reduction over the splits (the caller's): the
-// chain kernel on the input `in` (EncodingIn<E> or PtsIn), then the second
+// Rows 2, 6 and 10 but for the reduction over the splits (the caller's):
+// the chain kernel on the input `in` (EncodingIn<E>, PtsIn, or row 10's
+// EncodingIn<EMB, false> on the scratch's encoding), then the second
 // pass, with the gradient layout L (mlp_tile.cuh's single_head::GradLayout<E>):
 // the 9 products with the bias sums of dh1 .. dh8, g_ow = nh8^T @ bf16(draw)
 // with g_ob. scratch: the encoding copy, nh1 .. nh8, dh1 .. dh8 (n_pad rows

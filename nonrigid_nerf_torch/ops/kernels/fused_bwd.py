@@ -13,9 +13,10 @@ Counterpart of the Pallas kernel `_fused_core_bwd` / `_bwd_kernel`
 - `fused_bwd_plain` is `mlp_bwd_plain` on the recomputed bf16 encoding, then
   `bend_bwd_plain` on its demb: on the CPU the monolith and the split variant
   run the same arithmetic, and on the card the two share their device code
-  (csrc/bend_tile.cuh, csrc/mlp_tile.cuh), so the two variants agree bit for
-  bit in value and gradient, as the JAX package holds them
-  (tests/test_fused_kernel.py:397-419).
+  (csrc/bend_tile.cuh's bender, row 2's kernels on csrc/mlp_sm90.cuh, which
+  read row 2's weight image, `mlp_sm90.pack_chain_image(mw, ("fwd",
+  "bwd"))`), so the two variants agree bit for bit in value and gradient, as
+  the JAX package holds them (tests/test_fused_kernel.py:397-419).
 - `FusedCore.apply(pts, lat, *packed)`: forward `fused_fwd`, backward
   `fused_bwd`; returns dpts, dlat and the 37 gradients (None for P and the
   phase). Outputs without a cotangent count as zero cotangents; the saved
@@ -42,6 +43,7 @@ from nonrigid_nerf_torch.ops.kernels.bend_fwd import (
 from nonrigid_nerf_torch.ops.kernels.build import load_kernel_library
 from nonrigid_nerf_torch.ops.kernels.fused_fwd import (
     N_FUSED_W, cast_fused_weights, check_fused_args, fused_fwd, mlp_pointers)
+from nonrigid_nerf_torch.ops.kernels.mlp_sm90 import pack_chain_image
 from nonrigid_nerf_torch.ops.kernels.mlpe_fwd import PTS
 
 FUSED_BWD_MACS_PER_POINT = KB.BWD_MACS_PER_POINT + BEND_BWD_MACS_PER_POINT
@@ -114,6 +116,7 @@ def fused_bwd(pts: torch.Tensor, lat: torch.Tensor, w: Sequence[torch.Tensor],
     grads = torch.empty(KB.GRAD_FLOATS, dtype=torch.float32, device=device)
     bend_grads = torch.empty(BEND_GRAD_FLOATS, dtype=torch.float32,
                              device=device)
+    image = pack_chain_image(w[N_BEND_W:], ("fwd", "bwd"))
     for t in (draw, scratch, partials, demb, grads):
         if t.data_ptr() % 16:
             raise ValueError("fused_bwd needs 16-byte aligned tensors")
@@ -121,7 +124,7 @@ def fused_bwd(pts: torch.Tensor, lat: torch.Tensor, w: Sequence[torch.Tensor],
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.nrnerf_fused_bwd(
             pts.data_ptr(), lat.data_ptr(), draw.data_ptr(), doff.data_ptr(),
-            drig.data_ptr(), n, bmats, bbiases, mats, biases,
+            drig.data_ptr(), n, bmats, bbiases, image.data_ptr(), mats, biases,
             scratch.data_ptr(), partials.data_ptr(), demb.data_ptr(),
             bend_partials.data_ptr(), dpts.data_ptr(), dlat.data_ptr(),
             grads.data_ptr(), bend_grads.data_ptr(), stream)
@@ -139,8 +142,8 @@ def _library() -> ctypes.CDLL:
     lib = load_kernel_library("fused_bwd.cu")
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     lib.nrnerf_fused_bwd.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int, ptrs, ptrs, ptrs, ptrs]
-        + [ctypes.c_void_p] * 9)
+        [ctypes.c_void_p] * 5 + [ctypes.c_int, ptrs, ptrs, ctypes.c_void_p, ptrs,
+                                 ptrs] + [ctypes.c_void_p] * 9)
     lib.nrnerf_fused_bwd.restype = ctypes.c_int
     lib.nrnerf_fused_bwd_sizes.argtypes = [
         ctypes.c_int] + [ctypes.POINTER(ctypes.c_longlong)] * 3

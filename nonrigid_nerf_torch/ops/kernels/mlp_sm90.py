@@ -36,6 +36,11 @@ its 16-byte pieces are permuted by XOR with the row's index mod 8.
   with the kernel's integer sums and roundings (`requant_i8`,
   `quant_sym_i8`), which the CPU tests hold bit for bit against
   `mlp_i8_plain` up to h8.
+- `pack_bend_image`, `unpack_bend_image`, `kmajor_offset`, `bend_from_image`:
+  row 9's (`fused_fwd`) image of the bender (five K-major swizzled
+  matrices, the 3-lane weights' rows, the f32 biases, P and the phase,
+  34,064 B, staged once per CTA) and a reader of the deformation field from
+  it in the kernel's order.
 - `encoding_pieces`, `encode_tile`, `fold_tile`: the in-kernel encoding of
   `mlpe_fwd` and `mlpe_bwd` (one device function), written into the
   swizzled tile piece by piece by the threads that write it (`mlpe_fwd`'s 96
@@ -499,9 +504,10 @@ def encoding_pieces(writer: str = "rows") -> np.ndarray:
     """(writer, piece, 2): the (row, first lane) of every 8-lane piece of a
     128 x 64 encoding tile, by the thread that writes it. "rows" (`mlpe_bwd`,
     `PtsIn`): thread t of warpgroup w writes row 64 w + t // 2, lanes (t %
-    2) * 32 .. + 32, 4 pieces. "encoders" (`mlpe_fwd`, `PtsFwdIn`): encoder
-    e of 96 writes pieces q = e, e + 96, ... of the 1,024 (row q // 8,
-    lanes (q % 8) * 8), 11 or 10 of them (-1 rows pad the shorter lists)."""
+    2) * 32 .. + 32, 4 pieces. "encoders" (`mlpe_fwd`'s `PtsFwdIn` and
+    `fused_fwd`'s `FusedFwdIn`): encoder e of 96 writes pieces q = e, e +
+    96, ... of the 1,024 (row q // 8, lanes (q % 8) * 8), 11 or 10 of them
+    (-1 rows pad the shorter lists)."""
     if writer == "rows":
         w, t, q = np.meshgrid(np.arange(2), np.arange(128), np.arange(4),
                               indexing="ij")
@@ -568,6 +574,171 @@ def fold_tile(products: Sequence[torch.Tensor], pts: torch.Tensor,
                     s = s + v[:, None] * P[:, col].float()[None, :]
         sums.append(s)
     return (sums[0] + sums[1]) + (sums[2] + sums[3])
+
+
+# ---- row 9 (`fused_fwd`, `FusedFwdIn`): the bender's image, staged once per
+# CTA, and a reader of the deformation field in the kernel's order. A matrix
+# W (K x N) of the products is kept as N K-major rows (row n holds column n
+# of W): rows of 64 lanes (128 bytes) with the 16-byte pieces XORed with n %
+# 8, rows of 32 lanes (64 bytes) XORed with (n // 2) % 4. The 3-lane weights
+# follow as plain rows, then the f32 biases, P and the phase.
+
+BEND_W, RIG_W, LAT_W = 64, 32, 32
+# (index among the 18 cast bender weights, K, N, first element in the image):
+# b0l, b1w, b2w, b3w, r1w
+BEND_IMAGE_MATS = ((1, LAT_W, BEND_W, 0), (3, BEND_W, BEND_W, 2048),
+                   (5, BEND_W, BEND_W, 6144), (7, BEND_W, BEND_W, 10240),
+                   (12, RIG_W, RIG_W, 14336))
+# then bow^T's rows 0 .. 2 (64 lanes), row's lane 0 (32), b0p's rows 0 .. 2
+# (64 each), r0w's rows 0 .. 2 (32 each): (weight, first element, length)
+BEND_IMAGE_ROWS = (("bowT", 15360, 3 * BEND_W), ("row", 15552, RIG_W),
+                   ("b0p", 15584, 3 * BEND_W), ("r0w", 15776, 3 * RIG_W))
+BEND_BF16_ELEMS = 15872         # the bf16 part, 31,744 B
+# the f32 part: (weight, first float, length); rob's lane 0 padded to 4
+BEND_IMAGE_F32 = (("b0b", 0, BEND_W), ("b1b", 64, BEND_W), ("b2b", 128, BEND_W),
+                  ("b3b", 192, BEND_W), ("r0b", 256, RIG_W), ("r1b", 288, RIG_W),
+                  ("rob", 320, 4), ("P", 324, 3 * 64), ("phase", 516, 64))
+BEND_F32_FLOATS = 580
+BEND_IMAGE_ELEMS = BEND_BF16_ELEMS + 2 * BEND_F32_FLOATS    # 34,064 B
+
+
+def kmajor_offset(n, k, lanes: int):
+    """Element offset of (n, k) in a K-major image matrix whose rows hold
+    `lanes` (32 or 64) k-values, as the device code's `kmajor_offset` has it
+    (in bytes)."""
+    sw = n % 8 if lanes == 64 else (n // 2) % 4
+    return n * lanes + ((k // 8) ^ sw) * 8 + k % 8
+
+
+def bend_image_index() -> np.ndarray:
+    """For each element of the bender's image's bf16 part, its index in the
+    concatenation of b0l, b1w, b2w, b3w and r1w, flattened (in, out), then
+    the 3-lane rows of `BEND_IMAGE_ROWS` in order."""
+    out = np.full(BEND_BF16_ELEMS, -1, np.int64)
+    src_base = 0
+    for _, k_lanes, n_cols, base in BEND_IMAGE_MATS:
+        k = np.arange(k_lanes)[:, None]
+        n = np.arange(n_cols)[None, :]
+        out[base + kmajor_offset(n, k, k_lanes)] = src_base + k * n_cols + n
+        src_base += k_lanes * n_cols
+    for _, base, length in BEND_IMAGE_ROWS:
+        out[base:base + length] = src_base + np.arange(length)
+        src_base += length
+    return out
+
+
+_BEND_INDEX: Dict[str, torch.Tensor] = {}
+
+
+def _bend_index(device) -> torch.Tensor:
+    key = str(device)
+    if key not in _BEND_INDEX:
+        _BEND_INDEX[key] = torch.from_numpy(bend_image_index()).to(device)
+    return _BEND_INDEX[key]
+
+
+def _bend_rows(bw: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The 3-lane weights as the image keeps them: bow^T[:3], row[:, 0],
+    b0p[:3], r0w[:3]."""
+    return [bw[9][:, :3].t(), bw[14][:, 0], bw[0][:3], bw[10][:3]]
+
+
+def _bend_f32(bw: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The image's f32 part: b0b .. b3b, r0b, r1b, rob's lane 0 (and 3
+    zeros), P's rows 0 .. 2, the phase."""
+    rob = torch.cat([bw[15].reshape(-1)[:1], bw[15].new_zeros(3)])
+    return [bw[2], bw[4], bw[6], bw[8], bw[11], bw[13], rob, bw[16][:3], bw[17]]
+
+
+def pack_bend_image(bw: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The bender's image from its 18 cast weights (`cast_bend_weights`):
+    b0l, b1w, b2w, b3w and r1w as K-major swizzled rows, the 3-lane weights'
+    rows, then the f32 biases, P and the phase (`BEND_IMAGE_F32`, two bf16
+    elements a float); a flat bf16 tensor of 17,032 elements that
+    `fused_fwd`'s encoders copy into shared memory."""
+    flat = torch.cat([bw[i].reshape(-1) for i, *_ in BEND_IMAGE_MATS]
+                     + [t.reshape(-1) for t in _bend_rows(bw)])
+    f32 = torch.cat([t.float().reshape(-1) for t in _bend_f32(bw)])
+    return torch.cat([flat[_bend_index(flat.device)], f32.view(torch.bfloat16)])
+
+
+def unpack_bend_image(image: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The bender's image's contents by name: b0l, b1w, b2w, b3w and r1w (in,
+    out), bowT (3, 64), row (32,), b0p (3, 64), r0w (3, 32) (bf16); b0b ..
+    b3b, r0b, r1b, rob (4,), P (3, 64), phase (64,) (f32)."""
+    flat = torch.empty(BEND_BF16_ELEMS, dtype=image.dtype, device=image.device)
+    flat[_bend_index(image.device)] = image[:BEND_BF16_ELEMS]
+    names = ["b0l", "b1w", "b2w", "b3w", "r1w", "bowT", "row", "b0p", "r0w"]
+    shapes = [(k_lanes, n_cols) for _, k_lanes, n_cols, _ in BEND_IMAGE_MATS]
+    shapes += [(3, BEND_W), (RIG_W,), (3, BEND_W), (3, RIG_W)]
+    out, off = {}, 0
+    for name, shape in zip(names, shapes):
+        size = int(np.prod(shape))
+        out[name] = flat[off:off + size].view(shape)
+        off += size
+    f32 = image[BEND_BF16_ELEMS:].contiguous().view(torch.float32)
+    for name, first, length in BEND_IMAGE_F32:
+        out[name] = f32[first:first + length]
+    out["P"] = out["P"].view(3, 64)
+    return out
+
+
+def _ksteps(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a (R, K) @ w (K, N) as the warps sum it: a product per k-step of 16,
+    the k-steps added in ascending order, each column's sum from 0, f32."""
+    acc = torch.zeros(a.shape[0], w.shape[1])
+    for k0 in range(0, a.shape[1], 16):
+        acc = acc + _mm(a[:, k0:k0 + 16], w[k0:k0 + 16])
+    return acc
+
+
+def _seq(terms) -> torch.Tensor:
+    """The terms added in order, from 0, in f32 (a sequential sum)."""
+    s = 0.0
+    for t in terms:
+        s = s + t
+    return s
+
+
+def bend_from_image(pts: torch.Tensor, lat: torch.Tensor, image: torch.Tensor):
+    """The deformation field as `FusedFwdIn` runs it, on 128-point tiles
+    (zero points and latents past n), everything it reads but the points and
+    latents read out of the bender's image: the products on the tensor cores
+    by k-steps of 16
+    (`_ksteps`), the 3-lane products as sequential f32 sums of exact
+    products (pts @ b0p and pts @ r0w over the 3 coordinates, bh3 @ bow over
+    64 lanes, rh1 @ row over 32), (pre + acc) + bias, ReLU, bf16; t = tanh,
+    rig = (t + 1) * 0.5, bent = x + rig * off. A row's arithmetic does not
+    depend on its 16-row block. Returns the f32 encoding of the bent points
+    (the kernel rounds it to bf16 as it writes the tile), the offsets (n, 3)
+    and the rigidity (n, 1); rows past n dropped."""
+    bf16 = torch.bfloat16
+    im = unpack_bend_image(image)
+    b0l, b1w, b2w, b3w, r1w = (im[k] for k in ("b0l", "b1w", "b2w", "b3w", "r1w"))
+    bowt, row, b0p, r0w = (im[k] for k in ("bowT", "row", "b0p", "r0w"))
+    b0b, b1b, b2b, b3b, r0b, r1b, rob = (
+        im[k] for k in ("b0b", "b1b", "b2b", "b3b", "r0b", "r1b", "rob"))
+    n = pts.shape[0]
+    x = _tiles(pts.float(), n)
+    xb = x.to(bf16).float()
+    lb = _tiles(lat.float(), n).to(bf16)
+    pre = _seq(xb[:, j:j + 1] * b0p[j].float() for j in range(3))
+    bh = torch.relu((pre + _ksteps(lb, b0l)) + b0b.float()).to(bf16)
+    for w, b in ((b1w, b1b), (b2w, b2b), (b3w, b3b)):
+        bh = torch.relu((0.0 + _ksteps(bh, w)) + b.float()).to(bf16)
+    off = torch.stack([_seq(bh[:, k].float() * bowt[j, k].float()
+                            for k in range(BEND_W)) for j in range(3)], dim=1)
+    rs = _seq(xb[:, j:j + 1] * r0w[j].float() for j in range(3))
+    rh0 = torch.relu(rs + r0b.float()).to(bf16)
+    rh1 = torch.relu((0.0 + _ksteps(rh0, r1w)) + r1b.float()).to(bf16)
+    t = torch.tanh(_seq(rh1[:, k].float() * row[k].float()
+                        for k in range(RIG_W)) + rob[0])
+    rig = (t + 1.0) * 0.5
+    bent = x + rig[:, None] * off
+    P = im["P"]
+    pre_e = bent[:, 0:1] * P[0] + bent[:, 1:2] * P[1] + bent[:, 2:3] * P[2]
+    emb = torch.where(torch.arange(EMB) < 3, pre_e, torch.sin(pre_e + im["phase"]))
+    return emb[:n], off[:n], rig[:n, None]
 
 
 # ---- row 11 (`mlp_i8`): the int8 chain's image, its epilogue parameters and

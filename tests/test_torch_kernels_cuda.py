@@ -1214,3 +1214,98 @@ def test_mlpe_fwd_matches_mlp_fwd_on_its_encoding(model, cuda_device):
     err = (got - via_emb).abs()
     assert err.max().item() <= K.BF16_TOL_MAX
     assert err.mean().item() <= K.BF16_TOL_MEAN
+
+
+# ---- rows 9 and 10 on the Hopper chain (csrc/fused_fwd.cu and fused_bwd.cu
+# on mlp_sm90.cuh): the persistent grid's edges (one point, a tile less one,
+# one tile, a tile and one, one tile past a whole wave of CTAs, the largest
+# launch: 2^22 forward, 2^18 backward), every size's per-point outputs bit
+# for bit the rows of the largest launch, which alone is held to the plain
+# version (the tolerances are statistics over many points), bit-equal
+# relaunch, the launch counters; the split equal to the monolith at more
+# tiles than CTAs
+
+SM90_FUSED_FWD_SIZES = [0, 1, 127, 128, 129, 132 * 128 + 1, 1 << 22]
+SM90_FUSED_BWD_SIZES = [0, 1, 127, 128, 129, 132 * 128 + 1, 1 << 18]
+
+
+@pytest.fixture(scope="module")
+def sm90_fused_reference(request):
+    """The fine network's packed weights, inputs of each direction's largest
+    size and the kernels' outputs on them, held once against the plain
+    versions."""
+    cache = {}
+
+    def get(device):
+        if not cache:
+            w = _fused_weights(request.getfixturevalue("model"), device, "fine")
+            pts, lat, rng = _bend_inputs(max(SM90_FUSED_FWD_SIZES), device, 61)
+            out = FF.fused_fwd(pts, lat, w)
+            stats = FF.fused_fwd_agreement(out, FF.fused_fwd_plain(pts, lat, w))
+            assert stats["ok"], stats
+            nb = max(SM90_FUSED_BWD_SIZES)
+            cots = [torch.from_numpy(rng.randn(nb, c).astype(np.float32)).to(device)
+                    for c in (8, 3, 1)]
+            got = FB.fused_bwd(pts[:nb], lat[:nb], w, *cots)
+            stats = FB.fused_bwd_agreement(
+                got, FB.fused_bwd_plain(pts[:nb], lat[:nb], w, *cots))
+            assert stats["ok"], stats
+            cache.update(w=w, pts=pts, lat=lat, out=out, cots=cots, grads=got)
+        return cache
+
+    return get
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SM90_FUSED_FWD_SIZES)
+def test_fused_fwd_on_the_sm90_chain_at_the_grid_edges(sm90_fused_reference,
+                                                       cuda_device, n):
+    ref = sm90_fused_reference(cuda_device)
+    pts, lat = ref["pts"][:n], ref["lat"][:n]
+    before = FF.fused_fwd.launches
+    out = FF.fused_fwd(pts, lat, ref["w"])
+    torch.cuda.synchronize()
+    assert FF.fused_fwd.launches == before + (n > 0)
+    assert [tuple(t.shape) for t in out] == [(n, 8), (n, 3), (n, 1)]
+    assert all(bool(torch.isfinite(t).all()) for t in out)
+    for a, b in zip(out, ref["out"]):
+        assert torch.equal(a, b[:n])
+    assert all(torch.equal(a, b) for a, b in zip(out, FF.fused_fwd(pts, lat, ref["w"])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SM90_FUSED_BWD_SIZES)
+def test_fused_bwd_on_the_sm90_chain_at_the_grid_edges(sm90_fused_reference,
+                                                       cuda_device, n):
+    ref = sm90_fused_reference(cuda_device)
+    pts, lat = ref["pts"][:n], ref["lat"][:n]
+    cots = [c[:n] for c in ref["cots"]]
+    before = FB.fused_bwd.launches
+    got = FB.fused_bwd(pts, lat, ref["w"], *cots)
+    torch.cuda.synchronize()
+    assert FB.fused_bwd.launches == before + (n > 0)
+    assert got[0].shape == (n, 3) and got[1].shape == (n, 32) and len(got[2]) == 35
+    assert all(bool(torch.isfinite(g).all()) for g in got[2])
+    assert torch.equal(got[0], ref["grads"][0][:n])
+    assert torch.equal(got[1], ref["grads"][1][:n])
+    again = FB.fused_bwd(pts, lat, ref["w"], *cots)
+    assert all(torch.equal(a, b) for a, b in zip([got[0], got[1], *got[2]],
+                                                  [again[0], again[1], *again[2]]))
+
+
+@pytest.mark.cuda
+def test_entry_points_split_equals_monolith_past_a_wave_of_ctas(model, cuda_device):
+    """At 2 x 132 tiles and a ragged last one, so that every CTA of the
+    persistent grids walks more than one tile, the monolith (rows 9 and 10)
+    equals the split (rows 7, 1, 2 and 8) bit for bit in value and every
+    gradient."""
+    m = model.to(cuda_device)
+    try:
+        pts, lat, _ = _bend_inputs(2 * 132 * 128 + 77, cuda_device, 62)
+        mono = _entry_grads(FQ.fused_point_query, m, pts, lat)
+        split = _entry_grads(FQ.fused_point_query_split, m, pts, lat)
+        torch.cuda.synchronize()
+        for a, b in zip(mono[0] + mono[1], split[0] + split[1]):
+            assert torch.equal(a, b)
+    finally:
+        model.to("cpu")

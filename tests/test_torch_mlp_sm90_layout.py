@@ -299,7 +299,8 @@ def test_header_budgets_fit_one_hopper_cta():
                          ("mlp_fwd.cu", "launch_fwd<E>")):
         with open(os.path.join(csrc, name)) as f:
             assert budget in f.read(), name
-    assert "constexpr size_t smem = fwd_smem_bytes<E, In::FWD_TILES>;" in src
+    assert ("constexpr size_t smem =\n      fwd_smem_bytes<E, In::FWD_TILES, "
+            "FwdPlan<In>::STAGES> + FwdPlan<In>::EXTRA_BYTES;") in src
     assert "static constexpr int FWD_TILES = 2;" in src    # PtsFwdIn
 
 
