@@ -24,7 +24,7 @@ result line is printed):
 1. Print the card's name and power limit, build every CUDA kernel from the
    sources in this checkout (one nvcc per source, side by side), print the
    build times and what ptxas says of registers, spills and wgmma
-   serialization.
+   serialization; a kernel whose wgmma ptxas serialized fails the run.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, within the tolerance the CPU tests pin,
    and relaunch it to see bit-equal outputs; time kernel, plain version and
@@ -83,8 +83,10 @@ result line is printed):
    every size and width, each with its device time and share of the bound (a
    backward also with its two-pass floor and its device time by kernel:
    chain, dW, head sums, reduction; row 11 with the registers, spills and
-   wgmma serialization ptxas reported in phase 1), and rows 9 and 10
-   (`fused_fwd`, `fused_bwd`, on csrc/mlp_sm90.cuh) likewise:
+   wgmma serialization ptxas reported in phase 1), rows 7 and 8 (`bend_fwd`,
+   `bend_bwd`: the deformation field's kernels on csrc/mlp_sm90.cuh) with
+   ptxas's report and row 8's device time by kernel (its kernel, the
+   reduction), and rows 9 and 10 (`fused_fwd`, `fused_bwd`) likewise:
    ptxas's report of their chain kernels, row 10's two-pass floor and its
    device time by kernel (pre-pass, chain, dW, heads, reductions, the
    bender's backward); the kernels JSON line (eleven rows;
@@ -547,34 +549,56 @@ def bwd_kernel_part(name: str) -> str:
     return ("chain" if "chain_kernel" in name else
             "dw" if "mlp_dw_" in name else
             "heads" if "head_grad" in name else
-            "bend_prepass" if "bend_encode_kernel" in name else
-            "bend_bwd" if "bend_bwd_kernel" in name else
+            "bend_prepass" if "bend_fwd_sm90_kernel" in name else
+            "bend_bwd" if "bend_bwd_sm90_kernel" in name else
             "reduce")
 
 
 # the device kernels of a backward call (csrc/mlp_sm90.cuh's chain kernels,
-# dW products and head sums; csrc/mlp_tile.cuh's reduction)
+# dW products and head sums, and the reduction)
 BWD_KERNEL_NAMES = ("_bwd_chain_kernel", "mlp_dw_sm90_kernel",
                     "mlp_head_grad_kernel", "mlp_reduce_kernel")
 
 
-def device_ms_by_part(fn, reps: int = 5) -> dict:
+def device_ms_by_part(fn, device_ms: float, reps: int = 5):
     """Device ms a call of fn by `bwd_kernel_part`, torch.profiler over
-    `reps` calls after one."""
+    `reps` calls after one; or None where no profile is whole: each part's
+    launches a multiple of `reps`, and the parts adding up to between 0.75
+    and 1.05 of `device_ms`, the call's device time from CUDA events (the
+    rest is the gaps between a call's kernels). Late in the main process the
+    profiler kept two of five launches of a kernel started through ctypes
+    (and with `acc_events` once a chain kernel's time twice over), so it
+    runs in a process of its own (`--splits`), and the profile is tried with
+    the host's activity traced too, with the device's alone, and with
+    `acc_events`, in that order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            part = bwd_kernel_part(e.key)
-            out[part] = out.get(part, 0.0) + e.self_device_time_total / reps / 1e3
-    return out
+    for what, kwargs in (
+            ("host and device", dict(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA])),
+            ("device", dict(activities=[ProfilerActivity.CUDA])),
+            ("device, acc_events", dict(activities=[ProfilerActivity.CUDA],
+                                        acc_events=True))):
+        with profile(**kwargs) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out, count = {}, {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+                part = bwd_kernel_part(e.key)
+                out[part] = out.get(part, 0.0) + e.self_device_time_total / reps / 1e3
+                count[part] = count.get(part, 0) + e.count
+        whole = (all(c % reps == 0 for c in count.values())
+                 and 0.75 * device_ms <= sum(out.values()) <= 1.05 * device_ms)
+        log(f"profile by kernel ({what}): {'whole' if whole else 'incomplete'}, "
+            f"launches {count} over {reps} calls, {sum(out.values()):.4f} of "
+            f"{device_ms:.4f} device ms")
+        if whole:
+            return out
+    return None
 
 
 def profile_run(run, what):
@@ -1432,9 +1456,57 @@ def check_fused_forwards(model, n, device, network):
             dict(max_abs_err=ferrs["raw_max"], errors=ferrs, **fused_t))
 
 
-def check_fused_backwards(model, n, device, network):
+def backward_splits_child(root) -> int:
+    """`python3 chip_smoke.py --splits`: rows 8 and 10's device ms by
+    kernel (`device_ms_by_part`) at a training step's two sizes, on
+    `check_fused_backwards`' inputs, as one JSON line, in a process of their
+    own: late in the main process the profiler keeps only part of these
+    kernels' launches."""
+    from nonrigid_nerf_torch.config import load_args, model_config_from_args
+    from nonrigid_nerf_torch.ops.kernels import bend_bwd as BB
+    from nonrigid_nerf_torch.ops.kernels import fused_bwd as FB
+    device = torch.device("cuda")
+    args = load_args(os.path.join(root, "configs", "example_sequence.txt"))
+    cfg = model_config_from_args(args)
+    model = flagship_model(cfg, device)
+    out = {}
+    with torch.no_grad():
+        for n, net in ((args.N_rand * cfg.N_samples, "coarse"),
+                       (args.N_rand * (cfg.N_samples + cfg.N_importance), "fine")):
+            w = fused_weights(model, device, net)
+            pts, lat, gen = fused_inputs(model, n, device, SEED + n + 1)
+            for name, fn, weights, cols in (("bend_bwd", BB.bend_bwd, w[:18], (64, 3, 1)),
+                                            ("fused_bwd", FB.fused_bwd, w, (8, 3, 1))):
+                cots = [torch.randn((n, c), generator=gen, device=device) for c in cols]
+
+                def call():
+                    return fn(pts, lat, weights, *cots)
+
+                out[f"{name} {n}"] = device_ms_by_part(call, device_ms(call))
+    print(json.dumps({"splits": out}), flush=True)
+    return 0
+
+
+def backward_splits() -> dict:
+    """Rows 8 and 10's device ms by kernel from `--splits`, keyed "name
+    n"; {} where that process fails."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--splits"],
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       capture_output=True, text=True, timeout=600)
+    lines = r.stdout.strip().splitlines()
+    for line in lines:
+        if line.startswith("profile by kernel"):
+            log(f"--splits: {line}")
+    if r.returncode or not lines or not lines[-1].startswith('{"splits"'):
+        log(f"--splits: exit {r.returncode}; {r.stderr[-1000:]}")
+        return {}
+    return json.loads(lines[-1])["splits"]
+
+
+def check_fused_backwards(model, n, device, network, splits):
     """`bend_bwd` and `fused_bwd` against their plain versions at n points,
-    bit-equal on relaunch, with timings."""
+    bit-equal on relaunch, with timings; their device ms by kernel from
+    `splits` (`backward_splits`)."""
     from nonrigid_nerf_torch.ops.kernels import bend_bwd as BB
     from nonrigid_nerf_torch.ops.kernels import fused_bwd as FB
     w = fused_weights(model, device, network)
@@ -1478,15 +1550,19 @@ def check_fused_backwards(model, n, device, network):
                     tensor_bytes(pts, lat, *cots, got[0], got[1], *got[2],
                                  *weights[:16], *weights[18:]))
         log_timing(name, n, t)
+        # the device time by kernel: row 8's kernel and its reduction; row
+        # 10's pre-pass, row 2's kernels, row 8's (with row 2's two-pass
+        # floor: its scratch written and read back)
+        split = splits.get(f"{name} {n}")
+        if split is not None:
+            t["split_ms_per_launch"] = split
+        floor = ""
         if name == "fused_bwd":
-            # row 2's two-pass floor (its scratch written and read back) and
-            # the device time by kernel: the pre-pass, row 2's kernels, row 8's
             t["scratch_floor_ms"] = 2 * 2 * n * (64 + 16 * 256) / PEAK_HBM_BYTES * 1e3
-            t["split_ms_per_launch"] = device_ms_by_part(
-                lambda: fn(pts, lat, weights, *cots))
-            log(f"fused_bwd n={n}: device ms by kernel " + ", ".join(
-                f"{k} {v:.4f}" for k, v in t["split_ms_per_launch"].items())
-                + f"; the scratch's round trip alone {t['scratch_floor_ms']:.4f} ms")
+            floor = f"; the scratch's round trip alone {t['scratch_floor_ms']:.4f} ms"
+        log(f"{name} n={n}: device ms by kernel " + (", ".join(
+            f"{k} {v:.4f}" for k, v in split.items()) if split is not None
+            else "not reported: no whole profile") + floor)
         results.append(dict(max_abs_err=stats["grad_max_rel"], agreement=stats,
                             **t))
     return results
@@ -1598,7 +1674,8 @@ def fused_query_phase(cfg, device, smi, sizes):
         fwd = [check_fused_forwards(model, n, device, net)
                for n, net in ((n_render, "coarse"), (n_train, "coarse"),
                               (n_train_fine, "fine"))]
-        bwd = [check_fused_backwards(model, n, device, net)
+        splits = backward_splits()
+        bwd = [check_fused_backwards(model, n, device, net, splits)
                for n, net in ((n_train, "coarse"), (n_train_fine, "fine"))]
     launches = entry_point_runs(
         model, model_unshifted, ((n_render, "coarse", False),
@@ -1657,6 +1734,8 @@ def main() -> int:
               "(nonrigid_nerf_torch/ is missing beside it)", file=sys.stderr)
         return 1
     sys.path.insert(0, root)
+    if sys.argv[1:] == ["--splits"]:
+        return backward_splits_child(root)
     from nonrigid_nerf_torch.config import load_args, model_config_from_args
     from nonrigid_nerf_torch.ops.kernels import build
 
@@ -1683,6 +1762,8 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "C75" in line:
                 log("  ptxas:", line.strip())
+        if "C751" in info["log"]:   # C7510-C7512: wgmma serialized
+            raise AssertionError(f"ptxas serialized the wgmma of {source}")
 
     args = load_args(os.path.join(root, "configs", "example_sequence.txt"))
     cfg_plain = model_config_from_args(args)
@@ -1796,18 +1877,21 @@ def main() -> int:
         f"{smi}")
     if len(rows) != 11:
         raise AssertionError(f"{len(rows)} kernel rows, 11 kernels")
-    # rows 1-6 and 9-11 (csrc/mlp_sm90.cuh's chains). Every size's line has
-    # the time, the device time and the share of the bound; a backward's adds
-    # its two-pass floor at each size and its device time by kernel (rows 2,
-    # 4 and 6: a launch on average over a training step's two sizes, the
-    # profile of 5 steps; row 10: a call at 65,536 points); rows 9-11 what
-    # ptxas reported in phase 1 of their chain kernels.
+    # every row (all on csrc/mlp_sm90.cuh). Every size's line has the time,
+    # the device time and the share of the bound; a backward's adds its
+    # device time by kernel (rows 2, 4 and 6: a launch on average over a
+    # training step's two sizes, the profile of 5 steps; rows 8 and 10: a
+    # call at 65,536 points) and rows 2-6 and 10 their two-pass floor at
+    # each size; rows 7-11 what ptxas reported in phase 1 of their kernels.
     by_name = {r["name"]: r for r in rows}
     ptxas_of = {"mlp_i8": ("mlp_i8.cu", "mlp_i8_kernel"),
                 "fused_fwd": ("fused_fwd.cu", "mlp_fwd_kernel"),
-                "fused_bwd": ("fused_bwd.cu", "mlp_bwd_chain_kernel")}
+                "fused_bwd": ("fused_bwd.cu", "mlp_bwd_chain_kernel"),
+                "bend_fwd": ("bend_fwd.cu", "bend_fwd_sm90_kernel"),
+                "bend_bwd": ("bend_bwd.cu", "bend_bwd_sm90_kernel")}
     for name in ("mlp_fwd", "mlp_bwd", "mlpv_fwd", "mlpv_bwd", "mlpe_fwd",
-                 "mlpe_bwd", "fused_fwd", "fused_bwd", "mlp_i8"):
+                 "mlpe_bwd", "bend_fwd", "bend_bwd", "fused_fwd", "fused_bwd",
+                 "mlp_i8"):
         r = by_name[name]
         passes = [("", r)] + [(f"{k} ", r[k]) for k in
                               ("fine_pass", "train_pass", "train_fine_pass")
@@ -1827,7 +1911,7 @@ def main() -> int:
 
         split = ""
         if "split_ms_per_launch" in r:
-            over = (f"a call at {r['points']} points" if name == "fused_bwd"
+            over = (f"a call at {r['points']} points" if name in ("fused_bwd", "bend_bwd")
                     else "over a training step")
             split = f"; device ms a launch by kernel, {over}: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in r["split_ms_per_launch"].items())

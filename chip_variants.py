@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
-"""Time variants of rows 1-3, 5, 9 and 11's CUDA sources on one NVIDIA GPU.
+"""Time variants of rows 1-3, 5, 7-9 and 11's CUDA sources on one NVIDIA GPU.
 
     python3 chip_variants.py                  # every variant below
     python3 chip_variants.py base no_epilogue_stores
     python3 chip_variants.py base fused_bender_in_registers fused_bender_on_encoders
     python3 chip_variants.py --steps OTHER    # training steps, two trees
     python3 chip_variants.py --steps OTHER I  # int8 frames and mlp_i8, two trees
+    python3 chip_variants.py --steps OTHER F B R  # and the flagship, the baseline, row 9
 
 A variant is a list of text substitutions applied to a copy of
 `nonrigid_nerf_torch/ops/kernels/csrc/` (the sources in this checkout stay
 as they are; a substitution whose text is a pair (start, end) replaces
 everything from start up to end). Each copy's `mlp_fwd.cu`, `mlp_bwd.cu`,
-`mlpv_fwd.cu`, `mlpe_fwd.cu`, `mlp_i8.cu`, `fused_fwd.cu` and `fused_bwd.cu`
-(a variant of row 11: `mlp_i8.cu` alone; of row 9: `fused_fwd.cu` alone)
+`mlpv_fwd.cu`, `mlpe_fwd.cu`, `mlp_i8.cu`, `fused_fwd.cu`, `fused_bwd.cu`,
+`bend_fwd.cu` and `bend_bwd.cu` (a variant of row 11: `mlp_i8.cu` alone; of
+row 9: `fused_fwd.cu` alone; of rows 7 and 8: `bend_fwd.cu` and `bend_bwd.cu`)
 are built with the port's nvcc flags, one nvcc per source and all started
 together, into a temporary directory; a variant that does not build is
 reported and skipped. Then, one child process per variant
 (so that a variant that hangs is cut off after `CHILD_TIMEOUT_S` without
 taking the others with it), the script:
 
+- times `bend_fwd` (row 7) at 2^21 and 65,536 points and `bend_bwd` (row
+  8) at 65,536 and 131,072, and for a variant of rows 7 and 8 nothing else;
 - times `mlp_i8` at a render block's two passes (2^21 and 2^22 points), and
   for a variant of row 11 nothing else;
 - times `fused_fwd` (row 9) at 2^21 and 65,536 points and `fused_bwd` (row
@@ -43,7 +47,9 @@ With `--steps OTHER`, where OTHER is another checkout of the repository
 frames and training steps instead: in turns OTHER, this checkout, this
 checkout, OTHER, one child process each (each builds its own tree's
 kernels), for the flagship with view directions (V) and in
-`fused_kernel="pts"` mode (P), or the modes named after OTHER, it renders
+`fused_kernel="pts"` mode (P), or the modes named after OTHER (also F, the
+flagship as configured, and B, the time-conditioned baseline of
+`results/r4_baseline_tc/args.txt`), it renders
 `chip_smoke.py`'s two 384 x 512 frames through `render_path` (s per frame,
 host clock, each ending in a copy to the host), trains on its synthetic
 stack for 30 steps, times 50 more (steps/s, host clock), and profiles 5
@@ -51,7 +57,9 @@ stack for 30 steps, times 50 more (steps/s, host clock), and profiles 5
 share, the top kernels). In `fused_kernel="int8"` mode (I), which does not
 train, it calibrates on the first pose as `chip_smoke.py` does, renders the
 frames and times the tree's `mlp_i8` at 2^21 and 2^22 points (CUDA events,
-10 calls) on the coarse network's packed weights.
+10 calls) on the coarse network's packed weights. R renders and trains
+nothing: it times the tree's row 9 (`fused_fwd`) through its own wrapper,
+device ms at 2^21 points and ms with the host at 65,536 (`time_row9`).
 """
 
 import ctypes
@@ -67,7 +75,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(ROOT, "nonrigid_nerf_torch", "ops", "kernels", "csrc")
 SOURCES = ("mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpe_fwd.cu",
-           "mlp_i8.cu", "fused_fwd.cu", "fused_bwd.cu")
+           "mlp_i8.cu", "fused_fwd.cu", "fused_bwd.cu", "bend_fwd.cu", "bend_bwd.cu")
 CHILD_TIMEOUT_S = 180
 # variants that change rows 3 and 5 only: the child times rows 3 and 5 and,
 # as the yardstick, row 1 at 64 lanes
@@ -78,7 +86,173 @@ I8_ONLY = ("i8_2_stages", "i8_quantize_on_consumers", "i8_head_on_cuda_cores")
 FUSED_ONLY = ("fused_bender_on_encoders", "fused_bender_in_registers",
               "fused_regs_216_72", "fused_no_sines", "fused_ahead_no_loads",
               "fused_ahead_no_products", "fused_ahead_handshake_only",
-              "fused_no_offsets")
+              "fused_no_offsets", "fused_zero_accumulators", "fused_parent_ahead")
+# variants that change rows 7 and 8 only: the child times rows 7 and 8 alone
+BEND_ONLY = ("bend_groups_2x2", "bend_groups_2x1", "bend_groups_1x2_2ctas",
+             "bend_ring_1", "bend_encoders_64",
+             "bend_bwd_workers_1", "bend_bwd_tiles_x2")
+
+# row 9 with the consumers' `ahead` as it was before the bender became a
+# function of its own: the deformation field's products inline in
+# FusedFwdIn, not through `bender_rows` (the same arithmetic; what sharing
+# the bender with rows 7, 8 and 10 costs)
+INLINE_AHEAD = r"""  template <int R>
+  __device__ __forceinline__ void ahead(float (&acc)[R], unsigned char* act, uint32_t emb0,
+                                        uint32_t bars, uint32_t extra, int j, long row0, int n,
+                                        int wg, int t) {
+    const int slot = j % 2;
+    const uint32_t act_s = smem_u32(act);
+    const uint32_t lat_t = act_s + uint32_t(wg) * WG_ATOM_BYTES;   // atom 0
+    const uint32_t rh0_t = lat_t + WG_ATOM_BYTES / 2;
+    const uint32_t rh1_t = lat_t + TILE_ATOM_BYTES;                  // atom 1
+    const uint32_t bh_t = lat_t + 2 * TILE_ATOM_BYTES;               // atom 2
+    const uint32_t bh3_t = emb0 + uint32_t(slot) * TILE_ATOM_BYTES + uint32_t(wg) * WG_ATOM_BYTES;
+    const int lane = t % 32;
+    const int rw = (t / 32) * 16 + lane / 4;   // the accumulators' first row (of 64)
+
+    wg_barrier(wg);   // the last tile's head has read the activation tile
+    // ---- the A tiles: thread t takes row t / 2, lanes (t % 2) * 16 .. + 15 of
+    // bf16(lat) and of rh0 = relu(bf16(pts) @ r0w + r0b)
+    {
+      const int r = t / 2, c0 = (t % 2) * 16;
+      const long row = row0 + wg * WG_ROWS + r;
+      const bool valid = row < n;
+      float xb[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) xb[k] = round_bf16(valid ? __ldg(pts + size_t(row) * 3 + k) : 0.0f);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = c0 + 8 * h;
+        float4 v0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), v1 = v0;
+        if (valid) {
+          v0 = __ldg(reinterpret_cast<const float4*>(lat + size_t(row) * LAT_W + c));
+          v1 = __ldg(reinterpret_cast<const float4*>(lat + size_t(row) * LAT_W + c + 4));
+        }
+        st_shared16(lat_t + sw64_offset(r, c),
+                    make_uint4(pack_bf16(v0.x, v0.y), pack_bf16(v0.z, v0.w),
+                               pack_bf16(v1.x, v1.y), pack_bf16(v1.z, v1.w)));
+        uint32_t w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float s[2] = {0.0f, 0.0f};
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            const uint32_t wv = ld_shared32(extra + BIMG_R0W + 2 * (k * RIG_W + c + 2 * e));
+            s[0] += xb[k] * bf16_lo(wv);
+            s[1] += xb[k] * bf16_hi(wv);
+          }
+          w[e] = pack_bf16(
+              fmaxf(__fadd_rn(s[0], ld_shared_f32(extra + BIMG_R0B + 4 * (c + 2 * e))), 0.0f),
+              fmaxf(__fadd_rn(s[1], ld_shared_f32(extra + BIMG_R0B + 4 * (c + 2 * e + 1))),
+                    0.0f));
+        }
+        st_shared16(rh0_t + sw64_offset(r, c), make_uint4(w[0], w[1], w[2], w[3]));
+      }
+    }
+    // bf16(pts) of the accumulators' two rows, for bh0's pts @ b0p
+    float xa[2][3];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long row = row0 + wg * WG_ROWS + rw + 8 * h;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        xa[h][k] = round_bf16(row < n ? __ldg(pts + size_t(row) * 3 + k) : 0.0f);
+      }
+    }
+    fence_proxy_async();
+    wg_barrier(wg);
+
+    // ---- rh1 = relu(rh0 @ r1w + r1b) (m64n32k16 x 2) into rh1_t
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < RIG_W / 16; ++kk) {
+      wgmma_m64n32(acc, desc_sw64(rh0_t + kk * 32), desc_sw64(extra + BIMG_R1W + kk * 32),
+                   kk != 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc<16>(acc);
+    bend_epilogue<RIG_W>(acc, extra + BIMG_R1B, t, [](int, int) { return 0.0f; },
+                         [&](int h, int col, uint32_t v) {
+                           st_shared32(rh1_t + uint32_t(rw + 8 * h) * (RIG_W * 2) + col * 2, v);
+                         });
+    // ---- bh0 = relu((pts @ b0p + lat @ b0l) + b0b) (m64n64k16 x 2) into bh_t
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < LAT_W / 16; ++kk) {
+      wgmma_m64n64(acc, desc_sw64(lat_t + kk * 32), desc_sw64(extra + BIMG_B0L + kk * 32),
+                   kk != 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc<32>(acc);
+    bend_epilogue<BEND_W>(acc, extra + BIMG_BB, t,
+                          [&](int h, int col) {
+                            const uint32_t pair = extra + BIMG_B0P + 2 * (col & ~1);
+                            float s = 0.0f;
+#pragma unroll
+                            for (int k = 0; k < 3; ++k) {
+                              const uint32_t wv = ld_shared32(pair + 2 * k * BEND_W);
+                              s += xa[h][k] * (col & 1 ? bf16_hi(wv) : bf16_lo(wv));
+                            }
+                            return s;
+                          },
+                          [&](int h, int col, uint32_t v) {
+                            st_shared32(bh_t + tile_offset(rw + 8 * h, col), v);
+                          });
+    fence_proxy_async();
+    wg_barrier(wg);   // bh0 and rh1 are written
+
+    // ---- the rigidity of row t / 2 (even threads): tanh(rh1 @ row + rob),
+    // a sequential sum, then (t + 1) * 0.5
+    if (t % 2 == 0) {
+      const int r = t / 2;
+      float s = 0.0f;
+#pragma unroll
+      for (int c = 0; c < RIG_W / 8; ++c) {
+        const uint4 av = ld_shared16(rh1_t + uint32_t(r) * (RIG_W * 2) + c * 16);
+        const uint4 wv = ld_shared16(extra + BIMG_ROWT + c * 16);
+        const uint32_t ap[4] = {av.x, av.y, av.z, av.w};
+        const uint32_t wp[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s += bf16_lo(ap[e]) * bf16_lo(wp[e]);
+          s += bf16_hi(ap[e]) * bf16_hi(wp[e]);
+        }
+      }
+      const float th = tanhf(__fadd_rn(s, ld_shared_f32(extra + BIMG_ROB)));
+      const float rig0 = __fmul_rn(__fadd_rn(th, 1.0f), 0.5f);
+      st_shared_f32(rig_row(extra, slot, wg * WG_ROWS + r), rig0);
+      const long row = row0 + wg * WG_ROWS + r;
+      if (row < n) rig[row] = rig0;
+    }
+
+    // ---- bh1 .. bh3 (m64n64k16 x 4 each) over the bh tile; bh3 into this
+    // warpgroup's rows of the tile's encoding tile
+#pragma unroll 1
+    for (int l = 1; l < 4; ++l) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BEND_W / 16; ++kk) {
+        wgmma_m64n64(acc, desc_sw128(bh_t + kk * 32),
+                     desc_sw128(extra + BIMG_BW + uint32_t(l - 1) * BEND_W * BEND_W * 2 + kk * 32),
+                     kk != 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc<32>(acc);
+      const uint32_t dst = l < 3 ? bh_t : bh3_t;
+      bend_epilogue<BEND_W>(acc, extra + BIMG_BB + uint32_t(l) * BEND_W * 4, t,
+                            [](int, int) { return 0.0f; },
+                            [&](int h, int col, uint32_t v) {
+                              st_shared32(dst + tile_offset(rw + 8 * h, col), v);
+                            });
+      fence_proxy_async();
+      wg_barrier(wg);
+    }
+    if (t == 0) mbar_arrive(bars + 8 * (2 + slot));
+  }
+"""
 
 # row 9 with the whole deformation field on the producer warpgroup's three
 # idle warps (mma.sync m16n8k16, a warp 16 rows at a time, the activations
@@ -146,10 +320,13 @@ struct FusedFwdIn {
   static constexpr int BLOCKS = TM / 16;
   const float* pts;
   const float* lat;
-  const bf16* image;
+  BendWeights bw;
   float* off;
   float* rig;
 
+  __device__ __forceinline__ void stage(uint32_t wimg, int tid, int nthreads) const {
+    stage_bend_image(wimg, bw, false, tid, nthreads);
+  }
   __device__ __forceinline__ void init(uint32_t bars) const {
     for (int b = 0; b < 2; ++b) {
       mbar_init(bars + 8 * b, ENCODERS);
@@ -159,10 +336,6 @@ struct FusedFwdIn {
   }
   __device__ __forceinline__ void encode(uint32_t emb0, uint32_t bars, uint32_t wimg, int n,
                                          int n_tiles, int e) const {
-    for (int i = e; i < int(BEND_IMAGE_BYTES / 16); i += ENCODERS) {
-      st_shared16(wimg + 16 * i, __ldg(reinterpret_cast<const uint4*>(image) + i));
-    }
-    encoders_barrier();
     const int warp = e / 32;
     const int lane = e % 32;
     int i = 0;
@@ -550,8 +723,8 @@ VARIANTS = {
     # row 5: the encoding without its sines (what the sines cost; disagrees)
     "pts_no_sines": [(
         "mlp_sm90.cuh",
-        "    const float y = c < 3 ? pre : sinf(pre + p[3]);",
-        "    const float y = c < 3 ? pre : pre + p[3];")],
+        "  return c < 3 ? pre : sinf(pre + p[3]);",
+        "  return c < 3 ? pre : pre + p[3];")],
     # row 5: the encoders write nothing, the handshake stays (what the
     # encoding costs; disagrees)
     "pts_no_encoding": [(
@@ -612,7 +785,7 @@ VARIANTS = {
     # in all; disagrees)
     "fused_ahead_handshake_only": [(
         "mlp_sm90.cuh",
-        ("    wg_barrier(wg);   // the last tile's head has read the activation tile",
+        ("    const uint32_t lat_t = smem_u32(act) + uint32_t(wg) * WG_ATOM_BYTES;   // atom 0",
          "    if (t == 0) mbar_arrive(bars + 8 * (2 + slot));"),
         "    wg_barrier(wg);\n")],
     # row 9: the encoders without the offsets and bent points (what they
@@ -626,30 +799,87 @@ VARIANTS = {
     # disagrees)
     "fused_no_sines": [(
         "mlp_sm90.cuh",
-        "    const float y = c < 3 ? pre : sinf(pre + p[3]);",
-        "    const float y = c < 3 ? pre : pre + p[3];")],
+        "  return c < 3 ? pre : sinf(pre + p[3]);",
+        "  return c < 3 ? pre : pre + p[3];")],
     # row 9: the consumers' `ahead` without its loads of the points and
     # latents (zeros; what their latency costs; disagrees)
     "fused_ahead_no_loads": [
         ("mlp_sm90.cuh",
-         "      const long row = row0 + wg * WG_ROWS + r;\n      const bool valid = row < n;",
-         "      const long row = row0 + wg * WG_ROWS + r;\n      const bool valid = row < 0;"),
-        ("mlp_sm90.cuh",
-         "        xa[h][k] = round_bf16(row < n ? __ldg(pts + size_t(row) * 3 + k) : 0.0f);",
-         "        xa[h][k] = 0.0f * float(row);")],
+         "  __device__ __forceinline__ bool valid(int r) const { return row0 + r < n; }",
+         "  __device__ __forceinline__ bool valid(int r) const { return row0 + r < 0 * n; }")],
     # row 9: the consumers' `ahead` without its five products (what the
     # bender's layers cost the chain; disagrees)
     "fused_ahead_no_products": [
         ("mlp_sm90.cuh",
-         "      wgmma_m64n32(acc, desc_sw64(rh0_t + kk * 32), desc_sw64(extra + BIMG_R1W + kk * 32),\n"
-         "                   kk != 0);", ""),
+         "    wgmma_m64n32(acc, desc_sw64(rh0_t + kk * 32), desc_sw64(img + BIMG_R1W + kk * 32),\n"
+         "                 kk != 0);", ""),
         ("mlp_sm90.cuh",
-         "      wgmma_m64n64(acc, desc_sw64(lat_t + kk * 32), desc_sw64(extra + BIMG_B0L + kk * 32),\n"
-         "                   kk != 0);", ""),
+         "    wgmma_m64n64(acc, desc_sw64(lat_t + kk * 32), desc_sw64(img + BIMG_B0L + kk * 32),\n"
+         "                 kk != 0);", ""),
         ("mlp_sm90.cuh",
-         "        wgmma_m64n64(acc, desc_sw128(bh_t + kk * 32),\n"
-         "                     desc_sw128(extra + BIMG_BW + uint32_t(l - 1) * BEND_W * BEND_W * 2 + kk * 32),\n"
-         "                     kk != 0);", "")],
+         "      wgmma_m64n64(acc, desc_sw128(a + kk * 32),\n"
+         "                   desc_sw128(img + BIMG_BW + uint32_t(l - 1) * BEND_W * BEND_W * 2 + kk * 32),\n"
+         "                   kk != 0);", "")],
+    # row 9: `ahead` zeroes the products' 32 accumulators first, and the
+    # consumers the chain's 128 after `ahead` (the same arithmetic; the
+    # source zeroes neither: ptxas then serialized the chain's wgmma,
+    # C7511, about 20% slower on an H100)
+    "fused_zero_accumulators": [
+        ("mlp_sm90.cuh",
+         "    const int slot = j % 2;\n"
+         "    const uint32_t lat_t = smem_u32(act) + uint32_t(wg) * WG_ATOM_BYTES;   // atom 0\n",
+         "#pragma unroll\n"
+         "    for (int k = 0; k < 32; ++k) acc[k] = 0.0f;\n"
+         "    const int slot = j % 2;\n"
+         "    const uint32_t lat_t = smem_u32(act) + uint32_t(wg) * WG_ATOM_BYTES;   // atom 0\n"),
+        ("mlp_sm90.cuh",
+         "      in.wait(in_bars, i);\n",
+         "      in.wait(in_bars, i);\n"
+         "      if constexpr (FwdPlan<In>::AHEAD) {\n"
+         "#pragma unroll\n"
+         "        for (int k = 0; k < 128; ++k) acc[k] = 0.0f;\n"
+         "      }\n")],
+    # row 9: `ahead` with the bender inline (INLINE_AHEAD), the rest as the source
+    "fused_parent_ahead": [(
+        "mlp_sm90.cuh",
+        ("  template <int R>\n  __device__ __forceinline__ void ahead(",
+         "  __device__ __forceinline__ void first(uint32_t, long, int, int, int) {}"),
+        INLINE_AHEAD + "\n")],
+    # row 7: two groups of a consumer and two encoder warpgroups a CTA (768
+    # threads; the consumer at 112 registers; the source: three groups of a
+    # consumer and one encoder warpgroup, the consumer at 96)
+    "bend_groups_2x2": [
+        ("mlp_sm90.cuh", "constexpr int BF_PAIRS = 3;", "constexpr int BF_PAIRS = 2;"),
+        ("mlp_sm90.cuh", "constexpr int BF_ENC_WGS = 1;", "constexpr int BF_ENC_WGS = 2;"),
+        ("mlp_sm90.cuh", "constexpr int BF_CONSUMER_REGS = 96;",
+         "constexpr int BF_CONSUMER_REGS = 112;")],
+    # row 7: two groups of a consumer and one encoder warpgroup (512 threads)
+    "bend_groups_2x1": [("mlp_sm90.cuh", "constexpr int BF_PAIRS = 3;",
+                         "constexpr int BF_PAIRS = 2;")],
+    # row 7: one group of a consumer and two encoder warpgroups a CTA, two
+    # CTAs an SM (the image staged twice an SM)
+    "bend_groups_1x2_2ctas": [
+        ("mlp_sm90.cuh", "constexpr int BF_PAIRS = 3;", "constexpr int BF_PAIRS = 1;"),
+        ("mlp_sm90.cuh", "constexpr int BF_ENC_WGS = 1;", "constexpr int BF_ENC_WGS = 2;"),
+        ("mlp_sm90.cuh", "constexpr int BF_CTAS_PER_SM = 1;", "constexpr int BF_CTAS_PER_SM = 2;"),
+        ("mlp_sm90.cuh", "constexpr int BF_CONSUMER_REGS = 96;",
+         "constexpr int BF_CONSUMER_REGS = 112;")],
+    # row 7: the input ring's stages, 1 (the source: 2; three do not fit
+    # beside three groups)
+    "bend_ring_1": [("mlp_sm90.cuh", "constexpr int BF_STAGES = 2;",
+                     "constexpr int BF_STAGES = 1;")],
+    # row 7: half of a group's encoder threads (64 of 128) do the encoding
+    "bend_encoders_64": [("mlp_sm90.cuh", "constexpr int BF_ENCODERS = 128 * BF_ENC_WGS;",
+                          "constexpr int BF_ENCODERS = 64;")],
+    # row 8: one worker warpgroup a CTA (the source: two), half the workers
+    "bend_bwd_workers_1": [("mlp_sm90.cuh", "constexpr int BB_WORKERS = 2;",
+                            "constexpr int BB_WORKERS = 1;")],
+    # row 8: half the CTAs (66 on 132 SMs), each walking twice the tiles
+    "bend_bwd_tiles_x2": [(
+        "mlp_sm90.cuh",
+        "  return bend_grid((n + WG_ROWS - 1) / WG_ROWS, BB_WORKERS, BB_CTAS_PER_SM);",
+        "  const int g = bend_grid((n + WG_ROWS - 1) / WG_ROWS, BB_WORKERS, BB_CTAS_PER_SM);\n"
+        "  return g > 1 ? g / 2 : g;")],
     # row 11: the 8-lane head as rows 1 and 5 take it, a per-thread f32 dot
     # product on the CUDA cores from the bf16 h8 tile (the source: 16
     # m64n8k16 on the tensor cores)
@@ -695,7 +925,8 @@ def build(names, out_dir):
             with open(path, "w") as fh:
                 fh.write(substitute(src, text, repl, f"variant {name}: {f}"))
         for s in (("mlp_i8.cu",) if name in I8_ONLY else
-                  ("fused_fwd.cu",) if name in FUSED_ONLY else SOURCES):
+                  ("fused_fwd.cu",) if name in FUSED_ONLY else
+                  ("bend_fwd.cu", "bend_bwd.cu") if name in BEND_ONLY else SOURCES):
             procs[(name, s)] = subprocess.Popen(
                 [nvcc, *B.NVCC_FLAGS, "-o", os.path.join(d, s + ".so"),
                  os.path.join(d, s)],
@@ -730,6 +961,9 @@ def run_variant(name, out_dir):
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     if name in FUSED_ONLY:
         time_fused(name, out_dir, dev, backward=False)
+        return
+    time_bend(name, out_dir, dev)
+    if name in BEND_ONLY:
         return
     time_i8(name, out_dir, dev)
     if name in I8_ONLY:
@@ -881,43 +1115,46 @@ def run_variant(name, out_dir):
                       f"{smi()}", flush=True)
 
 
-def device_ms_of(fn, reps=5):
+def device_ms_of(fn, reps=5, tries=3):
     """Device ms a call of fn by kernel (`...kernel` names), torch.profiler
-    over `reps` calls after one."""
+    over `reps` calls after one. A profile in which some kernel's launches
+    are not a multiple of `reps` lost events (the profiler has been seen to
+    drop launches made through ctypes) and is taken again, up to `tries`
+    times; the last is returned, after a line that says it too lost
+    events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
-            continue
-        m = re.search(r"(\w*kernel)", e.key)
-        key = m.group(1) if m else "other"
-        out[key] = out.get(key, 0.0) + e.self_device_time_total / reps / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out, count = {}, {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+                continue
+            m = re.search(r"(\w*kernel)", e.key)
+            key = m.group(1) if m else "other"
+            out[key] = out.get(key, 0.0) + e.self_device_time_total / reps / 1e3
+            count[key] = count.get(key, 0) + e.count
+        if all(c % reps == 0 for c in count.values()):
+            return out
+    print(f"profile incomplete after {tries} tries: launches {count} over "
+          f"{reps} calls; the next reading is short", flush=True)
     return out
 
 
-def time_fused(name, out_dir, dev, backward):
-    """Row 9 (`fused_fwd`) of a built variant at 2^21 and 65,536 points and,
-    with `backward`, row 10 (`fused_bwd`) at 65,536 and 131,072, on the
-    flagship's fine network (seed 0, its deformation's output layers
-    perturbed so that it bends), through the port's wrappers on the
-    variant's libraries; device ms twice each (row 10 by kernel), whether
-    the outputs agree with the plain versions and whether row 9's equal the
-    base's bit for bit (where "base" ran first)."""
+def fused_case(dev):
+    """Row 9 and 10's case: the cast weights of the flagship's fine network
+    (seed 0, its deformation's output layers perturbed so that it bends),
+    2^21 points and latents from seed 9, and that generator (for the
+    cotangents), through the modules of the tree first on sys.path."""
     from nonrigid_nerf_torch.config import ModelConfig
     from nonrigid_nerf_torch.models.model import NRNeRF
-    from nonrigid_nerf_torch.ops.kernels import build as B
-    from nonrigid_nerf_torch.ops.kernels import fused_bwd as FB
     from nonrigid_nerf_torch.ops.kernels import fused_fwd as FF
     from nonrigid_nerf_torch.ops.kernels import fused_query as FQ
-    for source in ("fused_fwd.cu",) + (("fused_bwd.cu",) if backward else ()):
-        B._LIBS[source] = ctypes.CDLL(os.path.join(out_dir, name, source + ".so"))
     gen = torch.Generator().manual_seed(0)
     model = NRNeRF(ModelConfig(), num_timesteps=1, device="cpu", generator=gen)
     with torch.no_grad():
@@ -933,6 +1170,23 @@ def time_fused(name, out_dir, dev, backward):
     n_all = 1 << 21
     pts = lo + (hi - lo) * torch.rand(n_all, 3, device=dev, generator=g)
     lat = 0.1 * torch.randn(n_all, 32, device=dev, generator=g)
+    return w, pts, lat, g
+
+
+def time_fused(name, out_dir, dev, backward):
+    """Row 9 (`fused_fwd`) of a built variant at 2^21 and 65,536 points and,
+    with `backward`, row 10 (`fused_bwd`) at 65,536 and 131,072, on the
+    flagship's fine network (seed 0, its deformation's output layers
+    perturbed so that it bends), through the port's wrappers on the
+    variant's libraries; device ms twice each (row 10 by kernel), whether
+    the outputs agree with the plain versions and whether row 9's equal the
+    base's bit for bit (where "base" ran first)."""
+    from nonrigid_nerf_torch.ops.kernels import build as B
+    from nonrigid_nerf_torch.ops.kernels import fused_bwd as FB
+    from nonrigid_nerf_torch.ops.kernels import fused_fwd as FF
+    for source in ("fused_fwd.cu",) + (("fused_bwd.cu",) if backward else ()):
+        B._LIBS[source] = ctypes.CDLL(os.path.join(out_dir, name, source + ".so"))
+    w, pts, lat, g = fused_case(dev)
     for n in (1 << 21, 65536):
         p, l = pts[:n], lat[:n]
         out = FF.fused_fwd(p, l, w)
@@ -964,6 +1218,76 @@ def time_fused(name, out_dir, dev, backward):
             print(f"{name} fused_bwd n={n} rep {rep}: {sum(t.values()):.4f} ms "
                   "in all: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(t.items()))
                   + f"; agrees with the plain version: {ok}; {smi()}", flush=True)
+
+
+def time_bend(name, out_dir, dev):
+    """Rows 7 and 8 (`bend_fwd`, `bend_bwd`) of a built variant: row 7 at
+    2^21 and 65,536 points, row 8 at 65,536 and 131,072, on the flagship's
+    coarse network (seed 0, its deformation perturbed so that it bends),
+    through the port's wrappers on the variant's libraries; device ms twice
+    each (row 8 with its reduction), whether the outputs agree with the
+    plain versions and whether they equal the base's bit for bit (where
+    "base" ran first: row 7's outputs and row 8's per-point outputs always
+    should; row 8's gradients only on the same grid, which sums them in the
+    same order)."""
+    from nonrigid_nerf_torch.config import ModelConfig
+    from nonrigid_nerf_torch.models.model import NRNeRF
+    from nonrigid_nerf_torch.ops.kernels import bend_bwd as BB
+    from nonrigid_nerf_torch.ops.kernels import bend_fwd as BF
+    from nonrigid_nerf_torch.ops.kernels import build as B
+    from nonrigid_nerf_torch.ops.kernels import fused_fwd as FF
+    from nonrigid_nerf_torch.ops.kernels import fused_query as FQ
+    for source in ("bend_fwd.cu", "bend_bwd.cu"):
+        B._LIBS[source] = ctypes.CDLL(os.path.join(out_dir, name, source + ".so"))
+    gen = torch.Generator().manual_seed(0)
+    model = NRNeRF(ModelConfig(), num_timesteps=1, device="cpu", generator=gen)
+    with torch.no_grad():
+        for layer, scale in ((model.bender.bend[-1], 0.05),
+                             (model.bender.rigidity[-1], 0.3)):
+            layer.weight.copy_(scale * torch.randn(layer.weight.shape,
+                                                   generator=gen))
+        bw = tuple(t.to(dev) for t in FF.cast_fused_weights(
+            FQ.pack_fused_weights(model))[:18])
+    g = torch.Generator(device=dev).manual_seed(10)
+    lo = torch.tensor([-0.8, -0.8, -1.0], device=dev)
+    hi = torch.tensor([0.8, 0.8, 0.5], device=dev)
+    pts = lo + (hi - lo) * torch.rand(1 << 21, 3, device=dev, generator=g)
+    lat = 0.1 * torch.randn(1 << 21, 32, device=dev, generator=g)
+    mine = {}
+    for n in (1 << 21, 65536):
+        p, l = pts[:n], lat[:n]
+        out = BF.bend_fwd(p, l, bw)
+        ok = BF.bend_fwd_agreement(out, BF.bend_fwd_plain(p, l, bw))["ok"]
+        mine[f"fwd{n}"] = [t.cpu() for t in out] if n == 65536 else None
+        for rep in (1, 2):
+            t = device_ms_of(lambda: BF.bend_fwd(p, l, bw))
+            print(f"{name} bend_fwd n={n} rep {rep}: {t.get('bend_fwd_sm90_kernel', 0.0):.4f} "
+                  f"ms; agrees with the plain version: {ok}; {smi()}", flush=True)
+    for n in (65536, 131072):
+        p, l = pts[:n], lat[:n]
+        cots = [0.1 * torch.randn(n, 64, device=dev, generator=g),
+                torch.randn(n, 3, device=dev, generator=g),
+                torch.randn(n, 1, device=dev, generator=g)]
+        got = BB.bend_bwd(p, l, bw, *cots)
+        ok = BB.bend_bwd_agreement(got, BB.bend_bwd_plain(p, l, bw, *cots))["ok"]
+        mine[f"bwd{n}"] = [got[0].cpu(), got[1].cpu()] + [x.cpu() for x in got[2]]
+        for rep in (1, 2):
+            t = device_ms_of(lambda: BB.bend_bwd(p, l, bw, *cots))
+            print(f"{name} bend_bwd n={n} rep {rep}: {sum(t.values()):.4f} ms in all: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in sorted(t.items()))
+                  + f"; agrees with the plain version: {ok}; {smi()}", flush=True)
+    mine.pop("fwd2097152")
+    torch.save(mine, os.path.join(out_dir, f"{name}.bend.pt"))
+    ref = os.path.join(out_dir, "base.bend.pt")
+    if name != "base" and os.path.exists(ref):
+        base = torch.load(ref)
+        fwd = all(torch.equal(a, b) for a, b in zip(mine["fwd65536"], base["fwd65536"]))
+        for n in (65536, 131072):
+            a, b = mine[f"bwd{n}"], base[f"bwd{n}"]
+            point = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            grads = all(torch.equal(x, y) for x, y in zip(a[2:], b[2:]))
+            print(f"{name} bend n={n}: row 7 bit-equal to base: {fwd}; row 8's dpts "
+                  f"and dlat: {point}, its gradients: {grads}", flush=True)
 
 
 def time_i8(name, out_dir, dev):
@@ -1014,9 +1338,26 @@ def time_i8(name, out_dir, dev):
 STEP_WARMUP, STEP_TIMED = 30, 50
 
 
+def time_row9(root, dev):
+    """Row 9 of the tree at `root` through its own wrapper on `fused_case`:
+    device ms at 2^21 points (torch.profiler, 5 calls) and ms with the host
+    at 65,536 (CUDA events, 20 calls), three times each."""
+    import chip_smoke as cs
+    from nonrigid_nerf_torch.ops.kernels import fused_fwd as FF
+    w, pts, lat, _ = fused_case(dev)
+    p, l = pts[:65536], lat[:65536]
+    for rep in (1, 2, 3):
+        t = device_ms_of(lambda: FF.fused_fwd(pts, lat, w))
+        host = cs.cuda_time_ms(lambda: FF.fused_fwd(p, l, w), 20)
+        print(f"row9 {root}: rep {rep}: n=2097152 device "
+              f"{t.get('mlp_fwd_kernel', 0.0):.4f} ms; n=65536 {host:.4f} ms "
+              "with the host", flush=True)
+
+
 def run_steps(root, modes):
     """The frames and training steps of the tree at `root` (see the top) in
-    `modes` (V, P; I renders only, and times the tree's `mlp_i8`)."""
+    `modes` (F, V, P, B; I renders only, and times the tree's `mlp_i8`; R
+    times the tree's row 9 alone)."""
     import dataclasses
     import time
     os.chdir(root)
@@ -1035,19 +1376,27 @@ def run_steps(root, modes):
     args = load_args(os.path.join(root, "configs", "example_sequence.txt"))
     args.seed = cs.SEED
     cfg = model_config_from_args(args)
+    args_tc = load_args(os.path.join(root, "results", "r4_baseline_tc",
+                                     "args.txt"))
+    args_tc.seed = cs.SEED
     ds = cs.synthetic_dataset(device)
-    tc = train_config_from_args(args)
-    rs = render_settings_from_args(args, ds.near, ds.far)
-    configs = {"V": dataclasses.replace(cfg, use_viewdirs=True),
-               "P": dataclasses.replace(cfg, fused_kernel="pts"),
-               "I": dataclasses.replace(cfg, fused_kernel="int8")}
+    configs = {"F": (cfg, args),
+               "V": (dataclasses.replace(cfg, use_viewdirs=True), args),
+               "P": (dataclasses.replace(cfg, fused_kernel="pts"), args),
+               "B": (model_config_from_args(args_tc), args_tc),
+               "I": (dataclasses.replace(cfg, fused_kernel="int8"), args)}
     for what in modes:
-        cfg_x = configs[what]
+        if what == "R":
+            time_row9(root, device)
+            continue
+        cfg_x, args_x = configs[what]
+        tc = train_config_from_args(args_x)
+        rs = render_settings_from_args(args_x, ds.near, ds.far)
         # frames first: chip_smoke.py's two poses through render_path, after
         # a warm-up frame at 1/8 of the size
         model = cs.flagship_model(cfg if what == "I" else cfg_x, device)
         poses, intrinsics = cs.synthetic_poses()
-        rs_frames = render_settings_from_args(args, near=0.1, far=1.6)
+        rs_frames = render_settings_from_args(args_x, near=0.1, far=1.6)
         latents = model.latents.detach().cpu().numpy()
         if what == "I":     # calibrated on the first pose, as chip_smoke.py does
             from nonrigid_nerf_torch.ops.kernels import quant_mlp as KQ
@@ -1108,7 +1457,7 @@ def compare_steps(other, modes) -> int:
                             "--steps-child", os.path.abspath(root), *modes],
                            capture_output=True, text=True, timeout=600)
         print("".join(line + "\n" for line in r.stdout.splitlines()
-                      if line.startswith(("steps ", "frames "))), end="",
+                      if line.startswith(("steps ", "frames ", "row9 ", "profile "))), end="",
               flush=True)
         if r.returncode:
             failed = True
@@ -1129,8 +1478,8 @@ def main() -> int:
         return 0
     if len(sys.argv) >= 3 and sys.argv[1] == "--steps":
         modes = sys.argv[3:] or ["V", "P"]
-        if any(m not in ("V", "P", "I") for m in modes):
-            print(f"chip_variants: modes are V, P and I, got {modes}",
+        if any(m not in ("F", "V", "P", "B", "I", "R") for m in modes):
+            print(f"chip_variants: modes are F, V, P, B, I and R, got {modes}",
                   file=sys.stderr)
             return 2
         return compare_steps(sys.argv[2], modes)

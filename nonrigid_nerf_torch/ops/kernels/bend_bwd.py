@@ -31,8 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from nonrigid_nerf_torch.ops.kernels.bend_fwd import (
-    BEND_MACS_PER_POINT, LAT, N_BEND_W, bend_fwd, bend_fwd_plain, bend_pointers,
-    cast_bend_weights, check_bend_args, expected_bend_shape, kernel_inputs)
+    BEND_MACS_PER_POINT, LAT, N_BEND_W, bend_fwd, bend_fwd_plain,
+    bend_weight_pointers, cast_bend_weights, check_bend_args, expected_bend_shape,
+    kernel_inputs)
 from nonrigid_nerf_torch.ops.kernels.build import load_kernel_library
 from nonrigid_nerf_torch.ops.kernels.mlp_bwd import (
     MAX_POINTS_PER_LAUNCH, agreement, bsum, masked, mm_nt, mm_tn, split_grads)
@@ -139,7 +140,7 @@ def bend_bwd(pts: torch.Tensor, lat: torch.Tensor, bw: Sequence[torch.Tensor],
                          f"points per call, got {n}")
     pts, lat = kernel_inputs(pts, lat)
     demb, doff, drig = (t.float().contiguous() for t in (demb, doff, drig))
-    mats, biases = bend_pointers(bw)
+    weights = bend_weight_pointers(bw)
     dpts = torch.empty((n, PTS), dtype=torch.float32, device=device)
     dlat = torch.empty((n, LAT), dtype=torch.float32, device=device)
     if n == 0:      # nothing to launch, nothing to count
@@ -155,7 +156,7 @@ def bend_bwd(pts: torch.Tensor, lat: torch.Tensor, bw: Sequence[torch.Tensor],
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.nrnerf_bend_bwd(
             pts.data_ptr(), lat.data_ptr(), demb.data_ptr(), doff.data_ptr(),
-            drig.data_ptr(), n, mats, biases, partials.data_ptr(),
+            drig.data_ptr(), n, weights, partials.data_ptr(),
             dpts.data_ptr(), dlat.data_ptr(), grads.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"bend_bwd kernel launch failed: CUDA error {err}")
@@ -168,9 +169,8 @@ bend_bwd.launches = 0
 
 def _library() -> ctypes.CDLL:
     lib = load_kernel_library("bend_bwd.cu")
-    ptrs = ctypes.POINTER(ctypes.c_void_p)
     lib.nrnerf_bend_bwd.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int, ptrs, ptrs]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
         + [ctypes.c_void_p] * 5)
     lib.nrnerf_bend_bwd.restype = ctypes.c_int
     lib.nrnerf_bend_bwd_sizes.argtypes = [

@@ -20,9 +20,11 @@ math `_bend_fwd_math`, nonrigid_nerf_tpu/ops/pallas/fused_query.py:511-540,
   and only the meaningful lanes of the padded outputs come back: offsets
   (n, 3), rigidity (n, 1).
 
-The kernel computes the multires-10 encoding itself: P and the phase are
-carried in the packing for parity with the JAX tuple and are not read on the
-card. It is bound by HBM traffic (the f32 encoding it writes); see the source.
+The kernel stages the bender's image (`mlp_sm90.pack_bend_image`'s layout:
+its weights, biases and the encoding's P and phase) into each CTA's shared
+memory straight from the 18 cast weights, so a call packs nothing on the
+host; it is bound by HBM traffic (the f32 encoding it writes); see the
+source.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import torch
 
 from nonrigid_nerf_torch.ops.kernels.build import load_kernel_library
 from nonrigid_nerf_torch.ops.kernels.mlp_fwd import (
-    EMB, _pad_b, _pad_w, check_kernel_weights, mm_bf16, weight_pointers)
+    EMB, _pad_b, _pad_w, check_kernel_weights, mm_bf16)
 from nonrigid_nerf_torch.ops.kernels.mlpe_fwd import (
     MULTIRES, PTS, PTS_PAD, embed_ew, embedding_projection)
 
@@ -221,15 +223,20 @@ def kernel_inputs(pts, lat):
     return pts, lat
 
 
-def bend_pointers(bw):
-    """The ctypes arrays of the bender's matrix and bias pointers, after the
-    checks the CUDA kernels need (shapes, contiguity, 32-byte alignment of
-    the tensor-core operands)."""
-    check_kernel_weights(bw, expected_bend_shape, "bender")
-    for w in bw:
-        if w.data_ptr() % 32:
-            raise ValueError("the bender kernels need 32-byte aligned weights")
-    return weight_pointers(bw, _MATRIX_IDX, _BIAS_IDX)
+_BEND_SHAPES = tuple(expected_bend_shape(i) for i in range(N_BEND_W))
+
+
+def check_bend_weights(bw):
+    """The checks the CUDA kernels need of the 18 cast weights they stage
+    as the bender's image: the packed shapes, contiguous."""
+    check_kernel_weights(bw, _BEND_SHAPES.__getitem__, "bender")
+
+
+def bend_weight_pointers(bw):
+    """The ctypes array of the 18 cast weights' pointers, which the CUDA
+    kernels stage the bender's image from, after `check_bend_weights`."""
+    check_bend_weights(bw)
+    return (ctypes.c_void_p * N_BEND_W)(*(w.data_ptr() for w in bw))
 
 
 def bend_fwd(pts: torch.Tensor, lat: torch.Tensor, bw: Sequence[torch.Tensor]
@@ -246,7 +253,7 @@ def bend_fwd(pts: torch.Tensor, lat: torch.Tensor, bw: Sequence[torch.Tensor]
     if pts.device.type != "cuda":
         raise ValueError(f"bend_fwd runs on cpu or cuda, not {pts.device}")
     pts, lat = kernel_inputs(pts, lat)
-    mats, biases = bend_pointers(bw)
+    weights = bend_weight_pointers(bw)
     n = pts.shape[0]
     if n >= 2 ** 31:
         raise ValueError(f"bend_fwd takes fewer than 2^31 points, got {n}")
@@ -259,7 +266,7 @@ def bend_fwd(pts: torch.Tensor, lat: torch.Tensor, bw: Sequence[torch.Tensor]
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.nrnerf_bend_fwd(pts.data_ptr(), lat.data_ptr(), n, mats, biases,
+        err = lib.nrnerf_bend_fwd(pts.data_ptr(), lat.data_ptr(), n, weights,
                                   emb.data_ptr(), off.data_ptr(), rig.data_ptr(),
                                   stream)
     if err != 0:
@@ -273,10 +280,10 @@ bend_fwd.launches = 0
 
 def _library() -> ctypes.CDLL:
     lib = load_kernel_library("bend_fwd.cu")
-    ptrs = ctypes.POINTER(ctypes.c_void_p)
     lib.nrnerf_bend_fwd.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ptrs, ptrs,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p]
     lib.nrnerf_bend_fwd.restype = ctypes.c_int
     return lib
 

@@ -8,7 +8,7 @@
 //
 // Outputs: dpts (n, 3), dlat (n, 32) f32, the canonical MLP's 19 weight
 // gradients in pack order (mlp_tile.cuh's single_head::GradLayout) and the
-// bender's 16 (bend_tile.cuh's layout), f32, summed over all points.
+// bender's 16 (mlp_sm90.cuh's layout), f32, summed over all points.
 //
 // What bounds it: 1,531,392 padded MACs per point (the chain's 1,480,704,
 // the bender's 3 x 16,896) against 328 bytes per point that the function
@@ -16,8 +16,8 @@
 // cores.
 //
 // Design: one C entry, on one stream, no atomics, bit-equal from run to run:
-// 1. `fused_bend_encode_kernel`, the bender's pre-pass: bend_tile.cuh's
-//    forward (row 7's arithmetic) on each 128-point tile, and the bf16
+// 1. The bender's pre-pass: row 7's kernel (mlp_sm90.cuh's
+//    `bend_fwd_sm90_kernel<true>`, row 9's bender on wgmma) writes the bf16
 //    encoding of the bent points (zero past n) straight into the encoding
 //    rows of the chain's scratch, where the dW products read it: no f32
 //    encoding, no copy.
@@ -37,48 +37,17 @@
 // has 1,920 B of shared memory left, no room for the bender's tiles, which
 // is why the bender's forward and backward run as kernels of their own (the
 // JAX package split its variant for the same kind of reason,
-// fused_query.py:500-505).
+// fused_query.py:500-505). Steps 1 and 3 are the split's own kernels (rows
+// 7 and 8), so the two variants share the bender's device code.
 //
 // Plain C interface, bound with ctypes (see ../fused_bwd.py).
 
 #include "mlp_sm90.cuh"
 #include "mlp_tile.cuh"
-#include "bend_tile.cuh"
 
 namespace {
 
 using namespace single_head;   // the gradient layout, the sizes
-
-constexpr size_t PREPASS_SMEM_BYTES = BEND_FWD_TILE_BYTES + WSCR_BYTES;
-
-// One CTA per 128-point tile: the bender (bend_fwd.cu's kernel), then rows
-// row0 .. row0 + 127 of the (n_pad, 64) bf16 encoding, each 8 lanes one
-// 16-byte store: bf16(encoding_value), which is what bend_fwd.cu writes in
-// f32 and mlp_bwd's wrapper rounds. Three CTAs an SM, as bend_fwd.cu's.
-__global__ void __launch_bounds__(THREADS, 3)
-fused_bend_encode_kernel(BendParams p, const float* __restrict__ pts,
-                         const float* __restrict__ lat, int n, bf16* __restrict__ embp) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const BendTile t = forward_tile(smem, p);
-  float* scratch = reinterpret_cast<float*>(smem + BEND_FWD_TILE_BYTES);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const long row0 = long(blockIdx.x) * TM;
-  const long rows_left = long(n) - row0;
-
-  bend_forward(t, p, pts, lat, row0, n, scratch + warp * 256, tid, warp, lane);
-  for (int i = tid; i < TM * EMB / 8; i += THREADS) {
-    const int r = i / (EMB / 8), c0 = (i % (EMB / 8)) * 8;
-    __align__(16) bf16 v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      v[e] = __float2bfloat16(r < rows_left ? encoding_value(t.bent + r * PTS, c0 + e) : 0.0f);
-    }
-    *reinterpret_cast<uint4*>(embp + size_t(row0 + r) * EMB + c0) =
-        *reinterpret_cast<const uint4*>(v);
-  }
-}
 
 }  // namespace
 
@@ -90,12 +59,14 @@ extern "C" void nrnerf_fused_bwd_sizes(int n, long long* scratch_elems,
                                        long long* partial_floats,
                                        long long* bend_partial_floats) {
   chain_bwd_sizes(n, scratch_elems, partial_floats);
-  *bend_partial_floats = (long long)bend_split_count(n) * BEND_GRAD_FLOATS;
+  *bend_partial_floats = (long long)sm90::bend_bwd_grid(n) * sm90::BEND_GRAD_FLOATS;
 }
 
-// pts (n, 3), lat (n, 32), draw (n, 8), doff (n, 3), drig (n, 1) f32;
-// bend_mats / bend_biases as `fill_bend_params` (bend_tile.cuh) lists them;
-// image: the chain's forward then backward chunks
+// pts (n, 3), lat (n, 32) (16-byte aligned), draw (n, 8), doff (n, 3), drig
+// (n, 1) f32; bend_weights: the 18 cast bender weights
+// (ops/kernels/bend_fwd.py:cast_bend_weights, contiguous), which rows 7 and
+// 8's kernels stage as the bender's image; image: the chain's forward then
+// backward chunks
 // (ops/kernels/mlp_sm90.py:pack_chain_image(mw, ("fwd", "bwd"))), 60 x 32
 // KB; mats / biases as nrnerf_mlp_bwd lists them (of mats only ow is read);
 // scratch, partials, bend_partials sized by nrnerf_fused_bwd_sizes; demb
@@ -104,15 +75,13 @@ extern "C" void nrnerf_fused_bwd_sizes(int n, long long* scratch_elems,
 // Returns the CUDA error code of the first failing call (0 on success).
 extern "C" int nrnerf_fused_bwd(const void* pts, const void* lat, const void* draw,
                                 const void* doff, const void* drig, int n,
-                                const void* const* bend_mats,
-                                const void* const* bend_biases, const void* image,
+                                const void* const* bend_weights, const void* image,
                                 const void* const* mats, const void* const* biases,
                                 void* scratch, void* partials, void* demb,
                                 void* bend_partials, void* dpts, void* dlat,
                                 void* grads, void* bend_grads, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (n <= 0) return int(cudaErrorInvalidValue);
-  const BendParams bp = fill_bend_params(bend_mats, bend_biases);
   const float* pts_f = static_cast<const float*>(pts);
   const float* lat_f = static_cast<const float*>(lat);
   const float* draw_f = static_cast<const float*>(draw);
@@ -121,27 +90,24 @@ extern "C" int nrnerf_fused_bwd(const void* pts, const void* lat, const void* dr
   const int n_splits = split_count(n);
   bf16* embp = static_cast<bf16*>(scratch);   // the scratch's encoding rows
 
-  cudaError_t err = cudaFuncSetAttribute(fused_bend_encode_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(PREPASS_SMEM_BYTES));
-  if (err != cudaSuccess) return int(err);
-  fused_bend_encode_kernel<<<dim3(unsigned(n_pad / TM)), THREADS, PREPASS_SMEM_BYTES,
-                             stream>>>(bp, pts_f, lat_f, n, embp);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
+  // the pre-pass: rows 0 .. n_pad - 1 of the scratch's (n_pad, 64) encoding
+  int rc = sm90::launch_bend_forward<true>(bend_weights, pts_f, lat_f, n, n_pad, embp, nullptr,
+                                           nullptr, stream);
+  if (rc != 0) return rc;
 
   const sm90::EncodingIn<EMB, false> in{embp, demb_f};
-  const int rc = sm90::launch_single_head_bwd<EMB, GradLayout<EMB>>(
+  rc = sm90::launch_single_head_bwd<EMB, GradLayout<EMB>>(
       in, draw_f, n, n_pad, n_splits, image, mats, biases, scratch,
       static_cast<float*>(partials), stream);
   if (rc != 0) return rc;
   mlp_reduce_kernel<<<dim3((GRAD_FLOATS + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
       static_cast<const float*>(partials), n_splits, GRAD_FLOATS, static_cast<float*>(grads));
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  return launch_bend_backward(bp, pts_f, lat_f, demb_f, static_cast<const float*>(doff),
-                              static_cast<const float*>(drig), n,
-                              static_cast<float*>(bend_partials), static_cast<float*>(dpts),
-                              static_cast<float*>(dlat), static_cast<float*>(bend_grads),
-                              stream);
+  return sm90::launch_bend_backward(bend_weights, pts_f, lat_f, demb_f,
+                                    static_cast<const float*>(doff),
+                                    static_cast<const float*>(drig), n,
+                                    static_cast<float*>(bend_partials),
+                                    static_cast<float*>(dpts), static_cast<float*>(dlat),
+                                    static_cast<float*>(bend_grads), stream);
 }

@@ -26,31 +26,33 @@
 //   encoding tiles);
 // - the chain and the head are row 1's.
 // Everything the bender reads but the points and latents is staged once per
-// CTA (34,064 B); 204,176 B of shared memory in all, which leaves no room
+// CTA from the 18 weights (`stage_bend_image`, 34,064 B, as rows 7, 8 and 10
+// stage it); 204,176 B of shared memory in all, which leaves no room
 // for a third stage (rows 1 and 5 run about 3% slower on two stages than on
 // three on an H100, chip_variants.py fwd_2_stages).
-// The bender's arithmetic is bend_tile.cuh's (its wmma products sum in the
-// same order as wgmma's), so this kernel and the split variant
-// (bend_fwd.cu, then mlp_fwd.cu) give bit-equal outputs.
+// The bender is one device function (`bender_rows`) that bend_fwd.cu and
+// fused_bwd.cu's pre-pass run too, and the encoding one (`encoding_of`), so
+// this kernel and the split variant (bend_fwd.cu, then mlp_fwd.cu) give
+// bit-equal outputs.
 //
 // Plain C interface, bound with ctypes (see ../fused_fwd.py).
 
 #include "mlp_sm90.cuh"
 
-// pts (n, 3) f32, lat (n, 32) f32 (16-byte aligned); bend_image: the bender's
-// weights, biases and encoding projection (ops/kernels/mlp_sm90.py:
-// pack_bend_image), 34,064 B, 16-byte aligned;
+// pts (n, 3) f32, lat (n, 32) f32 (16-byte aligned); bend_weights: the 18
+// cast bender weights (ops/kernels/bend_fwd.py:cast_bend_weights,
+// contiguous), which each CTA stages as the bender's image;
 // image: the chain's forward chunks (pack_chain_image(mw, ("fwd",))), 30 x
 // 32 KB; mats and biases as nrnerf_mlp_fwd lists them (of mats only ow is
 // read); raw (n, 8), off (n, 3), rig (n, 1) f32.
 // Returns the CUDA error code of the launch (0 on success).
 extern "C" int nrnerf_fused_fwd(const void* pts, const void* lat, int n,
-                                const void* bend_image, const void* image,
+                                const void* const* bend_weights, const void* image,
                                 const void* const* mats, const void* const* biases,
                                 void* raw, void* off, void* rig, void* stream) {
-  const sm90::FusedFwdIn in{static_cast<const float*>(pts), static_cast<const float*>(lat),
-                            static_cast<const sm90::bf16*>(bend_image),
-                            static_cast<float*>(off), static_cast<float*>(rig)};
+  sm90::FusedFwdIn in{static_cast<const float*>(pts), static_cast<const float*>(lat), {},
+                      static_cast<float*>(off), static_cast<float*>(rig)};
+  for (int i = 0; i < 18; ++i) in.bw.w[i] = bend_weights[i];
   return sm90::launch_fwd<sm90::EMB>(in, n, image, mats, biases, static_cast<float*>(raw),
                                      static_cast<cudaStream_t>(stream));
 }

@@ -7,9 +7,10 @@
 // kernel, a template on its input; row 9's input runs the deformation field
 // beside the chain), those rows 2, 6 and 10 share (the backward's), the
 // view-direction image's schedule and the views layer's products (rows 3 and
-// 4), the int8 products (row 11), and the second pass all four backwards
-// launch. Only the deformation field's own kernels (bend_*.cu, rows 7 and 8,
-// and row 10's pre-pass) keep mlp_tile.cuh's design.
+// 4), the int8 products (row 11), the second pass all four backwards
+// launch, and the deformation field's own kernels (bend_fwd.cu and
+// bend_bwd.cu, rows 7 and 8, which row 10 runs as its pre-pass and its
+// bender backward) on row 9's bender (`bender_rows`).
 //
 // - Persistent CTAs: about one per SM, each walking 128-point tiles on a
 //   static schedule (tile = blockIdx.x + k * gridDim.x), so the same inputs
@@ -444,6 +445,59 @@ __device__ __forceinline__ void wgmma_m64n128_mn(float (&d)[128], uint64_t da, u
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// ---- the bender's backward (row 8, bend_bwd_sm90_kernel): m64n64k16 with A
+// K-major and B MN-major (dh @ W^T, B the forward image's K-major rows of
+// W^T read transposed), with both MN-major (dW = act^T @ dh from point-major
+// tiles), and m64n8k16 with A MN-major (dh^T @ ones: dh's column sums)
+
+template <int M>
+__device__ __forceinline__ void wgmma_m64n64_tb(float (&d)[M], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  static_assert(M >= 32, "32 accumulators a thread");
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int M>
+__device__ __forceinline__ void wgmma_m64n64_mn(float (&d)[M], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  static_assert(M >= 32, "32 accumulators a thread");
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n8_ta(float (&d)[4], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -1064,6 +1118,21 @@ inline int persistent_grid(int n_tiles) {
   return sms;
 }
 
+// grads[i] = sum over the splits, in ascending order, of partials[s][i]:
+// the fixed-order reduction every backward launches last (mlp_tile.cuh
+// names it for the canonical MLP's)
+constexpr int REDUCE_THREADS = 256;
+
+__global__ void __launch_bounds__(REDUCE_THREADS)
+mlp_reduce_kernel(const float* __restrict__ partials, int n_splits, int grad_floats,
+                  float* __restrict__ grads) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= grad_floats) return;
+  float s = 0.0f;
+  for (int k = 0; k < n_splits; ++k) s += partials[size_t(k) * grad_floats + i];
+  grads[i] = s;
+}
+
 // ---- the chain kernels' inputs, a policy each: the encoding (rows 1 and 2),
 // or points encoded in the kernel (rows 5 and 6).
 //
@@ -1121,6 +1190,15 @@ struct EncodingIn {
   __device__ __forceinline__ void end(long, int, int, int) {}
 };
 
+// lane c of the encoding of the point x, from P's column c and the phase
+// (p[0 .. 3]): pre = x0 P0 + x1 P1 + x2 P2 (three f32 FMAs, exact: P's
+// entries are 0 or powers of two), lane < 3 ? pre : sinf(pre + phase).
+// Rows 5, 7 and 9 and row 10's pre-pass encode with it.
+__device__ __forceinline__ float encoding_of(const float (&x)[3], const float (&p)[4], int c) {
+  const float pre = fmaf(x[2], p[2], fmaf(x[1], p[1], x[0] * p[0]));
+  return c < 3 ? pre : sinf(pre + p[3]);
+}
+
 // The in-kernel Fourier encoding of points (n, 3) f32 with the projection P
 // (3, 64) and phase (64,) f32, whose entries are 0 or powers of two: lanes
 // c0 .. c0 + 7 of row r of the encoding tile, from the row's point x,
@@ -1138,8 +1216,7 @@ __device__ __forceinline__ void encode_piece_with(uint32_t embt, const float (&x
     const int c = c0 + e;
     float p[4];
     coef(c, p);
-    const float pre = fmaf(x[2], p[2], fmaf(x[1], p[1], x[0] * p[0]));
-    const float y = c < 3 ? pre : sinf(pre + p[3]);
+    const float y = encoding_of(x, p, c);
     v[e] = __float2bfloat16(valid ? y : 0.0f);
   }
   st_shared16(embt + tile_offset(r, c0), *reinterpret_cast<const uint4*>(v));
@@ -1320,16 +1397,16 @@ struct PtsIn {
 // ---- row 9's input (fused_fwd.cu): the deformation field and the encoding of
 // the bent points, split between the consumers and the producer's idle warps.
 //
-// The arithmetic is bend_tile.cuh's `bend_forward` (fused_query.py's
-// `_bend_fwd_math`), so the encoding is bit-equal to the one bend_fwd.cu
-// writes and mlp_fwd.cu reads, and this kernel equals the split variant bit
-// for bit:
+// The arithmetic is fused_query.py's `_bend_fwd_math`, in one device
+// function with rows 7 and 8 (`bender_rows`, below), so the encoding is
+// bit-equal to the one bend_fwd.cu writes and mlp_fwd.cu reads, and this
+// kernel equals the split variant bit for bit:
 // - each consumer warpgroup runs the products of its 64 rows of the NEXT
 //   tile (`ahead`, before it waits for this tile's encoding) on wgmma: rh1 =
 //   relu(rh0 @ r1w + r1b) (m64n32k16), bh0 = relu((pts @ b0p + lat @ b0l) +
 //   b0b) (m64n64k16, pts @ b0p on the CUDA cores in the epilogue), bh1 ..
 //   bh3 (m64n64k16 over the bh tile, in place); f32 sums over ascending
-//   k-steps of 16, as the wmma and the mma.sync products sum them. Its A
+//   k-steps of 16 (`bender_rows`). Its A
 //   tiles (bf16 lat, rh0, rh1, bh) live in its own rows of the activation
 //   tile, free between the last tile's head and this tile's first layer;
 //   bh3 goes into its rows of the next tile's encoding tile, and the
@@ -1339,11 +1416,13 @@ struct PtsIn {
 // - the producer warpgroup's three idle warps, once a tile is ready: off =
 //   bh3 @ bow (each (row, lane) a sequential f32 sum over the 64 lanes),
 //   bent = x + rig0 * off (rounded twice) into shared memory and off to (n,
-//   3); then the encoding of the bent points (`encode_piece_with`, which
-//   equals `encoding_value`: P's entries are 0 or powers of two) over bh3,
+//   3); then the encoding of the bent points (`encode_piece_with` on
+//   `encoding_of`, as row 7 writes it) over bh3,
 //   and one arrival each on the tile's "full" mbarrier (row 5's handshake).
-// Every weight, bias and P and the phase are staged once per CTA into
-// shared memory (`pack_bend_image`, 34,064 B), the 32- and 64-lane matrices
+// Every weight, bias and P and the phase are staged once per CTA, by all
+// its threads before the roles split, from the 18 weights into shared
+// memory (`stage_bend_image`: pack_bend_image's 34,064 B), as rows 7, 8 and
+// 10 stage them; the 32- and 64-lane matrices
 // as the K-major B operands wgmma reads (128-byte swizzle at 64 lanes,
 // 64-byte at 32). The kernel runs a 2-stage ring, which leaves room for the
 // image beside the chain.
@@ -1495,15 +1574,345 @@ __device__ __forceinline__ void bend_epilogue(const float (&acc)[M], uint32_t bi
   }
 }
 
+// bar.sync of the 128 threads of named barrier `id` (a warpgroup)
+__device__ __forceinline__ void bar_sync128(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// float32(pi / 2): the phase of the encoding's cosine lanes (the image's)
+constexpr float HALF_PI = 1.57079632679489661923f;
+
+// P's column c and the phase of lane c from a staged bender image
+__device__ __forceinline__ void image_encoding_coef(uint32_t img, int c, float (&p)[4]) {
+  p[0] = ld_shared_f32(img + BIMG_P + 4 * c);
+  p[1] = ld_shared_f32(img + BIMG_P + 4 * (EMB + c));
+  p[2] = ld_shared_f32(img + BIMG_P + 4 * (2 * EMB + c));
+  p[3] = ld_shared_f32(img + BIMG_PHASE + 4 * c);
+}
+
+// Where `bender_rows` reads a warpgroup's 64 rows of points (3 f32 a row)
+// and latents (32 f32 a row, 16-byte aligned), zero past n: `valid(r)`,
+// `pt(r, k)`, `lat4(r, c)` (lanes c .. c + 3). Rows 8 and 9 read global
+// memory from row0 through the read-only path; row 7 a tile anywhere (its
+// ring's stage in shared memory, or a ragged tile in global memory), with
+// generic loads and `rows` valid rows.
+struct GlobalBendRows {
+  const float* pts;
+  const float* lat;
+  long row0;
+  int n;
+  __device__ __forceinline__ bool valid(int r) const { return row0 + r < n; }
+  __device__ __forceinline__ float pt(int r, int k) const {
+    return __ldg(pts + size_t(row0 + r) * 3 + k);
+  }
+  __device__ __forceinline__ float4 lat4(int r, int c) const {
+    return __ldg(reinterpret_cast<const float4*>(lat + size_t(row0 + r) * LAT_W + c));
+  }
+};
+
+struct TileBendRows {
+  const float* pts;
+  const float* lat;
+  int rows;
+  __device__ __forceinline__ bool valid(int r) const { return r < rows; }
+  __device__ __forceinline__ float pt(int r, int k) const { return pts[r * 3 + k]; }
+  __device__ __forceinline__ float4 lat4(int r, int c) const {
+    return *reinterpret_cast<const float4*>(lat + r * LAT_W + c);
+  }
+};
+
+// Where a caller keeps a warpgroup's bender tiles of 64 rows, as byte
+// offsets from the base it passes (bf16 lat there, 64 x 32, 64-byte
+// swizzle): rh0 (the same), rh1 (64 x 32, row-major), bh_l (64 x 64,
+// 128-byte swizzle, 1024-byte aligned) at BH + l * BH_STEP for l < 3
+// (BH_STEP 0: each layer over its input), bh3 at an address of its own.
+// Constant offsets keep the tiles' addresses out of the registers.
+template <uint32_t RH0, uint32_t RH1, uint32_t BH, uint32_t BH_STEP>
+struct BendLayout {
+  static constexpr uint32_t rh0 = RH0, rh1 = RH1, bh = BH, bh_step = BH_STEP;
+};
+
+// The deformation field's products for a warpgroup's 64 rows (its tiles at
+// `base` as the layout L places them), from the staged bender image `img` (row 9's `FusedFwdIn`, row 7's and row 10's
+// pre-pass `bend_fwd_sm90_kernel`, row 8's recompute `bend_bwd_sm90_kernel`;
+// one device function, so their bent points agree bit for bit):
+//   rh0 = bf16(relu(bf16(pts) @ r0w + r0b))   (sequential f32 sums, CUDA cores)
+//   rh1 = bf16(relu(rh0 @ r1w + r1b))          (m64n32k16 x 2)
+//   bh0 = bf16(relu((pts @ b0p + lat @ b0l) + b0b))   (m64n64k16 x 2; pts @ b0p
+//                                              in the epilogue, sequential)
+//   bh_l = bf16(relu(bh_{l-1} @ b_lw + b_lb))  l = 1 .. 3 (m64n64k16 x 4)
+//   t = tanh(rh1 @ row + rob) (sequential), rig0 = (t + 1) * 0.5
+// f32 sums over ascending k-steps of 16. `rig(r, t, rig0)` takes row r's
+// rigidity (even threads, row t / 2); `after_inputs()` runs once every
+// thread has read `src` (a staged tile may then be refilled). Starts with a
+// barrier of the warpgroup (`bar`: the tiles' last readers are done) and
+// ends with one (bh3 is written). acc: the caller's accumulators (the
+// products use the first 32).
+template <class L, class Src, int R, class Rig, class AfterInputs>
+__device__ __forceinline__ void bender_rows(float (&acc)[R], uint32_t img, const Src& src,
+                                            uint32_t base, uint32_t bh3, int bar, int t,
+                                            Rig&& rig, AfterInputs&& after_inputs) {
+  const uint32_t lat_t = base, rh0_t = base + L::rh0, rh1_t = base + L::rh1;
+  const int lane = t % 32;
+  const int rw = (t / 32) * 16 + lane / 4;   // the accumulators' first row (of 64)
+
+  bar_sync128(bar);
+  // ---- the A tiles: thread t takes row t / 2, lanes (t % 2) * 16 .. + 15 of
+  // bf16(lat) and of rh0 = relu(bf16(pts) @ r0w + r0b)
+  {
+    const int r = t / 2, c0 = (t % 2) * 16;
+    const bool valid = src.valid(r);
+    float xb[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) xb[k] = round_bf16(valid ? src.pt(r, k) : 0.0f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + 8 * h;
+      float4 v0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), v1 = v0;
+      if (valid) {
+        v0 = src.lat4(r, c);
+        v1 = src.lat4(r, c + 4);
+      }
+      st_shared16(lat_t + sw64_offset(r, c),
+                  make_uint4(pack_bf16(v0.x, v0.y), pack_bf16(v0.z, v0.w),
+                             pack_bf16(v1.x, v1.y), pack_bf16(v1.z, v1.w)));
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float s[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const uint32_t wv = ld_shared32(img + BIMG_R0W + 2 * (k * RIG_W + c + 2 * e));
+          s[0] += xb[k] * bf16_lo(wv);
+          s[1] += xb[k] * bf16_hi(wv);
+        }
+        w[e] = pack_bf16(
+            fmaxf(__fadd_rn(s[0], ld_shared_f32(img + BIMG_R0B + 4 * (c + 2 * e))), 0.0f),
+            fmaxf(__fadd_rn(s[1], ld_shared_f32(img + BIMG_R0B + 4 * (c + 2 * e + 1))), 0.0f));
+      }
+      st_shared16(rh0_t + sw64_offset(r, c), make_uint4(w[0], w[1], w[2], w[3]));
+    }
+  }
+  // bf16(pts) of the accumulators' two rows, for bh0's pts @ b0p
+  float xa[2][3];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = rw + 8 * h;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) xa[h][k] = round_bf16(src.valid(r) ? src.pt(r, k) : 0.0f);
+  }
+  fence_proxy_async();
+  bar_sync128(bar);
+  after_inputs();
+
+  // ---- rh1 = relu(rh0 @ r1w + r1b) (m64n32k16 x 2) into rh1
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < RIG_W / 16; ++kk) {
+    wgmma_m64n32(acc, desc_sw64(rh0_t + kk * 32), desc_sw64(img + BIMG_R1W + kk * 32),
+                 kk != 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc<16>(acc);
+  bend_epilogue<RIG_W>(acc, img + BIMG_R1B, t, [](int, int) { return 0.0f; },
+                       [&](int h, int col, uint32_t v) {
+                         st_shared32(rh1_t + uint32_t(rw + 8 * h) * (RIG_W * 2) + col * 2, v);
+                       });
+  // ---- bh0 = relu((pts @ b0p + lat @ b0l) + b0b) (m64n64k16 x 2) into bh[0]
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < LAT_W / 16; ++kk) {
+    wgmma_m64n64(acc, desc_sw64(lat_t + kk * 32), desc_sw64(img + BIMG_B0L + kk * 32),
+                 kk != 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc<32>(acc);
+  bend_epilogue<BEND_W>(acc, img + BIMG_BB, t,
+                        [&](int h, int col) {
+                          const uint32_t pair = img + BIMG_B0P + 2 * (col & ~1);
+                          float s = 0.0f;
+#pragma unroll
+                          for (int k = 0; k < 3; ++k) {
+                            const uint32_t wv = ld_shared32(pair + 2 * k * BEND_W);
+                            s += xa[h][k] * (col & 1 ? bf16_hi(wv) : bf16_lo(wv));
+                          }
+                          return s;
+                        },
+                        [&](int h, int col, uint32_t v) {
+                          st_shared32(base + L::bh + tile_offset(rw + 8 * h, col), v);
+                        });
+  fence_proxy_async();
+  bar_sync128(bar);   // bh0 and rh1 are written
+
+  // ---- the rigidity of row t / 2 (even threads): tanh(rh1 @ row + rob),
+  // a sequential sum, then (t + 1) * 0.5
+  if (t % 2 == 0) {
+    const int r = t / 2;
+    float s = 0.0f;
+#pragma unroll
+    for (int c = 0; c < RIG_W / 8; ++c) {
+      const uint4 av = ld_shared16(rh1_t + uint32_t(r) * (RIG_W * 2) + c * 16);
+      const uint4 wv = ld_shared16(img + BIMG_ROWT + c * 16);
+      const uint32_t ap[4] = {av.x, av.y, av.z, av.w};
+      const uint32_t wp[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s += bf16_lo(ap[e]) * bf16_lo(wp[e]);
+        s += bf16_hi(ap[e]) * bf16_hi(wp[e]);
+      }
+    }
+    const float th = tanhf(__fadd_rn(s, ld_shared_f32(img + BIMG_ROB)));
+    rig(r, th, __fmul_rn(__fadd_rn(th, 1.0f), 0.5f));
+  }
+
+  // ---- bh1 .. bh3 (m64n64k16 x 4 each), bh_l from bh_{l-1}
+#pragma unroll 1
+  for (int l = 1; l < 4; ++l) {
+    const uint32_t a = base + L::bh + uint32_t(l - 1) * L::bh_step;
+    const uint32_t dst = l < 3 ? base + L::bh + uint32_t(l) * L::bh_step : bh3;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BEND_W / 16; ++kk) {
+      wgmma_m64n64(acc, desc_sw128(a + kk * 32),
+                   desc_sw128(img + BIMG_BW + uint32_t(l - 1) * BEND_W * BEND_W * 2 + kk * 32),
+                   kk != 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc<32>(acc);
+    bend_epilogue<BEND_W>(acc, img + BIMG_BB + uint32_t(l) * BEND_W * 4, t,
+                          [](int, int) { return 0.0f; },
+                          [&](int h, int col, uint32_t v) {
+                            st_shared32(dst + tile_offset(rw + 8 * h, col), v);
+                          });
+    fence_proxy_async();
+    bar_sync128(bar);
+  }
+}
+
+constexpr uint32_t BEND_IMAGE_PAD = 34816;   // the forward image, rounded up to 1024 bytes
+static_assert(BEND_IMAGE_PAD >= BEND_IMAGE_BYTES && BEND_IMAGE_PAD % 1024 == 0,
+              "what follows the image starts on the swizzle's 1024 bytes");
+// The 18 cast bender weights as the wrappers pass them (pack order: b0p b0l
+// b0b b1w b1b b2w b2b b3w b3b bow r0w r0b r1w r1b row rob P phase; the
+// matrices bf16, the rest f32, contiguous in their packed shapes)
+struct BendWeights {
+  const void* w[18];
+};
+
+__device__ __forceinline__ void st_shared_u16(uint32_t dst, unsigned short v) {
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(v) : "memory");
+}
+
+// byte offset of (n, k) in a K-major image matrix of `lanes` (32 or 64)
+// k-values a row (mlp_sm90.py's kmajor_offset)
+__device__ __forceinline__ uint32_t kmajor_byte(int n, int k, int lanes) {
+  const int sw = lanes == 64 ? (n & 7) : ((n >> 1) & 3);
+  return uint32_t(n * lanes + (((k >> 3) ^ sw) << 3) + (k & 7)) * 2;
+}
+
+// One region of the staged image: thread tid of nthreads takes elements
+// tid, tid + nthreads, ... of `count`, the 16-bit value src(e) to the shared
+// address dst(e). Four loads go out before their stores (the stores are
+// volatile, so one at a time each would wait out a load's latency).
+template <class Src, class Dst>
+__device__ __forceinline__ void stage_region(int count, int tid, int nthreads, Src&& src,
+                                             Dst&& dst) {
+  constexpr int U = 4;
+  for (int e0 = tid; e0 < count; e0 += U * nthreads) {
+    unsigned short v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * nthreads;
+      v[u] = e < count ? src(e) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * nthreads;
+      if (e < count) st_shared_u16(dst(e), v[u]);
+    }
+  }
+}
+
+// Rows 7-10 stage the bender's image (pack_bend_image's bytes, with
+// `backward` b0l's rows after it at BEND_IMAGE_PAD: mlp_sm90.py's
+// bend_b0l_rows) into shared memory at `img` straight from the weights: no
+// call packs an image. The CTA's nthreads threads share the work; the
+// caller fences and synchronizes.
+__device__ __forceinline__ void stage_bend_image(uint32_t img, const BendWeights& bw,
+                                                 bool backward, int tid, int nthreads) {
+  auto h = [&](int i, int e) {   // bf16 element e (or f32 half e) of weight i
+    return __ldg(static_cast<const unsigned short*>(bw.w[i]) + e);
+  };
+  // b0l (32 x 64), b1w .. b3w (64 x 64), r1w (32 x 32): element (n, k) holds W[k][n]
+  stage_region(
+      LAT_W * BEND_W, tid, nthreads, [&](int e) { return h(1, e); },
+      [&](int e) { return img + BIMG_B0L + kmajor_byte(e % BEND_W, e / BEND_W, LAT_W); });
+  stage_region(
+      3 * BEND_W * BEND_W, tid, nthreads,
+      [&](int e) { return h(3 + 2 * (e / (BEND_W * BEND_W)), e % (BEND_W * BEND_W)); },
+      [&](int e) {
+        const int l = e / (BEND_W * BEND_W), k = (e / BEND_W) % BEND_W, n = e % BEND_W;
+        return img + BIMG_BW + l * BEND_W * BEND_W * 2 + kmajor_byte(n, k, BEND_W);
+      });
+  stage_region(
+      RIG_W * RIG_W, tid, nthreads, [&](int e) { return h(12, e); },
+      [&](int e) { return img + BIMG_R1W + kmajor_byte(e % RIG_W, e / RIG_W, RIG_W); });
+  // the 3-lane rows: bow^T (3 x 64), row's lane 0 (32), b0p's and r0w's rows 0 .. 2
+  stage_region(
+      3 * BEND_W, tid, nthreads, [&](int e) { return h(9, (e % BEND_W) * 8 + e / BEND_W); },
+      [&](int e) { return img + BIMG_BOWT + 2 * e; });
+  stage_region(
+      RIG_W, tid, nthreads, [&](int e) { return h(14, e * 8); },
+      [&](int e) { return img + BIMG_ROWT + 2 * e; });
+  stage_region(
+      3 * BEND_W, tid, nthreads, [&](int e) { return h(0, e); },
+      [&](int e) { return img + BIMG_B0P + 2 * e; });
+  stage_region(
+      3 * RIG_W, tid, nthreads, [&](int e) { return h(10, e); },
+      [&](int e) { return img + BIMG_R0W + 2 * e; });
+  // the f32 part, a half at a time: b0b .. b3b, r0b, r1b, rob's lane 0 (then
+  // zeros), P's rows 0 .. 2, the phase
+  stage_region(
+      2 * (4 * BEND_W + 2 * RIG_W + 4 + 4 * EMB), tid, nthreads,
+      [&](int e) -> unsigned short {
+        const int f = e / 2, half = e % 2;
+        if (f < 4 * BEND_W) return h(2 + 2 * (f / BEND_W), 2 * (f % BEND_W) + half);
+        if (f < 4 * BEND_W + 2 * RIG_W) {
+          const int g = f - 4 * BEND_W;
+          return h(11 + 2 * (g / RIG_W), 2 * (g % RIG_W) + half);
+        }
+        if (f < 4 * BEND_W + 2 * RIG_W + 4) return f == 4 * BEND_W + 2 * RIG_W ? h(15, half) : 0;
+        if (f < 4 * BEND_W + 2 * RIG_W + 4 + 3 * EMB) {
+          return h(16, 2 * (f - 4 * BEND_W - 2 * RIG_W - 4) + half);
+        }
+        return h(17, 2 * (f - 4 * BEND_W - 2 * RIG_W - 4 - 3 * EMB) + half);
+      },
+      [&](int e) { return img + BIMG_BB + 2 * e; });
+  if (backward) {   // b0l's rows: element (i, o) holds b0l[i][o]
+    stage_region(
+        LAT_W * BEND_W, tid, nthreads, [&](int e) { return h(1, e); },
+        [&](int e) { return img + BEND_IMAGE_PAD + kmajor_byte(e / BEND_W, e % BEND_W, BEND_W); });
+  }
+}
+
 struct FusedFwdIn {
   static constexpr int FWD_TILES = 2;
   static constexpr int ENCODERS = 96;
   static constexpr int PIECES = TM * EMB / 8;   // 16-byte pieces of a tile
   const float* pts;      // (n, 3)
   const float* lat;      // (n, 32), 16-byte aligned
-  const bf16* image;     // the bender's image, BEND_IMAGE_BYTES, 16-byte aligned
+  BendWeights bw;        // the 18 cast bender weights
   float* off;            // (n, 3) out
   float* rig;            // (n, 1) out
+
+  // every thread of the CTA, before the roles split: the bender's image
+  // into `extra`, once per CTA
+  __device__ __forceinline__ void stage(uint32_t extra, int tid, int nthreads) const {
+    stage_bend_image(extra, bw, false, tid, nthreads);
+  }
 
   // shared memory after the image (the kernel's `in_smem`)
   static __device__ __forceinline__ uint32_t rig_row(uint32_t extra, int slot, int r) {
@@ -1514,28 +1923,21 @@ struct FusedFwdIn {
   }
 
   // bars: full[0], full[1] (the encoders), ready[0], ready[1] (the
-  // consumers), the image's (one arrival)
+  // consumers)
   __device__ __forceinline__ void init(uint32_t bars) const {
     for (int b = 0; b < 2; ++b) {
       mbar_init(bars + 8 * b, ENCODERS);
       mbar_init(bars + 8 * (2 + b), CONSUMERS);
     }
-    mbar_init(bars + 8 * 4, 1);
     mbar_init_fence();
   }
 
-  // encoder e (0 .. 95): stage the image into `extra`, then for the i-th
-  // tile of this CTA, once it is ready: the offsets and bent points of
+  // encoder e (0 .. 95): for the i-th tile of this CTA, once it is ready
+  // (the image is in `extra`): the offsets and bent points of
   // (row, lane) pairs e, e + 96, ... of the 384, a barrier of the encoders,
   // then pieces e, e + 96, ... of the tile's 1,024 encoding pieces
   __device__ __forceinline__ void encode(uint32_t emb0, uint32_t bars, uint32_t extra, int n,
                                          int n_tiles, int e) const {
-    for (int i = e; i < int(BEND_IMAGE_BYTES / 16); i += ENCODERS) {
-      st_shared16(extra + 16 * i, __ldg(reinterpret_cast<const uint4*>(image) + i));
-    }
-    fence_proxy_async();   // the consumers' wgmma read the image
-    encoders_barrier();
-    if (e == 0) mbar_arrive(bars + 8 * 4);   // the image is in place
     int i = 0;
 #pragma unroll 1
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
@@ -1559,12 +1961,9 @@ struct FusedFwdIn {
         const int r = q / (EMB / 8);
         const uint4 bv = ld_shared16(bent_row(extra, b, r));
         const float x[3] = {__uint_as_float(bv.x), __uint_as_float(bv.y), __uint_as_float(bv.z)};
-        encode_piece_with(embt, x, row0 + r < n, [&](int c, float (&pc)[4]) {
-          pc[0] = ld_shared_f32(extra + BIMG_P + 4 * c);
-          pc[1] = ld_shared_f32(extra + BIMG_P + 4 * (EMB + c));
-          pc[2] = ld_shared_f32(extra + BIMG_P + 4 * (2 * EMB + c));
-          pc[3] = ld_shared_f32(extra + BIMG_PHASE + 4 * c);
-        }, r, (q % (EMB / 8)) * 8);
+        encode_piece_with(embt, x, row0 + r < n,
+                          [&](int c, float (&pc)[4]) { image_encoding_coef(extra, c, pc); }, r,
+                          (q % (EMB / 8)) * 8);
       }
       fence_proxy_async();
       mbar_arrive(bars + 8 * b);
@@ -1574,163 +1973,25 @@ struct FusedFwdIn {
   // a consumer: the bender's products of its rows of the CTA's j-th tile
   // (rows from row0; past the last tile every row is past n and the
   // products run on zeros: a wgmma under a branch would serialize them all),
-  // into encoding tile j % 2. acc: the chain's accumulators (the products
-  // use the first 32).
+  // `bender_rows` on its A tiles in its own rows of the activation tile
+  // (lat and rh0 in atom 0, rh1 in atom 1, bh in atom 2), bh3 into encoding
+  // tile j % 2. acc: the chain's accumulators (the products use the first 32).
   template <int R>
   __device__ __forceinline__ void ahead(float (&acc)[R], unsigned char* act, uint32_t emb0,
                                         uint32_t bars, uint32_t extra, int j, long row0, int n,
                                         int wg, int t) {
-    if (j == 0) mbar_wait(bars + 8 * 4, 0);   // the encoders have staged the image
     const int slot = j % 2;
-    const uint32_t act_s = smem_u32(act);
-    const uint32_t lat_t = act_s + uint32_t(wg) * WG_ATOM_BYTES;   // atom 0
-    const uint32_t rh0_t = lat_t + WG_ATOM_BYTES / 2;
-    const uint32_t rh1_t = lat_t + TILE_ATOM_BYTES;                  // atom 1
-    const uint32_t bh_t = lat_t + 2 * TILE_ATOM_BYTES;               // atom 2
-    const uint32_t bh3_t = emb0 + uint32_t(slot) * TILE_ATOM_BYTES + uint32_t(wg) * WG_ATOM_BYTES;
-    const int lane = t % 32;
-    const int rw = (t / 32) * 16 + lane / 4;   // the accumulators' first row (of 64)
-
-    wg_barrier(wg);   // the last tile's head has read the activation tile
-    // ---- the A tiles: thread t takes row t / 2, lanes (t % 2) * 16 .. + 15 of
-    // bf16(lat) and of rh0 = relu(bf16(pts) @ r0w + r0b)
-    {
-      const int r = t / 2, c0 = (t % 2) * 16;
-      const long row = row0 + wg * WG_ROWS + r;
-      const bool valid = row < n;
-      float xb[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) xb[k] = round_bf16(valid ? __ldg(pts + size_t(row) * 3 + k) : 0.0f);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = c0 + 8 * h;
-        float4 v0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), v1 = v0;
-        if (valid) {
-          v0 = __ldg(reinterpret_cast<const float4*>(lat + size_t(row) * LAT_W + c));
-          v1 = __ldg(reinterpret_cast<const float4*>(lat + size_t(row) * LAT_W + c + 4));
-        }
-        st_shared16(lat_t + sw64_offset(r, c),
-                    make_uint4(pack_bf16(v0.x, v0.y), pack_bf16(v0.z, v0.w),
-                               pack_bf16(v1.x, v1.y), pack_bf16(v1.z, v1.w)));
-        uint32_t w[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float s[2] = {0.0f, 0.0f};
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            const uint32_t wv = ld_shared32(extra + BIMG_R0W + 2 * (k * RIG_W + c + 2 * e));
-            s[0] += xb[k] * bf16_lo(wv);
-            s[1] += xb[k] * bf16_hi(wv);
-          }
-          w[e] = pack_bf16(
-              fmaxf(__fadd_rn(s[0], ld_shared_f32(extra + BIMG_R0B + 4 * (c + 2 * e))), 0.0f),
-              fmaxf(__fadd_rn(s[1], ld_shared_f32(extra + BIMG_R0B + 4 * (c + 2 * e + 1))),
-                    0.0f));
-        }
-        st_shared16(rh0_t + sw64_offset(r, c), make_uint4(w[0], w[1], w[2], w[3]));
-      }
-    }
-    // bf16(pts) of the accumulators' two rows, for bh0's pts @ b0p
-    float xa[2][3];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long row = row0 + wg * WG_ROWS + rw + 8 * h;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        xa[h][k] = round_bf16(row < n ? __ldg(pts + size_t(row) * 3 + k) : 0.0f);
-      }
-    }
-    fence_proxy_async();
-    wg_barrier(wg);
-
-    // ---- rh1 = relu(rh0 @ r1w + r1b) (m64n32k16 x 2) into rh1_t
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < RIG_W / 16; ++kk) {
-      wgmma_m64n32(acc, desc_sw64(rh0_t + kk * 32), desc_sw64(extra + BIMG_R1W + kk * 32),
-                   kk != 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc<16>(acc);
-    bend_epilogue<RIG_W>(acc, extra + BIMG_R1B, t, [](int, int) { return 0.0f; },
-                         [&](int h, int col, uint32_t v) {
-                           st_shared32(rh1_t + uint32_t(rw + 8 * h) * (RIG_W * 2) + col * 2, v);
-                         });
-    // ---- bh0 = relu((pts @ b0p + lat @ b0l) + b0b) (m64n64k16 x 2) into bh_t
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < LAT_W / 16; ++kk) {
-      wgmma_m64n64(acc, desc_sw64(lat_t + kk * 32), desc_sw64(extra + BIMG_B0L + kk * 32),
-                   kk != 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc<32>(acc);
-    bend_epilogue<BEND_W>(acc, extra + BIMG_BB, t,
-                          [&](int h, int col) {
-                            const uint32_t pair = extra + BIMG_B0P + 2 * (col & ~1);
-                            float s = 0.0f;
-#pragma unroll
-                            for (int k = 0; k < 3; ++k) {
-                              const uint32_t wv = ld_shared32(pair + 2 * k * BEND_W);
-                              s += xa[h][k] * (col & 1 ? bf16_hi(wv) : bf16_lo(wv));
-                            }
-                            return s;
-                          },
-                          [&](int h, int col, uint32_t v) {
-                            st_shared32(bh_t + tile_offset(rw + 8 * h, col), v);
-                          });
-    fence_proxy_async();
-    wg_barrier(wg);   // bh0 and rh1 are written
-
-    // ---- the rigidity of row t / 2 (even threads): tanh(rh1 @ row + rob),
-    // a sequential sum, then (t + 1) * 0.5
-    if (t % 2 == 0) {
-      const int r = t / 2;
-      float s = 0.0f;
-#pragma unroll
-      for (int c = 0; c < RIG_W / 8; ++c) {
-        const uint4 av = ld_shared16(rh1_t + uint32_t(r) * (RIG_W * 2) + c * 16);
-        const uint4 wv = ld_shared16(extra + BIMG_ROWT + c * 16);
-        const uint32_t ap[4] = {av.x, av.y, av.z, av.w};
-        const uint32_t wp[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s += bf16_lo(ap[e]) * bf16_lo(wp[e]);
-          s += bf16_hi(ap[e]) * bf16_hi(wp[e]);
-        }
-      }
-      const float th = tanhf(__fadd_rn(s, ld_shared_f32(extra + BIMG_ROB)));
-      const float rig0 = __fmul_rn(__fadd_rn(th, 1.0f), 0.5f);
-      st_shared_f32(rig_row(extra, slot, wg * WG_ROWS + r), rig0);
-      const long row = row0 + wg * WG_ROWS + r;
-      if (row < n) rig[row] = rig0;
-    }
-
-    // ---- bh1 .. bh3 (m64n64k16 x 4 each) over the bh tile; bh3 into this
-    // warpgroup's rows of the tile's encoding tile
-#pragma unroll 1
-    for (int l = 1; l < 4; ++l) {
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BEND_W / 16; ++kk) {
-        wgmma_m64n64(acc, desc_sw128(bh_t + kk * 32),
-                     desc_sw128(extra + BIMG_BW + uint32_t(l - 1) * BEND_W * BEND_W * 2 + kk * 32),
-                     kk != 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc<32>(acc);
-      const uint32_t dst = l < 3 ? bh_t : bh3_t;
-      bend_epilogue<BEND_W>(acc, extra + BIMG_BB + uint32_t(l) * BEND_W * 4, t,
-                            [](int, int) { return 0.0f; },
-                            [&](int h, int col, uint32_t v) {
-                              st_shared32(dst + tile_offset(rw + 8 * h, col), v);
-                            });
-      fence_proxy_async();
-      wg_barrier(wg);
-    }
+    const uint32_t lat_t = smem_u32(act) + uint32_t(wg) * WG_ATOM_BYTES;   // atom 0
+    const long wrow0 = row0 + wg * WG_ROWS;
+    // wg_barrier(wg) first: the last tile's head has read the activation tile
+    bender_rows<BendLayout<WG_ATOM_BYTES / 2, TILE_ATOM_BYTES, 2 * TILE_ATOM_BYTES, 0>>(
+        acc, extra, GlobalBendRows{pts, lat, wrow0, n}, lat_t,
+        emb0 + uint32_t(slot) * TILE_ATOM_BYTES + uint32_t(wg) * WG_ATOM_BYTES, BAR_WG0 + wg, t,
+        [&](int r, float, float rig0) {
+          st_shared_f32(rig_row(extra, slot, wg * WG_ROWS + r), rig0);
+          if (wrow0 + r < n) rig[wrow0 + r] = rig0;
+        },
+        [] {});
     if (t == 0) mbar_arrive(bars + 8 * (2 + slot));
   }
 
@@ -1791,6 +2052,10 @@ mlp_fwd_kernel(const In in_args, int n, int n_tiles, const bf16* __restrict__ im
   if (threadIdx.x == 0) {
     ring_init<S>(bars);
     in_args.init(in_bars);
+  }
+  if constexpr (FwdPlan<In>::AHEAD) {
+    in_args.stage(in_smem, threadIdx.x, THREADS);
+    fence_proxy_async();   // the consumers' wgmma read what was staged
   }
   __syncthreads();
 
@@ -2285,7 +2550,7 @@ inline int chain_dw_jobs(DwJobs& jobs, int n_jobs, int np, const int (&w_off)[9]
 }
 
 // The second pass on `stream` but for the fixed-order reduction over the
-// splits, which the caller launches (mlp_tile.cuh's mlp_reduce_kernel): the
+// splits, which the caller launches (mlp_reduce_kernel): the
 // dW jobs with their bias sums (mlp_dw_sm90_kernel) and the heads' blocks
 // (mlp_head_grad_kernel), each CTA into its split's slot of the partials
 // (grad_floats a split). Returns the CUDA error code (0 on success).
@@ -2354,6 +2619,920 @@ inline int launch_single_head_bwd(const In& in, const float* draw, int n, long n
                              {nh8, NW, HG_COLS, L::OFF_OW + HG_COLS * OUT, -1}}};
   return launch_dw_heads(maps, jobs, n_jobs, heads, 2, draw, n, n_pad, n_splits, L::FLOATS,
                          partials, stream);
+}
+
+// ---- rows 7 and 8 (bend_fwd.cu, bend_bwd.cu) and row 10's pre-pass and
+// bender backward (fused_bwd.cu): the deformation field on its own, on row
+// 9's bender (`bender_rows`), the bender's image staged once per CTA.
+//
+// Replace `_bend_core` / `_bend_fwd_kernel` and `_bend_core_bwd` /
+// `_bend_bwd_kernel` (nonrigid_nerf_tpu/ops/pallas/fused_query.py:533-671).
+// Tiles of 64 points; each warpgroup that owns tiles walks its own on a
+// static schedule (worker w of W: tiles w, w + W, ...), so the same inputs
+// give bit-equal outputs from launch to launch.
+
+constexpr size_t SM_SMEM = 233472;   // an SM's shared memory (a CTA also takes 1 KB of it)
+
+// the grid of a persistent kernel: `per_cta` workers a CTA over `blocks`
+// tiles, `ctas_per_sm` CTAs an SM, or fewer where there are fewer tiles
+inline int bend_grid(int blocks, int per_cta, int ctas_per_sm) {
+  const int ctas = (blocks + per_cta - 1) / per_cta;
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      sms <= 0) {
+    return ctas;
+  }
+  return ctas < sms * ctas_per_sm ? ctas : sms * ctas_per_sm;
+}
+
+// ---- row 7's forward, and row 10's pre-pass: bend_fwd_sm90_kernel
+//
+// What bounds it: the bytes (12 B of points and 128 B of latents a point
+// in, 256 B of f32 encoding and 16 B of offsets and rigidity out; the
+// pre-pass writes 128 B of bf16 encoding). A CTA holds BF_PAIRS pairs of
+// warpgroups, each pair on tiles of its own:
+// - the consumer warpgroup runs `bender_rows` on wgmma, from a tile of
+//   points and latents that its first thread copied into a ring of
+//   BF_STAGES stages with two bulk copies (a ragged tile, or points off a
+//   16-byte boundary, are read from global memory instead), and hands bh3
+//   and the rigidity over in one of two slots ("ready");
+// - the encoder warpgroup (BF_ENCODERS threads of it) sums the offsets (bh3
+//   @ bow, sequential, as row 9's encoders), bends the points, and writes
+//   the encoding (`encoding_of`, the loop rolled) with 16-byte stores,
+//   consecutive threads on consecutive bytes, then frees the slot ("free").
+// So the loads, the products and the sines and stores of three tiles
+// overlap. Row 7 writes f32 rows below n; row 10's pre-pass bf16 rows up to
+// n_pad, zero past n (the chain's scratch).
+
+constexpr int BF_PAIRS = 3;          // consumer + encoders groups a CTA
+constexpr int BF_ENC_WGS = 1;        // encoder warpgroups of a group
+constexpr int BF_STAGES = 2;         // the input ring's stages a group
+constexpr int BF_CTAS_PER_SM = 1;
+constexpr int BF_ENCODERS = 128 * BF_ENC_WGS;   // the encoder threads of a group that work
+constexpr int BF_GROUP_THREADS = 128 * (1 + BF_ENC_WGS);
+constexpr int BF_THREADS = BF_GROUP_THREADS * BF_PAIRS;
+// setmaxnreg: the consumers' bender takes 96 registers, the encoders 64;
+// the CTA starts with 65536 / BF_THREADS a thread (rounded down to 8)
+constexpr int BF_CONSUMER_REGS = 96;
+constexpr int BF_ENCODER_REGS = 64;
+constexpr int BF_LAUNCH_REGS = (65536 / (BF_THREADS * BF_CTAS_PER_SM)) / 8 * 8;
+static_assert(BF_CONSUMER_REGS + BF_ENC_WGS * BF_ENCODER_REGS <= (1 + BF_ENC_WGS) * BF_LAUNCH_REGS,
+              "the encoders free what the consumer takes");
+constexpr uint32_t BF_LAT_STAGE = WG_ROWS * LAT_W * 4;   // 8 KB of f32 latents
+constexpr uint32_t BF_PTS_STAGE = WG_ROWS * 3 * 4;       // 768 B of points
+constexpr uint32_t BF_STAGE_BYTES = BF_LAT_STAGE + BF_PTS_STAGE;
+// a pair's shared memory: the consumer's tiles, two slots of bh3, rigidity
+// and bent points (x, y, z, pad), the ring
+constexpr uint32_t BFP_LAT = 0;
+constexpr uint32_t BFP_RH0 = BFP_LAT + WG_ROWS * LAT_W * 2;
+constexpr uint32_t BFP_RH1 = BFP_RH0 + WG_ROWS * RIG_W * 2;
+constexpr uint32_t BFP_BH = BFP_RH1 + WG_ROWS * RIG_W * 2;
+constexpr uint32_t BFP_BH3 = BFP_BH + WG_ATOM_BYTES;
+constexpr uint32_t BFP_RIG = BFP_BH3 + 2 * WG_ATOM_BYTES;
+constexpr uint32_t BFP_BENT = BFP_RIG + 2 * WG_ROWS * 4;
+constexpr uint32_t BFP_RING = BFP_BENT + 2 * WG_ROWS * 16;
+constexpr uint32_t BF_PAIR_BYTES = (BFP_RING + BF_STAGES * BF_STAGE_BYTES + 1023) / 1024 * 1024;
+constexpr uint32_t BF_PAIR_BARS = 8 * (BF_STAGES + 4);   // full[S], ready[2], free[2]
+constexpr size_t BF_SMEM_BYTES =
+    SMEM_ALIGN + BEND_IMAGE_PAD + BF_PAIRS * (BF_PAIR_BYTES + BF_PAIR_BARS);
+static_assert(BFP_RH0 % 512 == 0 && BFP_BH % 1024 == 0 && BFP_BH3 % 1024 == 0 &&
+                  BFP_RING % 16 == 0 && BF_STAGE_BYTES % 16 == 0,
+              "the swizzled tiles on their atoms' alignment, the ring on the bulk copies'");
+static_assert(BF_SMEM_BYTES <= SMEM_LIMIT && BF_CTAS_PER_SM * (BF_SMEM_BYTES + 1024) <= SM_SMEM,
+              "row 7's CTAs fit an SM");
+static_assert(BF_ENCODERS % 32 == 0 && BF_ENCODERS <= 128 * BF_ENC_WGS && BF_THREADS <= 1024,
+              "whole warps of the group's encoder warpgroups; a CTA of at most 1,024 threads");
+
+__device__ __forceinline__ void encoders_bar(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(BF_ENCODERS) : "memory");
+}
+
+// a whole tile whose points sit on a 16-byte boundary goes through the ring
+__device__ __forceinline__ bool bend_tile_staged(const float* pts, long row0, int n) {
+  return row0 + WG_ROWS <= n && (reinterpret_cast<uintptr_t>(pts) & 15) == 0;
+}
+
+// the consumer's first thread: the group's i-th tile into stage i % S (or,
+// for a tile that is not staged, the stage's arrival alone)
+__device__ __forceinline__ void bend_fwd_issue(uint32_t ring, uint32_t bars, int i, long worker,
+                                               long workers, int n_blocks,
+                                               const float* pts, const float* lat, int n) {
+  const long b = worker + long(i) * workers;
+  if (b >= n_blocks) return;
+  const uint32_t s = uint32_t(i % BF_STAGES);
+  const long row0 = b * WG_ROWS;
+  if (bend_tile_staged(pts, row0, n)) {
+    const uint32_t st = ring + s * BF_STAGE_BYTES;
+    mbar_expect_tx(bars + 8 * s, BF_STAGE_BYTES);
+    bulk_load(st, lat + size_t(row0) * LAT_W, BF_LAT_STAGE, bars + 8 * s);
+    bulk_load(st + BF_LAT_STAGE, pts + size_t(row0) * 3, BF_PTS_STAGE, bars + 8 * s);
+  } else {
+    mbar_arrive(bars + 8 * s);
+  }
+}
+
+// encoder e: the encoding of a tile's bent points (bent: 64 rows of 16
+// bytes), 16 bytes a store: f32 rows below n, or bf16 rows (zero past n)
+template <bool BF16_ROWS>
+__device__ __forceinline__ void bend_encode_rows(uint32_t img, uint32_t bent, long row0, int n,
+                                                 void* emb, int e) {
+  constexpr int L = BF16_ROWS ? 8 : 4;   // lanes a store
+#pragma unroll 1
+  for (int q = e; q < WG_ROWS * EMB / L; q += BF_ENCODERS) {
+    const int r = q / (EMB / L), c0 = (q % (EMB / L)) * L;
+    const bool valid = row0 + r < n;
+    if (!BF16_ROWS && !valid) break;   // later pieces lie on later rows
+    const uint4 bv = ld_shared16(bent + r * 16);
+    const float x[3] = {__uint_as_float(bv.x), __uint_as_float(bv.y), __uint_as_float(bv.z)};
+    float y[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      float pc[4];
+      image_encoding_coef(img, c0 + k, pc);
+      y[k] = encoding_of(x, pc, c0 + k);
+    }
+    if constexpr (BF16_ROWS) {
+#pragma unroll
+      for (int k = 0; k < L; ++k) y[k] = valid ? y[k] : 0.0f;
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(emb) + size_t(row0 + r) * EMB + c0) =
+          make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]),
+                     pack_bf16(y[6], y[7]));
+    } else {
+      *reinterpret_cast<float4*>(static_cast<float*>(emb) + size_t(row0 + r) * EMB + c0) =
+          make_float4(y[0], y[1], y[2], y[3]);
+    }
+  }
+}
+
+template <bool BF16_ROWS>
+__global__ void __launch_bounds__(BF_THREADS, BF_CTAS_PER_SM)
+bend_fwd_sm90_kernel(const BendWeights bw, const float* __restrict__ pts,
+                     const float* __restrict__ lat, int n, int n_blocks, void* __restrict__ emb,
+                     float* __restrict__ off, float* __restrict__ rig) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_smem(smem_raw);
+  const uint32_t img = smem_u32(base);
+  const int pair = threadIdx.x / BF_GROUP_THREADS;
+  const int gt = threadIdx.x % BF_GROUP_THREADS;   // the group's thread: the consumer's first
+  const bool encoder = gt >= 128;
+  const int t = encoder ? gt - 128 : gt;
+  unsigned char* pb = base + BEND_IMAGE_PAD + pair * BF_PAIR_BYTES;
+  const uint32_t ps = smem_u32(pb);
+  const uint32_t bars = img + BEND_IMAGE_PAD + BF_PAIRS * BF_PAIR_BYTES + pair * BF_PAIR_BARS;
+  const uint32_t ready = bars + 8 * BF_STAGES;   // ready[2], then free[2]
+  const uint32_t freed = ready + 16;
+  stage_bend_image(img, bw, false, threadIdx.x, BF_THREADS);
+  if (!encoder && t == 0) {
+    for (int s = 0; s < BF_STAGES; ++s) mbar_init(bars + 8 * s, 1);
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(ready + 8 * b, 1);
+      mbar_init(freed + 8 * b, BF_ENCODERS);
+    }
+    mbar_init_fence();
+  }
+  fence_proxy_async();   // wgmma reads the image
+  __syncthreads();
+  const long worker = long(blockIdx.x) * BF_PAIRS + pair;
+  const long workers = long(gridDim.x) * BF_PAIRS;
+
+  if (!encoder) {   // the consumer
+    setmaxnreg_inc<BF_CONSUMER_REGS>();
+    const uint32_t ring = ps + BFP_RING;
+    if (t == 0) {
+      for (int i = 0; i < BF_STAGES; ++i) {
+        bend_fwd_issue(ring, bars, i, worker, workers, n_blocks, pts, lat, n);
+      }
+    }
+    float acc[32];
+    int i = 0;
+#pragma unroll 1
+    for (long b = worker; b < n_blocks; b += workers, ++i) {
+      const long row0 = b * WG_ROWS;
+      const int s = i % BF_STAGES, slot = i % 2;
+      const float* st = reinterpret_cast<const float*>(pb + BFP_RING + s * BF_STAGE_BYTES);
+      mbar_wait(bars + 8 * s, (i / BF_STAGES) & 1);
+      const long left = long(n) - row0;
+      const TileBendRows src = bend_tile_staged(pts, row0, n)
+                                   ? TileBendRows{st + BF_LAT_STAGE / 4, st, WG_ROWS}
+                                   : TileBendRows{pts + size_t(row0) * 3, lat + size_t(row0) * LAT_W,
+                                                  int(left < WG_ROWS ? left : WG_ROWS)};
+      mbar_wait(freed + 8 * slot, ((i / 2) & 1) ^ 1);   // the encoders are done with the slot
+      const uint32_t rigs = ps + BFP_RIG + uint32_t(slot) * WG_ROWS * 4;
+      bender_rows<BendLayout<BFP_RH0 - BFP_LAT, BFP_RH1 - BFP_LAT, BFP_BH - BFP_LAT, 0>>(
+                  acc, img, src, ps + BFP_LAT, ps + BFP_BH3 + uint32_t(slot) * WG_ATOM_BYTES,
+                  BAR_WG0 + 2 * pair, t,
+                  [&](int r, float, float rig0) {
+                    st_shared_f32(rigs + 4 * r, rig0);
+                    if (rig != nullptr && row0 + r < n) rig[row0 + r] = rig0;
+                  },
+                  [&] {
+                    if (t == 0) {
+                      bend_fwd_issue(ring, bars, i + BF_STAGES, worker, workers, n_blocks, pts,
+                                     lat, n);
+                    }
+                  });
+      if (t == 0) mbar_arrive(ready + 8 * slot);
+    }
+  } else {   // the encoders
+    setmaxnreg_dec<BF_ENCODER_REGS>();
+    if (t >= BF_ENCODERS) return;
+    int i = 0;
+#pragma unroll 1
+    for (long b = worker; b < n_blocks; b += workers, ++i) {
+      const long row0 = b * WG_ROWS;
+      const int slot = i % 2;
+      const uint32_t bh3 = ps + BFP_BH3 + uint32_t(slot) * WG_ATOM_BYTES;
+      const uint32_t rigs = ps + BFP_RIG + uint32_t(slot) * WG_ROWS * 4;
+      const uint32_t bent = ps + BFP_BENT + uint32_t(slot) * WG_ROWS * 16;
+      mbar_wait(ready + 8 * slot, (i / 2) & 1);
+#pragma unroll 1
+      for (int p = t; p < WG_ROWS * 3; p += BF_ENCODERS) {
+        const int r = p / 3, j = p % 3;
+        const float o = row_dot<BEND_W>(bh3, r, img + BIMG_BOWT + j * BEND_W * 2);
+        const bool valid = row0 + r < n;
+        const float x = valid ? __ldg(pts + size_t(row0 + r) * 3 + j) : 0.0f;
+        st_shared_f32(bent + r * 16 + 4 * j, __fadd_rn(x, __fmul_rn(ld_shared_f32(rigs + 4 * r), o)));
+        if (valid && off != nullptr) off[size_t(row0 + r) * 3 + j] = o;
+      }
+      encoders_bar(BAR_WG0 + 2 * pair + 1);   // every bent point is written
+      bend_encode_rows<BF16_ROWS>(img, bent, row0, n, emb, t);
+      mbar_arrive(freed + 8 * slot);
+    }
+  }
+}
+
+// Row 7 (f32 rows of emb (n, 64), off (n, 3) and rig (n, 1) below n) or,
+// with BF16_ROWS, row 10's pre-pass (bf16 rows of emb (n_rows, 64), zero
+// past n; off and rig may be null). weights: the 18 cast bender weights
+// (BendWeights); lat 16-byte aligned. Returns the CUDA error code of the
+// launch (0 on success).
+template <bool BF16_ROWS>
+inline int launch_bend_forward(const void* const* weights, const float* pts, const float* lat,
+                               int n, long n_rows, void* emb, float* off, float* rig,
+                               cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(bend_fwd_sm90_kernel<BF16_ROWS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(BF_SMEM_BYTES));
+  if (err != cudaSuccess) return int(err);
+  if (n_rows <= 0) return 0;
+  BendWeights bw;
+  for (int i = 0; i < 18; ++i) bw.w[i] = weights[i];
+  const int n_blocks = int((n_rows + WG_ROWS - 1) / WG_ROWS);
+  bend_fwd_sm90_kernel<BF16_ROWS>
+      <<<bend_grid(n_blocks, BF_PAIRS, BF_CTAS_PER_SM), BF_THREADS, BF_SMEM_BYTES, stream>>>(
+          bw, pts, lat, n, n_blocks, emb, off, rig);
+  return int(cudaGetLastError());
+}
+
+// ---- row 8's backward (and row 10's bender backward): bend_bwd_sm90_kernel
+//
+// The 16 gradients in one flat pack-order buffer (floats): b0p (8, 64) b0l
+// (32, 64) b0b b1w (64, 64) b1b b2w b2b b3w b3b bow (64, 8) r0w (8, 32) r0b
+// r1w (32, 32) r1b row (32, 8) rob (8), the 3- and 1-lane ones padded as
+// packed
+constexpr int BEND_WPAD = 8;
+constexpr int G_B0P = 0;
+constexpr int G_B0L = G_B0P + BEND_WPAD * BEND_W;
+constexpr int G_B0B = G_B0L + LAT_W * BEND_W;
+constexpr int G_B1W = G_B0B + BEND_W;
+constexpr int G_B1B = G_B1W + BEND_W * BEND_W;
+constexpr int G_B2W = G_B1B + BEND_W;
+constexpr int G_B2B = G_B2W + BEND_W * BEND_W;
+constexpr int G_B3W = G_B2B + BEND_W;
+constexpr int G_B3B = G_B3W + BEND_W * BEND_W;
+constexpr int G_BOW = G_B3B + BEND_W;
+constexpr int G_R0W = G_BOW + BEND_W * BEND_WPAD;
+constexpr int G_R0B = G_R0W + BEND_WPAD * RIG_W;
+constexpr int G_R1W = G_R0B + RIG_W;
+constexpr int G_R1B = G_R1W + RIG_W * RIG_W;
+constexpr int G_ROW = G_R1B + RIG_W;
+constexpr int G_ROB = G_ROW + RIG_W * BEND_WPAD;
+constexpr int BEND_GRAD_FLOATS = G_ROB + BEND_WPAD;
+static_assert(BEND_GRAD_FLOATS == 17224, "pack-order layout");
+
+// What bounds it: latency, not bytes (552 B a point) or products (3 x
+// 16,896 padded MACs a point). BB_WORKERS warpgroups a CTA, each on tiles
+// of its own, with everything of a tile in its shared memory. Per tile:
+// - the forward, `bender_rows` (rows 7 and 9's device code), into four bh
+//   tiles, rh0, rh1, lat; the offsets and bent points as row 7's encoders;
+// - on the CUDA cores: dbent (demb folded onto the coordinates, two threads
+//   a row), doff_t and drig_raw a row, the rigidity's backward (32 lanes:
+//   g_row, drh1, g_r1w, drh0 = drh1 @ r1w^T, g_r0w, dpts_rig) and dbh3 (3
+//   lanes);
+// - on wgmma: g_bow += bh3^T @ bf16(doff_t) (m64n8k16, while the rigidity's
+//   backward runs); for l = 3, 2, 1, one commit group: g_blw += bh_{l-1}^T @
+//   dbh_l (both operands MN-major from the point-major tiles, m64n64k16),
+//   g_blb += dbh_l^T @ [1] (m64n8k16: column sums), dbh_{l-1} = dbh_l @
+//   b_lw^T (B the forward image's rows of b_lw^T, MN-major), then
+//   bf16(dbh_{l-1} * (bh_{l-1} > 0)) over bh_{l-1}; for layer 0 g_b0l (lat
+//   in lanes 0 .. 31 of a 64-lane tile), g_b0b and g_b0p (dbh0^T @ [1,
+//   bf16(pts)]) and dlat = dbh0 @ b0l^T (B b0l's rows, the backward image's
+//   own part, m64n32k16);
+// - dpts on the CUDA cores.
+// The wgmma gradients stay in registers across the worker's tiles (an
+// array each, every product from its first float), the CUDA cores' in its
+// shared memory; at the end the CTA writes one partial (its workers' sums
+// added in order) and `mlp_reduce_kernel` sums the partials in ascending
+// order. No atomics: bit-equal on relaunch.
+
+constexpr int BB_WORKERS = 2;        // warpgroups a CTA, each on tiles of its own
+constexpr int BB_CTAS_PER_SM = 1;
+constexpr int BB_THREADS = 128 * BB_WORKERS;
+// the backward's image: the forward's, then b0l's rows (row i holds b0l[i,
+// :], K-major, 128-byte swizzle)
+constexpr uint32_t BIMG_B0L_ROWS = BEND_IMAGE_PAD;
+constexpr uint32_t BEND_BWD_IMAGE_BYTES = BIMG_B0L_ROWS + LAT_W * BEND_W * 2;
+constexpr uint32_t BB_NTILE_BYTES = 8 * ATOM_ROW_BYTES;   // a K-major B of 8 rows x 64 points
+// a worker's shared memory: lat, rh0 (64-byte swizzle), rh1 and drh1
+// (row-major), bh0 .. bh3 (then dbh3 .. dbh0 over them), lat in a 64-lane
+// tile, the B operands of the m64n8 products ([1, bf16(pts)] and
+// bf16(doff_t), rows 0 .. 3 and 0 .. 2 of 8), demb's rows of the tile, the
+// f32 values of its rows, the CUDA cores' gradient sums
+constexpr uint32_t BBW_LAT = 0;
+constexpr uint32_t BBW_RH0 = BBW_LAT + WG_ROWS * LAT_W * 2;
+constexpr uint32_t BBW_RH1 = BBW_RH0 + WG_ROWS * RIG_W * 2;
+constexpr uint32_t BBW_DRH = BBW_RH1 + WG_ROWS * RIG_W * 2;
+constexpr uint32_t BBW_BH = BBW_DRH + WG_ROWS * RIG_W * 2;
+constexpr uint32_t BBW_LAT64 = BBW_BH + 4 * WG_ATOM_BYTES;
+constexpr uint32_t BBW_BX = BBW_LAT64 + WG_ATOM_BYTES;
+constexpr uint32_t BBW_BD = BBW_BX + BB_NTILE_BYTES;
+constexpr uint32_t BBW_DEMB = BBW_BD + BB_NTILE_BYTES;   // demb's 64 rows, f32
+constexpr uint32_t BBW_ROWS = BBW_DEMB + WG_ROWS * EMB * 4;
+// f32 values of the rows (floats from BBW_ROWS): x, off, dbent, doff_t,
+// dpts_rig (64 x 3 each), t, rig0, drig_raw (64 each)
+constexpr int BR_X = 0, BR_OFF = 192, BR_DBENT = 384, BR_DOFFT = 576, BR_DPRIG = 768,
+              BR_TH = 960, BR_RIG = 1024, BR_DRIG = 1088, BR_FLOATS = 1152;
+// the sums kept in shared memory (floats from BBW_SG): r0w (3, 32), r0b,
+// r1w (32, 32), r1b, row (32), rob (an f64; the CUDA cores'); b0b .. b3b (64 each),
+// b0p (3, 64), bow (64, 3) (the m64n8 products', added tile by tile)
+constexpr int SG_R0W = 0, SG_R0B = 96, SG_R1W = 128, SG_R1B = 1152, SG_ROW = 1184,
+              SG_ROB = 1216, SG_BB = 1220, SG_B0P = 1476, SG_BOW = 1668, SG_FLOATS = 1860;
+constexpr uint32_t BBW_SG = BBW_ROWS + BR_FLOATS * 4;
+constexpr uint32_t BB_WORKER_BYTES = (BBW_SG + SG_FLOATS * 4 + 1023) / 1024 * 1024;
+constexpr size_t BB_SMEM_BYTES = SMEM_ALIGN + BEND_BWD_IMAGE_BYTES + BB_WORKERS * BB_WORKER_BYTES;
+static_assert(BEND_BWD_IMAGE_BYTES % 1024 == 0 && BBW_RH0 % 512 == 0 && BBW_BH % 1024 == 0 &&
+                  BBW_LAT64 % 1024 == 0 && BBW_BX % 1024 == 0 && BBW_BD % 1024 == 0,
+              "the swizzled tiles on their atoms' alignment");
+static_assert(BB_SMEM_BYTES <= SMEM_LIMIT && BB_CTAS_PER_SM * (BB_SMEM_BYTES + 1024) <= SM_SMEM,
+              "row 8's CTAs fit an SM");
+static_assert((BBW_SG + SG_ROB * 4) % 8 == 0 && SG_ROB + 2 <= SG_BB, "rob's f64 sum");
+
+// where the worker's CUDA-core sum i goes in the pack-order layout
+__device__ __forceinline__ int bend_sg_offset(int i) {
+  if (i < SG_R0B) return G_R0W + (i - SG_R0W);
+  if (i < SG_R1W) return G_R0B + (i - SG_R0B);
+  if (i < SG_R1B) return G_R1W + (i - SG_R1W);
+  if (i < SG_ROW) return G_R1B + (i - SG_R1B);
+  if (i < SG_ROB) return G_ROW + (i - SG_ROW) * BEND_WPAD;
+  if (i == SG_ROB) return G_ROB;
+  if (i < SG_BB) return -1;   // padding
+  if (i < SG_B0P) {
+    const int l = (i - SG_BB) / BEND_W, c = (i - SG_BB) % BEND_W;
+    return (l == 0 ? G_B0B : l == 1 ? G_B1B : l == 2 ? G_B2B : G_B3B) + c;
+  }
+  if (i < SG_BOW) return G_B0P + (i - SG_B0P);
+  return G_BOW + ((i - SG_BOW) / 3) * BEND_WPAD + (i - SG_BOW) % 3;
+}
+
+// an element of a bf16 tile in shared memory (a generic pointer: the
+// compiler may batch these loads, which the barriers order)
+__device__ __forceinline__ float bf16_at(const unsigned char* p) {
+  return __bfloat162float(*reinterpret_cast<const bf16*>(p));
+}
+
+// acc's values are dead: zero them, so that the compiler keeps no registers
+// for them between products (a product's first k-step reads them)
+__device__ __forceinline__ void clear_acc(float (&acc)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+}
+
+// One bending layer back, l = 3, 2, 1, in one commit group: gw += act^T @ g
+// (act = bh_{l-1}, g = dbh_l, both MN-major), the tile's g^T @ bx (column 0
+// of bx is ones: the bias gradient, added to sgb[0 .. 63]), acc = g @ W^T
+// (w: b_lw's rows of the forward image, MN-major). Every warp's part of the
+// products reads all of act's rows, so a barrier passes before dbh_{l-1} =
+// bf16(acc * (bh_{l-1} > 0)) goes over bh_{l-1}, each thread its own
+// values; then another.
+__device__ __forceinline__ void bend_back_layer(float (&acc)[32], float (&gw)[32], float* sgb,
+                                                uint32_t act, uint32_t g, uint32_t w,
+                                                uint32_t bx, int bar, int t) {
+  float gb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  clear_acc(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < WG_ROWS / 16; ++kk) {
+    wgmma_m64n64_mn(gw, desc_mn_sw128(act + kk * 16 * ATOM_ROW_BYTES, WG_ATOM_BYTES),
+                    desc_mn_sw128(g + kk * 16 * ATOM_ROW_BYTES, WG_ATOM_BYTES), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < WG_ROWS / 16; ++kk) {
+    wgmma_m64n8_ta(gb, desc_mn_sw128(g + kk * 16 * ATOM_ROW_BYTES, WG_ATOM_BYTES),
+                   desc_sw128(bx + kk * 32), kk != 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < BEND_W / 16; ++kk) {
+    wgmma_m64n64_tb(acc, desc_sw128(g + kk * 32),
+                    desc_mn_sw128(w + kk * 16 * ATOM_ROW_BYTES, WG_ATOM_BYTES), kk != 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(gw);
+  fence_acc(gb);
+  fence_acc(acc);
+  const int lane = t % 32;
+  const int rw = (t / 32) * 16 + lane / 4;
+  const int q = lane % 4;
+  if (q == 0) {   // column 0: rows rw, rw + 8
+    sgb[rw] += gb[0];
+    sgb[rw + 8] += gb[2];
+  }
+  bar_sync128(bar);   // every warp's products have read act
+#pragma unroll
+  for (int j = 0; j < BEND_W / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t a = act + tile_offset(rw + 8 * h, 8 * j + 2 * q);
+      const uint32_t m = ld_shared32(a);
+      st_shared32(a, pack_bf16(bf16_lo(m) > 0.0f ? acc[4 * j + 2 * h] : 0.0f,
+                               bf16_hi(m) > 0.0f ? acc[4 * j + 2 * h + 1] : 0.0f));
+    }
+  }
+  fence_proxy_async();
+  bar_sync128(bar);
+}
+
+__global__ void __launch_bounds__(BB_THREADS, BB_CTAS_PER_SM)
+bend_bwd_sm90_kernel(const BendWeights bw, const float* __restrict__ pts,
+                     const float* __restrict__ lat, const float* __restrict__ demb,
+                     const float* __restrict__ doff, const float* __restrict__ drig, int n,
+                     int n_blocks, float* __restrict__ partials, float* __restrict__ dpts,
+                     float* __restrict__ dlat) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_smem(smem_raw);
+  const uint32_t img = smem_u32(base);
+  const unsigned char* imgp = base;
+  const int wid = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  unsigned char* wb = base + BEND_BWD_IMAGE_BYTES + wid * BB_WORKER_BYTES;
+  const uint32_t ws = smem_u32(wb);
+  const uint32_t lat_t = ws + BBW_LAT, lat64 = ws + BBW_LAT64;
+  const uint32_t bh0 = ws + BBW_BH, bh1 = bh0 + WG_ATOM_BYTES, bh2 = bh1 + WG_ATOM_BYTES,
+                 bh3 = bh2 + WG_ATOM_BYTES;
+  const uint32_t bx = ws + BBW_BX, bd = ws + BBW_BD;
+  const unsigned char* rh0p = wb + BBW_RH0;   // 64-byte swizzle
+  const bf16* rh1p = reinterpret_cast<const bf16*>(wb + BBW_RH1);   // row-major (64, 32)
+  bf16* drhp = reinterpret_cast<bf16*>(wb + BBW_DRH);
+  float* rf = reinterpret_cast<float*>(wb + BBW_ROWS);
+  float* sg = reinterpret_cast<float*>(wb + BBW_SG);
+
+  stage_bend_image(img, bw, true, threadIdx.x, BB_THREADS);
+  // the worker's constant parts: lanes 32 .. 63 of lat64, bx's row 0 (ones)
+  // and rows 4 .. 7, bd's rows 3 .. 7 (zero); its sums
+  for (int i = t; i < WG_ROWS * 4; i += 128) {
+    st_shared16(lat64 + tile_offset(i / 4, LAT_W + (i % 4) * 8), make_uint4(0u, 0u, 0u, 0u));
+  }
+  for (int i = t; i < 8 * 8; i += 128) {   // 16-byte pieces of the 8-row tiles' rows
+    const int row = i / 8, piece = i % 8;
+    const uint32_t one = row == 0 ? 0x3F803F80u : 0u;
+    if (row == 0 || row >= 4) st_shared16(bx + row * ATOM_ROW_BYTES + piece * 16, make_uint4(one, one, one, one));
+    if (row >= 3) st_shared16(bd + row * ATOM_ROW_BYTES + piece * 16, make_uint4(0u, 0u, 0u, 0u));
+  }
+  for (int i = t; i < SG_FLOATS; i += 128) sg[i] = 0.0f;
+  fence_proxy_async();
+  __syncthreads();
+
+  float acc[32];
+  float gw3[32], gw2[32], gw1[32], gl[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) gw3[i] = gw2[i] = gw1[i] = gl[i] = 0.0f;
+  const int bar = BAR_WG0 + wid;
+  const int lane = t % 32;
+  const int rw = (t / 32) * 16 + lane / 4;   // the accumulators' first row (of 64)
+  const int q = lane % 4;
+  const long worker = long(blockIdx.x) * BB_WORKERS + wid;
+  const long workers = long(gridDim.x) * BB_WORKERS;
+
+#pragma unroll 1
+  for (long b = worker; b < n_blocks; b += workers) {
+    const long row0 = b * WG_ROWS;
+    const long left = long(n) - row0;
+    const int rows = int(left < WG_ROWS ? left : WG_ROWS);
+    // demb's rows of the tile into the worker's staging tile (cp.async,
+    // zero past n): the cosine loop below reads them there
+#pragma unroll
+    for (int i = t; i < WG_ROWS * EMB / 4; i += 128) {
+      const int r = i / (EMB / 4);
+      const bool valid = r < rows;
+      cp_async16_zfill(ws + BBW_DEMB + 16 * i,
+                       valid ? demb + size_t(row0 + r) * EMB + (i % (EMB / 4)) * 4 : demb, valid);
+    }
+    cp_async_commit();
+    clear_acc(acc);
+    // ---- the forward, as rows 7 and 9 run it
+    bender_rows<BendLayout<BBW_RH0 - BBW_LAT, BBW_RH1 - BBW_LAT, BBW_BH - BBW_LAT,
+                           WG_ATOM_BYTES>>(acc, img, GlobalBendRows{pts, lat, row0, n}, lat_t,
+                                           bh3, bar, t,
+                [&](int r, float th, float rig0) {
+                  rf[BR_TH + r] = th;
+                  rf[BR_RIG + r] = rig0;
+                },
+                [] {});
+    // the points (f32, and bf16 into rows 1 .. 3 of bx), the offsets; lat
+    // into lanes 0 .. 31 of lat64 (thread t: row t / 2, 16 lanes)
+#pragma unroll 1
+    for (int p = t; p < WG_ROWS * 3; p += 128) {
+      const int r = p / 3, j = p % 3;
+      const float x = r < rows ? __ldg(pts + size_t(row0) * 3 + p) : 0.0f;
+      rf[BR_X + p] = x;
+      rf[BR_OFF + p] = row_dot<BEND_W>(bh3, r, img + BIMG_BOWT + j * BEND_W * 2);
+      *reinterpret_cast<bf16*>(wb + BBW_BX + tile_offset(1 + j, r)) = __float2bfloat16(x);
+    }
+    {
+      const int r = t / 2, c = (t % 2) * 16;
+      st_shared16(lat64 + tile_offset(r, c), ld_shared16(lat_t + sw64_offset(r, c)));
+      st_shared16(lat64 + tile_offset(r, c + 8), ld_shared16(lat_t + sw64_offset(r, c + 8)));
+    }
+    cp_async_wait_all();
+    bar_sync128(bar);   // the offsets are written, demb's rows have landed
+    // ---- dbent: demb folded onto each coordinate, its own lane then its 20
+    // sine lanes in ascending order. First every term demb * cos(pre) *
+    // scale over its demb value (thread t: row t / 2, lanes 3 + 30 (t % 2)
+    // .. + 29, three cosines at a time), then thread t the sums of (row,
+    // coordinate) pairs t and t + 128, in order.
+    {
+      const int r = t / 2;
+      float* dr = reinterpret_cast<float*>(wb + BBW_DEMB) + r * EMB;
+      float bent[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        bent[j] = __fadd_rn(rf[BR_X + 3 * r + j], __fmul_rn(rf[BR_RIG + r], rf[BR_OFF + 3 * r + j]));
+      }
+#pragma unroll 1
+      for (int m = 10 * (t % 2); m < 10 * (t % 2) + 10; ++m) {
+        // lanes 3 + 3m + j: coordinate j times 2^(m / 2), a cosine lane (phase
+        // pi / 2) for odd m: the image's P and phase, computed
+        const float scale = __int_as_float((127 + m / 2) << 23);
+        const float phase = m & 1 ? HALF_PI : 0.0f;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const int c = 3 + 3 * m + j;
+          const float pre = __fadd_rn(__fmul_rn(bent[j], scale), phase);
+          dr[c] = __fmul_rn(__fmul_rn(dr[c], cosf(pre)), scale);
+        }
+      }
+    }
+    bar_sync128(bar);
+#pragma unroll 1
+    for (int p = t; p < WG_ROWS * 3; p += 128) {
+      const int r = p / 3, j = p % 3;
+      const float* dr = reinterpret_cast<const float*>(wb + BBW_DEMB) + r * EMB;
+      float s = dr[j];
+#pragma unroll
+      for (int m = 0; m < 20; ++m) s = __fadd_rn(s, dr[3 + 3 * m + j]);
+      rf[BR_DBENT + p] = s;   // zero past n: demb's rows are zero there
+    }
+    bar_sync128(bar);
+    // a row's doff_t = dbent * rig0 + doff (and bf16 into rows 0 .. 2 of
+    // bd) and drig_raw = (drig + dbent . off) * 0.5 * (1 - t^2), rounded as
+    // the JAX math rounds them
+    if (t < WG_ROWS) {
+      const int r = t;
+      const bool in = r < rows;
+      const float rig0 = rf[BR_RIG + r];
+      float drig0 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float db = rf[BR_DBENT + 3 * r + j];
+        const float dof = in ? __ldg(doff + size_t(row0 + r) * 3 + j) : 0.0f;
+        const float dt = __fadd_rn(__fmul_rn(db, rig0), dof);
+        rf[BR_DOFFT + 3 * r + j] = dt;
+        *reinterpret_cast<bf16*>(wb + BBW_BD + tile_offset(j, r)) = __float2bfloat16(dt);
+        drig0 = __fadd_rn(drig0, __fmul_rn(db, rf[BR_OFF + 3 * r + j]));
+      }
+      const float d = __fadd_rn(in ? __ldg(drig + row0 + r) : 0.0f, drig0);
+      const float th = rf[BR_TH + r];
+      rf[BR_DRIG + r] = __fmul_rn(__fmul_rn(d, 0.5f), __fsub_rn(1.0f, __fmul_rn(th, th)));
+    }
+    fence_proxy_async();
+    bar_sync128(bar);
+    // ---- g_bow += bh3^T @ bf16(doff_t) on wgmma, while the rigidity's
+    // backward runs on the CUDA cores
+    float gbow[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WG_ROWS / 16; ++kk) {
+      wgmma_m64n8_ta(gbow, desc_mn_sw128(bh3 + kk * 16 * ATOM_ROW_BYTES, WG_ATOM_BYTES),
+                     desc_sw128(bd + kk * 32), kk != 0);
+    }
+    wgmma_commit();
+    // g_row, g_rob; drh1 = bf16((bf16(drig_raw) x row) * (rh1 > 0)) (thread
+    // t: row t / 2, lanes (t % 2) * 16 .. + 15)
+    if (t < RIG_W) {
+      float s = 0.0f;
+#pragma unroll 8
+      for (int r = 0; r < WG_ROWS; ++r) {
+        s += __bfloat162float(rh1p[r * RIG_W + t]) * round_bf16(rf[BR_DRIG + r]);
+      }
+      sg[SG_ROW + t] += s;
+    } else if (t == RIG_W) {
+      // rob: a sum of every point's drig_raw, which cancel; in f64
+      double s = 0.0;
+      for (int r = 0; r < WG_ROWS; ++r) s += double(rf[BR_DRIG + r]);
+      *reinterpret_cast<double*>(sg + SG_ROB) += s;
+    }
+    {
+      const int r = t / 2;
+      const float d = round_bf16(rf[BR_DRIG + r]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = (t % 2) * 16 + 8 * h;
+        const uint4 mv = *reinterpret_cast<const uint4*>(rh1p + r * RIG_W + c);
+        const uint4 wv = *reinterpret_cast<const uint4*>(imgp + BIMG_ROWT + c * 2);
+        const uint32_t mp[4] = {mv.x, mv.y, mv.z, mv.w};
+        const uint32_t wp[4] = {wv.x, wv.y, wv.z, wv.w};
+        uint32_t o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          o[e] = pack_bf16(bf16_lo(mp[e]) > 0.0f ? d * bf16_lo(wp[e]) : 0.0f,
+                           bf16_hi(mp[e]) > 0.0f ? d * bf16_hi(wp[e]) : 0.0f);
+        }
+        *reinterpret_cast<uint4*>(drhp + r * RIG_W + c) = make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
+    bar_sync128(bar);
+    // g_r1w[k][c] += sum_r rh0[r][k] drh1[r][c] (thread t: k = t / 4, c =
+    // (t % 4) * 8 .. + 7); g_r1b
+    {
+      const int k = t / 4, c0 = (t % 4) * 8;
+      float s[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 8
+      for (int r = 0; r < WG_ROWS; ++r) {
+        const float a = bf16_at(rh0p + sw64_offset(r, k));
+        const uint4 dv = *reinterpret_cast<const uint4*>(drhp + r * RIG_W + c0);
+        const uint32_t dp[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[2 * e] += a * bf16_lo(dp[e]);
+          s[2 * e + 1] += a * bf16_hi(dp[e]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sg[SG_R1W + k * RIG_W + c0 + e] += s[e];
+      if (t < RIG_W) {
+        float sb = 0.0f;
+#pragma unroll 8
+        for (int r = 0; r < WG_ROWS; ++r) sb += __bfloat162float(drhp[r * RIG_W + t]);
+        sg[SG_R1B + t] += sb;
+      }
+    }
+    bar_sync128(bar);
+    // drh0 = bf16((drh1 @ r1w^T) * (rh0 > 0)) over rh0 (thread t: row t / 2,
+    // lanes (t % 2) * 16 .. + 15, 8 at a time; r1w^T's rows are the image's
+    // r1w rows)
+    {
+      const int r = t / 2;
+#pragma unroll 1
+      for (int h = 0; h < 2; ++h) {
+        const int i0 = (t % 2) * 16 + 8 * h;
+        float s[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 1
+        for (int o8 = 0; o8 < RIG_W / 8; ++o8) {
+          const uint4 dv = *reinterpret_cast<const uint4*>(drhp + r * RIG_W + o8 * 8);
+          const uint32_t dp[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float d = e % 2 ? bf16_hi(dp[e / 2]) : bf16_lo(dp[e / 2]);
+            const uint4 wv =
+                *reinterpret_cast<const uint4*>(imgp + BIMG_R1W + sw64_offset(o8 * 8 + e, i0));
+            const uint32_t wp[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+            for (int f = 0; f < 4; ++f) {
+              s[2 * f] += d * bf16_lo(wp[f]);
+              s[2 * f + 1] += d * bf16_hi(wp[f]);
+            }
+          }
+        }
+        uint4* a = reinterpret_cast<uint4*>(wb + BBW_RH0 + sw64_offset(r, i0));
+        const uint4 mv = *a;
+        const uint32_t mp[4] = {mv.x, mv.y, mv.z, mv.w};
+        uint32_t o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          o[e] = pack_bf16(bf16_lo(mp[e]) > 0.0f ? s[2 * e] : 0.0f,
+                           bf16_hi(mp[e]) > 0.0f ? s[2 * e + 1] : 0.0f);
+        }
+        *a = make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
+    bar_sync128(bar);
+    // g_r0w (threads 0 .. 95: j = t / 32, c = t % 32), g_r0b (96 .. 127);
+    // dpts_rig = drh0 @ r0w^T (pairs)
+    if (t < 3 * RIG_W) {
+      const int j = t / RIG_W, c = t % RIG_W;
+      float s = 0.0f;
+#pragma unroll 8
+      for (int r = 0; r < WG_ROWS; ++r) {
+        s += round_bf16(rf[BR_X + 3 * r + j]) * bf16_at(rh0p + sw64_offset(r, c));
+      }
+      sg[SG_R0W + j * RIG_W + c] += s;
+    } else {
+      const int c = t - 3 * RIG_W;
+      float s = 0.0f;
+#pragma unroll 8
+      for (int r = 0; r < WG_ROWS; ++r) s += bf16_at(rh0p + sw64_offset(r, c));
+      sg[SG_R0B + c] += s;
+    }
+#pragma unroll 1
+    for (int p = t; p < WG_ROWS * 3; p += 128) {
+      const int r = p / 3, j = p % 3;
+      float s = 0.0f;
+#pragma unroll
+      for (int c8 = 0; c8 < RIG_W / 8; ++c8) {
+        const uint4 av = *reinterpret_cast<const uint4*>(rh0p + sw64_offset(r, c8 * 8));
+        const uint4 wv = *reinterpret_cast<const uint4*>(imgp + BIMG_R0W + 2 * (j * RIG_W + c8 * 8));
+        const uint32_t ap[4] = {av.x, av.y, av.z, av.w};
+        const uint32_t wp[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s += bf16_lo(ap[e]) * bf16_lo(wp[e]);
+          s += bf16_hi(ap[e]) * bf16_hi(wp[e]);
+        }
+      }
+      rf[BR_DPRIG + p] = s;
+    }
+    // ---- g_bow's products are done (every warp's: they read all of bh3);
+    // then dbh3 = bf16((bf16(doff_t) @ bow^T) * (bh3 > 0)) over bh3 (thread
+    // t: row t / 2, lanes (t % 2) * 32 .. + 31)
+    wgmma_wait<0>();
+    fence_acc(gbow);
+    if (q < 2) {   // columns 2q, 2q + 1 = j of rows rw, rw + 8
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sg[SG_BOW + (rw + 8 * h) * 3 + 2 * q] += gbow[2 * h];
+        if (q == 0) sg[SG_BOW + (rw + 8 * h) * 3 + 1] += gbow[2 * h + 1];
+      }
+    }
+    bar_sync128(bar);
+    {
+      const int r = t / 2;
+      float db[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) db[j] = round_bf16(rf[BR_DOFFT + 3 * r + j]);
+      const bf16* bowt = reinterpret_cast<const bf16*>(imgp + BIMG_BOWT);
+#pragma unroll 1
+      for (int pc = 0; pc < 4; ++pc) {
+        const int c0 = (t % 2) * 32 + pc * 8;
+        uint4* a = reinterpret_cast<uint4*>(wb + BBW_BH + 3 * WG_ATOM_BYTES + tile_offset(r, c0));
+        const uint4 mv = *a;
+        const uint32_t mp[4] = {mv.x, mv.y, mv.z, mv.w};
+        uint32_t o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v[2];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int c = c0 + 2 * e + hh;
+            float s = 0.0f;
+#pragma unroll
+            for (int j = 0; j < 3; ++j) s += db[j] * __bfloat162float(bowt[j * BEND_W + c]);
+            v[hh] = s;
+          }
+          o[e] = pack_bf16(bf16_lo(mp[e]) > 0.0f ? v[0] : 0.0f,
+                           bf16_hi(mp[e]) > 0.0f ? v[1] : 0.0f);
+        }
+        *a = make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
+    fence_proxy_async();
+    bar_sync128(bar);
+    // ---- the bending layers back on wgmma
+    bend_back_layer(acc, gw3, sg + SG_BB + 3 * BEND_W, bh2, bh3,
+                    img + BIMG_BW + 2 * BEND_W * BEND_W * 2, bx, bar, t);
+    bend_back_layer(acc, gw2, sg + SG_BB + 2 * BEND_W, bh1, bh2,
+                    img + BIMG_BW + BEND_W * BEND_W * 2, bx, bar, t);
+    bend_back_layer(acc, gw1, sg + SG_BB + BEND_W, bh0, bh1, img + BIMG_BW, bx, bar, t);
+    // layer 0: g_b0l += lat64^T @ dbh0; g_b0b and g_b0p^T += dbh0^T @ [1,
+    // bf16(pts)]; dlat = dbh0 @ b0l^T
+    float gb0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    clear_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WG_ROWS / 16; ++kk) {
+      wgmma_m64n64_mn(gl, desc_mn_sw128(lat64 + kk * 16 * ATOM_ROW_BYTES, WG_ATOM_BYTES),
+                      desc_mn_sw128(bh0 + kk * 16 * ATOM_ROW_BYTES, WG_ATOM_BYTES), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < WG_ROWS / 16; ++kk) {
+      wgmma_m64n8_ta(gb0, desc_mn_sw128(bh0 + kk * 16 * ATOM_ROW_BYTES, WG_ATOM_BYTES),
+                     desc_sw128(bx + kk * 32), kk != 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BEND_W / 16; ++kk) {
+      wgmma_m64n32(acc, desc_sw128(bh0 + kk * 32), desc_sw128(img + BIMG_B0L_ROWS + kk * 32),
+                   kk != 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(gl);
+    fence_acc(gb0);
+    fence_acc<16>(acc);
+    // columns 2q, 2q + 1 of rows rw, rw + 8: column 0 g_b0b, 1 .. 3 g_b0p^T
+    if (q < 2) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 2 * q + e, row = rw + 8 * h;
+          sg[col == 0 ? SG_BB + row : SG_B0P + (col - 1) * BEND_W + row] += gb0[2 * h + e];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < LAT_W / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = rw + 8 * h;
+        if (row < rows) {
+          *reinterpret_cast<float2*>(dlat + size_t(row0 + row) * LAT_W + 8 * j + 2 * q) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+    // dpts = (dbent + dpts_rig) + dbh0 @ b0p^T (pairs, rows below n)
+#pragma unroll 1
+    for (int p = t; p < WG_ROWS * 3; p += 128) {
+      const int r = p / 3, j = p % 3;
+      if (r >= rows) break;
+      const float s = row_dot<BEND_W>(bh0, r, img + BIMG_B0P + j * BEND_W * 2);
+      dpts[size_t(row0) * 3 + p] = __fadd_rn(__fadd_rn(rf[BR_DBENT + p], rf[BR_DPRIG + p]), s);
+    }
+  }
+
+  // ---- the CTA's partial: zeroed, then each worker's sums added in order
+  __syncthreads();
+  float* out = partials + size_t(blockIdx.x) * BEND_GRAD_FLOATS;
+  for (int i = threadIdx.x; i < BEND_GRAD_FLOATS; i += BB_THREADS) out[i] = 0.0f;
+  __syncthreads();
+#pragma unroll 1
+  for (int w = 0; w < BB_WORKERS; ++w) {
+    if (wid == w) {
+#pragma unroll
+      for (int j = 0; j < BEND_W / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int row = rw + 8 * h, col = 8 * j + 2 * q + e, a = 4 * j + 2 * h + e;
+            out[G_B3W + row * BEND_W + col] += gw3[a];
+            out[G_B2W + row * BEND_W + col] += gw2[a];
+            out[G_B1W + row * BEND_W + col] += gw1[a];
+            if (row < LAT_W) out[G_B0L + row * BEND_W + col] += gl[a];
+          }
+        }
+      }
+      for (int i = t; i < SG_FLOATS; i += 128) {
+        const int o = bend_sg_offset(i);
+        if (o >= 0 && i != SG_ROB) out[o] += sg[i];
+      }
+      if (t == 0) out[G_ROB] += float(*reinterpret_cast<const double*>(sg + SG_ROB));
+    }
+    __syncthreads();
+  }
+}
+
+// the CTAs of row 8's kernel for n points: one partial gradient each
+inline int bend_bwd_grid(int n) {
+  return bend_grid((n + WG_ROWS - 1) / WG_ROWS, BB_WORKERS, BB_CTAS_PER_SM);
+}
+
+// The bender's backward on `stream`: bend_bwd_sm90_kernel's partials, then
+// their fixed-order sum into grads (BEND_GRAD_FLOATS f32, pack order).
+// weights: the 18 cast bender weights (BendWeights), which the kernel stages
+// as the backward image (pack_bend_image(bw, backward=True)); partials:
+// bend_bwd_grid(n) * BEND_GRAD_FLOATS f32.
+// Returns the CUDA error code of the first failing call (0 on success).
+inline int launch_bend_backward(const void* const* weights, const float* pts, const float* lat,
+                                const float* demb, const float* doff, const float* drig,
+                                int n, float* partials, float* dpts, float* dlat,
+                                float* grads, cudaStream_t stream) {
+  if (n <= 0) return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(bend_bwd_sm90_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(BB_SMEM_BYTES));
+  if (err != cudaSuccess) return int(err);
+  BendWeights bw;
+  for (int i = 0; i < 18; ++i) bw.w[i] = weights[i];
+  const int grid = bend_bwd_grid(n);
+  bend_bwd_sm90_kernel<<<grid, BB_THREADS, BB_SMEM_BYTES, stream>>>(
+      bw, pts, lat, demb, doff, drig, n,
+      (n + WG_ROWS - 1) / WG_ROWS, partials, dpts, dlat);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  mlp_reduce_kernel<<<(BEND_GRAD_FLOATS + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS,
+                      0, stream>>>(partials, grid, BEND_GRAD_FLOATS, grads);
+  return int(cudaGetLastError());
 }
 
 }  // namespace sm90

@@ -1,17 +1,9 @@
-// Shared device code of the kernels that keep the first design: the
-// deformation field's (bend_tile.cuh, for bend_fwd.cu, bend_bwd.cu and
-// fused_bwd.cu's pre-pass), and what every backward shares besides its chain
-// (mlp_bwd.cu, mlpe_bwd.cu, mlpv_bwd.cu, fused_bwd.cu): the single-head
-// gradient layout, the buffer sizes and the fixed-order reduction over the
-// splits. Every chain of the canonical MLP runs on wgmma, csrc/mlp_sm90.cuh.
-//
-// - the tile: one CTA of 8 warps owns 128 points, warp w rows w*16 .. +16 of
-//   each tile in shared memory; products on warp-level bf16 tensor-core MMA
-//   (nvcuda::wmma 16x16x16) with f32 accumulators (`for_each_run` hands a
-//   warp's fragments out through a scratch of 16 x 16 floats per warp);
-// - the 64-lane Fourier encoding of the bent points (`encoding_lane`);
-// - the reduction: the sum of each output element over the splits' partial
-//   gradients, in ascending order of the splits.
+// What every backward of the canonical MLP shares besides its chain
+// (mlp_bwd.cu, mlpe_bwd.cu, mlpv_bwd.cu, fused_bwd.cu): the widths, the
+// single-head gradient layout, the buffer sizes, and the fixed-order
+// reduction over the splits (mlp_sm90.cuh's `mlp_reduce_kernel`, the sum of
+// each output element over the splits' partial gradients in ascending order
+// of the splits). Every kernel runs on csrc/mlp_sm90.cuh.
 //
 // No atomics anywhere: the same inputs give bit-equal outputs.
 
@@ -19,15 +11,15 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "mlp_sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
-constexpr int TM = 128;        // points per CTA
+constexpr int TM = 128;        // points per tile
 constexpr int NW = 256;        // hidden width
 constexpr int EMB = 64;        // encoding width (63 channels + 1 zero lane)
 constexpr int EMB_TC = 128;    // time-conditioned input width (63 + 32 + 33 zero lanes)
@@ -35,67 +27,16 @@ constexpr int VEMB = 32;       // view-encoding width (27 channels + 5 zero lane
 constexpr int VW = 128;        // width of the view-conditioned layer
 constexpr int OUT = 8;         // head width (4 lanes used)
 constexpr int KC = 64;         // lanes of a k-atom (mlp_sm90.cuh's chunks)
-constexpr int THREADS = 256;   // 8 warps
+constexpr int THREADS = 256;   // the reduction's block
 constexpr int N_LAYERS = 8;
 constexpr int SPLIT_ROWS = 2048;   // points per split of the dW products
-constexpr size_t WSCR_BYTES = size_t(THREADS / 32) * 16 * 16 * sizeof(float);
-constexpr size_t SMEM_LIMIT = 232448;   // what one Hopper CTA can use
+static_assert(THREADS == sm90::REDUCE_THREADS, "the reduction's block");
 
-using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// Hand the warp's fragments out in runs of 8 values: f(row, col, v) gets the
-// row within the tile, the first of 8 consecutive columns within the
-// chunk's 16*NJ output columns, and the 8 f32 values.
-template <int NJ, class F>
-__device__ __forceinline__ void for_each_run(AccFrag (&acc)[NJ], float* wscr, int warp,
-                                             int lane, F&& f) {
-  const int er = lane / 2;
-  const int ec = (lane % 2) * 8;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    wmma::store_matrix_sync(wscr, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    f(warp * 16 + er, j * 16 + ec, wscr + er * 16 + ec);
-    __syncwarp();
-  }
-}
-
-// grads[i] = sum over the splits, in ascending order, of partials[s][i]
-__global__ void __launch_bounds__(THREADS)
-mlp_reduce_kernel(const float* __restrict__ partials, int n_splits, int grad_floats,
-                  float* __restrict__ grads) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= grad_floats) return;
-  float s = 0.0f;
-  for (int k = 0; k < n_splits; ++k) s += partials[size_t(k) * grad_floats + i];
-  grads[i] = s;
-}
+using sm90::mlp_reduce_kernel;
 
 inline long padded_rows(int n) { return (long(n) + TM - 1) / TM * TM; }
 inline int split_count(int n) {
   return int((padded_rows(n) + SPLIT_ROWS - 1) / SPLIT_ROWS);
-}
-
-// ---- the Fourier encoding of the bent points (bend_tile.cuh)
-//
-// Lane c of the 64-lane encoding of a point x (3 f32), multires 10:
-//   c < 3:        x[c]
-//   3 <= c < 63:  sin(x[j] * 2^k + phase), k = (c - 3) / 6, j = (c - 3) % 3,
-//                 phase = pi/2 on the cosine lanes ((c - 3) % 6 >= 3), else 0
-//   c == 63:      0 (the pad lane)
-// x[j] * 2^k is exact, the sum with the phase is one f32 rounding, and the
-// sine is sinf (the arguments reach 2^9 |x|: no fast-math intrinsic).
-
-constexpr int PTS = 3;                          // coordinates per point
-constexpr float HALF_PI = 1.57079632679489661923f;   // float32(pi / 2)
-
-// lanes 3 .. 62: the coordinate, the frequency and the phase of lane c
-__device__ __forceinline__ void encoding_lane(int c, int& j, float& scale,
-                                              float& phase) {
-  const int rem = (c - 3) % 6;
-  j = rem % 3;
-  scale = float(1 << ((c - 3) / 6));
-  phase = rem >= 3 ? HALF_PI : 0.0f;
 }
 
 // ---- what the single-head backward kernels share (mlp_bwd.cu, mlpe_bwd.cu,

@@ -13,8 +13,10 @@ Counterpart of the Pallas kernel `_fused_core_bwd` / `_bwd_kernel`
 - `fused_bwd_plain` is `mlp_bwd_plain` on the recomputed bf16 encoding, then
   `bend_bwd_plain` on its demb: on the CPU the monolith and the split variant
   run the same arithmetic, and on the card the two share their device code
-  (csrc/bend_tile.cuh's bender, row 2's kernels on csrc/mlp_sm90.cuh, which
-  read row 2's weight image, `mlp_sm90.pack_chain_image(mw, ("fwd",
+  (rows 7 and 8's kernels on csrc/mlp_sm90.cuh, which stage the bender's
+  image, `mlp_sm90.pack_bend_image`'s layout, and b0l's rows,
+  `mlp_sm90.bend_b0l_rows`, from the weights; row 2's,
+  which read row 2's weight image, `mlp_sm90.pack_chain_image(mw, ("fwd",
   "bwd"))`), so the two variants agree bit for bit in value and gradient, as
   the JAX package holds them (tests/test_fused_kernel.py:397-419).
 - `FusedCore.apply(pts, lat, *packed)`: forward `fused_fwd`, backward
@@ -39,7 +41,7 @@ from nonrigid_nerf_torch.ops.kernels.bend_bwd import (
     BEND_BWD_MACS_PER_POINT, BEND_BWD_NAMES, BEND_GRAD_FLOATS,
     BEND_GRAD_SHAPES, bend_bwd_plain, check_cotangents)
 from nonrigid_nerf_torch.ops.kernels.bend_fwd import (
-    LAT, N_BEND_W, bend_fwd_plain, bend_pointers, kernel_inputs)
+    LAT, N_BEND_W, bend_fwd_plain, bend_weight_pointers, kernel_inputs)
 from nonrigid_nerf_torch.ops.kernels.build import load_kernel_library
 from nonrigid_nerf_torch.ops.kernels.fused_fwd import (
     N_FUSED_W, cast_fused_weights, check_fused_args, fused_fwd, mlp_pointers)
@@ -96,7 +98,7 @@ def fused_bwd(pts: torch.Tensor, lat: torch.Tensor, w: Sequence[torch.Tensor],
                          f"points per call, got {n}")
     pts, lat = kernel_inputs(pts, lat)
     draw, doff, drig = (t.float().contiguous() for t in (draw, doff, drig))
-    bmats, bbiases = bend_pointers(w[:N_BEND_W])
+    bend_weights = bend_weight_pointers(w[:N_BEND_W])
     mats, biases = mlp_pointers(w[N_BEND_W:])
     dpts = torch.empty((n, PTS), dtype=torch.float32, device=device)
     dlat = torch.empty((n, LAT), dtype=torch.float32, device=device)
@@ -124,7 +126,7 @@ def fused_bwd(pts: torch.Tensor, lat: torch.Tensor, w: Sequence[torch.Tensor],
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.nrnerf_fused_bwd(
             pts.data_ptr(), lat.data_ptr(), draw.data_ptr(), doff.data_ptr(),
-            drig.data_ptr(), n, bmats, bbiases, image.data_ptr(), mats, biases,
+            drig.data_ptr(), n, bend_weights, image.data_ptr(), mats, biases,
             scratch.data_ptr(), partials.data_ptr(), demb.data_ptr(),
             bend_partials.data_ptr(), dpts.data_ptr(), dlat.data_ptr(),
             grads.data_ptr(), bend_grads.data_ptr(), stream)
@@ -142,8 +144,8 @@ def _library() -> ctypes.CDLL:
     lib = load_kernel_library("fused_bwd.cu")
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     lib.nrnerf_fused_bwd.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int, ptrs, ptrs, ctypes.c_void_p, ptrs,
-                                 ptrs] + [ctypes.c_void_p] * 9)
+        [ctypes.c_void_p] * 5 + [ctypes.c_int, ptrs, ctypes.c_void_p, ptrs, ptrs]
+        + [ctypes.c_void_p] * 9)
     lib.nrnerf_fused_bwd.restype = ctypes.c_int
     lib.nrnerf_fused_bwd_sizes.argtypes = [
         ctypes.c_int] + [ctypes.POINTER(ctypes.c_longlong)] * 3

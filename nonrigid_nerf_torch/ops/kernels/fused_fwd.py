@@ -19,8 +19,9 @@ The kernel is row 1's chain (`mlp_sm90.cuh`) with the deformation field
 beside it (its products on the consumers' wgmma a tile ahead, the offsets
 and the encoding on the producer warpgroup's idle warps), so the wrapper
 passes row 1's weight image (`mlp_sm90.pack_chain_image(mw, ("fwd",))`)
-and the bender's (`mlp_sm90.pack_bend_image`: its weights, biases and the
-encoding's P and phase).
+and the 18 cast bender weights, which each CTA stages as the bender's image
+(`mlp_sm90.pack_bend_image`'s layout: its weights, biases and the
+encoding's P and phase), as rows 7, 8 and 10 do.
 """
 
 from __future__ import annotations
@@ -32,11 +33,10 @@ import torch
 
 from nonrigid_nerf_torch.ops.kernels import mlp_fwd as K
 from nonrigid_nerf_torch.ops.kernels.bend_fwd import (
-    BEND_TOL_OFF, BEND_TOL_RIG, N_BEND_W, bend_fwd_plain, bend_pointers,
-    cast_bend_weights, check_bend_args, kernel_inputs)
+    BEND_TOL_OFF, BEND_TOL_RIG, N_BEND_W, bend_fwd_plain, cast_bend_weights,
+    bend_weight_pointers, check_bend_args, kernel_inputs)
 from nonrigid_nerf_torch.ops.kernels.build import load_kernel_library
-from nonrigid_nerf_torch.ops.kernels.mlp_sm90 import (pack_bend_image,
-                                                      pack_chain_image)
+from nonrigid_nerf_torch.ops.kernels.mlp_sm90 import pack_chain_image
 from nonrigid_nerf_torch.ops.kernels.mlpe_fwd import PTS
 
 N_FUSED_W = N_BEND_W + K.N_MLP_W     # 37, the JAX tuple
@@ -120,7 +120,7 @@ def fused_fwd(pts: torch.Tensor, lat: torch.Tensor, w: Sequence[torch.Tensor]
     if pts.device.type != "cuda":
         raise ValueError(f"fused_fwd runs on cpu or cuda, not {pts.device}")
     pts, lat = kernel_inputs(pts, lat)
-    bend_pointers(w[:N_BEND_W])   # the checks
+    bend_weights = bend_weight_pointers(w[:N_BEND_W])
     mats, biases = mlp_pointers(w[N_BEND_W:])
     n, device = pts.shape[0], pts.device
     if n >= 2 ** 31:
@@ -131,12 +131,11 @@ def fused_fwd(pts: torch.Tensor, lat: torch.Tensor, w: Sequence[torch.Tensor]
     if n == 0:      # nothing to launch, nothing to count
         return raw, off, rig
     lib = _library()
-    bend_image = pack_bend_image(w[:N_BEND_W])
     image = pack_chain_image(w[N_BEND_W:], ("fwd",))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.nrnerf_fused_fwd(
-            pts.data_ptr(), lat.data_ptr(), n, bend_image.data_ptr(),
+            pts.data_ptr(), lat.data_ptr(), n, bend_weights,
             image.data_ptr(), mats, biases, raw.data_ptr(), off.data_ptr(),
             rig.data_ptr(), stream)
     if err != 0:
@@ -152,7 +151,7 @@ def _library() -> ctypes.CDLL:
     lib = load_kernel_library("fused_fwd.cu")
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     lib.nrnerf_fused_fwd.argtypes = (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ptrs,
          ctypes.c_void_p, ptrs, ptrs] + [ctypes.c_void_p] * 4)
     lib.nrnerf_fused_fwd.restype = ctypes.c_int
     return lib

@@ -37,10 +37,18 @@ its 16-byte pieces are permuted by XOR with the row's index mod 8.
   `quant_sym_i8`), which the CPU tests hold bit for bit against
   `mlp_i8_plain` up to h8.
 - `pack_bend_image`, `unpack_bend_image`, `kmajor_offset`, `bend_from_image`:
-  row 9's (`fused_fwd`) image of the bender (five K-major swizzled
-  matrices, the 3-lane weights' rows, the f32 biases, P and the phase,
-  34,064 B, staged once per CTA) and a reader of the deformation field from
-  it in the kernel's order.
+  the bender's image (five K-major swizzled matrices, the 3-lane weights'
+  rows, the f32 biases, P and the phase, 34,064 B, staged once per CTA;
+  which the CTAs of rows 7-10 stage from the 18 weights, row 8's with b0l's
+  rows after it at `BEND_IMAGE_PAD`) and a reader of the deformation field
+  from it in the kernels' order (`bender_rows`).
+- `bend_schedule`, `bend_fwd_rows_from_image`, `bend_b0l_rows`,
+  `bend_bwd_transposes`, `bend_bwd_from_image`: rows 7 and 8 (`bend_fwd`,
+  `bend_bwd`): the 64-point tiles each worker warpgroup walks, row 7's f32
+  rows and row 10's pre-pass's bf16 rows, b0l's rows that row 8 stages
+  after the image, the transposed B operands it reads, and its backward
+  read out of what it stages in the kernel's order (tiles, k-steps of 16,
+  the fixed-order sums).
 - `encoding_pieces`, `encode_tile`, `fold_tile`: the in-kernel encoding of
   `mlpe_fwd` and `mlpe_bwd` (one device function), written into the
   swizzled tile piece by piece by the threads that write it (`mlpe_fwd`'s 96
@@ -627,6 +635,12 @@ def bend_image_index() -> np.ndarray:
     return out
 
 
+# row 8's backward image: the forward image, zero up to BEND_IMAGE_PAD
+# elements (1024-byte aligned), then b0l's rows (row i holds b0l[i, :],
+# K-major, 64 lanes: the B operand of dlat = dbh0 @ b0l^T), as its CTAs
+# stage them from the weights
+BEND_IMAGE_PAD = 17408
+
 _BEND_INDEX: Dict[str, torch.Tensor] = {}
 
 
@@ -654,8 +668,9 @@ def pack_bend_image(bw: Sequence[torch.Tensor]) -> torch.Tensor:
     """The bender's image from its 18 cast weights (`cast_bend_weights`):
     b0l, b1w, b2w, b3w and r1w as K-major swizzled rows, the 3-lane weights'
     rows, then the f32 biases, P and the phase (`BEND_IMAGE_F32`, two bf16
-    elements a float); a flat bf16 tensor of 17,032 elements that
-    `fused_fwd`'s encoders copy into shared memory."""
+    elements a float); a flat bf16 tensor of 17,032 elements, the bytes the
+    kernels of rows 7-10 stage into shared memory from the weights
+    (`stage_bend_image` of `csrc/mlp_sm90.cuh`)."""
     flat = torch.cat([bw[i].reshape(-1) for i, *_ in BEND_IMAGE_MATS]
                      + [t.reshape(-1) for t in _bend_rows(bw)])
     f32 = torch.cat([t.float().reshape(-1) for t in _bend_f32(bw)])
@@ -676,7 +691,7 @@ def unpack_bend_image(image: torch.Tensor) -> Dict[str, torch.Tensor]:
         size = int(np.prod(shape))
         out[name] = flat[off:off + size].view(shape)
         off += size
-    f32 = image[BEND_BF16_ELEMS:].contiguous().view(torch.float32)
+    f32 = image[BEND_BF16_ELEMS:BEND_IMAGE_ELEMS].contiguous().view(torch.float32)
     for name, first, length in BEND_IMAGE_F32:
         out[name] = f32[first:first + length]
     out["P"] = out["P"].view(3, 64)
@@ -700,20 +715,15 @@ def _seq(terms) -> torch.Tensor:
     return s
 
 
-def bend_from_image(pts: torch.Tensor, lat: torch.Tensor, image: torch.Tensor):
-    """The deformation field as `FusedFwdIn` runs it, on 128-point tiles
-    (zero points and latents past n), everything it reads but the points and
-    latents read out of the bender's image: the products on the tensor cores
-    by k-steps of 16
-    (`_ksteps`), the 3-lane products as sequential f32 sums of exact
-    products (pts @ b0p and pts @ r0w over the 3 coordinates, bh3 @ bow over
-    64 lanes, rh1 @ row over 32), (pre + acc) + bias, ReLU, bf16; t = tanh,
-    rig = (t + 1) * 0.5, bent = x + rig * off. A row's arithmetic does not
-    depend on its 16-row block. Returns the f32 encoding of the bent points
-    (the kernel rounds it to bf16 as it writes the tile), the offsets (n, 3)
-    and the rigidity (n, 1); rows past n dropped."""
+def _bend_acts(pts: torch.Tensor, lat: torch.Tensor, im: Dict[str, torch.Tensor]):
+    """The deformation field's activations as `bender_rows` computes them, on
+    whole 128-point tiles (zero points and latents past n): the products by
+    k-steps of 16 (`_ksteps`), the 3-lane products as sequential f32 sums of
+    exact products (pts @ b0p and pts @ r0w over the 3 coordinates, bh3 @ bow
+    over 64 lanes, rh1 @ row over 32), (pre + acc) + bias, ReLU, bf16; t =
+    tanh, rig = (t + 1) * 0.5, bent = x + rig * off. A row's arithmetic does
+    not depend on its tile."""
     bf16 = torch.bfloat16
-    im = unpack_bend_image(image)
     b0l, b1w, b2w, b3w, r1w = (im[k] for k in ("b0l", "b1w", "b2w", "b3w", "r1w"))
     bowt, row, b0p, r0w = (im[k] for k in ("bowT", "row", "b0p", "r0w"))
     b0b, b1b, b2b, b3b, r0b, r1b, rob = (
@@ -723,10 +733,10 @@ def bend_from_image(pts: torch.Tensor, lat: torch.Tensor, image: torch.Tensor):
     xb = x.to(bf16).float()
     lb = _tiles(lat.float(), n).to(bf16)
     pre = _seq(xb[:, j:j + 1] * b0p[j].float() for j in range(3))
-    bh = torch.relu((pre + _ksteps(lb, b0l)) + b0b.float()).to(bf16)
+    bh = [torch.relu((pre + _ksteps(lb, b0l)) + b0b.float()).to(bf16)]
     for w, b in ((b1w, b1b), (b2w, b2b), (b3w, b3b)):
-        bh = torch.relu((0.0 + _ksteps(bh, w)) + b.float()).to(bf16)
-    off = torch.stack([_seq(bh[:, k].float() * bowt[j, k].float()
+        bh.append(torch.relu((0.0 + _ksteps(bh[-1], w)) + b.float()).to(bf16))
+    off = torch.stack([_seq(bh[3][:, k].float() * bowt[j, k].float()
                             for k in range(BEND_W)) for j in range(3)], dim=1)
     rs = _seq(xb[:, j:j + 1] * r0w[j].float() for j in range(3))
     rh0 = torch.relu(rs + r0b.float()).to(bf16)
@@ -735,10 +745,187 @@ def bend_from_image(pts: torch.Tensor, lat: torch.Tensor, image: torch.Tensor):
                         for k in range(RIG_W)) + rob[0])
     rig = (t + 1.0) * 0.5
     bent = x + rig[:, None] * off
-    P = im["P"]
+    return dict(x=x, xb=xb, lb=lb, bh=bh, rh0=rh0, rh1=rh1, t=t, rig=rig, off=off,
+                bent=bent)
+
+
+def bend_from_image(pts: torch.Tensor, lat: torch.Tensor, image: torch.Tensor):
+    """The deformation field as `bender_rows` runs it (`_bend_acts`),
+    everything it reads but the points and latents read out of the bender's
+    image. Returns the f32 encoding of the bent points (rows 9 and 10's
+    pre-pass round it to bf16 as they write it), the offsets (n, 3) and the
+    rigidity (n, 1); rows past n dropped."""
+    im = unpack_bend_image(image)
+    n = pts.shape[0]
+    a = _bend_acts(pts, lat, im)
+    bent, P = a["bent"], im["P"]
     pre_e = bent[:, 0:1] * P[0] + bent[:, 1:2] * P[1] + bent[:, 2:3] * P[2]
     emb = torch.where(torch.arange(EMB) < 3, pre_e, torch.sin(pre_e + im["phase"]))
-    return emb[:n], off[:n], rig[:n, None]
+    return emb[:n], a["off"][:n], a["rig"][:n, None]
+
+
+# ---- rows 7 and 8 (`bend_fwd`, `bend_bwd`; row 10's pre-pass and bender
+# backward): tiles of 64 points, each walked by one warpgroup (a worker)
+
+BEND_TILE = 64
+
+
+def bend_schedule(n_blocks: int, ctas: int, per_cta: int) -> List[List[int]]:
+    """The tiles (64 points each) of each worker in the order it walks them:
+    worker w = cta * per_cta + k takes tiles w, w + ctas * per_cta, ..."""
+    workers = ctas * per_cta
+    return [list(range(w, n_blocks, workers)) for w in range(workers)]
+
+
+def bend_fwd_rows_from_image(pts: torch.Tensor, lat: torch.Tensor, image: torch.Tensor,
+                             bf16_rows: bool = False) -> torch.Tensor:
+    """The encoding rows `bend_fwd_sm90_kernel` writes: row 7's f32 rows
+    below n (n, 64), or row 10's pre-pass's bf16 rows of whole 128-point
+    tiles (n_pad, 64), zero past n."""
+    emb = bend_from_image(pts, lat, image)[0]
+    if not bf16_rows:
+        return emb
+    n = pts.shape[0]
+    rows = torch.zeros(-(-n // TM) * TM, EMB, dtype=torch.bfloat16)
+    rows[:n] = emb.to(torch.bfloat16)
+    return rows
+
+
+def bend_b0l_rows(b0l: torch.Tensor) -> torch.Tensor:
+    """What row 8's CTAs stage after the image, at `BEND_IMAGE_PAD`: b0l's
+    32 rows (row i holds b0l[i, :]) K-major in the 128-byte swizzle, a flat
+    tensor of 2,048 elements."""
+    i = np.arange(LAT_W)[:, None]
+    o = np.arange(BEND_W)[None, :]
+    out = torch.empty(LAT_W * BEND_W, dtype=b0l.dtype)
+    out[torch.from_numpy(kmajor_offset(i, o, BEND_W).ravel())] = b0l.reshape(-1)
+    return out
+
+
+def bend_bwd_transposes(image: torch.Tensor, b0l_rows: torch.Tensor
+                        ) -> Dict[str, torch.Tensor]:
+    """The B operands of the backward's transposed products as the kernel
+    reads them: b1w^T, b2w^T, b3w^T (64 x 64; the image's K-major rows of
+    W^T read MN-major, B[k][n] at row k, lane n of the swizzled rows:
+    W[n][k]) and b0l^T (64 x 32; `bend_b0l_rows` read K-major, B[k][n] =
+    b0l[n][k])."""
+    k = np.arange(BEND_W)[:, None]
+    n = np.arange(BEND_W)[None, :]
+    out = {}
+    for name, (_, _, _, base) in zip(("b1wT", "b2wT", "b3wT"), BEND_IMAGE_MATS[1:4]):
+        out[name] = image[torch.from_numpy(base + kmajor_offset(k, n, BEND_W).ravel())].view(
+            BEND_W, BEND_W)
+    rows = np.arange(LAT_W)[None, :]
+    out["b0lT"] = b0l_rows[torch.from_numpy(
+        kmajor_offset(rows, k, BEND_W).ravel())].view(BEND_W, LAT_W)
+    return out
+
+
+def bend_bwd_from_image(pts: torch.Tensor, lat: torch.Tensor, bw: Sequence[torch.Tensor],
+                        demb: torch.Tensor, doff: torch.Tensor, drig: torch.Tensor,
+                        ctas: int = 1, per_cta: int = 2):
+    """dpts (n, 3), dlat (n, 32) and the 16 f32 gradients (pack order, padded
+    as packed) as `bend_bwd_sm90_kernel` computes them from what it stages
+    of the 18 cast weights bw (`pack_bend_image`, then `bend_b0l_rows`): the
+    forward of `_bend_acts`;
+    dbent (demb folded onto each coordinate: its 20 sine lanes in two
+    halves, each in ascending order, added to the coordinate's own lane),
+    doff_t and drig_raw a row; the
+    cotangent chain with its casts where the JAX math casts, dbh_{l-1} =
+    dbh_l @ b_lw^T and dlat = dbh0 @ b0l^T by k-steps of 16 on the operands
+    of `bend_bwd_transposes`; the weight gradients summed tile by tile (64
+    points, their products by k-steps of 16 points) in the order each
+    worker of `bend_schedule(ceil(n / 64), ctas, per_cta)` walks them (rob,
+    a sum whose terms cancel, in f64 a worker), a CTA's workers added in
+    order, the CTAs in ascending order. Rows past n carry zero cotangents."""
+    image = pack_bend_image(bw)
+    bf16 = torch.bfloat16
+    im = unpack_bend_image(image)
+    tr = bend_bwd_transposes(image, bend_b0l_rows(bw[1]))
+    n = pts.shape[0]
+    a = _bend_acts(pts, lat, im)
+    rows = a["x"].shape[0]
+    valid = (torch.arange(rows) < n)[:, None]
+    dm, do, dr = (_tiles(c.float(), n) for c in (demb, doff, drig))
+    P, phase = im["P"], im["phase"]
+
+    def r(v):
+        return v.to(bf16).float()
+
+    # dbent: two threads a row sum the sine lanes m = 0 .. 9 and 10 .. 19 of
+    # coordinate j in order; then (its own lane + the first) + the second
+    pre = a["bent"] @ P + phase         # the sines' arguments, exact products
+    cols = []
+    for j in range(3):
+        halves = []
+        for ms in (range(0, 10), range(10, 20)):
+            s = torch.zeros(rows)
+            for m in ms:
+                c = 3 + 3 * m + j
+                s = s + (dm[:, c] * torch.cos(pre[:, c])) * P[j, c]
+            halves.append(s)
+        cols.append((dm[:, j] + halves[0]) + halves[1])
+    dbent = torch.where(valid, torch.stack(cols, dim=1), torch.zeros(()))
+    doff_t = dbent * a["rig"][:, None] + do
+    drig0 = _seq(dbent[:, j] * a["off"][:, j] for j in range(3))
+    drig_raw = ((dr[:, 0] + drig0) * 0.5) * (1.0 - a["t"] * a["t"])
+    # the rigidity's backward (CUDA cores)
+    drh1 = _mask(r(drig_raw)[:, None] * im["row"].float()[None, :], a["rh1"])
+    drh0 = _mask(drh1.float() @ im["r1w"].float().t(), a["rh0"])
+    dpts_rig = drh0.float() @ im["r0w"].float().t()
+    # the bending layers
+    bh = a["bh"]
+    dot = r(doff_t)
+    dbh = [None, None, None,
+           _mask(_seq(dot[:, j:j + 1] * im["bowT"][j].float()[None, :] for j in range(3)),
+                 bh[3])]
+    for l in (3, 2, 1):
+        dbh[l - 1] = _mask(_ksteps(dbh[l], tr[f"b{l}wT"]), bh[l - 1])
+    dlat = _ksteps(dbh[0], tr["b0lT"])
+    dpts = (dbent + dpts_rig) + dbh[0].float() @ im["b0p"].float().t()
+
+    def ksteps_tn(act, g):           # act^T @ g over 64 points by steps of 16
+        acc = 0.0
+        for k0 in range(0, BEND_TILE, 16):
+            acc = acc + act[k0:k0 + 16].float().t() @ g[k0:k0 + 16].float()
+        return acc
+
+    def tile_grads(sl):
+        xb = a["xb"][sl]
+        grads = [xb.t() @ dbh[0][sl].float(), ksteps_tn(a["lb"][sl], dbh[0][sl]),
+                 dbh[0][sl].float().sum(0, keepdim=True)]
+        for l in (1, 2, 3):
+            grads += [ksteps_tn(bh[l - 1][sl], dbh[l][sl]),
+                      dbh[l][sl].float().sum(0, keepdim=True)]
+        grads += [bh[3][sl].float().t() @ dot[sl], xb.t() @ drh0[sl].float(),
+                  drh0[sl].float().sum(0, keepdim=True),
+                  a["rh0"][sl].float().t() @ drh1[sl].float(),
+                  drh1[sl].float().sum(0, keepdim=True),
+                  a["rh1"][sl].float().t() @ r(drig_raw[sl])[:, None],
+                  drig_raw[sl].double().sum().reshape(1, 1)]   # rob: f64 a worker
+        return grads
+
+    n_blocks = -(-n // BEND_TILE)
+    sched = bend_schedule(n_blocks, ctas, per_cta)
+    total = None
+    for c in range(ctas):
+        partial = None
+        for w in sched[c * per_cta:(c + 1) * per_cta]:
+            sums = None
+            for b in w:
+                g = tile_grads(slice(b * BEND_TILE, (b + 1) * BEND_TILE))
+                sums = g if sums is None else [x + y for x, y in zip(sums, g)]
+            if sums is not None:
+                sums = [x.float() for x in sums]
+                partial = sums if partial is None else [x + y for x, y in zip(partial, sums)]
+        if partial is not None:
+            total = partial if total is None else [x + y for x, y in zip(total, partial)]
+    shapes = ((8, BEND_W), (LAT_W, BEND_W), (1, BEND_W), (BEND_W, BEND_W), (1, BEND_W),
+              (BEND_W, BEND_W), (1, BEND_W), (BEND_W, BEND_W), (1, BEND_W), (BEND_W, 8),
+              (8, RIG_W), (1, RIG_W), (RIG_W, RIG_W), (1, RIG_W), (RIG_W, 8), (1, 8))
+    grads = [torch.nn.functional.pad(g, (0, s[1] - g.shape[1], 0, s[0] - g.shape[0]))
+             for g, s in zip(total, shapes)]
+    return dpts[:n], dlat[:n], grads
 
 
 # ---- row 11 (`mlp_i8`): the int8 chain's image, its epilogue parameters and

@@ -18,6 +18,7 @@ by `tests/test_torch_kernels_cuda.py`.
 """
 
 import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -96,9 +97,23 @@ def test_pack_fused_weights_equals_jax(weights, network):
 
 
 def test_work_and_layout_constants():
-    # the flat gradient layout the CUDA sources use (bend_tile.cuh)
-    header = (CSRC / "bend_tile.cuh").read_text()
+    # the flat gradient layout the CUDA sources use (mlp_sm90.cuh): each
+    # gradient's offset is the sum of the packed shapes before it
+    header = (CSRC / "mlp_sm90.cuh").read_text()
     assert f"BEND_GRAD_FLOATS == {BB.BEND_GRAD_FLOATS}" in header
+    names = ("B0P", "B0L", "B0B", "B1W", "B1B", "B2W", "B2B", "B3W", "B3B", "BOW",
+             "R0W", "R0B", "R1W", "R1B", "ROW", "ROB")
+    lines = {m.group(1): m.group(2) for m in re.finditer(
+        r"constexpr int G_(\w+) = ([^;]+);", header)}
+    sizes = dict(BEND_W=64, LAT_W=32, RIG_W=32, BEND_WPAD=8)
+    offset = 0
+    for name, shape in zip(names, BB.BEND_GRAD_SHAPES):
+        value = eval(lines[name], {}, {**sizes, **{f"G_{k}": v for k, v in
+                                                   done.items()}}) if name != "B0P" else 0
+        assert value == offset, name
+        done = {**(done if name != "B0P" else {}), name: value}
+        offset += shape.numel()
+    assert offset == BB.BEND_GRAD_FLOATS
     assert BB.BEND_GRAD_FLOATS == 17224 and BB.N_BEND_GRADS == 16
     assert BF.BEND_MACS_PER_POINT == 15872
     assert FB.FUSED_BWD_MACS_PER_POINT == 3 * (493568 + 15872)

@@ -46,12 +46,12 @@ FUSED_QUERY_FILES = ["ops/kernels/bend_fwd.py", "ops/kernels/bend_bwd.py",
 KERNEL_SOURCES = ["mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpv_bwd.cu",
                   "mlpe_fwd.cu", "mlpe_bwd.cu", "mlp_i8.cu", "mlp_tile.cuh",
                   "bend_fwd.cu", "bend_bwd.cu", "fused_fwd.cu", "fused_bwd.cu",
-                  "bend_tile.cuh", "mlp_sm90.cuh"]
-# rows 1-6 and 9-11 run their chain on mlp_sm90.cuh; the deformation
-# field's kernels (rows 7 and 8) on mlp_tile.cuh
+                  "mlp_sm90.cuh"]
+# every kernel runs on mlp_sm90.cuh: rows 1-6 and 9-11 their chain, rows 7
+# and 8 the deformation field on row 9's bender
 SM90_SOURCES = ("mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpv_bwd.cu",
                 "mlpe_fwd.cu", "mlpe_bwd.cu", "mlp_i8.cu", "fused_fwd.cu",
-                "fused_bwd.cu")
+                "fused_bwd.cu", "bend_fwd.cu", "bend_bwd.cu")
 # the first design's chain, which no source runs any more (mlp_tile.cuh no
 # longer has it)
 TILE_CHAIN = ("chain_forward(", "dh_chain(", "mlp_dw_kernel", "mlp_small_kernel")
@@ -105,20 +105,31 @@ def test_viewdirs_files_are_under_the_import_rule():
         if name in SM90_SOURCES or name == "mlp_tile.cuh":
             assert not any(f in text for f in TILE_CHAIN), name
     # rows 2, 6 and 10 share the chain kernel: one template, three inputs;
-    # rows 1, 5 and 9 likewise the forward's. Row 10's own kernel is its
-    # bender pre-pass, the others have none.
+    # rows 1, 5 and 9 likewise the forward's; rows 7 and 8 and row 10's
+    # pre-pass and bender backward one forward and one backward of the
+    # deformation field. No source has a kernel of its own.
     for name, launch, policy in (
             ("mlp_bwd.cu", "launch_single_head_bwd", "EncodingIn<E>"),
             ("mlpe_bwd.cu", "launch_single_head_bwd", "PtsIn"),
             ("fused_bwd.cu", "launch_single_head_bwd", "EncodingIn<EMB, false>"),
+            ("fused_bwd.cu", "launch_bend_forward", "<true>"),
+            ("fused_bwd.cu", "launch_bend_backward", "bend_weights"),
+            ("bend_fwd.cu", "launch_bend_forward", "<false>"),
+            ("bend_bwd.cu", "launch_bend_backward", "weights"),
             ("mlp_fwd.cu", "launch_fwd", "EncodingIn<E>"),
             ("mlpe_fwd.cu", "launch_fwd", "PtsFwdIn"),
             ("fused_fwd.cu", "launch_fwd", "FusedFwdIn")):
         text = (csrc / name).read_text()
         assert launch in text and policy in text
         kernels = [line for line in text.splitlines() if "__global__" in line]
-        assert kernels == ([] if name != "fused_bwd.cu" else
-                           ["__global__ void __launch_bounds__(THREADS, 3)"]), name
+        assert kernels == [], name
+    # the header's kernels of the deformation field, and no wmma path left
+    header = (csrc / "mlp_sm90.cuh").read_text()
+    for kernel in ("bend_fwd_sm90_kernel(", "bend_bwd_sm90_kernel(", "mlp_reduce_kernel("):
+        assert kernel in header, kernel
+    for name in KERNEL_SOURCES:
+        text = (csrc / name).read_text()
+        assert "wmma" not in text and "<mma.h>" not in text, name
 
 
 def test_opt_in_mode_files_are_under_the_import_rule():
@@ -136,10 +147,10 @@ def test_opt_in_mode_files_are_under_the_import_rule():
 
 def test_fused_query_files_are_under_the_import_rule():
     """The modules of the fused point query: present, under the import rule,
-    each kernel module bound to its own CUDA source; the split's kernels and
-    row 10's pre-pass share the bender's device code (bend_tile.cuh), row 9
-    runs the same arithmetic on mlp_sm90.cuh (`FusedFwdIn`); none reaches
-    for a library's product in place of its kernel."""
+    each kernel module bound to its own CUDA source; the split's kernels,
+    row 9 (`FusedFwdIn`) and row 10's pre-pass and bender backward share the
+    bender's device code on mlp_sm90.cuh (`bender_rows`); none reaches for a
+    library's product in place of its kernel."""
     covered = {str(p.relative_to(REPO / "nonrigid_nerf_torch"))
                for p in PACKAGE_FILES}
     assert set(FUSED_QUERY_FILES) <= covered
@@ -149,8 +160,10 @@ def test_fused_query_files_are_under_the_import_rule():
         source = pathlib.Path(name).stem + ".cu"
         assert f'load_kernel_library("{source}")' in text
         assert "torch.compile" not in text and "import triton" not in text
-        header = "mlp_sm90.cuh" if source == "fused_fwd.cu" else "bend_tile.cuh"
-        assert f'#include "{header}"' in (csrc / source).read_text()
+        assert '#include "mlp_sm90.cuh"' in (csrc / source).read_text()
+    header = (csrc / "mlp_sm90.cuh").read_text()
+    # rows 7, 8 and 9 each call the one bender
+    assert header.count("bender_rows<BendLayout<") == 3
 
 
 def test_library_name_follows_the_source_and_the_shared_header(monkeypatch,

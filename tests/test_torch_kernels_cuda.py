@@ -658,7 +658,7 @@ def _fused_weights(model, device, network="coarse"):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [0, 1, 127, 129, 4096 + 5])
+@pytest.mark.parametrize("n", [0, 1, 127, 128, 129, 4096 + 5, 132 * 128 + 1])
 def test_bend_kernels_match_plain_on_cuda(model, cuda_device, n):
     w = _fused_weights(model, cuda_device)[:18]
     pts, lat, rng = _bend_inputs(n, cuda_device, 11)
@@ -1309,3 +1309,76 @@ def test_entry_points_split_equals_monolith_past_a_wave_of_ctas(model, cuda_devi
             assert torch.equal(a, b)
     finally:
         model.to("cpu")
+
+
+# ---- rows 7 and 8 on mlp_sm90.cuh (csrc/bend_fwd.cu and bend_bwd.cu): the
+# persistent grids' edges (one point, a 64-point tile less one, one and two
+# tiles, a tile and one, one tile past a wave of two workers a CTA on 132
+# SMs, the largest launch: 2^22 forward, 2^18 backward), every size's
+# per-point outputs bit for bit the rows of the largest launch, which alone
+# is held to the plain version, bit-equal relaunch, the launch counters
+
+SM90_BEND_FWD_SIZES = [0, 1, 63, 64, 128, 129, 132 * 128 + 1, 1 << 22]
+SM90_BEND_BWD_SIZES = [0, 1, 63, 64, 128, 129, 132 * 128 + 1, 1 << 18]
+
+
+@pytest.fixture(scope="module")
+def sm90_bend_reference(request):
+    """The coarse network's packed bender weights, inputs of each
+    direction's largest size and the kernels' outputs on them, held once
+    against the plain versions."""
+    cache = {}
+
+    def get(device):
+        if not cache:
+            w = _fused_weights(request.getfixturevalue("model"), device)[:18]
+            pts, lat, rng = _bend_inputs(max(SM90_BEND_FWD_SIZES), device, 63)
+            out = BF.bend_fwd(pts, lat, w)
+            stats = BF.bend_fwd_agreement(out, BF.bend_fwd_plain(pts, lat, w))
+            assert stats["ok"], stats
+            nb = max(SM90_BEND_BWD_SIZES)
+            cots = [torch.from_numpy((s * rng.randn(nb, c)).astype(np.float32)).to(device)
+                    for c, s in ((64, 0.1), (3, 1.0), (1, 1.0))]
+            got = BB.bend_bwd(pts[:nb], lat[:nb], w, *cots)
+            stats = BB.bend_bwd_agreement(
+                got, BB.bend_bwd_plain(pts[:nb], lat[:nb], w, *cots))
+            assert stats["ok"], stats
+            cache.update(w=w, pts=pts, lat=lat, out=out, cots=cots, grads=got)
+        return cache
+
+    return get
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SM90_BEND_FWD_SIZES)
+def test_bend_fwd_on_the_sm90_kernel_at_the_grid_edges(sm90_bend_reference, cuda_device, n):
+    ref = sm90_bend_reference(cuda_device)
+    pts, lat = ref["pts"][:n], ref["lat"][:n]
+    before = BF.bend_fwd.launches
+    out = BF.bend_fwd(pts, lat, ref["w"])
+    torch.cuda.synchronize()
+    assert BF.bend_fwd.launches == before + (n > 0)
+    assert [tuple(t.shape) for t in out] == [(n, 64), (n, 3), (n, 1)]
+    assert all(bool(torch.isfinite(t).all()) for t in out)
+    for a, b in zip(out, ref["out"]):
+        assert torch.equal(a, b[:n])
+    assert all(torch.equal(a, b) for a, b in zip(out, BF.bend_fwd(pts, lat, ref["w"])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SM90_BEND_BWD_SIZES)
+def test_bend_bwd_on_the_sm90_kernel_at_the_grid_edges(sm90_bend_reference, cuda_device, n):
+    ref = sm90_bend_reference(cuda_device)
+    pts, lat = ref["pts"][:n], ref["lat"][:n]
+    cots = [c[:n] for c in ref["cots"]]
+    before = BB.bend_bwd.launches
+    got = BB.bend_bwd(pts, lat, ref["w"], *cots)
+    torch.cuda.synchronize()
+    assert BB.bend_bwd.launches == before + (n > 0)
+    assert got[0].shape == (n, 3) and got[1].shape == (n, 32) and len(got[2]) == 16
+    assert all(bool(torch.isfinite(g).all()) for g in got[2])
+    assert torch.equal(got[0], ref["grads"][0][:n])
+    assert torch.equal(got[1], ref["grads"][1][:n])
+    again = BB.bend_bwd(pts, lat, ref["w"], *cots)
+    assert all(torch.equal(a, b) for a, b in zip([got[0], got[1], *got[2]],
+                                                  [again[0], again[1], *again[2]]))
