@@ -67,7 +67,23 @@ result line is printed):
    direction modes); a checkpoint saved, loaded and stepped once, bit-equal
    to the step without the round trip; a profile of a few steps (device
    ms a step, idle share, the backward's kernels by name).
-5. The fused point query: each of its four kernels against its plain
+5. The training CLI on a real dataset, data_r5/occlusion (60 frames of
+   256 x 192, 3 cameras x 20 timesteps) with its JAX run's config
+   (results/r5_robustness_full/args.txt) cut to 400 steps, a validation
+   frame and a save every 200. Run A: `python3 -m
+   nonrigid_nerf_torch.cli.train` driven in this process, launch counts set
+   to 0 just before and read just after (2 `mlp_fwd` and 2 `mlp_bwd` a
+   step: the config has no test split, so one cotangent a network; 4
+   `mlp_fwd` a validation frame, 2 for the volume probe, printed on its
+   own line; no other kernel); the experiment folder (args.txt,
+   config.txt, backup/, cameras.obj, metrics.jsonl, val_images/, latest.npz
+   at step 400), finite values, the loss at step 400 below the loss at step
+   50; steps/s over steps 51-400, the validation PSNRs and the peak device
+   memory. Run B: the same command in a subprocess with `--die_at_step
+   200` must die by SIGKILL (-9) and, started again, print "Reloading
+   from"; its metrics.jsonl must equal A's at every printed step and its
+   final parameters and Adam moments A's bit for bit.
+6. The fused point query: each of its four kernels against its plain
    version at a render block's coarse pass (2^21 points, forwards) and a
    training step's two passes (65,536 and 131,072 points, forwards and
    backwards), bit-equal on relaunch, timed beside its plain version, its
@@ -78,7 +94,7 @@ result line is printed):
    and the gradients against the f32 modules'; and `fused_fwd` against what
    the engine spends on the same function (the f32 bender, then
    `mlpe_fwd`).
-6. Print rows 1-6 and 11 (`mlp_fwd`, `mlp_bwd`, `mlpv_fwd`, `mlpv_bwd`,
+7. Print rows 1-6 and 11 (`mlp_fwd`, `mlp_bwd`, `mlpv_fwd`, `mlpv_bwd`,
    `mlpe_fwd`, `mlpe_bwd`, `mlp_i8`: csrc/mlp_sm90.cuh's chains on wgmma) at
    every size and width, each with its device time and share of the bound (a
    backward also with its two-pass floor and its device time by kernel:
@@ -153,6 +169,12 @@ STEP_PLAIN_MIN_COSINE = 0.999
 # here after 200 steps: 0.81, against 0.998 with exact directions), while
 # they agree with the plain versions to 0.9999. Held to this floor there.
 STEP_FD_DEFORMATION_MIN_COSINE = 0.5
+# the CLI on a real dataset: the occlusion scene of data_r5/ with its JAX
+# run's config, cut to 400 steps; a validation frame and a save every 200
+CLI_CONFIG = os.path.join("results", "r5_robustness_full", "args.txt")
+CLI_DATA = os.path.join("data_r5", "occlusion")
+CLI_STEPS, CLI_PRINT, CLI_EVERY = 400, 50, 200
+CLI_FRAME = (192, 256)           # the scene's frame: 2 ray blocks of CHUNK
 
 
 def log(*args):
@@ -852,7 +874,8 @@ def train_phase(fam, args, cfg, device, smi, steps):
         counts = fam.counts()
         others = launch_counts(without=tuple(counts))
         with open(os.path.join(logdir, "metrics.jsonl")) as f:
-            rows = [json.loads(line) for line in f]
+            # the step rows: on a GPU the file ends with the peak memory's
+            rows = [row for row in map(json.loads, f) if "loss" in row]
         if not os.path.exists(os.path.join(logdir, "latest.npz")):
             raise AssertionError("train() saved no checkpoint")
     want = {fam.fwd_name: 2 * steps, fam.bwd_name: 4 * steps}
@@ -1723,6 +1746,191 @@ def fused_query_phase(cfg, device, smi, sizes):
                       fused_fwd_ms=fused_ms, points=n_render, gpu=smi)
 
 
+
+# ---- the CLI on a real dataset (python3 -m nonrigid_nerf_torch.cli.train)
+def cli_argv(root, rootdir, *extra):
+    return ["--config", os.path.join(root, CLI_CONFIG),
+            "--datadir", os.path.join(root, CLI_DATA),
+            "--N_iters", str(CLI_STEPS), "--i_print", str(CLI_PRINT),
+            "--i_weights", str(CLI_EVERY), "--i_img", str(CLI_EVERY),
+            "--i_video", "1000000", "--i_testset", "1000000",
+            "--rootdir", rootdir, "--expname", "occlusion_cli", *extra]
+
+
+def cli_subprocess(root, argv):
+    return subprocess.run(
+        [sys.executable, "-m", "nonrigid_nerf_torch.cli.train"] + argv,
+        cwd=root, capture_output=True, text=True, timeout=600)
+
+
+def cli_rows(logdir):
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def same_tree(a, b) -> bool:
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(
+            same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
+    return np.asarray(a).dtype == np.asarray(b).dtype and \
+        np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def cli_phase(root, smi):
+    """Run A: the training CLI in this process on data_r5/occlusion, launch
+    counts set to 0 just before and read just after; the experiment folder,
+    finite values, a falling loss. Run B: the same command in a subprocess
+    that SIGKILLs itself after its save at step 200, started again: the
+    metric stream and the final parameters and Adam moments bit-equal to
+    A's."""
+    from nonrigid_nerf_torch.checkpoints import read_checkpoint
+    from nonrigid_nerf_torch.cli import train as cli
+    from nonrigid_nerf_torch.config import load_args
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        logdir_a = os.path.join(tmp, "A", "occlusion_cli", "logs")
+        probe = {}
+        real_probe = cli.determine_nerf_volume_extent
+
+        def counted_probe(*a, **kw):
+            before = launch_counts()
+            result = real_probe(*a, **kw)
+            probe.update({k: v - before[k] for k, v in launch_counts().items()
+                          if v != before[k]})
+            return result
+
+        cli.determine_nerf_volume_extent = counted_probe
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            cli.main(cli_argv(root, os.path.join(tmp, "A")))
+        finally:
+            cli.determine_nerf_volume_extent = real_probe
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in launch_counts().items() if v}
+        frames = CLI_STEPS // CLI_EVERY
+        blocks = -(-CLI_FRAME[0] * CLI_FRAME[1] // CHUNK)
+        # one backward launch a network and cotangent: the test rays' second
+        # cotangent exists only with a test split, which this config has not
+        args = load_args(os.path.join(root, CLI_CONFIG))
+        bwd = 4 if args.train_block_size > 0 and args.test_block_size > 0 \
+            else 2
+        want = {"mlp_fwd": 2 * CLI_STEPS + 2 * blocks * frames + 2,
+                "mlp_bwd": bwd * CLI_STEPS}
+        log(f"cli (A, in this process): {CLI_STEPS} steps, {frames} validation "
+            f"frames, the volume probe in {wall:.2f} s (data loading, the "
+            f"backup and the saves included); launches {counts} (expected "
+            f"{want}: 2 + {bwd} a step, {2 * blocks} a frame, "
+            f"2 the probe)")
+        log(f"cli volume probe: launches {probe} (expected {{'mlp_fwd': 2}})")
+        if counts != want or probe != {"mlp_fwd": 2}:
+            raise AssertionError("the CLI's run launched other kernels or "
+                                 "other counts than expected")
+        for name in ("args.txt", "config.txt", "cameras.obj", "metrics.jsonl",
+                     "latest.npz",
+                     os.path.join("val_images", f"{CLI_EVERY:06d}.png"),
+                     os.path.join("val_images", f"{CLI_STEPS:06d}.png")):
+            if not os.path.exists(os.path.join(logdir_a, name)):
+                raise AssertionError(f"the experiment folder lacks {name}")
+        if not os.path.isdir(os.path.join(tmp, "A", "occlusion_cli", "backup",
+                                          "nonrigid_nerf_torch")):
+            raise AssertionError("the experiment folder lacks backup/")
+        step_a, params_a, _, opt_a = read_checkpoint(
+            os.path.join(logdir_a, "latest.npz"), with_opt_state=True)
+        if step_a != CLI_STEPS:
+            raise AssertionError(f"latest.npz is at step {step_a}")
+        for leaf in checkpoint_leaves((params_a, opt_a)):
+            if not np.isfinite(leaf).all():
+                raise AssertionError("non-finite values in latest.npz")
+        rows = cli_rows(logdir_a)
+        train_rows = [r for r in rows if "loss" in r]
+        val_rows = [r for r in rows if "val_psnr" in r]
+        peak = [r["peak_device_bytes"] for r in rows if "peak_device_bytes" in r]
+        if [r["step"] for r in train_rows] != list(
+                range(CLI_PRINT, CLI_STEPS + 1, CLI_PRINT)) \
+                or [r["step"] for r in val_rows] != [CLI_EVERY, CLI_STEPS] \
+                or len(peak) != 1:
+            raise AssertionError(f"unexpected metrics.jsonl rows {rows}")
+        for r in rows:
+            if not all(math.isfinite(v) for v in r.values()):
+                raise AssertionError(f"non-finite metrics {r}")
+        first, last = train_rows[0], train_rows[-1]
+        if not last["loss"] < first["loss"]:
+            raise AssertionError("the CLI's loss did not fall")
+        rates = [r["it_per_sec"] for r in train_rows[1:]]
+        steps_per_s = CLI_PRINT * len(rates) / sum(CLI_PRINT / r for r in rates)
+        log(f"cli (A): loss {first['loss']:.5f} (step {CLI_PRINT}) -> "
+            f"{last['loss']:.5f} (step {CLI_STEPS}); psnr {first['psnr']:.2f} "
+            f"-> {last['psnr']:.2f}; {steps_per_s:.2f} steps/s over steps "
+            f"{CLI_PRINT + 1}-{CLI_STEPS} (a validation frame and a save "
+            f"included); validation PSNR "
+            + ", ".join(f"{r['val_psnr']:.2f} dB at {r['step']}"
+                        for r in val_rows)
+            + f" (view {val_rows[0]['val_view']}); peak device memory "
+            f"{peak[0]} B ({peak[0] / 2**30:.3f} GiB); {smi}")
+
+        # run B: killed after its save at step 200, then started again
+        argv_b = cli_argv(root, os.path.join(tmp, "B"), "--die_at_step",
+                          str(CLI_EVERY))
+        t0 = time.perf_counter()
+        killed = cli_subprocess(root, argv_b)
+        if killed.returncode != -9 or "SIGKILL at step" not in killed.stdout:
+            raise AssertionError(f"run B exited with {killed.returncode}, "
+                                 f"not -9: {killed.stderr[-3000:]}")
+        resumed = cli_subprocess(root, argv_b)
+        wall_b = time.perf_counter() - t0
+        if resumed.returncode != 0 or "Reloading from" not in resumed.stdout:
+            raise AssertionError(f"run B did not resume ({resumed.returncode})"
+                                 f": {resumed.stdout[-2000:]}"
+                                 f"{resumed.stderr[-3000:]}")
+        logdir_b = os.path.join(tmp, "B", "occlusion_cli", "logs")
+        rows_b = cli_rows(logdir_b)
+        fields = ("loss", "psnr", "img_loss", "img_loss0", "offsets_loss",
+                  "divergence_loss")
+
+        def stream(rs):
+            return [{k: r[k] for k in ("step", "val_psnr") + fields if k in r}
+                    for r in rs if "loss" in r or "val_psnr" in r]
+
+        step_b, params_b, _, opt_b = read_checkpoint(
+            os.path.join(logdir_b, "latest.npz"), with_opt_state=True)
+        metrics_equal = stream(rows) == stream(rows_b)
+        state_equal = step_b == step_a and same_tree(params_a, params_b) \
+            and same_tree(opt_a, opt_b)
+        log(f"cli (B, subprocesses): killed with {killed.returncode} after the "
+            f"save at step {CLI_EVERY}, resumed to step {step_b} in "
+            f"{wall_b:.2f} s for both launches; metrics.jsonl equal to A's at "
+            f"every printed step: {metrics_equal}; parameters and Adam moments "
+            f"bit-equal to A's: {state_equal}")
+        if not (metrics_equal and state_equal):
+            raise AssertionError("the resumed run differs from the "
+                                 "uninterrupted one")
+        out = {"steps": CLI_STEPS, "launches": counts, "probe_launches": probe,
+               "steps_per_s": steps_per_s, "wall_s_a": wall,
+               "loss_first": first["loss"], "loss_last": last["loss"],
+               "psnr_last": last["psnr"],
+               "val_psnr_db": {r["step"]: r["val_psnr"] for r in val_rows},
+               "peak_device_bytes": peak[0], "resume_bit_equal": True,
+               "wall_s_b": wall_b}
+    return out
+
+
+def checkpoint_leaves(tree):
+    """The numpy leaves of a checkpoint's tree."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from checkpoint_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from checkpoint_leaves(v)
+    elif tree is not None:
+        yield np.asarray(tree)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -1829,6 +2037,10 @@ def main() -> int:
         log(f"family done ({fam.what}): "
             f"{time.perf_counter() - t_start:.1f} s since the start")
 
+    # ---- phase 5: the training CLI on a real dataset
+    cli_results = cli_phase(root, smi)
+    log(f"cli done: {time.perf_counter() - t_start:.1f} s since the start")
+
     # ---- fused_kernel="int8": phases 2 and 3 (it does not train)
     fam_plain = families[0][0]
     model = flagship_model(cfg_plain, device)
@@ -1927,10 +2139,11 @@ def main() -> int:
             f"{p['bound_ms'] / p['ms']:.3f} of it" + detail(p)
             for what, p in passes) + split + f"; {smi}")
 
-    # ---- phase 5: results
+    # ---- phase 7: results
     log(json.dumps({"render": renders}))
     log(json.dumps({"train": trains}))
     log(json.dumps({"fused_fwd_vs_engine": fused_vs_engine}))
+    log(json.dumps({"cli": cli_results}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

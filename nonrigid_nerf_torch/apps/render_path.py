@@ -1,10 +1,12 @@
-"""Render pose sequences to images
+"""Render pose sequences to images + artifact files
 (counterpart of nonrigid_nerf_tpu/apps/render_path.py:29-125).
 
-One renderer per frame size is reused across frames. With `savedir`, each
-frame is written as `{i:03d}.npy` (uint8 H x W x 3) and `disp_{i:03d}.npy`
-(max-normalized f32 disparity); the JAX package's PNG, jet and Blinn-Phong
-visualizations and error maps are not ported yet.
+Behavioral contract (reference: render_path, train.py:419-553): with
+`savedir`, each frame is written as `{i:03d}.png`, `disp_{i:03d}.png`
+(max-normalized), jet and Blinn-Phong disparity visualizations, and a jet
+error map against its ground truth where one is given; `render_factor`
+downscales intrinsics for fast previews. One renderer per frame size is
+reused across frames.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ from nonrigid_nerf_torch.device import DeviceLike, resolve_device
 from nonrigid_nerf_torch.engine.render import make_ray_renderer
 from nonrigid_nerf_torch.ops.math import to8b
 from nonrigid_nerf_torch.ops.rays import get_rays
+from nonrigid_nerf_torch.utils.image_io import imwrite
+from nonrigid_nerf_torch.utils.viz import (disparity_to_blinn_phong,
+                                           disparity_to_jet)
 
 
 def downscale_intrinsics(intrinsics, render_factor: int):
@@ -39,29 +44,37 @@ def downscale_intrinsics(intrinsics, render_factor: int):
 
 def render_path(model, cfg: ModelConfig, rs: RenderSettings, render_poses,
                 intrinsics, latents, chunk: int = 32768,
-                savedir: Optional[str] = None, render_factor: int = 0,
-                edit: EditConfig = EditConfig(), verbose: bool = True,
-                device: DeviceLike = None):
+                gt_imgs=None, savedir: Optional[str] = None,
+                render_factor: int = 0, detailed: bool = False,
+                edit: EditConfig = EditConfig(), renderer=None,
+                verbose: bool = True, device: DeviceLike = None):
     """Render each pose with its latent code, in test mode (no jitter, no
     density noise).
 
     render_poses: (F, 3, 4+) array-like; intrinsics: F dicts; latents
-    (F, L). Returns (rgbs (F, H, W, 3), disps (F, H, W)) numpy arrays.
+    (F, L); gt_imgs: (F, H, W, 3) in [0, 1] for the error maps; renderer: a
+    `make_ray_renderer` function to use in place of one built here.
+    Returns (rgbs (F, H, W, 3), disps (F, H, W)) numpy arrays, plus a list
+    of per-frame detail dicts (numpy, (H, W, ...)) when `detailed`.
     """
     device = resolve_device(device)
     rs = rs.test_mode()
     intrinsics = downscale_intrinsics(intrinsics, render_factor)
     latents = torch.as_tensor(np.asarray(latents, np.float32), device=device)
 
-    rgbs, disps = [], []
+    rgbs, disps, all_details = [], [], []
     renderer_cache = {}
     t0 = time.time()
     for i, (c2w, intrin) in enumerate(zip(render_poses, intrinsics)):
         H, W = int(intrin["height"]), int(intrin["width"])
-        if (H, W) not in renderer_cache:
-            renderer_cache[(H, W)] = make_ray_renderer(
-                cfg, rs, edit=edit, chunk=chunk, device=device)
-        render_fn = renderer_cache[(H, W)]
+        if renderer is None:
+            if (H, W) not in renderer_cache:
+                renderer_cache[(H, W)] = make_ray_renderer(
+                    cfg, rs, edit=edit, chunk=chunk, device=device,
+                    detailed=detailed)
+            render_fn = renderer_cache[(H, W)]
+        else:
+            render_fn = renderer
 
         c2w = torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4],
                               device=device)
@@ -75,13 +88,34 @@ def render_path(model, cfg: ModelConfig, rs: RenderSettings, render_poses,
         disp = out["disp_map"].reshape(H, W).cpu().numpy()
         rgbs.append(rgb)
         disps.append(disp)
+        if detailed:
+            all_details.append({
+                k: v.reshape((H, W) + v.shape[1:]).cpu().numpy()
+                for k, v in out.items() if k not in ("rgb_map", "disp_map")})
         if verbose:
             print(f"render_path frame {i}: {time.time() - t0:.2f}s",
                   flush=True)
             t0 = time.time()
-        if savedir is not None:
-            np.save(os.path.join(savedir, f"{i:03d}.npy"), to8b(rgb))
-            np.save(os.path.join(savedir, f"disp_{i:03d}.npy"),
-                    disp / max(float(disp.max()), 1e-10))
 
-    return np.stack(rgbs, 0), np.stack(disps, 0)
+        if savedir is not None:
+            imwrite(os.path.join(savedir, f"{i:03d}.png"), to8b(rgb))
+            raw_disp = disp / max(float(disp.max()), 1e-10)
+            imwrite(os.path.join(savedir, f"disp_{i:03d}.png"), to8b(raw_disp))
+            imwrite(os.path.join(savedir, f"disp_jet_{i:03d}.png"),
+                    to8b(disparity_to_jet(raw_disp)))
+            imwrite(os.path.join(savedir, f"disp_phong_{i:03d}.png"),
+                    to8b(disparity_to_blinn_phong(raw_disp)))
+            if gt_imgs is not None:
+                gt = np.asarray(gt_imgs[i])
+                if render_factor:
+                    gt = gt[::render_factor, ::render_factor][:H, :W]
+                error = np.linalg.norm(gt - rgb, axis=-1) / np.sqrt(3.0)
+                error = np.clip(error * 10.0, 0.0, 1.0)  # exaggerate
+                imwrite(os.path.join(savedir, f"error_{i:03d}.png"),
+                        to8b(disparity_to_jet(error)))
+
+    rgbs = np.stack(rgbs, 0)
+    disps = np.stack(disps, 0)
+    if detailed:
+        return rgbs, disps, all_details
+    return rgbs, disps

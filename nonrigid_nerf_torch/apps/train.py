@@ -1,12 +1,18 @@
 """The training loop
-(counterpart of the loop in the JAX package's train.py:231-243,332-434,
-without the data loader, the command line, the volume probe, validation
-images, videos and multi-device training).
+(counterpart of the loop in the JAX package's train.py:231-243,408-434,
+512-546; the command line around it is `cli/train.py`).
 
-`train` creates the train state or resumes it from the newest checkpoint of
-`logdir`, steps to `tc.N_iters`, prints the `[TRAIN]` line and appends to
-`<logdir>/metrics.jsonl` every `i_print` steps, and saves `latest.npz`
-every `i_weights` steps (a numbered archive every 50,000).
+`train` starts from the state it is given, or creates the train state or
+resumes it from the newest checkpoint of `logdir` (`initial_state`, which
+also takes the CLI's `ft_path`), steps to `tc.N_iters`, prints the `[TRAIN]` line
+and appends to `<logdir>/metrics.jsonl` every `i_print` steps, saves
+`latest.npz` every `i_weights` steps (a numbered archive every 50,000) and
+at its last step, and calls `on_step(i, state)` after each step's save (the
+CLI's validation images, videos and test-set renders). `die_at_step` kills
+the process after that step's save in a fresh run (fault injection);
+`profile_steps` traces that many steps after the first 50 with
+torch.profiler into `<logdir>/profile/`. On a GPU the run ends with its
+peak device memory, `peak_device_bytes` in metrics.jsonl.
 
 Resume is exact: the random numbers of step k come from a generator seeded
 with (tc.seed, k), never from state that a restart would lose, so a run
@@ -19,8 +25,9 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import signal
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -35,6 +42,7 @@ from nonrigid_nerf_torch.engine.train_state import (TrainState,
 from nonrigid_nerf_torch.engine.train_step import make_train_step
 
 ARCHIVE_EVERY = 50000
+PROFILE_AFTER = 50      # steps of warm-up before a profile window
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -44,14 +52,39 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
         (int(seed) * 1_000_003 + int(step)) % (2 ** 63))
 
 
+def initial_state(cfg: ModelConfig, tc: TrainConfig, num_timesteps: int,
+                  logdir: str, device: DeviceLike = None,
+                  no_reload: bool = False,
+                  ft_path: Optional[str] = None) -> TrainState:
+    """The state a run starts from: `ft_path`, else the newest checkpoint of
+    `logdir`, else a fresh state from tc.seed; `no_reload` always starts
+    afresh (reference auto-resume: train.py:666-694)."""
+    device = resolve_device(device)
+    ckpt_path = None if no_reload else (ft_path or latest_checkpoint(logdir))
+    if ckpt_path is not None and os.path.exists(ckpt_path):
+        print("Reloading from", ckpt_path, flush=True)
+        return load_train_state(ckpt_path, cfg, device=device)[0]
+    return create_train_state(cfg, tc, num_timesteps, device=device)
+
+
+def _append_row(path: Optional[str], row: dict) -> None:
+    if path is not None:
+        with open(path, "a") as f:
+            f.write(json.dumps(row) + "\n")
+
+
 def train(cfg: ModelConfig, tc: TrainConfig, rs: RenderSettings,
           ds: RayDataset, logdir: str, device: DeviceLike = None,
           i_print: int = 100, i_weights: int = 1000, no_reload: bool = False,
           extras: Optional[dict] = None, debug_metrics: bool = False,
-          max_steps: Optional[int] = None) -> TrainState:
+          max_steps: Optional[int] = None,
+          state: Optional[TrainState] = None, die_at_step: int = 0,
+          on_step: Optional[Callable[[int, TrainState], None]] = None,
+          profile_steps: int = 0, metrics_file: bool = True) -> TrainState:
     """Train on `ds` to step `tc.N_iters` (or for at most `max_steps` steps
     of this call) on `device` (cuda unless asked otherwise) and return the
-    state. `extras` goes into every checkpoint beside near and far."""
+    state. `state` is the state to start from (else `initial_state`).
+    `extras` goes into every checkpoint beside near and far."""
     device = resolve_device(device)
     if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
@@ -63,13 +96,12 @@ def train(cfg: ModelConfig, tc: TrainConfig, rs: RenderSettings,
                          f"{device}")
     os.makedirs(logdir, exist_ok=True)
     ckpt_extras = {"near": ds.near, "far": ds.far, **(extras or {})}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
 
-    ckpt_path = None if no_reload else latest_checkpoint(logdir)
-    if ckpt_path is not None:
-        state, _ = load_train_state(ckpt_path, cfg, device=device)
-        print("Reloading from", ckpt_path, flush=True)
-    else:
-        state = create_train_state(cfg, tc, ds.num_timesteps, device=device)
+    if state is None:
+        state = initial_state(cfg, tc, ds.num_timesteps, logdir, device,
+                              no_reload=no_reload)
     step_fn = make_train_step(cfg, tc, rs, has_test_split=ds.has_test_split,
                               debug_metrics=debug_metrics)
 
@@ -77,10 +109,31 @@ def train(cfg: ModelConfig, tc: TrainConfig, rs: RenderSettings,
     stop = tc.N_iters if max_steps is None else min(tc.N_iters,
                                                     start + max_steps)
     print(f"Begin training at step {start} -> {stop}", flush=True)
-    metrics_path = os.path.join(logdir, "metrics.jsonl")
+    metrics_path = os.path.join(logdir, "metrics.jsonl") if metrics_file \
+        else None
+    latest = os.path.join(logdir, "latest.npz")
+    profiler = None
+    metrics = None
     t0 = time.time()
     for i in range(start + 1, stop + 1):
+        if profile_steps and i == start + PROFILE_AFTER:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(activities=activities)
+            profiler.start()
         metrics = step_fn(state, ds, step_generator(tc.seed, i - 1, device))
+        if profiler is not None and i == start + PROFILE_AFTER + profile_steps:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            profiler.stop()
+            profile_dir = os.path.join(logdir, "profile")
+            os.makedirs(profile_dir, exist_ok=True)
+            trace = os.path.join(profile_dir, f"steps_{start + PROFILE_AFTER}"
+                                 f"_{i}.json")
+            profiler.export_chrome_trace(trace)
+            print("wrote torch.profiler trace to", trace, flush=True)
+            profiler = None
 
         if i % i_print == 0:
             m = {k: float(v) for k, v in metrics.items()}   # waits for the device
@@ -96,16 +149,34 @@ def train(cfg: ModelConfig, tc: TrainConfig, rs: RenderSettings,
                     parts.append(f"{label}: {m[key]:{fmt}}")
             parts.append(f"({i_print / dt:.1f} it/s)")
             print(" ".join(parts), flush=True)
-            with open(metrics_path, "a") as mf:
-                mf.write(json.dumps(
-                    {"step": i, "it_per_sec": i_print / dt,
-                     **{k: round(v, 8) for k, v in m.items()}}) + "\n")
+            _append_row(metrics_path, {"step": i, "it_per_sec": i_print / dt,
+                                       **{k: round(v, 8) for k, v in m.items()}})
 
-        if i % i_weights == 0:
-            latest = os.path.join(logdir, "latest.npz")
+        if i % i_weights == 0 or i == stop:
             save_checkpoint(latest, i, state.model, (state.mu, state.nu),
                             ckpt_extras)
             if i % ARCHIVE_EVERY == 0:
                 shutil.copyfile(latest, os.path.join(logdir, f"{i:06d}.npz"))
             print("Saved checkpoint at", latest, flush=True)
+
+        if on_step is not None:
+            on_step(i, state)
+
+        if die_at_step and i == die_at_step and start == 0:
+            # fault injection: die without any cleanup, as a preemption
+            # would. Only a fresh run fires: a resumed run passing the step
+            # again must not die again, or it could never finish.
+            print(f"[FAULT-INJECTION] SIGKILL at step {i}", flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    if metrics is not None:
+        print(f"training done at step {state.step}; final loss "
+              f"{float(metrics['loss']):.5f}", flush=True)
+        if device.type == "cuda":
+            peak = torch.cuda.max_memory_allocated(device)
+            print(f"peak device memory: {peak / 2**30:.2f} GiB (allocated now: "
+                  f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB)",
+                  flush=True)
+            _append_row(metrics_path, {"step": state.step,
+                                       "peak_device_bytes": int(peak)})
     return state

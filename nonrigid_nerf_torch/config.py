@@ -1,8 +1,9 @@
 """Configuration of the port: the JAX package's dataclasses and config parser.
 
-An own copy of `nonrigid_nerf_tpu/config.py:23-165,267-380` (names, fields
-and defaults unchanged), so that the port imports nothing of the JAX package
-and a config file or `args.txt` means the same to both:
+An own copy of `nonrigid_nerf_tpu/config.py` (names, fields, keys and
+defaults unchanged, `Args`, `resolve_seed` and `default_config_path`
+included), so that the port imports nothing of the JAX package and a config
+file or `args.txt` means the same to both:
 
 - ModelConfig:    network architecture + encoding (fixed for an experiment)
 - RenderSettings: sampling/compositing knobs that differ train vs. test
@@ -22,6 +23,7 @@ inference kernel on a model calibrated by
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 
@@ -165,22 +167,48 @@ _FLOAT_KEYS = {
     "rigidity_loss_weight", "raw_noise_std", "precrop_frac",
 }
 
-# the reference's defaults (train.py:983-1219) of the keys the port reads
 DEFAULTS = {
-    "config": None, "chunk": 32768,
+    # the reference's config_parser defaults (train.py:983-1219) and the
+    # JAX package's own keys, with the same values (its config.py:207-264)
+    "config": None,
+    "expname": None,
+    "datadir": None,
+    "rootdir": None,
     "netdepth": 8, "netwidth": 256, "netdepth_fine": 8, "netwidth_fine": 256,
+    "N_iters": 200000, "N_rand": 4096, "lrate": 5e-4, "lrate_decay": 250000,
+    "chunk": 32768, "netchunk": 65536,
+    "no_reload": False, "ft_path": None, "seed": -1,
     "ray_bending": "None", "ray_bending_latent_size": 32,
     "approx_nonrigid_viewdirs": False, "time_conditioned_baseline": False,
     "bending_depth": 5, "bending_width": 64,
     "rigidity_depth": 3, "rigidity_width": 32,
     "use_rigidity_network": True, "bending_activation": "relu",
     "compute_dtype": "float32", "fused_kernel": "auto",
+    "train_block_size": 0, "test_block_size": 0,
     "N_samples": 64, "N_importance": 0, "perturb": 1.0,
-    "use_viewdirs": False, "i_embed": 0, "multires": 10, "multires_views": 4,
-    "raw_noise_std": 0.0,
-    "N_iters": 200000, "N_rand": 4096, "lrate": 5e-4, "lrate_decay": 250000,
     "offsets_loss_weight": 0.0, "divergence_loss_weight": 0.0,
-    "rigidity_loss_weight": 0.0, "seed": -1,
+    "rigidity_loss_weight": 0.0,
+    "use_viewdirs": False, "i_embed": 0, "multires": 10, "multires_views": 4,
+    "raw_noise_std": 0.0, "render_factor": 0, "render_test": False,
+    "precrop_iters": 0, "precrop_frac": 0.5, "debug": False,
+    "dataset_type": "llff", "factor": 8, "spherify": False,
+    "bd_factor": "0.75",
+    "i_print": 100, "i_img": 500, "i_weights": 1000, "i_testset": 50000,
+    "i_video": 50000,
+    # a torch.profiler trace of this many steps after the first 50 of a run
+    # (logs/profile/), and the metrics stream logs/metrics.jsonl
+    "profile_steps": 0,
+    "metrics_file": True,
+    # fault injection: SIGKILL at the end of this step (after its save), in
+    # a fresh run only; 0 = off
+    "die_at_step": 0,
+    # the JAX package's XLA cache; recorded, without effect here (the
+    # kernels' own cache is nonrigid_nerf_torch/_build/)
+    "compilation_cache_dir": "~/.cache/nonrigid_nerf_tpu/xla",
+    # the JAX package's presampled step; -1, 0 and 1 run the plain step
+    "sampling_prefetch": -1,
+    # "npz" only ("orbax" raises)
+    "checkpoint_format": "npz",
 }
 
 
@@ -216,12 +244,27 @@ def parse_config_file(path: str) -> dict:
 
 class Args:
     """Attribute-style view over the flat config dict (the reference's
-    argparse Namespace)."""
+    argparse Namespace), so experiment args.txt files round-trip."""
 
     def __init__(self, **kwargs):
         merged = dict(DEFAULTS)
         merged.update(kwargs)
         self.__dict__.update(merged)
+
+    def replace(self, **kwargs) -> "Args":
+        d = dict(self.__dict__)
+        d.update(kwargs)
+        return Args(**d)
+
+    def to_dict(self) -> dict:
+        return dict(self.__dict__)
+
+    def dump(self, path: str) -> None:
+        """Write args.txt in the reference's sorted `key = value` format
+        (reference: train.py:1437-1441), re-parseable by load_args."""
+        with open(path, "w") as f:
+            for key in sorted(self.__dict__):
+                f.write("{} = {}\n".format(key, self.__dict__[key]))
 
 
 def load_args(config_path: Optional[str] = None, **overrides) -> Args:
@@ -254,19 +297,27 @@ def model_config_from_args(args: Args) -> ModelConfig:
     )
 
 
+def resolve_seed(args: Args) -> Args:
+    """seed = -1 means unseeded: draw a fresh random seed. The training CLI
+    resolves it before it writes args.txt, so the seed that trained is the
+    one recorded (reference analog: -1 leaves torch's RNG unseeded,
+    train.py:1052)."""
+    if args.seed is not None and args.seed >= 0:
+        return args
+    import secrets
+    return args.replace(seed=secrets.randbelow(2 ** 31))
+
+
 def train_config_from_args(args: Args) -> TrainConfig:
-    """seed = -1 means unseeded: a fresh random seed is drawn."""
-    seed = args.seed
-    if seed is None or seed < 0:
-        import secrets
-        seed = secrets.randbelow(2 ** 31)
+    """seed = -1 draws a fresh seed (`resolve_seed`): resolve `args` first
+    where the seed must be recorded."""
     return TrainConfig(
         lrate=args.lrate, lrate_decay=args.lrate_decay, N_iters=args.N_iters,
         N_rand=args.N_rand,
         offsets_loss_weight=args.offsets_loss_weight,
         divergence_loss_weight=args.divergence_loss_weight,
         rigidity_loss_weight=args.rigidity_loss_weight,
-        seed=seed,
+        seed=resolve_seed(args).seed,
     )
 
 
@@ -276,3 +327,10 @@ def render_settings_from_args(args: Args, near: float, far: float) -> RenderSett
         perturb=args.perturb, raw_noise_std=args.raw_noise_std,
         lindisp=False, white_bkgd=False, near=float(near), far=float(far),
     )
+
+
+def default_config_path() -> str:
+    """configs/default.txt of the checkout: the training CLI's config file
+    when none is given."""
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "configs", "default.txt")

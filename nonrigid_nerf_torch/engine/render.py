@@ -220,7 +220,7 @@ def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
 
 def make_ray_renderer(cfg: ModelConfig, rs: RenderSettings,
                       edit: EditConfig = EditConfig(), chunk: int = 32768,
-                      device: DeviceLike = None):
+                      device: DeviceLike = None, detailed: bool = False):
     """Build a renderer for any number of rays on `device` (cuda unless
     asked otherwise).
 
@@ -231,7 +231,8 @@ def make_ray_renderer(cfg: ModelConfig, rs: RenderSettings,
     `quantize_for_inference` calibrated; see `use_fused_kernel`).
 
     Returns fn(model, rays_o (N, 3), rays_d (N, 3), latents (N, L),
-    generator=None) -> dict of (N, ...) tensors."""
+    generator=None) -> dict of (N, ...) tensors; with `detailed` also
+    `render_rays`'s per-sample details of both passes."""
     device = resolve_device(device)
     check_nerf_supported(cfg)
     use_fused_kernel(cfg, edit, device)   # raises now on an unsupported mode
@@ -259,7 +260,7 @@ def make_ray_renderer(cfg: ModelConfig, rs: RenderSettings,
                 sl = slice(b * chunk, (b + 1) * chunk)
                 outs.append(render_rays(model, cfg, rs, ro[sl], rd[sl],
                                         lat[sl], generator=generator,
-                                        edit=edit))
+                                        edit=edit, detailed=detailed))
         return {k: torch.cat([o[k] for o in outs], 0)[:n] for k in outs[0]}
 
     return render

@@ -29,7 +29,7 @@ from nonrigid_nerf_torch.weights import params_from_jax
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE_FILES = sorted((REPO / "nonrigid_nerf_torch").rglob("*.py"))
-PORT_FILES = PACKAGE_FILES + [REPO / "chip_smoke.py",
+PORT_FILES = PACKAGE_FILES + [REPO / "chip_smoke.py", REPO / "chip_quality.py",
                               REPO / "tests" / "test_torch_kernels_cuda.py"]
 # the files this round of the port added: a rename or a removal must be
 # deliberate, and each must stand under the import rule
@@ -56,6 +56,10 @@ SM90_SOURCES = ("mlp_fwd.cu", "mlp_bwd.cu", "mlpv_fwd.cu", "mlpv_bwd.cu",
 # longer has it)
 TILE_CHAIN = ("chain_forward(", "dh_chain(", "mlp_dw_kernel", "mlp_small_kernel")
 SM90_FILES = ["ops/kernels/mlp_sm90.py"]
+CLI_FILES = ["cli/__init__.py", "cli/train.py", "cli/summarize.py",
+             "data/llff.py",
+             "utils/__init__.py", "utils/image_io.py", "utils/video.py",
+             "utils/viz.py", "utils/volume.py"]
 FORBIDDEN = ("jax", "jaxlib", "nonrigid_nerf_tpu")
 
 
@@ -86,6 +90,7 @@ def test_training_files_are_under_the_import_rule():
     covered = {str(p.relative_to(REPO / "nonrigid_nerf_torch"))
                for p in PACKAGE_FILES}
     assert set(TRAINING_FILES) <= covered
+    assert set(CLI_FILES) <= covered
     assert (REPO / "nonrigid_nerf_torch" / "ops" / "kernels" / "csrc"
             / "mlp_bwd.cu").exists()
 
@@ -229,6 +234,27 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         create_train_state(cfg, t_config.TrainConfig(), 1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_train_state("missing.npz", cfg)
+
+
+def test_training_cli_raises_without_gpu(monkeypatch, tmp_path):
+    """`python3 -m nonrigid_nerf_torch.cli.train` without `--device` asks
+    for cuda: on a box without a GPU it raises before it writes anything."""
+    from nonrigid_nerf_torch.cli import train as cli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--datadir", str(tmp_path / "data"), "--rootdir",
+            str(tmp_path / "exp"), "--expname", "x"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main_function(cli.parse_args(argv))
+    assert not (tmp_path / "exp").exists()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nonrigid_nerf_torch.cli.train"] + argv,
+        cwd=REPO, env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": "",
+                       "HOME": str(tmp_path)},
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr
+    assert not (tmp_path / "exp").exists()
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):

@@ -14,6 +14,7 @@ the same rays and the same parameters (CPU).
 import dataclasses
 import pathlib
 
+import imageio.v2 as imageio
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -143,16 +144,68 @@ def test_render_path_matches_jax(tmp_path):
                  center_y=3.0)] * 2
     poses = np.stack([np.eye(4, dtype=np.float32)[:3]] * 2)
     poses[1, 0, 3] = 0.1
+    gt = np.random.RandomState(0).rand(2, 6, 5, 3).astype(np.float32)
+    (tmp_path / "t").mkdir()
+    (tmp_path / "j").mkdir()
     rgbs, disps = t_render_path(model, torch_cfg(cfg), _t_rs(RS), poses, intr,
-                                tree["latents"], chunk=16, savedir=str(tmp_path),
-                                verbose=False, device="cpu")
+                                tree["latents"], chunk=16, gt_imgs=gt,
+                                savedir=str(tmp_path / "t"), verbose=False,
+                                device="cpu")
     jrgbs, jdisps = j_render_path(tree, cfg, RS, poses, intr, tree["latents"],
-                                  chunk=16, verbose=False)
+                                  chunk=16, gt_imgs=gt,
+                                  savedir=str(tmp_path / "j"), verbose=False)
     assert rgbs.shape == (2, 6, 5, 3) and disps.shape == (2, 6, 5)
     np.testing.assert_allclose(rgbs, jrgbs, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(disps, jdisps, rtol=1e-5, atol=1e-5)
-    assert np.load(tmp_path / "001.npy").dtype == np.uint8
-    assert np.load(tmp_path / "disp_001.npy").max() == 1.0
+    # the JAX package's artifacts, PNG for PNG: to8b of values 1e-5 apart
+    # lands in the same uint8 step, or in the next one
+    files = sorted(p.name for p in (tmp_path / "t").iterdir())
+    assert files == sorted(p.name for p in (tmp_path / "j").iterdir())
+    assert len(files) == 10 and "error_001.png" in files
+    for name in files:
+        ours = imageio.imread(tmp_path / "t" / name)
+        theirs = imageio.imread(tmp_path / "j" / name)
+        assert ours.dtype == np.uint8 and ours.shape == theirs.shape, name
+        assert np.abs(ours.astype(int) - theirs.astype(int)).max() <= 1, name
+    assert imageio.imread(tmp_path / "t" / "disp_001.png").max() == 255
+
+
+def test_render_path_detailed_matches_jax():
+    """`detailed` returns each frame's per-sample details as JAX does, and a
+    renderer passed in is used for every frame."""
+    cfg = NARROW
+    tree = jax_params(cfg, num_timesteps=2)
+    model = params_from_jax(tree, torch_cfg(cfg), device="cpu")
+    intr = [dict(height=3, width=4, focal_x=6.0, focal_y=6.0, center_x=2.0,
+                 center_y=1.5)] * 2
+    poses = np.stack([np.eye(4, dtype=np.float32)[:3]] * 2)
+    poses[1, 0, 3] = 0.1
+    rgbs, disps, details = t_render_path(
+        model, torch_cfg(cfg), _t_rs(RS), poses, intr, tree["latents"],
+        chunk=16, detailed=True, verbose=False, device="cpu")
+    jrgbs, jdisps, jdetails = j_render_path(
+        tree, cfg, RS, poses, intr, tree["latents"], chunk=16, detailed=True,
+        verbose=False)
+    np.testing.assert_allclose(rgbs, jrgbs, rtol=1e-5, atol=1e-5)
+    assert len(details) == 2 and set(details[0]) == set(jdetails[0])
+    for ours, theirs in zip(details, jdetails):
+        for k in ours:
+            assert ours[k].shape == theirs[k].shape, k
+            np.testing.assert_allclose(ours[k], theirs[k], rtol=1e-4,
+                                       atol=1e-4, err_msg=k)
+    calls = []
+    renderer = t_renderer(torch_cfg(cfg), _t_rs(RS).test_mode(), chunk=16,
+                          device="cpu")
+
+    def counted(*a):
+        calls.append(a[1].shape[0])
+        return renderer(*a)
+
+    again, _ = t_render_path(model, torch_cfg(cfg), _t_rs(RS), poses, intr,
+                             tree["latents"], renderer=counted, verbose=False,
+                             device="cpu")
+    assert calls == [12, 12]
+    np.testing.assert_array_equal(again, rgbs)
 
 
 def test_downscale_intrinsics():
