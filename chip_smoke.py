@@ -13,8 +13,9 @@ regularizer weights are 0). Then the flagship's two opt-in kernel modes:
 fused_kernel="pts" (`mlpe_fwd`, `mlpe_bwd`: the Fourier encoding computed
 inside the kernels; rendered and trained) and fused_kernel="int8"
 (`mlp_i8`; rendered, after `quantize_for_inference` on the first pose's
-rays). Last, the fused point
-query's two entry points, `fused_point_query` (`fused_fwd`, `fused_bwd`)
+rays). Then the training and free-viewpoint CLIs on a real
+scene, and the trained r3_eval checkpoint in every mode. Last, the fused
+point query's two entry points, `fused_point_query` (`fused_fwd`, `fused_bwd`)
 and `fused_point_query_split` (`bend_fwd`, `mlp_fwd`; `mlp_bwd`,
 `bend_bwd`), on the flagship's parameters.
 
@@ -70,7 +71,10 @@ result line is printed):
 5. The training CLI on a real dataset, data_r5/occlusion (60 frames of
    256 x 192, 3 cameras x 20 timesteps) with its JAX run's config
    (results/r5_robustness_full/args.txt) cut to 400 steps, a validation
-   frame and a save every 200. Run A: `python3 -m
+   frame and a save every 200. The phase tests the CLI, its loaders and its
+   resume, not quality: its N_iters is 400, which also puts the offsets and
+   divergence regularizers on a schedule of 400 steps, (1/100)^(1 - step /
+   400), not the 200,000 of the JAX run (chip_quality.py keeps those). Run A: `python3 -m
    nonrigid_nerf_torch.cli.train` driven in this process, launch counts set
    to 0 just before and read just after (2 `mlp_fwd` and 2 `mlp_bwd` a
    step: the config has no test split, so one cotangent a network; 4
@@ -83,7 +87,24 @@ result line is printed):
    200` must die by SIGKILL (-9) and, started again, print "Reloading
    from"; its metrics.jsonl must equal A's at every printed step and its
    final parameters and Adam moments A's bit for bit.
-6. The fused point query: each of its four kernels against its plain
+6. Free-viewpoint rendering of run A's folder through `python3 -m
+   nonrigid_nerf_torch.cli.free_viewpoint_rendering`, driven in this
+   process on every 10th of the 60 training frames, launch counts set to 0
+   just before and read just after each call: `input_reconstruction`
+   (scores.json finite, lpips null; `mlp_fwd` 4 launches a frame, 2 blocks
+   x 2 passes, and no other kernel), `fixed` (background_stability.json),
+   `--motion_factor 2` (a scene edit: no kernel launches),
+   `--quantize_inference` (`mlp_i8` 4 launches a frame; the frames at least
+   30 dB from the same frames with fused_kernel = off in the experiment's
+   args.txt), `--export_ray_bending_objs` on an `adaptive_spiral` path (3
+   OBJ files a frame, 2 more `mlp_fwd` launches a frame for its 100 rays). Each frame's seconds as
+   the CLI prints them, the median beside the mean.
+7. The trained checkpoint of results/r3_eval (200,000 JAX steps of the
+   flagship, 1,007,627 parameters) at its own 384 x 512 intrinsics, from
+   two look-at poses inside the volume its scripts_dict records: `auto`,
+   `pts` and `int8` (calibrated on the two poses' rays) against `off`, at
+   least 40, 40 and 30 dB, 12 launches a frame of the mode's kernel only.
+8. The fused point query: each of its four kernels against its plain
    version at a render block's coarse pass (2^21 points, forwards) and a
    training step's two passes (65,536 and 131,072 points, forwards and
    backwards), bit-equal on relaunch, timed beside its plain version, its
@@ -94,7 +115,7 @@ result line is printed):
    and the gradients against the f32 modules'; and `fused_fwd` against what
    the engine spends on the same function (the f32 bender, then
    `mlpe_fwd`).
-7. Print rows 1-6 and 11 (`mlp_fwd`, `mlp_bwd`, `mlpv_fwd`, `mlpv_bwd`,
+9. Print rows 1-6 and 11 (`mlp_fwd`, `mlp_bwd`, `mlpv_fwd`, `mlpv_bwd`,
    `mlpe_fwd`, `mlpe_bwd`, `mlp_i8`: csrc/mlp_sm90.cuh's chains on wgmma) at
    every size and width, each with its device time and share of the bound (a
    backward also with its two-pass floor and its device time by kernel:
@@ -175,6 +196,13 @@ CLI_CONFIG = os.path.join("results", "r5_robustness_full", "args.txt")
 CLI_DATA = os.path.join("data_r5", "occlusion")
 CLI_STEPS, CLI_PRINT, CLI_EVERY = 400, 50, 200
 CLI_FRAME = (192, 256)           # the scene's frame: 2 ray blocks of CHUNK
+# free-viewpoint rendering of the CLI's run A: every 10th of its 60 frames
+FVR_STRIDE = 10
+# the trained checkpoint of results/r3_eval (200,000 JAX steps on the
+# example sequence): its frame is the example sequence's, 384 x 512
+R3_EVAL = os.path.join("results", "r3_eval", "pretrained", "logs")
+R3_EVAL_PARAMETERS = 1007627
+R3_EVAL_LATENTS = (0, 43)        # the timesteps of its two frames
 
 
 def log(*args):
@@ -1778,144 +1806,350 @@ def same_tree(a, b) -> bool:
         np.array_equal(np.asarray(a), np.asarray(b))
 
 
-def cli_phase(root, smi):
+def cli_phase(root, smi, tmp):
     """Run A: the training CLI in this process on data_r5/occlusion, launch
     counts set to 0 just before and read just after; the experiment folder,
     finite values, a falling loss. Run B: the same command in a subprocess
     that SIGKILLs itself after its save at step 200, started again: the
     metric stream and the final parameters and Adam moments bit-equal to
-    A's."""
+    A's. Both run under `tmp`; run A's experiment folder stays there for
+    phase 6. Returns (results, run A's folder)."""
     from nonrigid_nerf_torch.checkpoints import read_checkpoint
     from nonrigid_nerf_torch.cli import train as cli
     from nonrigid_nerf_torch.config import load_args
 
-    out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        logdir_a = os.path.join(tmp, "A", "occlusion_cli", "logs")
-        probe = {}
-        real_probe = cli.determine_nerf_volume_extent
+    logdir_a = os.path.join(tmp, "A", "occlusion_cli", "logs")
+    probe = {}
+    real_probe = cli.determine_nerf_volume_extent
 
-        def counted_probe(*a, **kw):
-            before = launch_counts()
-            result = real_probe(*a, **kw)
-            probe.update({k: v - before[k] for k, v in launch_counts().items()
-                          if v != before[k]})
-            return result
+    def counted_probe(*a, **kw):
+        before = launch_counts()
+        result = real_probe(*a, **kw)
+        probe.update({k: v - before[k] for k, v in launch_counts().items()
+                      if v != before[k]})
+        return result
 
-        cli.determine_nerf_volume_extent = counted_probe
-        reset_launch_counts()
+    cli.determine_nerf_volume_extent = counted_probe
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        cli.main(cli_argv(root, os.path.join(tmp, "A")))
+    finally:
+        cli.determine_nerf_volume_extent = real_probe
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in launch_counts().items() if v}
+    frames = CLI_STEPS // CLI_EVERY
+    blocks = -(-CLI_FRAME[0] * CLI_FRAME[1] // CHUNK)
+    # one backward launch a network and cotangent: the test rays' second
+    # cotangent exists only with a test split, which this config has not
+    args = load_args(os.path.join(root, CLI_CONFIG))
+    bwd = 4 if args.train_block_size > 0 and args.test_block_size > 0 \
+        else 2
+    want = {"mlp_fwd": 2 * CLI_STEPS + 2 * blocks * frames + 2,
+            "mlp_bwd": bwd * CLI_STEPS}
+    log(f"cli (A, in this process): {CLI_STEPS} steps, {frames} validation "
+        f"frames, the volume probe in {wall:.2f} s (data loading, the "
+        f"backup and the saves included); launches {counts} (expected "
+        f"{want}: 2 + {bwd} a step, {2 * blocks} a frame, "
+        f"2 the probe)")
+    log(f"cli volume probe: launches {probe} (expected {{'mlp_fwd': 2}})")
+    if counts != want or probe != {"mlp_fwd": 2}:
+        raise AssertionError("the CLI's run launched other kernels or "
+                             "other counts than expected")
+    for name in ("args.txt", "config.txt", "cameras.obj", "metrics.jsonl",
+                 "latest.npz",
+                 os.path.join("val_images", f"{CLI_EVERY:06d}.png"),
+                 os.path.join("val_images", f"{CLI_STEPS:06d}.png")):
+        if not os.path.exists(os.path.join(logdir_a, name)):
+            raise AssertionError(f"the experiment folder lacks {name}")
+    if not os.path.isdir(os.path.join(tmp, "A", "occlusion_cli", "backup",
+                                      "nonrigid_nerf_torch")):
+        raise AssertionError("the experiment folder lacks backup/")
+    step_a, params_a, _, opt_a = read_checkpoint(
+        os.path.join(logdir_a, "latest.npz"), with_opt_state=True)
+    if step_a != CLI_STEPS:
+        raise AssertionError(f"latest.npz is at step {step_a}")
+    for leaf in checkpoint_leaves((params_a, opt_a)):
+        if not np.isfinite(leaf).all():
+            raise AssertionError("non-finite values in latest.npz")
+    rows = cli_rows(logdir_a)
+    train_rows = [r for r in rows if "loss" in r]
+    val_rows = [r for r in rows if "val_psnr" in r]
+    peak = [r["peak_device_bytes"] for r in rows if "peak_device_bytes" in r]
+    if [r["step"] for r in train_rows] != list(
+            range(CLI_PRINT, CLI_STEPS + 1, CLI_PRINT)) \
+            or [r["step"] for r in val_rows] != [CLI_EVERY, CLI_STEPS] \
+            or len(peak) != 1:
+        raise AssertionError(f"unexpected metrics.jsonl rows {rows}")
+    for r in rows:
+        if not all(math.isfinite(v) for v in r.values()):
+            raise AssertionError(f"non-finite metrics {r}")
+    first, last = train_rows[0], train_rows[-1]
+    if not last["loss"] < first["loss"]:
+        raise AssertionError("the CLI's loss did not fall")
+    rates = [r["it_per_sec"] for r in train_rows[1:]]
+    steps_per_s = CLI_PRINT * len(rates) / sum(CLI_PRINT / r for r in rates)
+    log(f"cli (A): loss {first['loss']:.5f} (step {CLI_PRINT}) -> "
+        f"{last['loss']:.5f} (step {CLI_STEPS}); psnr {first['psnr']:.2f} "
+        f"-> {last['psnr']:.2f}; {steps_per_s:.2f} steps/s over steps "
+        f"{CLI_PRINT + 1}-{CLI_STEPS} (a validation frame and a save "
+        f"included); validation PSNR "
+        + ", ".join(f"{r['val_psnr']:.2f} dB at {r['step']}"
+                    for r in val_rows)
+        + f" (view {val_rows[0]['val_view']}); peak device memory "
+        f"{peak[0]} B ({peak[0] / 2**30:.3f} GiB); {smi}")
+
+    # run B: killed after its save at step 200, then started again
+    argv_b = cli_argv(root, os.path.join(tmp, "B"), "--die_at_step",
+                      str(CLI_EVERY))
+    t0 = time.perf_counter()
+    killed = cli_subprocess(root, argv_b)
+    if killed.returncode != -9 or "SIGKILL at step" not in killed.stdout:
+        raise AssertionError(f"run B exited with {killed.returncode}, "
+                             f"not -9: {killed.stderr[-3000:]}")
+    resumed = cli_subprocess(root, argv_b)
+    wall_b = time.perf_counter() - t0
+    if resumed.returncode != 0 or "Reloading from" not in resumed.stdout:
+        raise AssertionError(f"run B did not resume ({resumed.returncode})"
+                             f": {resumed.stdout[-2000:]}"
+                             f"{resumed.stderr[-3000:]}")
+    logdir_b = os.path.join(tmp, "B", "occlusion_cli", "logs")
+    rows_b = cli_rows(logdir_b)
+    fields = ("loss", "psnr", "img_loss", "img_loss0", "offsets_loss",
+              "divergence_loss")
+
+    def stream(rs):
+        return [{k: r[k] for k in ("step", "val_psnr") + fields if k in r}
+                for r in rs if "loss" in r or "val_psnr" in r]
+
+    step_b, params_b, _, opt_b = read_checkpoint(
+        os.path.join(logdir_b, "latest.npz"), with_opt_state=True)
+    metrics_equal = stream(rows) == stream(rows_b)
+    state_equal = step_b == step_a and same_tree(params_a, params_b) \
+        and same_tree(opt_a, opt_b)
+    log(f"cli (B, subprocesses): killed with {killed.returncode} after the "
+        f"save at step {CLI_EVERY}, resumed to step {step_b} in "
+        f"{wall_b:.2f} s for both launches; metrics.jsonl equal to A's at "
+        f"every printed step: {metrics_equal}; parameters and Adam moments "
+        f"bit-equal to A's: {state_equal}")
+    if not (metrics_equal and state_equal):
+        raise AssertionError("the resumed run differs from the "
+                             "uninterrupted one")
+    out = {"steps": CLI_STEPS, "launches": counts, "probe_launches": probe,
+           "steps_per_s": steps_per_s, "wall_s_a": wall,
+           "loss_first": first["loss"], "loss_last": last["loss"],
+           "psnr_last": last["psnr"],
+           "val_psnr_db": {r["step"]: r["val_psnr"] for r in val_rows},
+           "peak_device_bytes": peak[0], "resume_bit_equal": True,
+           "wall_s_b": wall_b}
+    return out, os.path.join(tmp, "A", "occlusion_cli")
+
+
+# ---- free-viewpoint rendering (python3 -m nonrigid_nerf_torch.cli.
+# free_viewpoint_rendering) of the CLI's run A, and the trained r3_eval
+# checkpoint
+def fvr_run(exp, flags):
+    """One free-viewpoint rendering of `exp` in this process, launch counts
+    set to 0 just before and read just after. Returns (output folder,
+    launches of the kernels that ran, seconds of each frame as the CLI
+    printed them)."""
+    import contextlib
+    import io
+
+    from nonrigid_nerf_torch.cli import free_viewpoint_rendering as fvr
+    buf = io.StringIO()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        folder = fvr.free_viewpoint_rendering(fvr.build_parser().parse_args(
+            ["--input", exp] + flags))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    frame_s = [float(m) for m in re.findall(r"rendered frame \d+/\d+ in "
+                                            r"([0-9.]+) s", text)]
+    return folder, counts, frame_s
+
+
+def rgb_frames(folder):
+    from nonrigid_nerf_torch.utils.image_io import imread
+    names = sorted(f for f in os.listdir(folder) if f.startswith("rgb_"))
+    return np.stack([imread(os.path.join(folder, f)) / 255.0 for f in names])
+
+
+def fvr_phase(exp, smi):
+    """Phase 6: the free-viewpoint CLI on the CLI's run A (the occlusion
+    scene after 400 steps), every 10th of its 60 training frames:
+    `input_reconstruction` (scores.json finite; `mlp_fwd` 4 launches a
+    frame, 2 blocks x 2 passes, and nothing else), `fixed`
+    (background_stability.json), `--motion_factor 2` (an edit: no kernel
+    launches), `--quantize_inference` (`mlp_i8` 4 launches a frame, the
+    frames at least 30 dB from the f32 path's), `--export_ray_bending_objs`
+    (on an `adaptive_spiral` path: the OBJ files; 2 more launches a frame
+    for the 100 rays); the f32 path is the experiment rendered with
+    fused_kernel = off in args.txt."""
+    import shutil
+
+    from nonrigid_nerf_torch.config import Args, parse_config_file
+
+    blocks = -(-CLI_FRAME[0] * CLI_FRAME[1] // CHUNK)
+    n = -(-60 // FVR_STRIDE)
+    base = ["--deformations", "train", "--view_stride", str(FVR_STRIDE)]
+    exp_off = exp + "_off"
+    shutil.copytree(exp, exp_off)
+    args_path = os.path.join(exp_off, "logs", "args.txt")
+    Args(**parse_config_file(args_path)).replace(fused_kernel="off").dump(
+        args_path)
+    runs = {
+        "input_reconstruction": (exp, ["--camera_path", "input_reconstruction"],
+                                 {"mlp_fwd": 2 * blocks * n}),
+        "fixed": (exp, ["--camera_path", "fixed"], {"mlp_fwd": 2 * blocks * n}),
+        "motion_factor_2": (exp, ["--camera_path", "input_reconstruction",
+                                  "--motion_factor", "2"], {}),
+        "int8": (exp, ["--camera_path", "input_reconstruction",
+                       "--quantize_inference"], {"mlp_i8": 2 * blocks * n}),
+        "objs": (exp, ["--camera_path", "adaptive_spiral",
+                       "--export_ray_bending_objs"],
+                 {"mlp_fwd": (2 * blocks + 2) * n}),
+        "off": (exp_off, ["--camera_path", "input_reconstruction"], {}),
+    }
+    out, folders = {}, {}
+    for name, (where, flags, want) in runs.items():
         t0 = time.perf_counter()
-        try:
-            cli.main(cli_argv(root, os.path.join(tmp, "A")))
-        finally:
-            cli.determine_nerf_volume_extent = real_probe
-        torch.cuda.synchronize()
+        folder, counts, frame_s = fvr_run(where, base + flags)
         wall = time.perf_counter() - t0
-        counts = {k: v for k, v in launch_counts().items() if v}
-        frames = CLI_STEPS // CLI_EVERY
-        blocks = -(-CLI_FRAME[0] * CLI_FRAME[1] // CHUNK)
-        # one backward launch a network and cotangent: the test rays' second
-        # cotangent exists only with a test split, which this config has not
-        args = load_args(os.path.join(root, CLI_CONFIG))
-        bwd = 4 if args.train_block_size > 0 and args.test_block_size > 0 \
-            else 2
-        want = {"mlp_fwd": 2 * CLI_STEPS + 2 * blocks * frames + 2,
-                "mlp_bwd": bwd * CLI_STEPS}
-        log(f"cli (A, in this process): {CLI_STEPS} steps, {frames} validation "
-            f"frames, the volume probe in {wall:.2f} s (data loading, the "
-            f"backup and the saves included); launches {counts} (expected "
-            f"{want}: 2 + {bwd} a step, {2 * blocks} a frame, "
-            f"2 the probe)")
-        log(f"cli volume probe: launches {probe} (expected {{'mlp_fwd': 2}})")
-        if counts != want or probe != {"mlp_fwd": 2}:
-            raise AssertionError("the CLI's run launched other kernels or "
+        folders[name] = folder
+        log(f"fvr ({name}): {len(frame_s)} frames, s per frame "
+            + ", ".join(f"{t:.4f}" for t in frame_s)
+            + f"; median {float(np.median(frame_s)):.4f}, mean "
+            f"{float(np.mean(frame_s)):.4f}; the whole call {wall:.2f} s "
+            f"(loading, PNGs, videos, scores included); launches {counts} "
+            f"(expected {want}); {smi}")
+        if counts != want or len(frame_s) != n:
+            raise AssertionError(f"fvr ({name}) launched other kernels or "
                                  "other counts than expected")
-        for name in ("args.txt", "config.txt", "cameras.obj", "metrics.jsonl",
-                     "latest.npz",
-                     os.path.join("val_images", f"{CLI_EVERY:06d}.png"),
-                     os.path.join("val_images", f"{CLI_STEPS:06d}.png")):
-            if not os.path.exists(os.path.join(logdir_a, name)):
-                raise AssertionError(f"the experiment folder lacks {name}")
-        if not os.path.isdir(os.path.join(tmp, "A", "occlusion_cli", "backup",
-                                          "nonrigid_nerf_torch")):
-            raise AssertionError("the experiment folder lacks backup/")
-        step_a, params_a, _, opt_a = read_checkpoint(
-            os.path.join(logdir_a, "latest.npz"), with_opt_state=True)
-        if step_a != CLI_STEPS:
-            raise AssertionError(f"latest.npz is at step {step_a}")
-        for leaf in checkpoint_leaves((params_a, opt_a)):
-            if not np.isfinite(leaf).all():
-                raise AssertionError("non-finite values in latest.npz")
-        rows = cli_rows(logdir_a)
-        train_rows = [r for r in rows if "loss" in r]
-        val_rows = [r for r in rows if "val_psnr" in r]
-        peak = [r["peak_device_bytes"] for r in rows if "peak_device_bytes" in r]
-        if [r["step"] for r in train_rows] != list(
-                range(CLI_PRINT, CLI_STEPS + 1, CLI_PRINT)) \
-                or [r["step"] for r in val_rows] != [CLI_EVERY, CLI_STEPS] \
-                or len(peak) != 1:
-            raise AssertionError(f"unexpected metrics.jsonl rows {rows}")
-        for r in rows:
-            if not all(math.isfinite(v) for v in r.values()):
-                raise AssertionError(f"non-finite metrics {r}")
-        first, last = train_rows[0], train_rows[-1]
-        if not last["loss"] < first["loss"]:
-            raise AssertionError("the CLI's loss did not fall")
-        rates = [r["it_per_sec"] for r in train_rows[1:]]
-        steps_per_s = CLI_PRINT * len(rates) / sum(CLI_PRINT / r for r in rates)
-        log(f"cli (A): loss {first['loss']:.5f} (step {CLI_PRINT}) -> "
-            f"{last['loss']:.5f} (step {CLI_STEPS}); psnr {first['psnr']:.2f} "
-            f"-> {last['psnr']:.2f}; {steps_per_s:.2f} steps/s over steps "
-            f"{CLI_PRINT + 1}-{CLI_STEPS} (a validation frame and a save "
-            f"included); validation PSNR "
-            + ", ".join(f"{r['val_psnr']:.2f} dB at {r['step']}"
-                        for r in val_rows)
-            + f" (view {val_rows[0]['val_view']}); peak device memory "
-            f"{peak[0]} B ({peak[0] / 2**30:.3f} GiB); {smi}")
+        out[name] = {"frames": len(frame_s), "launches": counts,
+                     "s_per_frame_median": float(np.median(frame_s)),
+                     "s_per_frame_mean": float(np.mean(frame_s)),
+                     "wall_s": wall, "folder": os.path.basename(folder)}
+    for name in ("input_reconstruction", "motion_factor_2", "int8", "off"):
+        with open(os.path.join(folders[name], "scores.json")) as f:
+            scores = json.load(f)
+        if not (math.isfinite(scores["average_psnr"])
+                and math.isfinite(scores["average_ssim"])
+                and scores["average_lpips"] is None):
+            raise AssertionError(f"fvr ({name}): scores.json {scores}")
+        out[name]["average_psnr"] = scores["average_psnr"]
+        out[name]["average_ssim"] = scores["average_ssim"]
+    with open(os.path.join(folders["fixed"],
+                           "background_stability.json")) as f:
+        out["fixed"]["background_stability"] = json.load(f)
+    objs = [f for f in os.listdir(folders["objs"]) if f.endswith(".obj")]
+    if len(objs) != 3 * n or "_int8" not in os.path.basename(folders["int8"]):
+        raise AssertionError(f"fvr: {len(objs)} OBJ files, int8 folder "
+                             f"{folders['int8']}")
+    off = rgb_frames(folders["off"])
+    for name in ("input_reconstruction", "int8"):
+        out[name]["psnr_vs_off_db"] = [psnr(a, b) for a, b in
+                                       zip(rgb_frames(folders[name]), off)]
+    log("fvr: scores.json average_psnr / average_ssim "
+        + ", ".join(f"{k} {out[k]['average_psnr']:.4f} / "
+                    f"{out[k]['average_ssim']:.4f}"
+                    for k in ("input_reconstruction", "int8", "off",
+                              "motion_factor_2"))
+        + f"; background stability {out['fixed']['background_stability']}; "
+        "PSNR of the frames (8-bit PNGs) against off: kernels "
+        f"{min(out['input_reconstruction']['psnr_vs_off_db']):.2f} dB, int8 "
+        f"{min(out['int8']['psnr_vs_off_db']):.2f} dB or more (need >= "
+        f"{MIN_PSNR_INT8_DB}); {smi}")
+    if min(out["int8"]["psnr_vs_off_db"]) < MIN_PSNR_INT8_DB:
+        raise AssertionError("the int8 frames disagree with the f32 path")
+    return out
 
-        # run B: killed after its save at step 200, then started again
-        argv_b = cli_argv(root, os.path.join(tmp, "B"), "--die_at_step",
-                          str(CLI_EVERY))
-        t0 = time.perf_counter()
-        killed = cli_subprocess(root, argv_b)
-        if killed.returncode != -9 or "SIGKILL at step" not in killed.stdout:
-            raise AssertionError(f"run B exited with {killed.returncode}, "
-                                 f"not -9: {killed.stderr[-3000:]}")
-        resumed = cli_subprocess(root, argv_b)
-        wall_b = time.perf_counter() - t0
-        if resumed.returncode != 0 or "Reloading from" not in resumed.stdout:
-            raise AssertionError(f"run B did not resume ({resumed.returncode})"
-                                 f": {resumed.stdout[-2000:]}"
-                                 f"{resumed.stderr[-3000:]}")
-        logdir_b = os.path.join(tmp, "B", "occlusion_cli", "logs")
-        rows_b = cli_rows(logdir_b)
-        fields = ("loss", "psnr", "img_loss", "img_loss0", "offsets_loss",
-                  "divergence_loss")
 
-        def stream(rs):
-            return [{k: r[k] for k in ("step", "val_psnr") + fields if k in r}
-                    for r in rs if "loss" in r or "val_psnr" in r]
+def look_at_poses(scripts, n=2):
+    """Cameras on the volume's near face, looking at its centre, spread
+    sideways (NeRF's camera frame: columns right, up, back)."""
+    lo = np.asarray(scripts["min_nerf_volume_point"])
+    hi = np.asarray(scripts["max_nerf_volume_point"])
+    center = (lo + hi) / 2.0
+    poses = []
+    for i in range(n):
+        pos = np.array([center[0] + (i - (n - 1) / 2) * 0.2 * (hi[0] - lo[0]),
+                        center[1], hi[2]])
+        back = (pos - center) / np.linalg.norm(pos - center)
+        right = np.cross([0.0, 1.0, 0.0], back)
+        right /= np.linalg.norm(right)
+        up = np.cross(back, right)
+        poses.append(np.concatenate(
+            [np.stack([right, up, back], 1), pos[:, None]], 1))
+    return np.stack(poses).astype(np.float32)
 
-        step_b, params_b, _, opt_b = read_checkpoint(
-            os.path.join(logdir_b, "latest.npz"), with_opt_state=True)
-        metrics_equal = stream(rows) == stream(rows_b)
-        state_equal = step_b == step_a and same_tree(params_a, params_b) \
-            and same_tree(opt_a, opt_b)
-        log(f"cli (B, subprocesses): killed with {killed.returncode} after the "
-            f"save at step {CLI_EVERY}, resumed to step {step_b} in "
-            f"{wall_b:.2f} s for both launches; metrics.jsonl equal to A's at "
-            f"every printed step: {metrics_equal}; parameters and Adam moments "
-            f"bit-equal to A's: {state_equal}")
-        if not (metrics_equal and state_equal):
-            raise AssertionError("the resumed run differs from the "
-                                 "uninterrupted one")
-        out = {"steps": CLI_STEPS, "launches": counts, "probe_launches": probe,
-               "steps_per_s": steps_per_s, "wall_s_a": wall,
-               "loss_first": first["loss"], "loss_last": last["loss"],
-               "psnr_last": last["psnr"],
-               "val_psnr_db": {r["step"]: r["val_psnr"] for r in val_rows},
-               "peak_device_bytes": peak[0], "resume_bit_equal": True,
-               "wall_s_b": wall_b}
+
+def trained_weights_phase(root, device, smi):
+    """Phase 7: the trained checkpoint of results/r3_eval at its own
+    384 x 512 intrinsics, from two look-at poses inside its volume
+    (scripts_dict), rendered with `auto`, `pts` and `int8` (calibrated on
+    the two poses' rays) against `off`: PSNR at least 40, 40 and 30 dB,
+    12 launches a frame of the mode's kernel and of no other."""
+    from nonrigid_nerf_torch.checkpoints import load_checkpoint
+    from nonrigid_nerf_torch.config import (load_args, model_config_from_args,
+                                            render_settings_from_args)
+    from nonrigid_nerf_torch.ops.kernels.quant_mlp import \
+        quantize_for_inference
+    from nonrigid_nerf_torch.ops.rays import get_rays
+
+    args = load_args(os.path.join(root, R3_EVAL, "args.txt"))
+    cfg = model_config_from_args(args)
+    step, model, extras = load_checkpoint(
+        os.path.join(root, R3_EVAL, "latest.npz"), cfg, device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    if step != 200000 or n_params != R3_EVAL_PARAMETERS:
+        raise AssertionError(f"r3_eval: step {step}, {n_params} parameters")
+    scripts = extras["scripts_dict"]
+    rs = render_settings_from_args(args, scripts["near"], scripts["far"])
+    poses = look_at_poses(scripts)
+    intrinsics = [extras["intrinsics"]["0"]] * len(poses)
+    h, w = int(intrinsics[0]["height"]), int(intrinsics[0]["width"])
+    latents = model.latents.detach().cpu().numpy()[list(R3_EVAL_LATENTS)]
+    rays = [get_rays(torch.as_tensor(p, device=device), intrinsics[0])
+            for p in poses]
+    model_q = quantize_for_inference(
+        model, cfg, torch.cat([r[0].reshape(-1, 3) for r in rays]),
+        torch.cat([r[1].reshape(-1, 3) for r in rays]),
+        torch.as_tensor(np.repeat(latents, h * w, 0), device=device),
+        rs.near, rs.far)
+    blocks = -(-h * w // CHUNK)
+    modes = (("off", model, None, None), ("auto", model, "mlp_fwd", MIN_PSNR_DB),
+             ("pts", model, "mlpe_fwd", MIN_PSNR_DB),
+             ("int8", model_q, "mlp_i8", MIN_PSNR_INT8_DB))
+    out, off = {}, None
+    for mode, m, kernel, limit in modes:
+        cfg_m = dataclasses.replace(cfg, fused_kernel=mode)
+        reset_launch_counts()
+        rgbs, disps, frame_s = render_frames(m, cfg_m, rs, poses, intrinsics,
+                                             latents, device,
+                                             f"r3_eval, fused_kernel={mode}")
+        counts = {k: v for k, v in launch_counts().items() if v}
+        want = {kernel: 2 * blocks * len(poses)} if kernel else {}
+        if counts != want or not np.isfinite(rgbs).all():
+            raise AssertionError(f"r3_eval ({mode}): launches {counts} "
+                                 f"(expected {want}), or non-finite pixels")
+        out[mode] = {"launches": counts, "frame_s": frame_s,
+                     "rgb_std": float(rgbs.std())}
+        if off is None:
+            off = rgbs
+            continue
+        out[mode]["psnr_vs_off_db"] = [psnr(a, b) for a, b in zip(rgbs, off)]
+        log(f"r3_eval ({mode}): PSNR vs off per frame "
+            f"{['%.2f' % p for p in out[mode]['psnr_vs_off_db']]} dB (need >= "
+            f"{limit}); launches {counts}; {smi}")
+        if min(out[mode]["psnr_vs_off_db"]) < limit:
+            raise AssertionError(f"r3_eval ({mode}) disagrees with off")
+    if out["off"]["rgb_std"] < 0.05:
+        raise AssertionError("r3_eval: the frames are flat, the poses see "
+                             "no scene")
     return out
 
 
@@ -2038,8 +2272,16 @@ def main() -> int:
             f"{time.perf_counter() - t_start:.1f} s since the start")
 
     # ---- phase 5: the training CLI on a real dataset
-    cli_results = cli_phase(root, smi)
-    log(f"cli done: {time.perf_counter() - t_start:.1f} s since the start")
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_results, cli_exp = cli_phase(root, smi, tmp)
+        log(f"cli done: {time.perf_counter() - t_start:.1f} s since the start")
+        # ---- phase 6: free-viewpoint rendering of the CLI's run A
+        fvr_results = fvr_phase(cli_exp, smi)
+    log(f"fvr done: {time.perf_counter() - t_start:.1f} s since the start")
+    # ---- phase 7: the trained r3_eval checkpoint, every mode against off
+    trained_results = trained_weights_phase(root, device, smi)
+    log(f"trained weights done: {time.perf_counter() - t_start:.1f} s since "
+        "the start")
 
     # ---- fused_kernel="int8": phases 2 and 3 (it does not train)
     fam_plain = families[0][0]
@@ -2139,11 +2381,13 @@ def main() -> int:
             f"{p['bound_ms'] / p['ms']:.3f} of it" + detail(p)
             for what, p in passes) + split + f"; {smi}")
 
-    # ---- phase 7: results
+    # ---- results
     log(json.dumps({"render": renders}))
     log(json.dumps({"train": trains}))
     log(json.dumps({"fused_fwd_vs_engine": fused_vs_engine}))
     log(json.dumps({"cli": cli_results}))
+    log(json.dumps({"fvr": fvr_results}))
+    log(json.dumps({"trained_weights": trained_results}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -92,15 +92,25 @@ def save_checkpoint(path: str, step: int, model: NRNeRF,
     parameters as the JAX tree and, when given, Adam's moments
     `optimizer_state = (mu, nu)` by parameter name as optax's state with
     both counts at `step`."""
-    if not path.endswith(".npz"):
-        raise ValueError(f"only npz checkpoints are written, not {path!r}")
-    tree = {"params": params_to_jax(model)}
+    moments = None
     if optimizer_state is not None:
         mu, nu = optimizer_state
+        moments = (tree_from_named(mu), tree_from_named(nu))
+    write_checkpoint(path, step, params_to_jax(model), moments, extras)
+
+
+def write_checkpoint(path: str, step: int, params, moments=None,
+                     extras: Optional[dict] = None) -> None:
+    """`save_checkpoint` for trees: `params` the JAX-layout parameter tree
+    and `moments` Adam's (mu, nu) trees of the same shape, or None (numpy
+    leaves)."""
+    if not path.endswith(".npz"):
+        raise ValueError(f"only npz checkpoints are written, not {path!r}")
+    tree = {"params": params}
+    if moments is not None:
         count = np.asarray(step, np.int32)
-        tree["opt_state"] = (
-            ScaleByAdamState(count, tree_from_named(mu), tree_from_named(nu)),
-            ScaleByScheduleState(count))
+        tree["opt_state"] = (ScaleByAdamState(count, *moments),
+                             ScaleByScheduleState(count))
     arrays, structure = {}, {}
     for key, val in _flatten(tree).items():
         if isinstance(val, dict):             # structural marker

@@ -194,7 +194,7 @@ def check_supported(args: Args) -> None:
     if int(args.sampling_prefetch) > 1:
         raise ValueError(
             f"--sampling_prefetch {args.sampling_prefetch}: the presampled "
-            "step is not ported (ROADMAP.md queue 1 item 11); -1, 0 and 1 "
+            "step is not ported (ROADMAP.md queue 1 item 7); -1, 0 and 1 "
             "run the plain step")
 
 

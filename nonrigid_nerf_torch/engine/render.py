@@ -220,7 +220,8 @@ def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
 
 def make_ray_renderer(cfg: ModelConfig, rs: RenderSettings,
                       edit: EditConfig = EditConfig(), chunk: int = 32768,
-                      device: DeviceLike = None, detailed: bool = False):
+                      device: DeviceLike = None, detailed: bool = False,
+                      postprocess=None):
     """Build a renderer for any number of rays on `device` (cuda unless
     asked otherwise).
 
@@ -229,6 +230,12 @@ def make_ray_renderer(cfg: ModelConfig, rs: RenderSettings,
     the CUDA kernel under fused_kernel "auto" or "on" on a GPU, and under the
     opt-in modes "pts" and "int8" (the latter on a model that
     `quantize_for_inference` calibrated; see `use_fused_kernel`).
+
+    `postprocess(block_dict) -> dict` runs on each block's outputs, on the
+    device, inside the block loop: it reduces the per-sample details of a
+    `detailed` block (the correspondence extraction of free-viewpoint
+    rendering) to per-ray maps, so that only those are kept and
+    concatenated.
 
     Returns fn(model, rays_o (N, 3), rays_d (N, 3), latents (N, L),
     generator=None) -> dict of (N, ...) tensors; with `detailed` also
@@ -258,9 +265,11 @@ def make_ray_renderer(cfg: ModelConfig, rs: RenderSettings,
         with torch.no_grad():
             for b in range(n_blocks):
                 sl = slice(b * chunk, (b + 1) * chunk)
-                outs.append(render_rays(model, cfg, rs, ro[sl], rd[sl],
-                                        lat[sl], generator=generator,
-                                        edit=edit, detailed=detailed))
+                out = render_rays(model, cfg, rs, ro[sl], rd[sl], lat[sl],
+                                  generator=generator, edit=edit,
+                                  detailed=detailed)
+                outs.append(postprocess(out) if postprocess is not None
+                            else out)
         return {k: torch.cat([o[k] for o in outs], 0)[:n] for k in outs[0]}
 
     return render

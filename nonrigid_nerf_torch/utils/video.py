@@ -38,3 +38,20 @@ def mp4_writer() -> Optional[Callable]:
     except ImportError:
         return None
     return _opencv_writer
+
+
+def write_video(path: str, frames_u8, fps: int = 30) -> bool:
+    """frames_u8: (F, H, W[, 3]) uint8. Writes an mp4 with OpenCV; prints
+    why and returns False where it cannot (reference: train.py:1736-1781
+    swallows the failure with a hint)."""
+    writer = mp4_writer()
+    if writer is None:
+        print(f"video write failed for {path}: no mp4 writer imports "
+              "(OpenCV)", flush=True)
+        return False
+    try:
+        writer(path, frames_u8, fps=fps)
+        return True
+    except (OSError, RuntimeError, ValueError) as e:
+        print(f"video write failed for {path}: {e}", flush=True)
+        return False

@@ -231,7 +231,7 @@ class TestConfigSurface:
     @pytest.mark.parametrize("key,value,match", [
         ("checkpoint_format", "orbax", "checkpoint_format"),
         ("checkpoint_format", "tar", "checkpoint_format"),
-        ("sampling_prefetch", "64", "ROADMAP.md queue 1 item 11")])
+        ("sampling_prefetch", "64", "ROADMAP.md queue 1 item 7")])
     def test_unsupported_options_raise(self, key, value, match, tmp_path):
         args = cli.parse_args(small_scene(tmp_path) + [f"--{key}", value])
         with pytest.raises(ValueError, match=match):

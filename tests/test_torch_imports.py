@@ -60,6 +60,9 @@ CLI_FILES = ["cli/__init__.py", "cli/train.py", "cli/summarize.py",
              "data/llff.py",
              "utils/__init__.py", "utils/image_io.py", "utils/video.py",
              "utils/viz.py", "utils/volume.py"]
+# free-viewpoint rendering, its metrics and the reference interop
+FVR_FILES = ["cli/free_viewpoint_rendering.py", "utils/metrics.py",
+             "utils/lpips.py", "interop.py"]
 FORBIDDEN = ("jax", "jaxlib", "nonrigid_nerf_tpu")
 
 
@@ -91,6 +94,7 @@ def test_training_files_are_under_the_import_rule():
                for p in PACKAGE_FILES}
     assert set(TRAINING_FILES) <= covered
     assert set(CLI_FILES) <= covered
+    assert set(FVR_FILES) <= covered
     assert (REPO / "nonrigid_nerf_torch" / "ops" / "kernels" / "csrc"
             / "mlp_bwd.cu").exists()
 
@@ -270,3 +274,20 @@ def test_chip_smoke_refuses_without_gpu(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_fvr_cli_raises_without_gpu(tmp_path):
+    """`python3 -m nonrigid_nerf_torch.cli.free_viewpoint_rendering` without
+    `--device` asks for cuda: on a box without a GPU it raises before it
+    writes anything."""
+    exp = tmp_path / "exp"
+    (exp / "logs").mkdir(parents=True)
+    proc = subprocess.run(
+        [sys.executable, "-m", "nonrigid_nerf_torch.cli.free_viewpoint_rendering",
+         "--input", str(exp), "--deformations", "train", "--camera_path",
+         "fixed"],
+        cwd=REPO, env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": "",
+                       "HOME": str(tmp_path)},
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr
+    assert sorted(p.name for p in exp.iterdir()) == ["logs"]
