@@ -104,7 +104,18 @@ result line is printed):
    two look-at poses inside the volume its scripts_dict records: `auto`,
    `pts` and `int8` (calibrated on the two poses' rays) against `off`, at
    least 40, 40 and 30 dB, 12 launches a frame of the mode's kernel only.
-8. The fused point query: each of its four kernels against its plain
+8. Data parallelism (`nonrigid_nerf_torch/parallel/`): the flagship's
+   step on the synthetic stack of phase 4 for 50 steps from the seed's
+   fresh state, three ways on the same (seed, step) generators: the
+   single-process step (the reference), `make_parallel_train_step` at
+   world size 1 on nccl in this process, and 2 spawned ranks sharing the
+   card on gloo (NCCL refuses two ranks on one GPU; gloo all-reduces CUDA
+   tensors). Each run's losses against the reference (step 1: rtol 2e-5;
+   every step: 2e-3) and its final parameters (1 lrate; DP_LOSS_RTOL says
+   why), the ranks' parameters bit-equal,
+   and each rank's launches (counts set to 0 just before, read just
+   after): 2 `mlp_fwd` and 4 `mlp_bwd` a step, nothing else.
+9. The fused point query: each of its four kernels against its plain
    version at a render block's coarse pass (2^21 points, forwards) and a
    training step's two passes (65,536 and 131,072 points, forwards and
    backwards), bit-equal on relaunch, timed beside its plain version, its
@@ -115,7 +126,7 @@ result line is printed):
    and the gradients against the f32 modules'; and `fused_fwd` against what
    the engine spends on the same function (the f32 bender, then
    `mlpe_fwd`).
-9. Print rows 1-6 and 11 (`mlp_fwd`, `mlp_bwd`, `mlpv_fwd`, `mlpv_bwd`,
+10. Print rows 1-6 and 11 (`mlp_fwd`, `mlp_bwd`, `mlpv_fwd`, `mlpv_bwd`,
    `mlpe_fwd`, `mlpe_bwd`, `mlp_i8`: csrc/mlp_sm90.cuh's chains on wgmma) at
    every size and width, each with its device time and share of the bound (a
    backward also with its two-pass floor and its device time by kernel:
@@ -138,6 +149,7 @@ import dataclasses
 import json
 import math
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -203,6 +215,20 @@ FVR_STRIDE = 10
 R3_EVAL = os.path.join("results", "r3_eval", "pretrained", "logs")
 R3_EVAL_PARAMETERS = 1007627
 R3_EVAL_LATENTS = (0, 43)        # the timesteps of its two frames
+# the data-parallel phase: the flagship's step over ranks for DP_STEPS steps
+# against the single-process step on the same generators. The first step
+# starts from the same parameters: its loss differs only in the order of the
+# masked sums, held to tests/test_torch_parallel.py (b)'s rtol 2e-5. Later
+# steps carry the kernels' bf16 backward, whose dW sums each rank's 512
+# points apart from the other's: an entry whose gradient is within rounding
+# of 0 may then step the other way (2 lrate at most, as in
+# tests/test_torch_parallel.py (a) "on"), and the losses follow the
+# parameters. Measured after 50 steps on the H100: 5.6e-4 relative and
+# 0.29 lrate; held to 2e-3 and 1 lrate.
+DP_STEPS = 50
+DP_FIRST_LOSS_RTOL = 2e-5
+DP_LOSS_RTOL = 2e-3
+DP_PARAM_ATOL_LRATE = 1.0
 
 
 def log(*args):
@@ -2165,6 +2191,173 @@ def checkpoint_leaves(tree):
         yield np.asarray(tree)
 
 
+# ---- data parallelism (nonrigid_nerf_torch/parallel/): the flagship's
+# step over ranks, against the single-process step on the same generators
+def dp_setup(device):
+    """The flagship's training setup of phase 4 (configs/
+    example_sequence.txt, N_rand 1024, 64 + 64 samples, all three
+    regularizers) on the synthetic stack: (cfg, tc, rs, ds, fresh state
+    from the seed)."""
+    from nonrigid_nerf_torch.config import (load_args, model_config_from_args,
+                                            render_settings_from_args,
+                                            train_config_from_args)
+    from nonrigid_nerf_torch.engine.train_state import create_train_state
+    args = load_args(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "configs", "example_sequence.txt"))
+    args.seed = SEED
+    cfg, tc = model_config_from_args(args), train_config_from_args(args)
+    ds = synthetic_dataset(device)
+    rs = render_settings_from_args(args, ds.near, ds.far)
+    if (tc.N_rand, rs.N_samples, rs.N_importance) != (1024, 64, 64):
+        raise AssertionError(f"unexpected flagship setup {tc} {rs}")
+    return cfg, tc, rs, ds, create_train_state(cfg, tc, ds.num_timesteps,
+                                               device=device)
+
+
+def dp_steps(step_fn, state, ds, tc, device, steps):
+    """`steps` steps from the fresh state, launch counts set to 0 just
+    before and read just after: the per-step losses, the final parameters
+    (numpy), the launches and the steps/s (the first step's warm-up
+    included)."""
+    from nonrigid_nerf_torch.apps.train import step_generator
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step_fn(state, ds, step_generator(tc.seed, i, device))["loss"]
+              for i in range(steps)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {k: v for k, v in launch_counts().items() if v}
+    return {"losses": [float(v) for v in losses],
+            "params": {n: p.detach().cpu().numpy()
+                       for n, p in state.model.named_parameters()},
+            "launches": counts, "steps_per_s": steps / seconds}
+
+
+def dp_rank(rank, world, folder, steps):
+    """One rank of the 2-rank run (a spawned process): gloo on the one
+    card, both ranks on cuda:0."""
+    from nonrigid_nerf_torch.parallel import (make_parallel_train_step,
+                                              multihost)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        device = multihost.initialize(rank, world, f"file://{folder}/pg",
+                                      device="cuda:0", backend="gloo")
+        cfg, tc, rs, ds, state = dp_setup(device)
+        multihost.replicate(state.model)
+        step_fn = make_parallel_train_step(cfg, tc, rs, ds.has_test_split)
+        result = ("ok", dp_steps(step_fn, state, ds, tc, device, steps))
+    except Exception:   # noqa: BLE001 - reported to the parent, which fails
+        import traceback
+        result = ("error", traceback.format_exc())
+    finally:
+        if multihost.is_initialized():
+            torch.distributed.destroy_process_group()
+    with open(os.path.join(folder, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+def dp_phase(device, smi):
+    """The data-parallel step of the flagship for DP_STEPS steps: the
+    single-process step (the reference), the data-parallel step at world
+    size 1 on nccl, and 2 ranks sharing the card on gloo (which takes CUDA
+    tensors for all-reduce and broadcast, where NCCL refuses two ranks on
+    one GPU), each from the fresh state of the seed on the same (seed,
+    step) generators. Holds every run's losses and final parameters
+    against the reference (DP_FIRST_LOSS_RTOL, DP_LOSS_RTOL,
+    DP_PARAM_ATOL_LRATE), the 2 ranks' parameters bit-equal, and each rank's launches: 2 `mlp_fwd` and 4
+    `mlp_bwd` a step, nothing else."""
+    import multiprocessing
+    from nonrigid_nerf_torch.engine.train_step import make_train_step
+    from nonrigid_nerf_torch.parallel import (make_parallel_train_step,
+                                              multihost)
+    t_phase = time.perf_counter()
+    cfg, tc, rs, ds, state = dp_setup(device)
+    ref = dp_steps(make_train_step(cfg, tc, rs, ds.has_test_split), state,
+                   ds, tc, device, DP_STEPS)
+    runs = {}
+    with tempfile.TemporaryDirectory() as folder:
+        multihost.initialize(0, 1, f"file://{folder}/pg1", device=device)
+        try:
+            _, _, _, _, state = dp_setup(device)
+            runs["nccl, 1 rank"] = [dp_steps(make_parallel_train_step(
+                cfg, tc, rs, ds.has_test_split), state, ds, tc, device,
+                DP_STEPS)]
+        finally:
+            torch.distributed.destroy_process_group()
+        t0 = time.perf_counter()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=dp_rank, args=(r, 2, folder, DP_STEPS))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=300)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        ranks = []
+        for r in range(2):
+            path = os.path.join(folder, f"rank{r}.pkl")
+            if not os.path.exists(path):
+                raise AssertionError(f"data-parallel rank {r} returned nothing")
+            with open(path, "rb") as f:
+                status, value = pickle.load(f)
+            if status != "ok":
+                raise AssertionError(f"data-parallel rank {r}:\n{value}")
+            ranks.append(value)
+        runs["gloo, 2 ranks on one card"] = ranks
+        log(f"data parallel: 2 spawned ranks done in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    want_launches = {"mlp_fwd": 2 * DP_STEPS, "mlp_bwd": 4 * DP_STEPS}
+    results = {"steps": DP_STEPS, "reference_steps_per_s": ref["steps_per_s"],
+               "reference_launches": ref["launches"], "runs": {}}
+    if ref["launches"] != want_launches:
+        raise AssertionError(f"reference launches {ref['launches']}")
+    for name, rank_runs in runs.items():
+        loss_err = max(abs(a - b) / abs(b) for run in rank_runs
+                       for a, b in zip(run["losses"], ref["losses"]))
+        first_err = max(abs(run["losses"][0] - ref["losses"][0])
+                        / abs(ref["losses"][0]) for run in rank_runs)
+        param_err = max(float(np.abs(run["params"][n] - p).max())
+                        for run in rank_runs for n, p in ref["params"].items())
+        bit_equal = all(np.array_equal(run["params"][n], p)
+                        for run in rank_runs for n, p in ref["params"].items())
+        same_ranks = all(np.array_equal(rank_runs[0]["params"][n],
+                                        run["params"][n])
+                         for run in rank_runs[1:] for n in ref["params"])
+        launches = [run["launches"] for run in rank_runs]
+        log(f"data parallel ({name}): {DP_STEPS} steps, losses against the "
+            f"single-process step: step 1 rel {first_err:.3e} (limit "
+            f"{DP_FIRST_LOSS_RTOL:g}), max rel {loss_err:.3e} (limit "
+            f"{DP_LOSS_RTOL:g}); final parameters max abs "
+            f"{param_err / tc.lrate:.4f} lrate (limit {DP_PARAM_ATOL_LRATE:g}),"
+            f" bit-equal {bit_equal}; ranks' parameters identical "
+            f"{same_ranks}; launches per rank {launches} (expected "
+            f"{want_launches}); steps/s per rank " + ", ".join(
+                f"{run['steps_per_s']:.2f}" for run in rank_runs)
+            + f" (single process {ref['steps_per_s']:.2f}); {smi}")
+        results["runs"][name] = {
+            "loss_max_rel": loss_err, "first_loss_rel": first_err,
+            "param_max_abs_lrate":
+                param_err / tc.lrate, "bit_equal": bit_equal,
+            "ranks_identical": same_ranks, "launches": launches,
+            "steps_per_s": [run["steps_per_s"] for run in rank_runs],
+            "final_loss": rank_runs[0]["losses"][-1]}
+        if not all(math.isfinite(v) for run in rank_runs
+                   for v in run["losses"]):
+            raise AssertionError(f"{name}: non-finite losses")
+        if (first_err > DP_FIRST_LOSS_RTOL or loss_err > DP_LOSS_RTOL
+                or param_err > DP_PARAM_ATOL_LRATE * tc.lrate):
+            raise AssertionError(f"{name}: the data-parallel step departs "
+                                 "from the single-process step")
+        if not same_ranks or any(c != want_launches for c in launches):
+            raise AssertionError(f"{name}: ranks differ, or launched other "
+                                 "kernels than the step's")
+    log(f"data parallel phase: {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -2282,6 +2475,10 @@ def main() -> int:
     trained_results = trained_weights_phase(root, device, smi)
     log(f"trained weights done: {time.perf_counter() - t_start:.1f} s since "
         "the start")
+    # ---- phase 8: the data-parallel step over ranks
+    dp_results = dp_phase(device, smi)
+    log(f"data parallel done: {time.perf_counter() - t_start:.1f} s since "
+        "the start")
 
     # ---- fused_kernel="int8": phases 2 and 3 (it does not train)
     fam_plain = families[0][0]
@@ -2388,6 +2585,7 @@ def main() -> int:
     log(json.dumps({"cli": cli_results}))
     log(json.dumps({"fvr": fvr_results}))
     log(json.dumps({"trained_weights": trained_results}))
+    log(json.dumps({"data_parallel": dp_results}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,10 @@ Behavioral contract (reference: render_path, train.py:419-553): with
 (max-normalized), jet and Blinn-Phong disparity visualizations, and a jet
 error map against its ground truth where one is given; `render_factor`
 downscales intrinsics for fast previews. One renderer per frame size is
-reused across frames.
+reused across frames: `parallel.make_auto_renderer`, which renders over the
+ranks of a process group when one of more than one rank is up. Then every
+rank must call `render_path`, every rank gets every frame, and rank 0 alone
+writes the files.
 """
 
 from __future__ import annotations
@@ -20,9 +23,10 @@ import torch
 
 from nonrigid_nerf_torch.config import EditConfig, ModelConfig, RenderSettings
 from nonrigid_nerf_torch.device import DeviceLike, resolve_device
-from nonrigid_nerf_torch.engine.render import make_ray_renderer
 from nonrigid_nerf_torch.ops.math import to8b
 from nonrigid_nerf_torch.ops.rays import get_rays
+from nonrigid_nerf_torch.parallel import multihost
+from nonrigid_nerf_torch.parallel.mesh import make_auto_renderer
 from nonrigid_nerf_torch.utils.image_io import imwrite
 from nonrigid_nerf_torch.utils.viz import (disparity_to_blinn_phong,
                                            disparity_to_jet)
@@ -54,6 +58,8 @@ def render_path(model, cfg: ModelConfig, rs: RenderSettings, render_poses,
     render_poses: (F, 3, 4+) array-like; intrinsics: F dicts; latents
     (F, L); gt_imgs: (F, H, W, 3) in [0, 1] for the error maps; renderer: a
     `make_ray_renderer` function to use in place of one built here.
+    Under a process group every rank calls it, and rank 0 alone writes to
+    `savedir`.
     Returns (rgbs (F, H, W, 3), disps (F, H, W)) numpy arrays, plus a list
     of per-frame detail dicts (numpy, (H, W, ...)) when `detailed`.
     """
@@ -61,6 +67,8 @@ def render_path(model, cfg: ModelConfig, rs: RenderSettings, render_poses,
     rs = rs.test_mode()
     intrinsics = downscale_intrinsics(intrinsics, render_factor)
     latents = torch.as_tensor(np.asarray(latents, np.float32), device=device)
+    if not multihost.is_main():
+        savedir = None
 
     rgbs, disps, all_details = [], [], []
     renderer_cache = {}
@@ -69,9 +77,9 @@ def render_path(model, cfg: ModelConfig, rs: RenderSettings, render_poses,
         H, W = int(intrin["height"]), int(intrin["width"])
         if renderer is None:
             if (H, W) not in renderer_cache:
-                renderer_cache[(H, W)] = make_ray_renderer(
+                renderer_cache[(H, W)] = make_auto_renderer(
                     cfg, rs, edit=edit, chunk=chunk, device=device,
-                    detailed=detailed)
+                    detailed=detailed, n_rays_hint=H * W)
             render_fn = renderer_cache[(H, W)]
         else:
             render_fn = renderer

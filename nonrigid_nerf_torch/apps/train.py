@@ -14,6 +14,15 @@ the process after that step's save in a fresh run (fault injection);
 torch.profiler into `<logdir>/profile/`. On a GPU the run ends with its
 peak device memory, `peak_device_bytes` in metrics.jsonl.
 
+Under a process group of more than one rank (`parallel/multihost.py`) the
+loop runs the data-parallel step (`parallel/mesh.py`) on every rank, from
+rank 0's weights (`replicate`). Rank 0 alone prints the `[TRAIN]` line,
+appends to metrics.jsonl, saves and records its own peak device memory;
+every rank writes its own profile trace (`..._rank<r>.json` beside rank
+0's), and every rank calls `on_step`, whose renders are collective. After
+a save the ranks meet at a barrier, and `die_at_step` kills each rank only
+after it, so that no rank runs past the saved step.
+
 Resume is exact: the random numbers of step k come from a generator seeded
 with (tc.seed, k), never from state that a restart would lose, so a run
 that is stopped after a save and started again ends bit-equal to one that
@@ -40,6 +49,8 @@ from nonrigid_nerf_torch.device import DeviceLike, resolve_device
 from nonrigid_nerf_torch.engine.train_state import (TrainState,
                                                     create_train_state)
 from nonrigid_nerf_torch.engine.train_step import make_train_step
+from nonrigid_nerf_torch.parallel import multihost
+from nonrigid_nerf_torch.parallel.mesh import make_parallel_train_step
 
 ARCHIVE_EVERY = 50000
 PROFILE_AFTER = 50      # steps of warm-up before a profile window
@@ -102,15 +113,24 @@ def train(cfg: ModelConfig, tc: TrainConfig, rs: RenderSettings,
     if state is None:
         state = initial_state(cfg, tc, ds.num_timesteps, logdir, device,
                               no_reload=no_reload)
-    step_fn = make_train_step(cfg, tc, rs, has_test_split=ds.has_test_split,
-                              debug_metrics=debug_metrics)
+    world = multihost.world_size()
+    main = multihost.is_main()
+    if world > 1:
+        multihost.replicate(state.model)
+        step_fn = make_parallel_train_step(
+            cfg, tc, rs, has_test_split=ds.has_test_split,
+            debug_metrics=debug_metrics)
+    else:
+        step_fn = make_train_step(cfg, tc, rs,
+                                  has_test_split=ds.has_test_split,
+                                  debug_metrics=debug_metrics)
 
     start = state.step
     stop = tc.N_iters if max_steps is None else min(tc.N_iters,
                                                     start + max_steps)
     print(f"Begin training at step {start} -> {stop}", flush=True)
-    metrics_path = os.path.join(logdir, "metrics.jsonl") if metrics_file \
-        else None
+    metrics_path = os.path.join(logdir, "metrics.jsonl") \
+        if metrics_file and main else None
     latest = os.path.join(logdir, "latest.npz")
     profiler = None
     metrics = None
@@ -129,13 +149,14 @@ def train(cfg: ModelConfig, tc: TrainConfig, rs: RenderSettings,
             profiler.stop()
             profile_dir = os.path.join(logdir, "profile")
             os.makedirs(profile_dir, exist_ok=True)
+            suffix = "" if main else f"_rank{multihost.rank()}"
             trace = os.path.join(profile_dir, f"steps_{start + PROFILE_AFTER}"
-                                 f"_{i}.json")
+                                 f"_{i}{suffix}.json")
             profiler.export_chrome_trace(trace)
             print("wrote torch.profiler trace to", trace, flush=True)
             profiler = None
 
-        if i % i_print == 0:
+        if i % i_print == 0 and main:
             m = {k: float(v) for k, v in metrics.items()}   # waits for the device
             dt = time.time() - t0
             t0 = time.time()
@@ -152,12 +173,14 @@ def train(cfg: ModelConfig, tc: TrainConfig, rs: RenderSettings,
             _append_row(metrics_path, {"step": i, "it_per_sec": i_print / dt,
                                        **{k: round(v, 8) for k, v in m.items()}})
 
-        if i % i_weights == 0 or i == stop:
+        if (i % i_weights == 0 or i == stop) and main:
             save_checkpoint(latest, i, state.model, (state.mu, state.nu),
                             ckpt_extras)
             if i % ARCHIVE_EVERY == 0:
                 shutil.copyfile(latest, os.path.join(logdir, f"{i:06d}.npz"))
             print("Saved checkpoint at", latest, flush=True)
+        if i % i_weights == 0 or i == stop:
+            multihost.barrier()     # no rank passes a save unfinished
 
         if on_step is not None:
             on_step(i, state)
@@ -165,11 +188,13 @@ def train(cfg: ModelConfig, tc: TrainConfig, rs: RenderSettings,
         if die_at_step and i == die_at_step and start == 0:
             # fault injection: die without any cleanup, as a preemption
             # would. Only a fresh run fires: a resumed run passing the step
-            # again must not die again, or it could never finish.
+            # again must not die again, or it could never finish. Every
+            # rank dies, after the barrier that follows a save.
+            multihost.barrier()
             print(f"[FAULT-INJECTION] SIGKILL at step {i}", flush=True)
             os.kill(os.getpid(), signal.SIGKILL)
 
-    if metrics is not None:
+    if metrics is not None and main:
         print(f"training done at step {state.step}; final loss "
               f"{float(metrics['loss']):.5f}", flush=True)
         if device.type == "cuda":

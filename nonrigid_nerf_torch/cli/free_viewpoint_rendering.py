@@ -21,6 +21,12 @@ free_viewpoint_rendering.py:568-876). `--device` (cuda unless given) is the
 one flag the JAX CLI lacks: without a GPU it raises before anything is
 written unless asked for the CPU.
 
+Launched by torchrun (`python3 -m torch.distributed.run --nproc_per_node N
+-m nonrigid_nerf_torch.cli.free_viewpoint_rendering ...`), every rank loads
+the experiment and renders each frame's share of rays
+(`parallel.make_auto_renderer`), and rank 0 alone writes the images,
+videos, `scores.json` and `background_stability.json`.
+
 The correspondence and rigidity images need the median-visibility surface
 sample of each pixel. The reference hauls the (H, W, samples, 3) details to
 the host; here `_surface_post` reduces each ray block on the device inside
@@ -47,6 +53,7 @@ import numpy as np
 import torch
 
 from nonrigid_nerf_torch.device import DeviceLike, resolve_device
+from nonrigid_nerf_torch.parallel import multihost
 
 
 def create_folder(folder):
@@ -219,9 +226,9 @@ def free_viewpoint_rendering(fvr_args, device: DeviceLike = None) -> str:
                                             render_settings_from_args)
     from nonrigid_nerf_torch.engine.query import (edits_active,
                                                   use_fused_kernel)
-    from nonrigid_nerf_torch.engine.render import make_ray_renderer
     from nonrigid_nerf_torch.ops.math import to8b
     from nonrigid_nerf_torch.ops.rays import get_rays
+    from nonrigid_nerf_torch.parallel.mesh import make_auto_renderer
     from nonrigid_nerf_torch.utils.image_io import imwrite
     from nonrigid_nerf_torch.utils.video import write_video
     from nonrigid_nerf_torch.utils.viz import (disparity_to_blinn_phong,
@@ -262,7 +269,9 @@ def free_viewpoint_rendering(fvr_args, device: DeviceLike = None) -> str:
 
     output_folder = os.path.join(fvr_args.input, "output",
                                  output_name(fvr_args))
-    create_folder(output_folder)
+    main = multihost.is_main()      # every rank renders, rank 0 writes
+    if main:
+        create_folder(output_folder)
 
     # the dataset this experiment was trained on
     (ds, images, poses, render_poses, intrinsics, extras,
@@ -381,9 +390,9 @@ def free_viewpoint_rendering(fvr_args, device: DeviceLike = None) -> str:
         intrin = path_intrinsics[f]
         H, W = int(intrin["height"]), int(intrin["width"])
         if (H, W) not in renderer_cache:
-            renderer_cache[(H, W)] = make_ray_renderer(
-                cfg, rs, edit=edit, chunk=max(1, min(args.chunk, H * W)),
-                device=device, detailed=True, postprocess=_surface_post)
+            renderer_cache[(H, W)] = make_auto_renderer(
+                cfg, rs, edit=edit, chunk=args.chunk, device=device,
+                detailed=True, postprocess=_surface_post, n_rays_hint=H * W)
         render_fn = renderer_cache[(H, W)]
 
         rays_o, rays_d = get_rays(torch.as_tensor(
@@ -414,21 +423,24 @@ def free_viewpoint_rendering(fvr_args, device: DeviceLike = None) -> str:
             from nonrigid_nerf_torch.utils.viz import export_ray_bending_objs
             n_obj_rays = min(100, H * W)
             if "obj" not in renderer_cache:
-                renderer_cache["obj"] = make_ray_renderer(
+                renderer_cache["obj"] = make_auto_renderer(
                     cfg, rs, edit=edit, chunk=n_obj_rays, device=device,
-                    detailed=True)
+                    detailed=True, n_rays_hint=n_obj_rays)
             idx = torch.as_tensor(np.random.RandomState(0).choice(
                 H * W, size=n_obj_rays, replace=False), device=device)
             out_obj = renderer_cache["obj"](model, rays_o[idx], rays_d[idx],
                                             lat[idx])
-            export_ray_bending_objs(
-                out_obj["initial_input_pts"].cpu().numpy(),
-                out_obj["input_pts"].cpu().numpy(),
-                os.path.join(output_folder, f"ray_bending_{f:06d}"),
-                subsample=n_obj_rays)
+            if main:
+                export_ray_bending_objs(
+                    out_obj["initial_input_pts"].cpu().numpy(),
+                    out_obj["input_pts"].cpu().numpy(),
+                    os.path.join(output_folder, f"ray_bending_{f:06d}"),
+                    subsample=n_obj_rays)
         print(f"rendered frame {f + 1}/{num_frames} in "
               f"{time.perf_counter() - t0:.3f} s", flush=True)
 
+    if not main:
+        return output_folder
     rgbs = np.stack(rgbs)
     disps = np.stack(disps)
     corr_rgbs = np.stack(corr_rgbs)
@@ -597,7 +609,9 @@ def build_parser():
 
 
 def main(argv=None) -> int:
-    free_viewpoint_rendering(build_parser().parse_args(argv))
+    fvr_args = build_parser().parse_args(argv)
+    multihost.maybe_initialize(fvr_args.device)     # before any tensor
+    free_viewpoint_rendering(fvr_args)
     return 0
 
 

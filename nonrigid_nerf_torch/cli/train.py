@@ -8,8 +8,20 @@ Every key of the config file (`key = value` lines, the reference's
 configargparse format) is also a flag; boolean keys have `--<key>` and
 `--no_<key>`. Without `--config`, configs/default.txt is read when it
 exists. `--device` (cuda unless given) is the one flag the JAX CLI lacks:
-the port trains on one device in one process, and without a GPU it raises
-unless asked for the CPU.
+without a GPU it raises unless asked for the CPU.
+
+Data parallelism: one process per GPU, launched by torchrun,
+
+    python3 -m torch.distributed.run --standalone --nproc_per_node 4 \
+        -m nonrigid_nerf_torch.cli.train --config <file>
+    (the same with --device cpu: gloo ranks on the CPU)
+
+brings up the process group first (`parallel/multihost.py`; the JAX
+package's NRNERF_* variables work too), splits each step's N_rand rays over
+the ranks (`parallel/mesh.py`) and renders the validation frame, videos and
+test-set images over them. Rank 0 alone creates, wipes and backs up the
+experiment folder, writes args.txt, config.txt, cameras.obj, metrics.jsonl,
+the checkpoints and the images; every rank loads the dataset.
 
 Orchestration per the reference main_function (train.py:1325-1953): load
 data -> dump args.txt/config.txt -> snapshot the code into backup/ -> build
@@ -39,6 +51,7 @@ from nonrigid_nerf_torch.config import (Args, DEFAULTS,
                                         render_settings_from_args,
                                         resolve_seed, train_config_from_args)
 from nonrigid_nerf_torch.device import DeviceLike, resolve_device
+from nonrigid_nerf_torch.parallel import multihost
 from nonrigid_nerf_torch.utils.volume import determine_nerf_volume_extent
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -202,25 +215,29 @@ def main_function(args: Args, device: DeviceLike = None) -> None:
     from nonrigid_nerf_torch.apps.render_path import (downscale_intrinsics,
                                                       render_path)
     from nonrigid_nerf_torch.apps.train import initial_state, train
-    from nonrigid_nerf_torch.engine.render import make_ray_renderer
     from nonrigid_nerf_torch.ops.math import to8b
     from nonrigid_nerf_torch.ops.rays import get_rays
+    from nonrigid_nerf_torch.parallel.mesh import make_auto_renderer
     from nonrigid_nerf_torch.utils.image_io import imwrite
 
     device = resolve_device(device)
     check_supported(args)
     # seed = -1: a fresh random seed, resolved BEFORE args.txt is dumped so
     # the run is reproducible after the fact
-    args = resolve_seed(args)
+    args = args.replace(seed=multihost.broadcast_from_main(
+        resolve_seed(args).seed))       # one seed for every rank: rank 0's
+    world = multihost.world_size()
+    main = multihost.is_main()
 
     (ds, images, poses, render_poses, intrinsics, extras,
      i_train, i_test) = load_dataset(args, device)
 
     logdir = os.path.join(args.rootdir, args.expname, "logs")
-    create_folder(logdir)
-    args.dump(os.path.join(logdir, "args.txt"))
-    if args.config is not None and os.path.exists(args.config):
-        shutil.copyfile(args.config, os.path.join(logdir, "config.txt"))
+    if main:
+        create_folder(logdir)
+        args.dump(os.path.join(logdir, "args.txt"))
+        if args.config is not None and os.path.exists(args.config):
+            shutil.copyfile(args.config, os.path.join(logdir, "config.txt"))
 
     cfg = model_config_from_args(args)
     tc = train_config_from_args(args)
@@ -233,7 +250,7 @@ def main_function(args: Args, device: DeviceLike = None) -> None:
                         for i in range(poses.shape[0])]
     min_point, max_point = determine_nerf_volume_extent(
         state.model, cfg, rs, poses[:, :3, :4], probe_intrinsics,
-        output_folder=logdir)
+        output_folder=logdir if main else None)
     scripts_dict = {"near": ds.near, "far": ds.far,
                     "min_nerf_volume_point": min_point.tolist(),
                     "max_nerf_volume_point": max_point.tolist(),
@@ -245,7 +262,9 @@ def main_function(args: Args, device: DeviceLike = None) -> None:
                            if isinstance(v, (list, bool, int, float, str))},
     }
     metrics_path = os.path.join(logdir, "metrics.jsonl") \
-        if args.metrics_file else None
+        if args.metrics_file and main else None
+    if world > 1:
+        print(f"data-parallel training over {world} devices", flush=True)
 
     def latents_of(model, ids):
         table = model.latents.detach().cpu().numpy()
@@ -261,9 +280,11 @@ def main_function(args: Args, device: DeviceLike = None) -> None:
         val_intrin = downscale_intrinsics(
             [intrinsics[extras["imageid_to_viewid"][val_id]]],
             args.render_factor)[0]
-        val_renderer = make_ray_renderer(cfg, rs.test_mode(),
-                                         chunk=args.chunk, device=device)
-        create_folder(os.path.join(logdir, "val_images"))
+        val_renderer = make_auto_renderer(
+            cfg, rs.test_mode(), chunk=args.chunk, device=device,
+            n_rays_hint=int(val_intrin["height"]) * int(val_intrin["width"]))
+        if main:
+            create_folder(os.path.join(logdir, "val_images"))
 
     def validation_image(i, model):
         vh, vw = int(val_intrin["height"]), int(val_intrin["width"])
@@ -274,6 +295,8 @@ def main_function(args: Args, device: DeviceLike = None) -> None:
             extras["imageid_to_timestepid"][val_id]].reshape(1, -1)
         out = val_renderer(model, rays_o.reshape(-1, 3), rays_d.reshape(-1, 3),
                            lat.expand(vh * vw, -1))
+        if not main:
+            return
         rgb = out["rgb_map"].reshape(vh, vw, 3).cpu().numpy()
         gt = images[val_id]
         if args.render_factor:
@@ -306,21 +329,25 @@ def main_function(args: Args, device: DeviceLike = None) -> None:
             model, cfg, rs, video_poses[:, :3, :4],
             [intrinsics[0]] * len(video_poses), frame_latents,
             chunk=args.chunk, render_factor=args.render_factor, device=device)
-        _write_videos(
-            os.path.join(logdir, f"{args.expname}_spiral_{i:06d}_"),
-            rgbs, disps)
+        if main:
+            _write_videos(
+                os.path.join(logdir, f"{args.expname}_spiral_{i:06d}_"),
+                rgbs, disps)
         # end-of-training full-training-set render (reference:
         # train.py:1782-1850, on the LAST i_video interval)
         if i >= args.N_iters + 1 - args.i_video:
             print("rendering full training set...", flush=True)
             rgbs, disps = render_views(model, i_train)
-            _write_videos(
-                os.path.join(logdir, f"{args.expname}_training_{i:06d}_"),
-                rgbs, disps)
+            if main:
+                _write_videos(
+                    os.path.join(logdir, f"{args.expname}_training_{i:06d}_"),
+                    rgbs, disps)
 
     def test_renders(i, model):
+        # every rank renders (render_path), rank 0 writes
         trainsubsavedir = os.path.join(logdir, f"trainsubset_{i:06d}")
-        create_folder(trainsubsavedir)
+        if main:
+            create_folder(trainsubsavedir)
         i_train_sub = i_train
         if len(i_test) > 0 and i < args.N_iters + 1 - args.i_video:
             stride = max(1, int(len(i_train_sub) / max(len(i_test), 1) + 0.5))
@@ -330,7 +357,8 @@ def main_function(args: Args, device: DeviceLike = None) -> None:
         print("Saved some training images", flush=True)
         if len(i_test) > 0:
             testsavedir = os.path.join(logdir, f"testset_{i:06d}")
-            create_folder(testsavedir)
+            if main:
+                create_folder(testsavedir)
             render_views(model, i_test, gt_imgs=images[i_test],
                          savedir=testsavedir)
             print("Saved test set", flush=True)
@@ -354,14 +382,19 @@ def main_function(args: Args, device: DeviceLike = None) -> None:
 def main(argv=None) -> int:
     ns = config_parser().parse_args(argv)
     args = _args_from_namespace(ns)
-    device = resolve_device(ns.device)      # before anything is written
+    # the process group first, before any tensor (JAX train.py:554-563),
+    # then the device, before anything is written
+    multihost.maybe_initialize(ns.device)
+    device = resolve_device(ns.device)
     results_folder = os.path.join(args.rootdir, args.expname)
     print(results_folder, flush=True)
-    create_folder(results_folder)
-    if args.no_reload:
-        shutil.rmtree(results_folder)
+    if multihost.is_main():
         create_folder(results_folder)
-    backup(results_folder)
+        if args.no_reload:
+            shutil.rmtree(results_folder)
+            create_folder(results_folder)
+        backup(results_folder)
+    multihost.barrier()     # no rank reads the folder before the wipe
     main_function(args, device=device)
     return 0
 

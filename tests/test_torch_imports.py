@@ -30,7 +30,9 @@ from nonrigid_nerf_torch.weights import params_from_jax
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE_FILES = sorted((REPO / "nonrigid_nerf_torch").rglob("*.py"))
 PORT_FILES = PACKAGE_FILES + [REPO / "chip_smoke.py", REPO / "chip_quality.py",
-                              REPO / "tests" / "test_torch_kernels_cuda.py"]
+                              REPO / "chip_parallel.py",
+                              REPO / "tests" / "test_torch_kernels_cuda.py",
+                              REPO / "tests" / "torch_ranks.py"]
 # the files this round of the port added: a rename or a removal must be
 # deliberate, and each must stand under the import rule
 TRAINING_FILES = ["apps/train.py", "checkpoints.py", "data/__init__.py",
@@ -63,6 +65,9 @@ CLI_FILES = ["cli/__init__.py", "cli/train.py", "cli/summarize.py",
 # free-viewpoint rendering, its metrics and the reference interop
 FVR_FILES = ["cli/free_viewpoint_rendering.py", "utils/metrics.py",
              "utils/lpips.py", "interop.py"]
+# data parallelism over GPUs: the process group, the step and the renderers
+PARALLEL_FILES = ["parallel/__init__.py", "parallel/multihost.py",
+                  "parallel/mesh.py"]
 FORBIDDEN = ("jax", "jaxlib", "nonrigid_nerf_tpu")
 
 
@@ -95,6 +100,7 @@ def test_training_files_are_under_the_import_rule():
     assert set(TRAINING_FILES) <= covered
     assert set(CLI_FILES) <= covered
     assert set(FVR_FILES) <= covered
+    assert set(PARALLEL_FILES) <= covered
     assert (REPO / "nonrigid_nerf_torch" / "ops" / "kernels" / "csrc"
             / "mlp_bwd.cu").exists()
 

@@ -54,6 +54,24 @@ def jax_step_draws(key, step, n_rays, n_samples, n_importance,
     `jax.random` calls of stratified_z_vals, raw2outputs (twice),
     sample_pdf and divergence_loss."""
     _, k_render, k_loss = jax.random.split(jax.random.fold_in(key, step), 3)
+    return _draws_from_keys(k_render, k_loss, n_rays, n_samples,
+                            n_importance, dtype)
+
+
+def jax_parallel_step_draws(key, step, rank, n_local, n_samples,
+                            n_importance, dtype=np.float32):
+    """The random numbers that device `rank` of the JAX mesh step draws for
+    its `n_local` rays, keyed as the port's `draws`: the step's render and
+    loss keys with the device index folded in
+    (parallel/mesh.py:81-82), then as `jax_step_draws`."""
+    _, k_render, k_loss = jax.random.split(jax.random.fold_in(key, step), 3)
+    return _draws_from_keys(jax.random.fold_in(k_render, rank),
+                            jax.random.fold_in(k_loss, rank), n_local,
+                            n_samples, n_importance, dtype)
+
+
+def _draws_from_keys(k_render, k_loss, n_rays, n_samples, n_importance,
+                     dtype):
     k_strat, k_noise0, k_pdf, k_noise1 = jax.random.split(k_render, 4)
     draws = {
         "t_rand": jax.random.uniform(k_strat, (n_rays, n_samples), dtype=dtype),
