@@ -8,10 +8,11 @@ Runs `python3 -m torch.distributed.run --standalone --nproc_per_node N -m
 nonrigid_nerf_torch.cli.train` on data_r5/occlusion with the config of its
 JAX run (results/r5_robustness_full/args.txt: 200,000 N_iters, ended here by
 --die_at_step, so the regularizers weigh as in that run), on 1 GPU at a
-global N_rand of 1024, and on N at 1024 (strong scaling: 1024 / N rays a
-rank) and at 1024 N (weak scaling: 1024 rays a rank; one GPU cannot take
-that batch: `mlp_bwd` takes at most 262,144 points a launch). For each run
-it prints, beside the card's name and power limit:
+global N_rand of 1024 and of 1024 N (the fine pass's backward then runs in
+pieces of 262,144 points, ops/kernels/pieces.py), and on N at 1024 (strong
+scaling: 1024 / N rays a rank) and at 1024 N (weak scaling: 1024 rays a
+rank, against 1 GPU at 1024 and at the same 1024 N). For each run it
+prints, beside the card's name and power limit:
 
 - steps/s and rays/s over steps 101 to the end (rank 0's metrics.jsonl;
   every window of --print steps ends in a wait for the device);
@@ -21,9 +22,9 @@ it prints, beside the card's name and power limit:
   streams), with and without NCCL's kernels, and the time a step in them
   (the gradients' and the metrics' all-reduce: a rank that arrives first
   spins inside them until the last one comes);
-- the runs at N_rand 1024: the N-GPU losses over the first 200 steps
-  against the 1-GPU run's (every --print steps; the same steps up to the
-  order of the gradient sums, parallel/mesh.py).
+- at N_rand 1024 and at 1024 N: the N-GPU losses over the first 200 steps
+  against the 1-GPU run's at the same N_rand (every --print steps; the same
+  steps up to the order of the gradient sums, parallel/mesh.py).
 
 Then the all-reduce alone (`--allreduce-rank` under torchrun on N GPUs):
 the step's gradient buffer (every parameter of the config's model, f32)
@@ -253,22 +254,27 @@ def main() -> int:
 
     results = []
     with tempfile.TemporaryDirectory() as tmp:
-        for gpus, n_rand in ((1, BASE_RAYS), (ns.gpus, BASE_RAYS),
+        for gpus, n_rand in ((1, BASE_RAYS), (1, BASE_RAYS * ns.gpus),
+                             (ns.gpus, BASE_RAYS),
                              (ns.gpus, BASE_RAYS * ns.gpus)):
             folder = run_cli(root, gpus, n_rand, ns.steps, ns.print_every,
                              tmp)
             results.append(summarize(folder, gpus, n_rand, smi))
-    one, many = results[0], results[1]
-    diffs = {s: abs(many["losses"][s] - one["losses"][s]) / abs(
-        one["losses"][s]) for s in one["losses"] if s in many["losses"]}
-    log(f"losses, {ns.gpus} GPUs against 1 at N_rand {BASE_RAYS}, steps "
-        f"{min(diffs)}-{max(diffs)}: relative difference max "
-        f"{max(diffs.values()):.3e}, mean "
-        f"{sum(diffs.values()) / len(diffs):.3e}; at step {min(diffs)} "
-        f"{diffs[min(diffs)]:.3e}")
+    one, one_big, many, many_big = results
+    diffs = {}
+    for n_rand, a, b in ((BASE_RAYS, one, many),
+                         (BASE_RAYS * ns.gpus, one_big, many_big)):
+        d = {s: abs(b["losses"][s] - a["losses"][s]) / abs(a["losses"][s])
+             for s in a["losses"] if s in b["losses"]}
+        diffs[n_rand] = d
+        log(f"losses, {ns.gpus} GPUs against 1 at N_rand {n_rand}, steps "
+            f"{min(d)}-{max(d)}: relative difference max "
+            f"{max(d.values()):.3e}, mean {sum(d.values()) / len(d):.3e}; "
+            f"at step {min(d)} {d[min(d)]:.3e}")
     strong = many["steps_per_s"] / one["steps_per_s"]
-    weak = results[2]["rays_per_s"] / one["rays_per_s"]
-    for run in results[1:3]:
+    weak = many_big["rays_per_s"] / one["rays_per_s"]
+    weak_same_batch = many_big["rays_per_s"] / one_big["rays_per_s"]
+    for run in (many, many_big):
         nccl = [x["nccl_ms_per_step"] for x in run["ranks"]]
         log(f"all-reduce, {run['gpus']} GPUs at N_rand {run['n_rand']}: NCCL "
             f"kernels {min(nccl):.4f} ms/step on the rank that waits least, "
@@ -282,9 +288,13 @@ def main() -> int:
         f"ms; {smi}")
     log(f"strong scaling (N_rand {BASE_RAYS}): {strong:.3f}x the steps/s of "
         f"1 GPU on {ns.gpus}; weak scaling (N_rand {BASE_RAYS} a rank): "
-        f"{weak:.3f}x the rays/s of 1 GPU; {smi}")
+        f"{weak:.3f}x the rays/s of 1 GPU at N_rand {BASE_RAYS}, "
+        f"{weak_same_batch:.3f}x those of 1 GPU at N_rand "
+        f"{BASE_RAYS * ns.gpus}; {smi}")
     log(json.dumps({"device": smi, "strong_scaling": strong,
-                    "weak_scaling": weak, "loss_rel_diff": diffs,
+                    "weak_scaling": weak,
+                    "weak_scaling_same_batch": weak_same_batch,
+                    "loss_rel_diff": diffs,
                     "allreduce": timed,
                     "runs": results}))
     return 0

@@ -8,9 +8,10 @@ JAX run's (results/r5_robustness_full/metrics.jsonl).
 VARIANT is one of
   kernels      the config as it is (results/r5_robustness_full/args.txt);
   off          fused_kernel = off: the f32 MLP in place of the bf16 kernels;
-  bf16_bender  every dense layer of the bender and the rigidity network
-               rounds its input and its weight to bf16 and sums in f32, as
-               a TPU's DEFAULT matmul precision does in the JAX run.
+  bfloat16     compute_dtype = bfloat16: the bender, the rigidity network
+               (and with fused_kernel = off the MLP) on bf16 operands with
+               f32 sums, one rounding after the bias (the JAX run's
+               results/r3_bf16 setting).
 
 The run keeps the config's N_iters (200,000, as the JAX run had it): the
 offsets and divergence regularizers are scaled by (1/100)^(1 - step /
@@ -31,29 +32,13 @@ import os
 import subprocess
 import sys
 
-import torch
-import torch.nn.functional as F
-
 ROOT = os.path.dirname(os.path.abspath(__file__))
-VARIANTS = ("kernels", "off", "bf16_bender")
+VARIANTS = ("kernels", "off", "bfloat16")
 CONFIG = os.path.join(ROOT, "results", "r5_robustness_full", "args.txt")
 JAX_METRICS = os.path.join(ROOT, "results", "r5_robustness_full",
                            "metrics.jsonl")
 SAVE_EVERY = 2000
 LOSSES = ("offsets_loss", "divergence_loss")
-
-
-def bf16_operand_chain(layers, h, activation="relu"):
-    """BendingNetwork._chain with each product on bf16-rounded operands."""
-    def linear(layer, x):
-        return F.linear(x.to(torch.bfloat16).float(),
-                        layer.weight.to(torch.bfloat16).float(), layer.bias)
-
-    for i, layer in enumerate(layers[:-1]):
-        h = linear(layer, h)
-        h = torch.sin(h * 30.0 if i == 0 else h) if activation == "sin" \
-            else torch.relu(h)
-    return linear(layers[-1], h)
 
 
 def train_argv(variant, seed, steps, extra):
@@ -69,17 +54,9 @@ def train_argv(variant, seed, steps, extra):
             "--expname", expname, "--no_reload"]
     if variant == "off":
         argv += ["--fused_kernel", "off"]
+    elif variant == "bfloat16":
+        argv += ["--compute_dtype", "bfloat16"]
     return argv + list(extra), expname
-
-
-def run_variant(variant, argv) -> int:
-    """The training CLI in this process, under the variant's patch."""
-    sys.path.insert(0, ROOT)
-    from nonrigid_nerf_torch.cli import train as cli
-    from nonrigid_nerf_torch.models.bending import BendingNetwork
-    if variant == "bf16_bender":
-        BendingNetwork._chain = staticmethod(bf16_operand_chain)
-    return cli.main(argv)
 
 
 def losses_beside_jax(rows, steps):
@@ -98,17 +75,14 @@ def losses_beside_jax(rows, steps):
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv[1:2] == ["--run"]:
-        # the child process: VARIANT --run, then the CLI's flags as they are
-        return run_variant(argv[0], argv[2:])
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("variant", choices=VARIANTS)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=4000)
     ns, extra = parser.parse_known_args(argv)
     cli_argv, expname = train_argv(ns.variant, ns.seed, ns.steps, extra)
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           ns.variant, "--run"] + cli_argv, cwd=ROOT)
+    proc = subprocess.run([sys.executable, "-m", "nonrigid_nerf_torch.cli.train"]
+                          + cli_argv, cwd=ROOT)
     if proc.returncode != -9:
         print(f"chip_quality: the run exited with {proc.returncode}, not -9 "
               f"(SIGKILL after the save at step {ns.steps})", file=sys.stderr)

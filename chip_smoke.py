@@ -70,26 +70,26 @@ result line is printed):
    ms a step, idle share, the backward's kernels by name).
 5. The training CLI on a real dataset, data_r5/occlusion (60 frames of
    256 x 192, 3 cameras x 20 timesteps) with its JAX run's config
-   (results/r5_robustness_full/args.txt) cut to 400 steps, a validation
-   frame and a save every 200. The phase tests the CLI, its loaders and its
-   resume, not quality: its N_iters is 400, which also puts the offsets and
-   divergence regularizers on a schedule of 400 steps, (1/100)^(1 - step /
-   400), not the 200,000 of the JAX run (chip_quality.py keeps those). Run A: `python3 -m
+   (results/r5_robustness_full/args.txt) cut to 200 steps, a validation
+   frame and a save every 100. The phase tests the CLI, its loaders and its
+   resume, not quality: its N_iters is 200, which also puts the offsets and
+   divergence regularizers on a schedule of 200 steps, (1/100)^(1 - step /
+   200), not the 200,000 of the JAX run (chip_quality.py keeps those). Run A: `python3 -m
    nonrigid_nerf_torch.cli.train` driven in this process, launch counts set
    to 0 just before and read just after (2 `mlp_fwd` and 2 `mlp_bwd` a
    step: the config has no test split, so one cotangent a network; 4
    `mlp_fwd` a validation frame, 2 for the volume probe, printed on its
    own line; no other kernel); the experiment folder (args.txt,
    config.txt, backup/, cameras.obj, metrics.jsonl, val_images/, latest.npz
-   at step 400), finite values, the loss at step 400 below the loss at step
-   50; steps/s over steps 51-400, the validation PSNRs and the peak device
+   at step 200), finite values, the loss at step 200 below the loss at step
+   50; steps/s over steps 51-200, the validation PSNRs and the peak device
    memory. Run B: the same command in a subprocess with `--die_at_step
-   200` must die by SIGKILL (-9) and, started again, print "Reloading
+   100` must die by SIGKILL (-9) and, started again, print "Reloading
    from"; its metrics.jsonl must equal A's at every printed step and its
    final parameters and Adam moments A's bit for bit.
 6. Free-viewpoint rendering of run A's folder through `python3 -m
    nonrigid_nerf_torch.cli.free_viewpoint_rendering`, driven in this
-   process on every 10th of the 60 training frames, launch counts set to 0
+   process on every 20th of the 60 training frames, launch counts set to 0
    just before and read just after each call: `input_reconstruction`
    (scores.json finite, lpips null; `mlp_fwd` 4 launches a frame, 2 blocks
    x 2 passes, and no other kernel), `fixed` (background_stability.json),
@@ -142,6 +142,16 @@ result line is printed):
    under "lanes_128", and their share of the bound) and, last, the result
    line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+Beside these: phase 2 and the fused phase hold every backward past one
+launch (2^18 + 129 and 524,288 points; rows 8 and 10 also 2^21) in pieces
+(ops/kernels/pieces.py) against its plain version, under each row's
+"other_sizes"; phase 4b trains F at N_rand 4096 on one GPU; phase 4c
+renders F, V, P, B and I at compute_dtype="bfloat16" against phase 3's f32
+"off" frames and trains F and B; phase 5b runs the CLI presampled
+(--sampling_prefetch 16) against the plain run; phase 6b exports the
+serving artifact on the card and loads it in a process that imports torch
+alone.
 """
 
 import copy
@@ -203,13 +213,13 @@ STEP_PLAIN_MIN_COSINE = 0.999
 # they agree with the plain versions to 0.9999. Held to this floor there.
 STEP_FD_DEFORMATION_MIN_COSINE = 0.5
 # the CLI on a real dataset: the occlusion scene of data_r5/ with its JAX
-# run's config, cut to 400 steps; a validation frame and a save every 200
+# run's config, cut to 200 steps; a validation frame and a save every 100
 CLI_CONFIG = os.path.join("results", "r5_robustness_full", "args.txt")
 CLI_DATA = os.path.join("data_r5", "occlusion")
-CLI_STEPS, CLI_PRINT, CLI_EVERY = 400, 50, 200
+CLI_STEPS, CLI_PRINT, CLI_EVERY = 200, 50, 100
 CLI_FRAME = (192, 256)           # the scene's frame: 2 ray blocks of CHUNK
-# free-viewpoint rendering of the CLI's run A: every 10th of its 60 frames
-FVR_STRIDE = 10
+# free-viewpoint rendering of the CLI's run A: every 20th of its 60 frames
+FVR_STRIDE = 20
 # the trained checkpoint of results/r3_eval (200,000 JAX steps on the
 # example sequence): its frame is the example sequence's, 384 x 512
 R3_EVAL = os.path.join("results", "r3_eval", "pretrained", "logs")
@@ -715,6 +725,9 @@ def profile_run(run, what):
             "kernel_launches": sum(e.count for e in events),
             "fwd_share": share("_fwd_kernel") + share("mlp_i8_kernel"),
             "cat_share": share("CatArrayBatchedCopy"),
+            # cuBLAS's products (the bender's and the rigidity network's)
+            "gemm_ms": sum(e.self_device_time_total for e in events
+                           if "gemm" in e.key.lower()) / 1e3,
             "bwd_share": sum(share(k) for k in BWD_KERNEL_NAMES),
             "bwd_kernels_ms": {e.key[:90]: e.self_device_time_total / 1e3
                                for e in top
@@ -1754,6 +1767,9 @@ def fused_query_phase(cfg, device, smi, sizes):
         splits = backward_splits()
         bwd = [check_fused_backwards(model, n, device, net, splits)
                for n, net in ((n_train, "coarse"), (n_train_fine, "fine"))]
+        # past one launch: the autograd functions' pieces
+        pieces = dict(zip(("bend_bwd", "fused_bwd"),
+                          fused_bwd_in_pieces(model, device)))
     launches = entry_point_runs(
         model, model_unshifted, ((n_render, "coarse", False),
                                  (n_train, "coarse", True),
@@ -1793,6 +1809,7 @@ def fused_query_phase(cfg, device, smi, sizes):
                      "other_sizes": [{"points": p, **{k: v for k, v in c.items()
                                                       if k != "agreement"}}
                                      for p, c in zip(points[1:], checks[1:])]})
+        rows[-1]["other_sizes"] += pieces.get(name, [])
         for key in ("scratch_floor_ms", "split_ms_per_launch"):
             if key in head:
                 rows[-1][key] = head[key]
@@ -1836,7 +1853,7 @@ def cli_phase(root, smi, tmp):
     """Run A: the training CLI in this process on data_r5/occlusion, launch
     counts set to 0 just before and read just after; the experiment folder,
     finite values, a falling loss. Run B: the same command in a subprocess
-    that SIGKILLs itself after its save at step 200, started again: the
+    that SIGKILLs itself after its save at step CLI_EVERY, started again: the
     metric stream and the final parameters and Adam moments bit-equal to
     A's. Both run under `tmp`; run A's experiment folder stays there for
     phase 6. Returns (results, run A's folder)."""
@@ -1926,7 +1943,7 @@ def cli_phase(root, smi, tmp):
         + f" (view {val_rows[0]['val_view']}); peak device memory "
         f"{peak[0]} B ({peak[0] / 2**30:.3f} GiB); {smi}")
 
-    # run B: killed after its save at step 200, then started again
+    # run B: killed after its save at step CLI_EVERY, then started again
     argv_b = cli_argv(root, os.path.join(tmp, "B"), "--die_at_step",
                       str(CLI_EVERY))
     t0 = time.perf_counter()
@@ -2006,7 +2023,7 @@ def rgb_frames(folder):
 
 def fvr_phase(exp, smi):
     """Phase 6: the free-viewpoint CLI on the CLI's run A (the occlusion
-    scene after 400 steps), every 10th of its 60 training frames:
+    scene after CLI_STEPS steps), every FVR_STRIDE-th of its 60 training frames:
     `input_reconstruction` (scores.json finite; `mlp_fwd` 4 launches a
     frame, 2 blocks x 2 passes, and nothing else), `fixed`
     (background_stability.json), `--motion_factor 2` (an edit: no kernel
@@ -2358,6 +2375,575 @@ def dp_phase(device, smi):
     return results
 
 
+# ---- the backward past one launch, compute_dtype="bfloat16", serving and
+# the presampled step
+
+# a backward past one launch runs in pieces (ops/kernels/pieces.py): a
+# ragged second piece, and two whole pieces (a training step's fine pass at
+# N_rand 4096); rows 8 and 10 also at a render block's coarse pass (8)
+PIECE_SIZES = ((1 << 18) + 129, 524288)
+PIECE_SIZE_RENDER = 1 << 21
+PIECE_PLAIN_WHOLE = 1 << 20      # above it the plain version runs in pieces
+BIG_N_RAND = 4096                # one GPU: 262,144 coarse, 524,288 fine points
+BIG_STEPS = 5
+BF16_STEPS = 100                 # F and B at compute_dtype="bfloat16"
+# a bf16 frame against the f32 "off" frame of the same parameters: the bf16
+# bender moves every bent point by a bf16 rounding of its offset, which the
+# encoding's 2^9 octave turns into phase; the JAX run's bf16 scored 0.06 dB
+# under its f32 run (results/r3_bf16). The int8 mode keeps its own limit.
+MIN_PSNR_BF16_DB = 30.0
+# ... and against the f32 frames of the same kernels, where the family has
+# a bender: at most this, so that a bf16 that changed nothing (bit-equal
+# frames, an infinite PSNR) fails. F and P read 87-88 dB and V 64 dB
+# against the f32 "off" frames; the f32 kernels' own frames 87-99 dB.
+MAX_PSNR_BF16_DB = 95.0
+# bf16 stage 1 on the card against the CPU's `dense_apply` on the same
+# weights and points: at most this share of the offsets' and the mask's
+# entries off by more than one bf16 ulp, and at most STAGE1_UNEQUAL of them
+# not bit-equal (a sum in another order flips a rounding now and then: 6e-5
+# unequal, 1e-5 beyond one ulp on the CPU for f64 sums against f32; a
+# rounding before the bias, the planted fault, 0.43-0.58 and 0.15-0.23)
+STAGE1_POINTS = 65536
+STAGE1_ULP_SHARE = 1e-3
+STAGE1_UNEQUAL = 1e-2
+SERVE_CHUNK = 32768
+PREFETCH_STEPS, PREFETCH = 50, 16
+
+
+# the backwards whose gradients begin with the bender's 16: their `rob` is
+# held by its own error over its own magnitude (bend_bwd.ROB_TOL says why),
+# and a planted fault (rob = 0) must fail that check
+HAS_ROB = ("bend_bwd", "fused_bwd")
+
+
+def check_bwd_in_pieces(name, fn, plain, agree, inputs, weights, cots, macs,
+                        device):
+    """A backward past one launch as its autograd function runs it: the
+    kernel wrapper `fn` on pieces of at most PIECE_POINTS points
+    (`backward_in_pieces`), against the plain version on all points (past
+    PIECE_PLAIN_WHOLE in the same pieces, to bound its f32 temporaries),
+    bit-equal on relaunch, one launch a piece; ms, device ms, the plain
+    version's ms, the bound and the peak device memory above the inputs."""
+    from nonrigid_nerf_torch.ops.kernels.mlp_bwd import grad_max_tol
+    from nonrigid_nerf_torch.ops.kernels.pieces import (PIECE_POINTS,
+                                                        backward_in_pieces)
+    n, k = inputs[0].shape[0], len(inputs)
+
+    def pieced(f):
+        return backward_in_pieces(
+            lambda *rows: f(*rows[:k], weights, *rows[k:]), *inputs, *cots)
+
+    def reference():
+        return pieced(plain) if n > PIECE_PLAIN_WHOLE \
+            else plain(*inputs, weights, *cots)
+
+    def flat(r):
+        return [*r[:-1], *r[-1]]
+
+    before = fn.launches
+    got = pieced(fn)
+    torch.cuda.synchronize()
+    launches = fn.launches - before
+    pieces = -(-n // PIECE_POINTS)
+    ref = reference()
+    torch.cuda.synchronize()
+    rob_rel = None
+    if name in HAS_ROB:
+        from nonrigid_nerf_torch.ops.kernels.bend_bwd import (ROB, ROB_TOL,
+                                                              rob_rel_err)
+        rob_rel = rob_rel_err(got[-1], ref[-1])
+        planted = list(got[-1])
+        planted[ROB] = torch.zeros_like(planted[ROB])
+        if rob_rel_err(planted, ref[-1]) <= ROB_TOL:
+            raise AssertionError(f"{name}: the rob check passes rob = 0")
+        grads = list(ref[-1])
+        grads[ROB] = got[-1][ROB]       # held by rob_rel, not by `agree`
+        ref = (*ref[:-1], grads)
+    stats = agree(got, ref)
+    if rob_rel is not None:
+        stats["rob_rel"] = rob_rel
+        stats["ok"] = stats["ok"] and rob_rel <= ROB_TOL
+    del ref
+    log(f"{name} n={n} in {pieces} pieces ({launches} launches): gradients "
+        f"max err {stats['grad_max_rel']:.3e} of max magnitude, L2 "
+        f"{stats['grad_l2_rel']:.3e}; per-point outputs L2 "
+        f"{stats['demb_l2_rel']:.3e}, outliers {stats['demb_outliers']:.3e}, "
+        f"worst {stats['demb_max_rel']:.3e}"
+        + ("" if rob_rel is None else
+           f"; rob's error over its magnitude {rob_rel:.3e} (tol {ROB_TOL})"))
+    if not stats["ok"] or launches != pieces:
+        raise AssertionError(f"{name} in pieces disagrees with its plain "
+                             f"version or launched {launches} times for "
+                             f"{pieces} pieces: {stats}")
+    again = pieced(fn)
+    if not all(torch.equal(a, b) for a, b in zip(flat(got), flat(again))):
+        raise AssertionError(f"{name} in pieces is not deterministic")
+    del again
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    pieced(fn)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device) - base
+    ms = cuda_time_ms(lambda: pieced(fn), 3, warmup=1)
+    dev_ms = device_ms(lambda: pieced(fn), 3)
+    plain_ms = cuda_time_ms(reference, 1, warmup=0)
+    bound_ms, bound_by = roofline(2.0 * macs * n, tensor_bytes(
+        *inputs, *cots, *flat(got), *weights))
+    log(f"{name} n={n} in pieces: {ms:.4f} ms (device {dev_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{bound_ms / ms:.3f} of it; peak device memory above the inputs "
+        f"{peak} B")
+    return dict(points=n, pieces=pieces, launches=launches,
+                max_abs_err=stats["grad_max_rel"], ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / ms, peak_bytes=peak)
+
+
+def family_bwd_in_pieces(fam, model, device):
+    """The family's backward at PIECE_SIZES, in pieces."""
+    mw = fam.weights(model.fine, device)
+    out = []
+    for n in PIECE_SIZES:
+        inputs, gen = fam.inputs(n, device, SEED + n + 2)
+        draw = torch.randn((n, 8), generator=gen, device=device)
+        out.append(check_bwd_in_pieces(
+            f"{fam.bwd_name} ({fam.what})", fam.bwd, fam.bwd_plain,
+            fam.KB.bwd_agreement, inputs, mw, (draw,), fam.bwd_macs, device))
+        del inputs, draw
+    return out
+
+
+def fused_bwd_in_pieces(model, device):
+    """`bend_bwd` and `fused_bwd` at PIECE_SIZES and PIECE_SIZE_RENDER, in
+    pieces: ([bend_bwd's], [fused_bwd's])."""
+    from nonrigid_nerf_torch.ops.kernels import bend_bwd as BB
+    from nonrigid_nerf_torch.ops.kernels import fused_bwd as FB
+    w = fused_weights(model, device, "fine")
+    bend, fused = [], []
+    for n in PIECE_SIZES + (PIECE_SIZE_RENDER,):
+        pts, lat, gen = fused_inputs(model, n, device, SEED + n + 2)
+
+        def randn(cols, scale=1.0):
+            return scale * torch.randn((n, cols), generator=gen, device=device)
+
+        bend.append(check_bwd_in_pieces(
+            "bend_bwd", BB.bend_bwd, BB.bend_bwd_plain, BB.bend_bwd_agreement,
+            (pts, lat), w[:18], (randn(64, 0.1), randn(3), randn(1)),
+            BB.BEND_BWD_MACS_PER_POINT, device))
+        fused.append(check_bwd_in_pieces(
+            "fused_bwd", FB.fused_bwd, FB.fused_bwd_plain,
+            FB.fused_bwd_agreement, (pts, lat), w,
+            (randn(8), randn(3), randn(1)), FB.FUSED_BWD_MACS_PER_POINT,
+            device))
+        del pts, lat
+    return bend, fused
+
+
+def big_step_phase(device, smi):
+    """The flagship's training step at N_rand 4096 on one GPU (phase 4's
+    setup otherwise): 262,144 coarse and 524,288 fine points a step, so the
+    fine pass's backward runs in two pieces; launch counts set to 0 just
+    before the timed steps and read just after; finite losses; steps/s and
+    the peak device memory of a step."""
+    from nonrigid_nerf_torch.engine.train_step import (make_train_step,
+                                                       step_generator)
+    cfg, tc, rs, ds, state = dp_setup(device)
+    tc = dataclasses.replace(tc, N_rand=BIG_N_RAND)
+    step_fn = make_train_step(cfg, tc, rs, ds.has_test_split)
+    step_fn(state, ds, step_generator(tc.seed, 0, device))      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [float(step_fn(state, ds, step_generator(tc.seed, i, device))
+                    ["loss"]) for i in range(1, BIG_STEPS + 1)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    # a cotangent a network and phase (a test split: two): the coarse pass
+    # in one launch, the fine pass in two
+    per_backward = {"coarse": 1, "fine": 2}
+    want = {"mlp_fwd": 2 * BIG_STEPS,
+            "mlp_bwd": 2 * sum(per_backward.values()) * BIG_STEPS}
+    log(f"step at N_rand {BIG_N_RAND} (one GPU): losses "
+        + ", ".join(f"{v:.5f}" for v in losses)
+        + f"; {BIG_STEPS / seconds:.2f} steps/s, "
+        f"{BIG_STEPS * BIG_N_RAND / seconds:.0f} rays/s; launches {counts} "
+        f"(expected {want}: mlp_bwd 1 + 2 a cotangent, two cotangents); "
+        f"peak device memory {peak} B ({peak / 2**30:.3f} GiB); {smi}")
+    if counts != want or not all(math.isfinite(v) for v in losses):
+        raise AssertionError("the N_rand 4096 step did not run its backward "
+                             "in pieces, or its losses are not finite")
+    return {"n_rand": BIG_N_RAND, "steps": BIG_STEPS, "losses": losses,
+            "steps_per_s": BIG_STEPS / seconds, "launches": counts,
+            "mlp_bwd_launches_per_backward": per_backward,
+            "peak_device_bytes": peak, "gpu": smi}
+
+
+def bf16_share_beyond_ulp(got, want):
+    """(share of entries not bit-equal, share off by more than one bf16 ulp
+    of `want`, the largest error in ulps) of two tensors of one shape."""
+    got, want = got.double().cpu(), want.double().cpu()
+    mag = want.abs().clamp_min(float(np.finfo(np.float32).tiny))
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    err = (got - want).abs()
+    return (float((got != want).double().mean()),
+            float((err > ulp).double().mean()), float((err / ulp).max()))
+
+
+def bf16_stage1_check(cfg, device):
+    """The bender and the rigidity network at compute_dtype="bfloat16" on
+    the card against the CPU's `dense_apply` (held bitwise against JAX's by
+    tests/test_torch_bf16.py) on the same weights and STAGE1_POINTS points:
+    the flagship's bender with every bias drawn at random (the hidden
+    layers' start at 0, and a rounding before the bias is only visible on
+    a nonzero bias), its offsets and mask within STAGE1_ULP_SHARE /
+    STAGE1_UNEQUAL. The planted fault, the same layers rounding their
+    product to bf16 before the bias (a bf16-output product), must fail."""
+    import copy
+
+    from nonrigid_nerf_torch.models import bending as MB
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("bf16 stage 1 needs TF32 off")
+    gen = torch.Generator().manual_seed(SEED + 16)
+    bender = copy.deepcopy(flagship_model(cfg, "cpu").bender)
+    with torch.no_grad():
+        for layer in (*bender.bend, *bender.rigidity):
+            if layer.bias is not None:
+                bound = layer.in_features ** -0.5
+                layer.bias.copy_(bound * (2 * torch.rand(
+                    layer.bias.shape, generator=gen) - 1))
+    pts = 2 * torch.rand((STAGE1_POINTS, 3), generator=gen) - 1
+    lat = 0.1 * torch.randn((STAGE1_POINTS, cfg.ray_bending_latent_size),
+                            generator=gen)
+    on_card = copy.deepcopy(bender).to(device)
+
+    def stage1(net, where):
+        with torch.no_grad():
+            _, det = net(pts.to(where), lat.to(where),
+                         compute_dtype=torch.bfloat16)
+        return det["unmasked_offsets"], det["rigidity_mask"]
+
+    want = stage1(bender, "cpu")
+    got = stage1(on_card, device)
+    stats = {k: bf16_share_beyond_ulp(g, w)
+             for k, g, w in zip(("offsets", "mask"), got, want)}
+
+    def before_bias(layer, x, compute_dtype=torch.float32):
+        y = torch.nn.functional.linear(x.to(compute_dtype),
+                                       layer.weight.to(compute_dtype))
+        return y if layer.bias is None else y + layer.bias.to(compute_dtype)
+
+    orig = MB.dense_apply
+    MB.dense_apply = before_bias
+    try:
+        fault = stage1(on_card, device)
+    finally:
+        MB.dense_apply = orig
+    fault_stats = {k: bf16_share_beyond_ulp(g, w)
+                   for k, g, w in zip(("offsets", "mask"), fault, want)}
+
+    def passes(st):
+        return all(u <= STAGE1_UNEQUAL and b <= STAGE1_ULP_SHARE
+                   for u, b, _ in st.values())
+
+    def fmt(st):
+        return "; ".join(f"{k} unequal {u:.3e}, beyond one ulp {b:.3e}, "
+                         f"worst {w:.1f} ulp" for k, (u, b, w) in st.items())
+    log(f"bf16 stage 1 on the card against the CPU ({STAGE1_POINTS} points, "
+        f"random biases): {fmt(stats)} (need <= {STAGE1_UNEQUAL:.0e} "
+        f"unequal, <= {STAGE1_ULP_SHARE:.0e} beyond one ulp); planted fault "
+        f"(rounded before the bias): {fmt(fault_stats)}")
+    if not passes(stats):
+        raise AssertionError("the bf16 stage 1 on the card is not the CPU's "
+                             "dense_apply")
+    if passes(fault_stats):
+        raise AssertionError("the bf16 stage-1 check passes a rounding "
+                             "before the bias")
+    return {"points": STAGE1_POINTS, "vs_cpu": stats,
+            "planted_fault": fault_stats}
+
+
+def bf16_render(fam, cfg, args, device, off_frames, min_psnr, model=None):
+    """`cfg` at compute_dtype="bfloat16": frames through `render_path`,
+    launch counts set to 0 just before and read just after (the family's
+    forward kernel, 12 a frame, no other), PSNR against the f32 "off"
+    frames of the same parameters; with a bender, PSNR against the f32
+    frames of the same kernels at most MAX_PSNR_BF16_DB (bf16 changed
+    something). The baseline has no bender and its kernel ignores
+    compute_dtype (as JAX's does), so its bf16 frames are its f32 ones."""
+    from nonrigid_nerf_torch.apps.render_path import render_path
+    from nonrigid_nerf_torch.config import render_settings_from_args
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    model = flagship_model(cfg, device) if model is None else model
+    poses, intrinsics = synthetic_poses()
+    rs = render_settings_from_args(args, near=0.1, far=1.6)
+    latents = model.latents.detach().cpu().numpy()
+    with torch.no_grad():                 # warm-up
+        render_path(model, cfg16, rs, poses[:1], intrinsics[:1], latents[:1],
+                    chunk=CHUNK, render_factor=8, verbose=False, device=device)
+    torch.cuda.synchronize()
+    what = f"{fam.what}, fused_kernel={cfg.fused_kernel}, bfloat16"
+    reset_launch_counts()
+    rgbs, _, frame_s = render_frames(model, cfg16, rs, poses, intrinsics,
+                                     latents, device, what)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    name = fam.fwd_name if cfg.fused_kernel != "int8" else "mlp_i8"
+    want = {name: FRAMES * -(-H * W // CHUNK) * 2}
+    frame_psnr = [psnr(a, b) for a, b in zip(rgbs, off_frames)]
+    rgbs32, _, _ = render_frames(model, cfg, rs, poses, intrinsics, latents,
+                                 device, f"{what} -> float32")
+    same_psnr = [psnr(a, b) for a, b in zip(rgbs, rgbs32)]
+    bent = cfg.ray_bending is not None
+    log(f"bf16 render ({what}): launches {counts} (expected {want}); PSNR "
+        f"against the f32 off frames " + ", ".join(f"{p:.2f}" for p in
+                                                    frame_psnr)
+        + f" dB (need >= {min_psnr}); against the f32 frames of the same "
+        "kernels " + ", ".join(f"{p:.2f}" for p in same_psnr) + " dB"
+        + (f" (need <= {MAX_PSNR_BF16_DB})" if bent else
+           " (no bender: the same function)"))
+    if counts != want or not np.isfinite(rgbs).all() \
+            or min(frame_psnr) < min_psnr:
+        raise AssertionError(f"the bf16 render ({what}) ran other kernels or "
+                             "disagrees with the f32 frames")
+    if bent and max(same_psnr) > MAX_PSNR_BF16_DB:
+        raise AssertionError(f"the bf16 render ({what}) is the f32 render")
+    return {"what": what, "launches": counts, "psnr_vs_f32_off_db": frame_psnr,
+            "psnr_vs_f32_same_kernels_db": same_psnr,
+            "s_per_frame": float(np.mean(frame_s)),
+            "s_per_frame_median": float(np.median(frame_s))}, \
+        (model, cfg16, rs, poses, intrinsics, latents)
+
+
+def bf16_train(fam, cfg, args, device, steps):
+    """`cfg` at compute_dtype="bfloat16": `steps` training steps on the
+    synthetic stack, launch counts set to 0 just before and read just after
+    (2 forward and 4 backward launches a step), finite values, a falling
+    loss; a profile of PROFILE_STEPS steps (cuBLAS's device ms)."""
+    from nonrigid_nerf_torch.apps.train import step_generator, train
+    from nonrigid_nerf_torch.config import (render_settings_from_args,
+                                            train_config_from_args)
+    from nonrigid_nerf_torch.engine.train_step import make_train_step
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    ds = synthetic_dataset(device)
+    args.seed = SEED
+    tc = train_config_from_args(args)
+    rs = render_settings_from_args(args, ds.near, ds.far)
+    with tempfile.TemporaryDirectory() as logdir:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train(cfg16, tc, rs, ds, logdir, device=device,
+                      i_print=TRAIN_PRINT, i_weights=steps, max_steps=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            rows = [row for row in map(json.loads, f) if "loss" in row]
+    counts = {k: v for k, v in launch_counts().items() if v}
+    want = {fam.fwd_name: 2 * steps, fam.bwd_name: 4 * steps}
+    first, last = rows[0], rows[-1]
+    rates = [r["it_per_sec"] for r in rows[1:]]
+    steps_per_s = TRAIN_PRINT * len(rates) / sum(TRAIN_PRINT / r for r in rates)
+    log(f"bf16 train ({fam.what}): {steps} steps in {wall:.2f} s, "
+        f"{steps_per_s:.2f} steps/s after the first {TRAIN_PRINT}; launches "
+        f"{counts} (expected {want}); loss {first['loss']:.5f} -> "
+        f"{last['loss']:.5f}, psnr {first['psnr']:.2f} -> {last['psnr']:.2f}")
+    finite = all(math.isfinite(v) for r in rows for v in r.values()) and all(
+        bool(torch.isfinite(p).all()) for p in state.model.parameters())
+    if counts != want or not finite or not last["loss"] < first["loss"]:
+        raise AssertionError(f"bf16 training ({fam.what}) launched other "
+                             "kernels, is not finite or did not learn")
+    step_fn = make_train_step(cfg16, tc, rs, ds.has_test_split)
+
+    def few_steps():
+        for _ in range(PROFILE_STEPS):
+            step_fn(state, ds, step_generator(tc.seed, state.step, device))
+
+    prof = profile_run(few_steps, f"{PROFILE_STEPS} training steps "
+                       f"({fam.what}, bfloat16)")
+    return {"what": fam.what, "steps": steps, "launches": counts,
+            "loss_first": first["loss"], "loss_last": last["loss"],
+            "psnr_last": last["psnr"], "steps_per_s": steps_per_s,
+            "device_ms_per_step": prof["device_busy_ms"] / PROFILE_STEPS,
+            "gemm_ms_per_step": prof["gemm_ms"] / PROFILE_STEPS,
+            "idle_share": prof["idle_share"]}
+
+
+def bf16_phase(families, cfg_plain, args, off_frames, f32_profiles, device,
+               smi):
+    """compute_dtype="bfloat16" through the normal entry points: F, V, P
+    and B render (each family's kernels, 12 launches a frame) and I renders
+    after a calibration at bf16, each against the f32 "off" frames of its
+    parameters from phase 3; a profile of an F frame and of F's steps
+    (cuBLAS's device ms against phase 3's and 4's f32 profiles); F and B
+    train BF16_STEPS steps."""
+    from nonrigid_nerf_torch.apps.render_path import render_path
+    from nonrigid_nerf_torch.ops.kernels import quant_mlp as KQ
+    from nonrigid_nerf_torch.ops.rays import get_rays
+    renders, trains = [], []
+    stage1 = bf16_stage1_check(cfg_plain, device)
+    for fam, cfg, _, fam_args in families:
+        off = off_frames["plain" if fam.kind == "pts" else fam.kind]
+        result, ctx = bf16_render(fam, cfg, fam_args, device, off,
+                                  MIN_PSNR_BF16_DB)
+        if fam.kind == "plain":
+            model, cfg16, rs, poses, intrinsics, latents = ctx
+            prof = profile_run(lambda: render_path(
+                model, cfg16, rs, poses[:1], intrinsics[:1], latents[:1],
+                chunk=CHUNK, verbose=False, device=device),
+                "one frame (mlp_fwd, bfloat16)")
+            result["profile"] = prof
+            log(f"bf16 F frame: cuBLAS {prof['gemm_ms']:.2f} ms of "
+                f"{prof['device_busy_ms']:.2f} device ms (f32, this run: "
+                f"{f32_profiles['frame']['gemm_ms']:.2f} of "
+                f"{f32_profiles['frame']['device_busy_ms']:.2f}); {smi}")
+            # I: calibrated at bf16 on the first pose's rays, as phase 3
+            rays_o, rays_d = get_rays(torch.as_tensor(poses[0], device=device),
+                                      intrinsics[0])
+            model_q = KQ.quantize_for_inference(
+                model, cfg16, rays_o, rays_d,
+                model.latents[:1].detach().expand(H * W, -1), rs.near, rs.far)
+            cfg_i8 = dataclasses.replace(cfg, fused_kernel="int8")
+            result_i8, _ = bf16_render(fam, cfg_i8, fam_args, device, off,
+                                       MIN_PSNR_INT8_DB, model=model_q)
+            renders.append(result_i8)
+            del model_q, model
+        renders.append(result)
+        if fam.kind in ("plain", "baseline"):
+            trains.append(bf16_train(fam, cfg, fam_args, device, BF16_STEPS))
+    f_train = trains[0]
+    log(f"bf16 F step: cuBLAS {f_train['gemm_ms_per_step']:.2f} ms of "
+        f"{f_train['device_ms_per_step']:.2f} device ms a step (f32, this "
+        f"run: {f32_profiles['step']['gemm_ms'] / PROFILE_STEPS:.2f} of "
+        f"{f32_profiles['step']['device_busy_ms'] / PROFILE_STEPS:.2f}); "
+        f"{smi}")
+    return {"stage1_vs_cpu": stage1, "render": renders, "train": trains,
+            "gpu": smi}
+
+
+def serving_phase(cfg, args, device, smi, tmp):
+    """The serving export (`serving.py`) of the flagship's renderer on cuda
+    at SERVE_CHUNK rays a block: saved, loaded, bit-equal to the live "off"
+    render of the same block; loaded again in a child process that imports
+    torch alone (outside the checkout), bit-equal there too; the export's
+    seconds, the artifact's bytes, ms a block."""
+    from nonrigid_nerf_torch import serving
+    from nonrigid_nerf_torch.config import render_settings_from_args
+    from nonrigid_nerf_torch.ops.rays import get_rays
+    model = flagship_model(cfg, device)
+    rs = render_settings_from_args(args, near=0.1, far=1.6)
+    t0 = time.perf_counter()
+    blob, meta = serving.export_renderer(model, cfg, rs, chunk=SERVE_CHUNK,
+                                         device=device)
+    export_s = time.perf_counter() - t0
+    folder = os.path.join(tmp, "serving")
+    os.makedirs(folder)
+    path = os.path.join(folder, "flagship.pt2")
+    serving.save_exported(path, blob, meta)
+    poses, intrinsics = synthetic_poses()
+    rays_o, rays_d = get_rays(torch.as_tensor(poses[0], device=device),
+                              intrinsics[0])
+    ro = rays_o.reshape(-1, 3)[:SERVE_CHUNK].contiguous()
+    rd = rays_d.reshape(-1, 3)[:SERVE_CHUNK].contiguous()
+    lat = model.latents.detach()[:1].expand(SERVE_CHUNK, -1).contiguous()
+    live_fn = serving.make_serving_fn(model, cfg, rs)
+    render, meta = serving.load_exported(path)
+    reset_launch_counts()
+    live, got = live_fn(ro, rd, lat), render(ro, rd, lat)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    equal = all(torch.equal(got[k], live[k]) for k in live)
+    torch.save({"rays_o": ro.cpu(), "rays_d": rd.cpu(), "latents": lat.cpu()},
+               os.path.join(folder, "block.pt"))
+    code = ("import sys, torch\n"
+            "ep = torch.export.load('flagship.pt2')\n"
+            "b = torch.load('block.pt')\n"
+            "with torch.no_grad():\n"
+            "    out = ep.module()(*(b[k].cuda() for k in "
+            "('rays_o', 'rays_d', 'latents')))\n"
+            "bad = [m for m in sys.modules if m.startswith('nonrigid_nerf')]\n"
+            "assert not bad, bad\n"
+            "torch.save({k: v.cpu() for k, v in out.items()}, 'out.pt')\n")
+    child = subprocess.run([sys.executable, "-c", code], cwd=folder,
+                           capture_output=True, text=True, timeout=300,
+                           env={"PATH": os.environ.get("PATH", ""),
+                                "HOME": folder})
+    child_out = torch.load(os.path.join(folder, "out.pt")) \
+        if child.returncode == 0 else {}
+    child_equal = child.returncode == 0 and all(
+        torch.equal(child_out[k], live[k].cpu()) for k in live)
+    ms = cuda_time_ms(lambda: render(ro, rd, lat), 5)
+    live_ms = cuda_time_ms(lambda: live_fn(ro, rd, lat), 5)
+    log(f"serving: export {export_s:.2f} s, artifact {len(blob)} B, "
+        f"{ms:.2f} ms a block of {SERVE_CHUNK} rays (the live off renderer "
+        f"{live_ms:.2f} ms); bit-equal to the live render: {equal}; in a "
+        f"child process that imports torch alone: {child_equal}; kernel "
+        f"launches {launches} (expected none); {smi}")
+    if not (equal and child_equal) or launches:
+        raise AssertionError(f"the serving artifact differs from the live "
+                             f"render or ran a kernel: {child.stderr[-2000:]}")
+    return {"export_s": export_s, "bytes": len(blob), "chunk": SERVE_CHUNK,
+            "ms_per_block": ms, "live_ms_per_block": live_ms,
+            "bit_equal": True, "child_bit_equal": True, "gpu": smi}
+
+
+def presample_phase(root, smi, tmp):
+    """The training CLI on data_r5/occlusion for PREFETCH_STEPS steps, in
+    this process, at --sampling_prefetch 0 and PREFETCH: metrics.jsonl
+    (every step) and the final parameters and Adam moments bit-equal; the
+    presampled run's ray batches made once a window (counted at
+    `sample_ray_batch`)."""
+    from nonrigid_nerf_torch.checkpoints import read_checkpoint
+    from nonrigid_nerf_torch.cli import train as cli
+    from nonrigid_nerf_torch.engine import train_step
+    real = train_step.sample_ray_batch
+    batches = {}
+    out = {}
+    for name, value in (("plain", 0), ("presampled", PREFETCH)):
+        calls = []
+        train_step.sample_ray_batch = lambda *a, **k: (
+            calls.append(a[1]), real(*a, **k))[1]
+        t0 = time.perf_counter()
+        try:
+            cli.main(cli_argv(root, os.path.join(tmp, name), "--N_iters",
+                              str(PREFETCH_STEPS), "--i_print", "1",
+                              "--i_img", "0", "--i_weights",
+                              str(PREFETCH_STEPS), "--sampling_prefetch",
+                              str(value)))
+        finally:
+            train_step.sample_ray_batch = real
+        wall = time.perf_counter() - t0
+        logdir = os.path.join(tmp, name, "occlusion_cli", "logs")
+        rows = [{k: v for k, v in r.items() if k != "it_per_sec"}
+                for r in cli_rows(logdir) if "loss" in r]
+        state = read_checkpoint(os.path.join(logdir, "latest.npz"),
+                                with_opt_state=True)
+        batches[name] = calls
+        out[name] = (rows, state, wall)
+    equal_rows = out["plain"][0] == out["presampled"][0]
+    (step_a, params_a, _, opt_a), (step_b, params_b, _, opt_b) = (
+        out["plain"][1], out["presampled"][1])
+    equal_state = step_a == step_b == PREFETCH_STEPS and same_tree(
+        params_a, params_b) and same_tree(opt_a, opt_b)
+    windows = -(-PREFETCH_STEPS // PREFETCH)
+    log(f"presampled CLI: {PREFETCH_STEPS} steps at --sampling_prefetch "
+        f"{PREFETCH}: {len(batches['presampled'])} batch draws of "
+        f"{sorted(set(batches['presampled']))} rays (expected {windows}), "
+        f"plain {len(batches['plain'])}; metrics.jsonl bit-equal at every "
+        f"step: {equal_rows}; parameters and Adam moments bit-equal: "
+        f"{equal_state}; wall {out['plain'][2]:.2f} s plain, "
+        f"{out['presampled'][2]:.2f} s presampled; {smi}")
+    if not (equal_rows and equal_state) or len(batches["presampled"]) \
+            != windows or len(batches["plain"]) != PREFETCH_STEPS:
+        raise AssertionError("the presampled CLI run differs from the plain "
+                             "one, or did not presample once a window")
+    return {"steps": PREFETCH_STEPS, "sampling_prefetch": PREFETCH,
+            "windows": windows, "bit_equal": True,
+            "wall_s_plain": out["plain"][2],
+            "wall_s_presampled": out["presampled"][2], "gpu": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -2430,6 +3016,7 @@ def main() -> int:
 
     rows, renders, trains = [], [], []
     off_frames_plain = None
+    off_frames_by_kind = {}
     for fam, cfg, steps, fam_args in families:
         # ---- phase 2: kernel vs plain at the render and training shapes
         model = flagship_model(cfg, device)
@@ -2440,6 +3027,8 @@ def main() -> int:
                           check_fwd(fam, model, n_bwd_fine, device, "fine")]
             bwd_checks = [check_bwd(fam, model, n_bwd_coarse, device),
                           check_bwd(fam, model, n_bwd_fine, device)]
+            # past one launch: the autograd function's pieces
+            piece_checks = family_bwd_in_pieces(fam, model, device)
         del model
         # ---- phase 3: render through render_path, kernel vs off ("pts"
         # against the first family's "off" frames: the same parameters)
@@ -2449,6 +3038,7 @@ def main() -> int:
             off_frames_plain if fam.kind == "pts" else None)
         if fam.kind == "plain":
             off_frames_plain = off_frames
+        off_frames_by_kind[fam.kind] = off_frames
         # ---- phase 4: training
         train_results, train_counts = train_phase(fam, fam_args, cfg, device,
                                                   smi, steps)
@@ -2457,6 +3047,7 @@ def main() -> int:
         fam_rows = kernel_rows(fam, sizes, fwd_checks, bwd_checks,
                                render_launches, train_counts)
         fam_rows[1]["split_ms_per_launch"] = train_results["bwd_split_ms_per_launch"]
+        fam_rows[1]["other_sizes"] = piece_checks
         if fam.kind == "baseline":
             add_width_rows(rows[:2], fam_rows)
         else:
@@ -2464,12 +3055,28 @@ def main() -> int:
         log(f"family done ({fam.what}): "
             f"{time.perf_counter() - t_start:.1f} s since the start")
 
+    # ---- phase 4b: a step at N_rand 4096 on one GPU (the fine pass's
+    # backward in two pieces)
+    big_step = big_step_phase(device, smi)
+    # ---- phase 4c: compute_dtype="bfloat16": renders of F, V, P, B and I,
+    # F and B trained
+    bf16_results = bf16_phase(
+        families, cfg_plain, args, off_frames_by_kind,
+        {"frame": renders[0]["profile"], "step": trains[0]["profile"]},
+        device, smi)
+    log(f"big step and bf16 done: {time.perf_counter() - t_start:.1f} s "
+        "since the start")
+
     # ---- phase 5: the training CLI on a real dataset
     with tempfile.TemporaryDirectory() as tmp:
         cli_results, cli_exp = cli_phase(root, smi, tmp)
         log(f"cli done: {time.perf_counter() - t_start:.1f} s since the start")
+        # ---- phase 5b: the presampled step through the CLI
+        presample_results = presample_phase(root, smi, tmp)
         # ---- phase 6: free-viewpoint rendering of the CLI's run A
         fvr_results = fvr_phase(cli_exp, smi)
+        # ---- phase 6b: the serving export
+        serving_results = serving_phase(cfg_plain, args, device, smi, tmp)
     log(f"fvr done: {time.perf_counter() - t_start:.1f} s since the start")
     # ---- phase 7: the trained r3_eval checkpoint, every mode against off
     trained_results = trained_weights_phase(root, device, smi)
@@ -2586,6 +3193,10 @@ def main() -> int:
     log(json.dumps({"fvr": fvr_results}))
     log(json.dumps({"trained_weights": trained_results}))
     log(json.dumps({"data_parallel": dp_results}))
+    log(json.dumps({"big_step": big_step}))
+    log(json.dumps({"bfloat16": bf16_results}))
+    log(json.dumps({"serving": serving_results}))
+    log(json.dumps({"presampled": presample_results}))
     log(smi)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

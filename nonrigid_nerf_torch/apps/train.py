@@ -48,7 +48,9 @@ from nonrigid_nerf_torch.data.dataset import RayDataset
 from nonrigid_nerf_torch.device import DeviceLike, resolve_device
 from nonrigid_nerf_torch.engine.train_state import (TrainState,
                                                     create_train_state)
-from nonrigid_nerf_torch.engine.train_step import make_train_step
+from nonrigid_nerf_torch.engine.train_step import (make_prefetch_train_step,
+                                                   make_train_step,
+                                                   step_generator)
 from nonrigid_nerf_torch.parallel import multihost
 from nonrigid_nerf_torch.parallel.mesh import make_parallel_train_step
 
@@ -56,11 +58,13 @@ ARCHIVE_EVERY = 50000
 PROFILE_AFTER = 50      # steps of warm-up before a profile window
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The generator of one step's draws (pixels, jitter, noise, probe): a
-    function of (seed, step) only."""
-    return torch.Generator(device=device).manual_seed(
-        (int(seed) * 1_000_003 + int(step)) % (2 ** 63))
+def resolve_sampling_prefetch(n_prefetch: int) -> int:
+    """The batches a presampled window holds: N > 1 as given; 0, 1 and -1
+    run the plain step. The JAX CLI's -1 presamples 64 steps a window on
+    an image stack of 256 MB or more (train.py:268-273); the presampled
+    step is bit-equal to the plain one and was slower on an H100 on such a
+    stack (PERF.md section 6), so here -1 keeps the plain step."""
+    return n_prefetch if n_prefetch > 1 else 0
 
 
 def initial_state(cfg: ModelConfig, tc: TrainConfig, num_timesteps: int,
@@ -91,11 +95,16 @@ def train(cfg: ModelConfig, tc: TrainConfig, rs: RenderSettings,
           max_steps: Optional[int] = None,
           state: Optional[TrainState] = None, die_at_step: int = 0,
           on_step: Optional[Callable[[int, TrainState], None]] = None,
-          profile_steps: int = 0, metrics_file: bool = True) -> TrainState:
+          profile_steps: int = 0, metrics_file: bool = True,
+          sampling_prefetch: int = 0) -> TrainState:
     """Train on `ds` to step `tc.N_iters` (or for at most `max_steps` steps
     of this call) on `device` (cuda unless asked otherwise) and return the
     state. `state` is the state to start from (else `initial_state`).
-    `extras` goes into every checkpoint beside near and far."""
+    `extras` goes into every checkpoint beside near and far.
+    `sampling_prefetch` > 1 runs the presampled step on a single process
+    (`make_prefetch_train_step`): a window of that many steps' pixels is
+    drawn whenever state.step leaves the last window; the data-parallel step
+    keeps the plain sampling, as the JAX CLI's does."""
     device = resolve_device(device)
     if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
@@ -120,6 +129,23 @@ def train(cfg: ModelConfig, tc: TrainConfig, rs: RenderSettings,
         step_fn = make_parallel_train_step(
             cfg, tc, rs, has_test_split=ds.has_test_split,
             debug_metrics=debug_metrics)
+    elif sampling_prefetch > 1:
+        presample_fn, batch_step_fn = make_prefetch_train_step(
+            cfg, tc, rs, has_test_split=ds.has_test_split,
+            n_prefetch=sampling_prefetch, debug_metrics=debug_metrics)
+        print(f"presampled training: {sampling_prefetch} batches per stack "
+              "pass", flush=True)
+        window = {"step0": None, "batches": None}
+
+        def step_fn(state, ds, generator):
+            # the presampled batches carry their own generators; the window
+            # follows the state's own step count
+            s = state.step
+            if window["step0"] is None or not (
+                    window["step0"] <= s < window["step0"] + sampling_prefetch):
+                window["step0"] = s
+                window["batches"] = presample_fn(ds, tc.seed, s)
+            return batch_step_fn(state, window["batches"], s - window["step0"])
     else:
         step_fn = make_train_step(cfg, tc, rs,
                                   has_test_split=ds.has_test_split,

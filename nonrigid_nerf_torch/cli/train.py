@@ -204,17 +204,14 @@ def check_supported(args: Args) -> None:
     if fmt != "npz":
         raise ValueError(f"--checkpoint_format {fmt!r}: the port writes npz "
                          "checkpoints only")
-    if int(args.sampling_prefetch) > 1:
-        raise ValueError(
-            f"--sampling_prefetch {args.sampling_prefetch}: the presampled "
-            "step is not ported (ROADMAP.md queue 1 item 7); -1, 0 and 1 "
-            "run the plain step")
 
 
 def main_function(args: Args, device: DeviceLike = None) -> None:
     from nonrigid_nerf_torch.apps.render_path import (downscale_intrinsics,
                                                       render_path)
-    from nonrigid_nerf_torch.apps.train import initial_state, train
+    from nonrigid_nerf_torch.apps.train import (initial_state,
+                                                resolve_sampling_prefetch,
+                                                train)
     from nonrigid_nerf_torch.ops.math import to8b
     from nonrigid_nerf_torch.ops.rays import get_rays
     from nonrigid_nerf_torch.parallel.mesh import make_auto_renderer
@@ -376,7 +373,9 @@ def main_function(args: Args, device: DeviceLike = None) -> None:
           i_weights=args.i_weights, extras=ckpt_extras,
           debug_metrics=args.debug, state=state,
           die_at_step=args.die_at_step, on_step=on_step,
-          profile_steps=args.profile_steps, metrics_file=args.metrics_file)
+          profile_steps=args.profile_steps, metrics_file=args.metrics_file,
+          sampling_prefetch=resolve_sampling_prefetch(
+              int(args.sampling_prefetch)))
 
 
 def main(argv=None) -> int:

@@ -93,6 +93,17 @@ def linear_pixel_index(image_ids, y, x, height: int, width: int):
         + x.to(torch.int64)
 
 
+def draw_pixels(ds: RayDataset, n_rand: int,
+                generator: Optional[torch.Generator] = None):
+    """`n_rand` uniform (image_ids, x, y) draws from `generator`, in that
+    order, on the dataset's device: the draws of `sample_ray_batch` when it
+    is given no indices."""
+    device = ds.images.device
+    return tuple(torch.randint(0, high, (n_rand,), generator=generator,
+                               device=device)
+                 for high in (ds.num_images, ds.width, ds.height))
+
+
 def sample_ray_batch(ds: RayDataset, n_rand: int,
                      generator: Optional[torch.Generator] = None,
                      image_ids: Optional[torch.Tensor] = None,

@@ -27,6 +27,7 @@ import torch
 from torch.func import functional_call, jvp
 
 from nonrigid_nerf_torch.config import ModelConfig, TrainConfig
+from nonrigid_nerf_torch.models.mlp import compute_dtype_of
 from nonrigid_nerf_torch.ops.math import img2mse, safe_norm, safe_pow
 
 
@@ -71,8 +72,11 @@ def divergence_loss(model, cfg: ModelConfig, render_out, latents,
     bender = model.bender
     params = dict(bender.named_parameters())
 
+    kwargs = {"compute_dtype": compute_dtype_of(cfg.compute_dtype)}
+
     def offsets_at(p):
-        _, details = functional_call(bender, params, (p, latents_per_pt))
+        _, details = functional_call(bender, params, (p, latents_per_pt),
+                                     kwargs)
         return details.get("masked_offsets", details["unmasked_offsets"])
 
     if exact:

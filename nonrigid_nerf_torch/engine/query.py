@@ -3,8 +3,10 @@
 
 Stage 1 (`bend_encode_stage`) is network-independent, so the renderer runs
 it once per sample point and the fine pass reuses the coarse samples'
-results. With view directions, `sample_viewdirs` gives every sample the
-direction of the BENT ray there. Stage 2 (`canonical_mlp_stage`) runs the
+results; its bender runs in `cfg.compute_dtype` (bf16: `models/mlp.py:
+dense_apply`), in the jvp of exact view directions too. With view
+directions, `sample_viewdirs` gives every sample the direction of the BENT
+ray there. Stage 2 (`canonical_mlp_stage`) runs the
 coarse or fine MLP, as the CUDA kernels when `use_fused_kernel` says so:
 `mlp_fwd` (with view directions `mlpv_fwd`) alone where no gradient is
 recorded (rendering), and the autograd function `MLPCore` (`MLPVCore`),
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from torch.func import functional_call, jvp
 
 from nonrigid_nerf_torch.config import EditConfig, ModelConfig
+from nonrigid_nerf_torch.models.mlp import compute_dtype_of
 from nonrigid_nerf_torch.ops.embedding import fourier_embed
 from nonrigid_nerf_torch.ops.kernels.mlp_bwd import MLPCore
 from nonrigid_nerf_torch.ops.kernels.mlp_fwd import (
@@ -155,7 +158,8 @@ def sample_viewdirs(model, cfg: ModelConfig, pts, stage1, viewdirs,
     bender = model.bender
     params = dict(bender.named_parameters())
     kwargs = dict(rigidity_test_time_cutoff=edit.rigidity_test_time_cutoff,
-                  test_time_scaling=edit.test_time_scaling)
+                  test_time_scaling=edit.test_time_scaling,
+                  compute_dtype=compute_dtype_of(cfg.compute_dtype))
 
     def bend(p):
         return functional_call(bender, params,
@@ -205,7 +209,8 @@ def bend_encode_stage(model, cfg: ModelConfig, pts, latents,
         bent_pts, bend_details = model.bender(
             pts, latents_per_pt,
             rigidity_test_time_cutoff=edit.rigidity_test_time_cutoff,
-            test_time_scaling=edit.test_time_scaling)
+            test_time_scaling=edit.test_time_scaling,
+            compute_dtype=compute_dtype_of(cfg.compute_dtype))
         rigidity = bend_details.get("rigidity_mask")
         if detailed:
             details.update(bend_details)
@@ -284,7 +289,8 @@ def canonical_mlp_stage(model, cfg: ModelConfig, network: str, stage1,
         raw = raw.reshape(R, S, OUT_PAD)[..., :4]
     else:
         raw = net(embedded, embedded_views,
-                  latents_per_pt if cfg.time_conditioned_baseline else None)
+                  latents_per_pt if cfg.time_conditioned_baseline else None,
+                  compute_dtype_of(cfg.compute_dtype))
     return _apply_removal_edit(raw, stage1["rigidity"], edit)
 
 

@@ -1,5 +1,5 @@
 """The NR-NeRF training step
-(counterpart of nonrigid_nerf_tpu/engine/train_step.py:33-134).
+(counterpart of nonrigid_nerf_tpu/engine/train_step.py:33-189).
 
 One step: pixel sampling on the device -> ray generation -> latent lookup ->
 coarse + fine rendering -> per-ray losses -> two-phase gradients -> Adam.
@@ -13,6 +13,12 @@ CUDA kernel `mlp_bwd` (with view directions `mlpv_bwd`, whose gradient of
 the view encoding flows on into the bender and the latents; with
 `fused_kernel="pts"` `mlpe_bwd`, whose gradient of the bent points does),
 launched once per network and cotangent.
+
+The random numbers of step k come from `step_generator(seed, k)`: first the
+pixels, then the jitter, noise, importance draws and divergence probe. The
+presampled step (`make_prefetch_train_step`) draws the pixels of many steps
+in one pass over the image stack and hands each step its generator as the
+pixel draw left it, so that it trains bit-equal to the plain step.
 """
 
 from __future__ import annotations
@@ -22,12 +28,20 @@ from typing import Mapping, Optional
 import torch
 
 from nonrigid_nerf_torch.config import ModelConfig, RenderSettings, TrainConfig
-from nonrigid_nerf_torch.data.dataset import RayDataset, sample_ray_batch
+from nonrigid_nerf_torch.data.dataset import (RayDataset, draw_pixels,
+                                              sample_ray_batch)
 from nonrigid_nerf_torch.engine.losses import (needs_bending_losses,
                                                per_ray_losses)
 from nonrigid_nerf_torch.engine.render import render_rays
 from nonrigid_nerf_torch.engine.train_state import TrainState, adam_update
 from nonrigid_nerf_torch.ops.math import mse2psnr
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of one step's draws (pixels, jitter, noise, probe): a
+    function of (seed, step) only."""
+    return torch.Generator(device=device).manual_seed(
+        (int(seed) * 1_000_003 + int(step)) % (2 ** 63))
 
 
 def losses_and_grads(model, step: int, batch, *, cfg: ModelConfig,
@@ -138,3 +152,50 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, rs: RenderSettings,
                           generator=generator, debug_metrics=debug_metrics)
 
     return step_fn
+
+
+def make_prefetch_train_step(cfg: ModelConfig, tc: TrainConfig,
+                             rs: RenderSettings, has_test_split: bool,
+                             n_prefetch: int, n_rand: Optional[int] = None,
+                             debug_metrics: bool = False):
+    """The presampled-training pair (presample_fn, step_fn)
+    (counterpart of make_prefetch_train_step, JAX engine/train_step.py:
+    137-189):
+
+      presample_fn(ds, seed, step0) -> batches   # the one pass over the stack
+      step_fn(state, batches, i) -> metrics      # step step0 + i
+
+    `presample_fn` draws the pixels of steps step0 .. step0 + n_prefetch - 1,
+    each from its `step_generator(seed, step)` as the plain step does first,
+    then gathers all of them from the image stack and makes their rays in
+    one pass. `batches` holds the rays and each step's generator in the
+    state its pixel draw left it; `step_fn` renders and steps on ray batch i
+    with that generator. So the presampled steps draw the same pixels and
+    the same further numbers as plain steps, and train bit-equal to them;
+    the batches depend on (seed, step) only, so a resume is exact too."""
+    if cfg.fused_kernel == "int8":
+        raise ValueError("fused_kernel='int8' is inference-only (the int8 "
+                         "kernel has no backward); train with 'auto', 'on' "
+                         "or 'off'")
+    if n_prefetch < 1:
+        raise ValueError(f"n_prefetch must be at least 1, got {n_prefetch}")
+    nr = tc.N_rand if n_rand is None else n_rand
+
+    def presample_fn(ds: RayDataset, seed: int, step0: int):
+        device = ds.images.device
+        generators = [step_generator(seed, step0 + j, device)
+                      for j in range(n_prefetch)]
+        drawn = [draw_pixels(ds, nr, g) for g in generators]
+        image_ids, x, y = (torch.cat(parts) for parts in zip(*drawn))
+        rays = sample_ray_batch(ds, n_prefetch * nr, image_ids=image_ids,
+                                x=x, y=y)
+        return {"rays": rays, "generators": generators, "step0": int(step0)}
+
+    def step_fn(state: TrainState, batches, i: int):
+        batch = {k: v[i * nr:(i + 1) * nr] for k, v in batches["rays"].items()}
+        return train_step_from_batch(
+            state, batch, cfg=cfg, tc=tc, rs=rs,
+            has_test_split=has_test_split, n_rand=nr,
+            generator=batches["generators"][i], debug_metrics=debug_metrics)
+
+    return presample_fn, step_fn

@@ -9,6 +9,10 @@
   `rigidity_width`, output 1 from a zero-initialised layer with bias;
   mask = (tanh(h) + 1) / 2, so it starts at 0.5 everywhere;
 - bent point = xyz + mask * offsets;
+- in a compute dtype (bf16) every layer runs `dense_apply` in it, the ReLU
+  and the rigidity's tanh on its activations; the offsets and the mask come
+  back in the points' dtype, so the bent point is f32 (JAX:
+  models/bending.py:66-92);
 - test-time edits: the rigidity cutoff zeroes the mask at or below it, and
   the scaling multiplies the masked offsets.
 """
@@ -21,16 +25,13 @@ import torch
 from torch import nn
 
 from nonrigid_nerf_torch.config import ModelConfig
-from nonrigid_nerf_torch.models.mlp import dense
+from nonrigid_nerf_torch.models.mlp import dense, dense_apply
 
 
 class BendingNetwork(nn.Module):
     def __init__(self, cfg: ModelConfig,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r} is not ported yet")
         self.activation = cfg.bending_activation
         siren = self.activation == "sin"
         layers = []
@@ -58,36 +59,39 @@ class BendingNetwork(nn.Module):
             self.rigidity = nn.ModuleList(rlayers)
 
     @staticmethod
-    def _chain(layers, h, activation="relu"):
+    def _chain(layers, h, activation="relu", compute_dtype=torch.float32):
         for i, layer in enumerate(layers[:-1]):
-            h = layer(h)
+            h = dense_apply(layer, h, compute_dtype)
             if activation == "sin":
                 # SIREN: the first pre-activation is scaled by 30
                 # (reference: run_nerf_helpers.py:528-530)
                 h = torch.sin(h * 30.0 if i == 0 else h)
             else:
                 h = torch.relu(h)
-        return layers[-1](h)
+        return dense_apply(layers[-1], h, compute_dtype)
 
-    def unmasked_offsets(self, pts, latents):
+    def unmasked_offsets(self, pts, latents, compute_dtype=torch.float32):
         return self._chain(self.bend, torch.cat([pts, latents], dim=-1),
-                           self.activation)
+                           self.activation, compute_dtype).to(pts.dtype)
 
-    def rigidity_mask(self, pts):
-        return (torch.tanh(self._chain(self.rigidity, pts)) + 1.0) * 0.5
+    def rigidity_mask(self, pts, compute_dtype=torch.float32):
+        h = self._chain(self.rigidity, pts, compute_dtype=compute_dtype)
+        return ((torch.tanh(h) + 1.0) * 0.5).to(pts.dtype)
 
     def forward(self, pts, latents,
                 rigidity_test_time_cutoff: Optional[float] = None,
-                test_time_scaling: Optional[float] = None):
-        """Bend points (..., 3) with per-point latents (..., L).
+                test_time_scaling: Optional[float] = None,
+                compute_dtype: torch.dtype = torch.float32):
+        """Bend points (..., 3) with per-point latents (..., L), the layers
+        in `compute_dtype`.
 
         Returns (bent_pts, details) with details holding unmasked_offsets,
         and with the rigidity network also rigidity_mask (..., 1) and
         masked_offsets."""
-        unmasked = self.unmasked_offsets(pts, latents)
+        unmasked = self.unmasked_offsets(pts, latents, compute_dtype)
         details = {"unmasked_offsets": unmasked}
         if self.rigidity is not None:
-            mask = self.rigidity_mask(pts)
+            mask = self.rigidity_mask(pts, compute_dtype)
             if rigidity_test_time_cutoff is not None:
                 mask = torch.where(mask <= rigidity_test_time_cutoff,
                                    torch.zeros_like(mask), mask)

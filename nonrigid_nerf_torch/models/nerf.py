@@ -10,7 +10,9 @@ view-conditioned ReLU layer `views[0]` (W + view_ch -> W / 2) and an `rgb`
 head (W / 2 -> 3). The time-conditioned baseline concatenates the latent
 code to the encoded input, [embedded_pts, latents], before the first layer
 and at the skip (reference: run_nerf_helpers.py:273-282), so both of those
-layers take L more inputs.
+layers take L more inputs. In a compute dtype (bf16) every layer runs
+`dense_apply` in it, the ReLUs and the skip's concatenation on its
+activations, and raw comes back in f32 (JAX: models/nerf.py:51-91).
 """
 
 from __future__ import annotations
@@ -21,14 +23,13 @@ import torch
 from torch import nn
 
 from nonrigid_nerf_torch.config import ModelConfig
-from nonrigid_nerf_torch.models.mlp import dense
+from nonrigid_nerf_torch.models.mlp import compute_dtype_of, dense, dense_apply
 
 
 def check_nerf_supported(cfg: ModelConfig) -> None:
-    """Raise on the canonical-MLP variants that are not ported yet."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is not ported yet")
+    """Raise ValueError on a compute dtype that is not one of
+    `models.mlp.COMPUTE_DTYPES`."""
+    compute_dtype_of(cfg.compute_dtype)
 
 
 class NeRF(nn.Module):
@@ -36,7 +37,6 @@ class NeRF(nn.Module):
                  width: Optional[int] = None,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        check_nerf_supported(cfg)
         D = cfg.netdepth if depth is None else depth
         W = cfg.netwidth if width is None else width
         input_ch = cfg.input_ch
@@ -65,26 +65,32 @@ class NeRF(nn.Module):
 
     def forward(self, embedded_pts: torch.Tensor,
                 embedded_views: Optional[torch.Tensor] = None,
-                latents: Optional[torch.Tensor] = None) -> torch.Tensor:
+                latents: Optional[torch.Tensor] = None,
+                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """(..., input_ch) encoded (bent) points, with view directions
         (..., input_ch_views) encoded directions, and for the
-        time-conditioned baseline (..., L) latent codes -> raw (..., 4) f32:
-        rgb logits and density."""
+        time-conditioned baseline (..., L) latent codes -> raw (..., 4):
+        rgb logits and density, f32 (f64 for f64 inputs and parameters),
+        the layers in `compute_dtype`."""
         if self.time_conditioned:
             if latents is None:
                 raise ValueError("a time-conditioned NeRF needs latents")
             embedded_pts = torch.cat([embedded_pts, latents], dim=-1)
         h = embedded_pts
         for i, layer in enumerate(self.pts):
-            h = torch.relu(layer(h))
+            h = torch.relu(dense_apply(layer, h, compute_dtype))
             if i in self.skips:
-                h = torch.cat([embedded_pts, h], dim=-1)
+                h = torch.cat([embedded_pts.to(h.dtype), h], dim=-1)
         if not self.use_viewdirs:
-            return self.output(h)[..., :4]
-        if embedded_views is None:
-            raise ValueError("a view-direction NeRF needs embedded_views")
-        alpha = self.alpha(h)
-        hv = torch.cat([self.feature(h), embedded_views], dim=-1)
-        for layer in self.views:
-            hv = torch.relu(layer(hv))
-        return torch.cat([self.rgb(hv), alpha], dim=-1)
+            raw = dense_apply(self.output, h, compute_dtype)[..., :4]
+        else:
+            if embedded_views is None:
+                raise ValueError("a view-direction NeRF needs embedded_views")
+            alpha = dense_apply(self.alpha, h, compute_dtype)
+            feature = dense_apply(self.feature, h, compute_dtype)
+            hv = torch.cat([feature, embedded_views.to(feature.dtype)], dim=-1)
+            for layer in self.views:
+                hv = torch.relu(dense_apply(layer, hv, compute_dtype))
+            raw = torch.cat([dense_apply(self.rgb, hv, compute_dtype), alpha],
+                            dim=-1)
+        return raw if raw.dtype == torch.float64 else raw.float()

@@ -39,6 +39,7 @@ from nonrigid_nerf_torch.ops.kernels.mlp_bwd import (
     MAX_POINTS_PER_LAUNCH, agreement, bsum, masked, mm_nt, mm_tn, split_grads)
 from nonrigid_nerf_torch.ops.kernels.mlp_fwd import EMB
 from nonrigid_nerf_torch.ops.kernels.mlpe_fwd import PTS
+from nonrigid_nerf_torch.ops.kernels.pieces import backward_in_pieces
 
 # the forward recomputed, the cotangent chain and the weight products
 BEND_BWD_MACS_PER_POINT = 3 * BEND_MACS_PER_POINT
@@ -49,6 +50,24 @@ BEND_GRAD_FLOATS = sum(s.numel() for s in BEND_GRAD_SHAPES)
 BEND_BWD_NAMES = ("dpts", "dlat", "b0p", "b0l", "b0b", "b1w", "b1b", "b2w",
                   "b2b", "b3w", "b3b", "bow", "r0w", "r0b", "r1w", "r1b", "row",
                   "rob")
+
+
+# The rigidity head's one-channel bias gradient (`rob`, gradient ROB of the
+# bender's 16) is one sum of n cotangent entries, which can cancel to a
+# small share of its terms while its rounding noise (through the chain's
+# bf16 backward in fused_bwd) does not. A check of a backward in pieces
+# holds it by its own error over its own magnitude at ROB_TOL: three times
+# the worst of 13 draws of fused_bwd against fused_bwd_plain on an H100
+# (4.3% at one launch of 262,144 points; `chip_probes.py rob_draws`).
+ROB, ROB_TOL = 15, 0.13
+
+
+def rob_rel_err(got_grads, ref_grads) -> float:
+    """|rob - rob_ref| / |rob_ref| of two gradient lists in pack order (the
+    bender's 16 first)."""
+    want = ref_grads[ROB].flatten()[0].item()
+    err = abs(got_grads[ROB].flatten()[0].item() - want)
+    return err / max(abs(want), 1e-30)
 
 
 def bend_bwd_agreement(got, ref) -> dict:
@@ -187,7 +206,8 @@ class BendCore(torch.autograd.Function):
     `pack_bend_weights` and casts the matrices to bf16 itself. The backward
     returns dpts, dlat and the 16 gradients in pack order (None for P and the
     phase). The saved tensors are read, not consumed, so the backward may run
-    once per cotangent."""
+    once per cotangent; past MAX_POINTS_PER_LAUNCH points it runs in pieces
+    (`pieces.py`)."""
 
     @staticmethod
     def forward(ctx, pts, lat, *packed):
@@ -201,7 +221,9 @@ class BendCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, demb, doff, drig):
         pts, lat, *packed = ctx.saved_tensors
-        dpts, dlat, grads = bend_bwd(pts, lat, cast_bend_weights(packed), demb,
-                                     doff, drig)
+        bw = cast_bend_weights(packed)
+        dpts, dlat, grads = backward_in_pieces(
+            lambda p, la, de, do, dr: bend_bwd(p, la, bw, de, do, dr),
+            pts, lat, demb, doff, drig)
         return (dpts, dlat, *grads, None, None)
 

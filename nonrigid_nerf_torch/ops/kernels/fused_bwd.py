@@ -47,6 +47,7 @@ from nonrigid_nerf_torch.ops.kernels.fused_fwd import (
     N_FUSED_W, cast_fused_weights, check_fused_args, fused_fwd, mlp_pointers)
 from nonrigid_nerf_torch.ops.kernels.mlp_sm90 import pack_chain_image
 from nonrigid_nerf_torch.ops.kernels.mlpe_fwd import PTS
+from nonrigid_nerf_torch.ops.kernels.pieces import backward_in_pieces
 
 FUSED_BWD_MACS_PER_POINT = KB.BWD_MACS_PER_POINT + BEND_BWD_MACS_PER_POINT
 # names of dpts, dlat and the 35 gradients (the bender's 16, the MLP's 19)
@@ -160,7 +161,8 @@ class FusedCore(torch.autograd.Function):
     `FusedCore.apply(pts, lat, *packed)` takes the 37 packed f32 tensors of
     `pack_fused_weights` and casts the matrices to bf16 itself. The backward
     returns dpts, dlat and the 37 gradients in pack order (None for P and the
-    phase)."""
+    phase); past MAX_POINTS_PER_LAUNCH points it runs in pieces
+    (`pieces.py`)."""
 
     @staticmethod
     def forward(ctx, pts, lat, *packed):
@@ -174,7 +176,9 @@ class FusedCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, draw, doff, drig):
         pts, lat, *packed = ctx.saved_tensors
-        dpts, dlat, grads = fused_bwd(pts, lat, cast_fused_weights(packed),
-                                      draw, doff, drig)
+        w = cast_fused_weights(packed)
+        dpts, dlat, grads = backward_in_pieces(
+            lambda p, la, dr, do, dg: fused_bwd(p, la, w, dr, do, dg),
+            pts, lat, draw, doff, drig)
         return (dpts, dlat, *grads[:N_BEND_W - 2], None, None,
                 *grads[N_BEND_W - 2:])

@@ -40,6 +40,7 @@ from nonrigid_nerf_torch.ops.kernels.mlp_fwd import (
     _check_args, _expected_shape, cast_mlp_weights, chain_plain,
     check_emb_width, check_kernel_weights, macs_per_point, mlp_fwd,
     weight_pointers)
+from nonrigid_nerf_torch.ops.kernels.pieces import backward_in_pieces
 
 
 def bwd_macs_per_point(emb_width: int = EMB) -> int:
@@ -57,8 +58,9 @@ BWD_MACS_PER_POINT = bwd_macs_per_point(EMB)
 _SHAPES = grad_shapes(EMB)
 GRAD_FLOATS = sum(shape.numel() for shape in _SHAPES)
 # one call takes at most this many points: the bf16 scratch (8,320 B per
-# point at 64 lanes, 8,448 at 128) then stays at 2.06 GiB. The training step
-# gives 131,072 at most.
+# point at 64 lanes, 8,448 at 128) then stays at 2.06 GiB. The autograd
+# functions run a larger backward in pieces of at most this many points
+# (pieces.py).
 MAX_POINTS_PER_LAUNCH = 1 << 18
 # Agreement of two implementations of the bf16 backward (these kernels, the
 # plain version, the JAX math). f32 sums in another order flip an occasional
@@ -314,7 +316,8 @@ class MLPCore(torch.autograd.Function):
     backward returns demb in f32 (a bf16 `emb` gets it rounded by autograd;
     hand over the f32 encoding to keep it exact, as the JAX package does)
     and the 19 f32 gradients in pack order. The saved tensors are read, not
-    consumed, so the backward may run once per cotangent."""
+    consumed, so the backward may run once per cotangent; past
+    MAX_POINTS_PER_LAUNCH points it runs in pieces (`pieces.py`)."""
 
     @staticmethod
     def forward(ctx, emb, *packed):
@@ -328,5 +331,7 @@ class MLPCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, draw):
         embb, *packed = ctx.saved_tensors
-        demb, grads = mlp_bwd(embb, cast_mlp_weights(packed), draw)
+        mw = cast_mlp_weights(packed)
+        demb, grads = backward_in_pieces(
+            lambda e, d: mlp_bwd(e, mw, d), embb, draw)
         return (demb, *grads)

@@ -47,6 +47,7 @@ from nonrigid_nerf_torch.ops.kernels.mlp_fwd import (
 from nonrigid_nerf_torch.ops.kernels.mlp_sm90 import pack_chain_image
 from nonrigid_nerf_torch.ops.kernels.mlpe_fwd import (
     PTS, _projection_on, check_pts_args, embed_ew, mlpe_fwd)
+from nonrigid_nerf_torch.ops.kernels.pieces import backward_in_pieces
 
 # the bf16 scratch of one call, per point: the recomputed encoding (64), then
 # nh1..nh8 and dh1..dh8 (256 each): 8,320 B, as `mlp_bwd`'s, so the same
@@ -171,7 +172,8 @@ class MLPECore(torch.autograd.Function):
     `pack_mlp_weights` and casts the ten matrices to bf16 itself. The backward
     returns dpts in f32 and the 19 f32 gradients in pack order. The saved
     tensors are read, not consumed, so the backward may run once per
-    cotangent."""
+    cotangent; past MAX_POINTS_PER_LAUNCH points it runs in pieces
+    (`pieces.py`)."""
 
     @staticmethod
     def forward(ctx, pts, *packed):
@@ -185,5 +187,7 @@ class MLPECore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, draw):
         pts, *packed = ctx.saved_tensors
-        dpts, grads = mlpe_bwd(pts, cast_mlp_weights(packed), draw)
+        mw = cast_mlp_weights(packed)
+        dpts, grads = backward_in_pieces(
+            lambda p, d: mlpe_bwd(p, mw, d), pts, draw)
         return (dpts, *grads)

@@ -41,6 +41,7 @@ from nonrigid_nerf_torch.ops.kernels.mlp_sm90 import pack_views_image
 from nonrigid_nerf_torch.ops.kernels.mlpv_fwd import (
     _BIAS_IDX, _MATRIX_IDX, MACS_PER_POINT, N_MLPV_W, VEMB, _check_args,
     _expected_shape, cast_mlpv_weights, heads_plain, mlpv_fwd)
+from nonrigid_nerf_torch.ops.kernels.pieces import backward_in_pieces
 
 # recompute + the dh chain + the dW products, each as many MACs as the forward
 BWD_MACS_PER_POINT = 3 * MACS_PER_POINT
@@ -199,7 +200,8 @@ class MLPVCore(torch.autograd.Function):
     `pack_viewdirs_mlp_weights` and casts the matrices to bf16 itself. The
     backward returns demb and dembv in f32 (hand over f32 encodings to keep
     them unrounded) and the 26 f32 gradients in pack order. The saved tensors
-    are read, not consumed, so the backward may run once per cotangent."""
+    are read, not consumed, so the backward may run once per cotangent; past
+    MAX_POINTS_PER_LAUNCH points it runs in pieces (`pieces.py`)."""
 
     @staticmethod
     def forward(ctx, emb, embv, *packed):
@@ -213,6 +215,7 @@ class MLPVCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, draw):
         embb, embvb, *packed = ctx.saved_tensors
-        demb, dembv, grads = mlpv_bwd(embb, embvb, cast_mlpv_weights(packed),
-                                      draw)
+        mw = cast_mlpv_weights(packed)
+        demb, dembv, grads = backward_in_pieces(
+            lambda e, ev, d: mlpv_bwd(e, ev, mw, d), embb, embvb, draw)
         return (demb, dembv, *grads)

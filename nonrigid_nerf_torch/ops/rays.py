@@ -1,5 +1,5 @@
-"""Ray generation from camera poses and per-camera intrinsics
-(counterpart of nonrigid_nerf_tpu/ops/rays.py:21-58).
+"""Ray generation from camera poses and per-camera intrinsics, and the NDC
+projection (counterpart of nonrigid_nerf_tpu/ops/rays.py:21-80).
 
 Pinhole camera, x right, y up, z backwards: pixel (x, y) maps to the camera
 direction [(x - cx)/fx, -(y - cy)/fy, -1], rotated to world space by the
@@ -39,3 +39,24 @@ def get_rays(c2w, intrin):
         c2w, xx, yy,
         float(intrin["focal_x"]), float(intrin["focal_y"]),
         float(intrin["center_x"]), float(intrin["center_y"]))
+
+
+def ndc_rays(H, W, focal_x, focal_y, near, rays_o, rays_d):
+    """Shift rays (..., 3) to the near plane and project them into NDC space.
+
+    For API parity only: the reference keeps NDC off
+    (reference: train.py:384-387,714)."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    o0 = -1.0 / (W / (2.0 * focal_x)) * rays_o[..., 0] / rays_o[..., 2]
+    o1 = -1.0 / (H / (2.0 * focal_y)) * rays_o[..., 1] / rays_o[..., 2]
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+
+    d0 = -1.0 / (W / (2.0 * focal_x)) * (
+        rays_d[..., 0] / rays_d[..., 2] - rays_o[..., 0] / rays_o[..., 2])
+    d1 = -1.0 / (H / (2.0 * focal_y)) * (
+        rays_d[..., 1] / rays_d[..., 2] - rays_o[..., 1] / rays_o[..., 2])
+    d2 = -2.0 * near / rays_o[..., 2]
+
+    return torch.stack([o0, o1, o2], -1), torch.stack([d0, d1, d2], -1)

@@ -326,8 +326,17 @@ def test_baseline_is_ported():
     cfg = t_config.ModelConfig(ray_bending=None, time_conditioned_baseline=True)
     check_nerf_supported(cfg)
     t_renderer(cfg, t_config.RenderSettings(), device="cpu")
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        check_nerf_supported(dataclasses.replace(cfg, compute_dtype="bfloat16"))
+    # compute_dtype="bfloat16" constructs and renders (f32 maps out); only a
+    # dtype name the port does not know raises
+    bf16 = torch_cfg(dataclasses.replace(NARROW_TC, compute_dtype="bfloat16"))
+    check_nerf_supported(bf16)
+    model = params_from_jax(jax_params(NARROW_TC), bf16, device="cpu")
+    o, d, lat = (torch.from_numpy(a) for a in _rays(16, 8))
+    out = t_renderer(bf16, _t_rs(RS), device="cpu")(model, o, d, lat)
+    assert out["rgb_map"].dtype == torch.float32
+    assert bool(torch.isfinite(out["rgb_map"]).all())
+    with pytest.raises(ValueError, match="compute_dtype"):
+        check_nerf_supported(dataclasses.replace(cfg, compute_dtype="float16"))
 
 
 # ---- (f) parameters, checkpoints, the run's args.txt

@@ -159,29 +159,21 @@ def test_summarize_reads_windows_rates_and_peak(tmp_path, capsys):
     assert out["val_psnr"] == {"100": 9.5} and out["peak_device_bytes"] == 123
 
 
-def test_chip_quality_bf16_bender_rounds_only_the_operands():
-    """chip_quality.py's `bf16_bender` chain is the bender's own layers on
-    operands rounded to bf16, layer by layer."""
+def test_chip_quality_bfloat16_variant_runs_the_cli_at_bf16():
+    """chip_quality.py's `bfloat16` variant is the training CLI with
+    --compute_dtype bfloat16 on the config of the JAX run; `kernels` and
+    `off` keep the config's compute dtype."""
     import chip_quality
-    from nonrigid_nerf_torch.models.bending import BendingNetwork
-    from nonrigid_nerf_torch.models.model import NRNeRF
-    cfg = t_config.ModelConfig(netwidth=32, N_importance=0)
-    gen = torch.Generator().manual_seed(0)
-    bender = NRNeRF(cfg, 2, generator=gen, device="cpu").bender
-    x = torch.randn(5, 35, generator=gen)
-    with torch.no_grad():
-        bender.bend[-1].weight.normal_(generator=gen)
-        for layer in bender.bend:       # weights bf16 holds exactly
-            layer.weight.copy_(layer.weight.to(torch.bfloat16).float())
-        out = chip_quality.bf16_operand_chain(bender.bend, x)
-        ref = x
-        for i, layer in enumerate(bender.bend):
-            ref = BendingNetwork._chain([layer], ref.to(torch.bfloat16).float())
-            if i < len(bender.bend) - 1:
-                ref = torch.relu(ref)
-    assert out.abs().max() > 0.1
-    assert torch.equal(out, ref)
-    assert not torch.equal(out, BendingNetwork._chain(bender.bend, x))
+    argv, expname = chip_quality.train_argv("bfloat16", 3, 4000, [])
+    assert expname == "occlusion_bfloat16_seed3"
+    args = cli.parse_args(argv)
+    cfg = t_config.model_config_from_args(args)
+    assert cfg.compute_dtype == "bfloat16" and cfg.fused_kernel == "auto"
+    assert args.die_at_step == 4000 and args.i_weights == 2000
+    for variant in ("kernels", "off"):
+        args = cli.parse_args(chip_quality.train_argv(variant, 0, 4000, [])[0])
+        assert args.compute_dtype == "float32"
+    assert chip_quality.VARIANTS == ("kernels", "off", "bfloat16")
 
 
 class TestConfigSurface:
@@ -230,8 +222,7 @@ class TestConfigSurface:
 
     @pytest.mark.parametrize("key,value,match", [
         ("checkpoint_format", "orbax", "checkpoint_format"),
-        ("checkpoint_format", "tar", "checkpoint_format"),
-        ("sampling_prefetch", "64", "ROADMAP.md queue 1 item 7")])
+        ("checkpoint_format", "tar", "checkpoint_format")])
     def test_unsupported_options_raise(self, key, value, match, tmp_path):
         args = cli.parse_args(small_scene(tmp_path) + [f"--{key}", value])
         with pytest.raises(ValueError, match=match):
@@ -244,6 +235,42 @@ class TestConfigSurface:
 
 
 class TestRuns:
+    def test_sampling_prefetch_runs_presampled_training(self, tmp_path,
+                                                        capsys):
+        """--sampling_prefetch 3 trains 7 steps presampled (windows at steps
+        0, 3 and 6) bit-equal to the plain step: the same metrics.jsonl and
+        the same parameters; -1 is the plain step."""
+        scene = small_scene(tmp_path)
+        common = scene + SMALL + ["--N_iters", "7", "--i_print", "1",
+                                  "--i_weights", "100", "--i_video", "100",
+                                  "--i_testset", "100", "--i_img", "0"]
+        runs = {"plain": "0", "presampled": "3", "auto": "-1"}
+        outs = {}
+        for name, value in runs.items():
+            outs[name] = run_cli(common + ["--expname", name,
+                                           "--sampling_prefetch", value],
+                                 capsys)
+        assert "presampled training: 3 batches per stack pass" \
+            in outs["presampled"]
+        assert "presampled" not in outs["plain"] + outs["auto"]
+
+        def logged(name):
+            logdir = tmp_path / "exp" / name / "logs"
+            rows = [json.loads(line)
+                    for line in open(logdir / "metrics.jsonl")]
+            return ([{k: v for k, v in r.items() if k != "it_per_sec"}
+                     for r in rows],
+                    read_checkpoint(str(logdir / "latest.npz"))[1])
+
+        plain_rows, plain_params = logged("plain")
+        assert [r["step"] for r in plain_rows] == list(range(1, 8))
+        for name in ("presampled", "auto"):
+            rows, params = logged(name)
+            assert rows == plain_rows, name
+            for x, y in zip(jax.tree_util.tree_leaves(params),
+                            jax.tree_util.tree_leaves(plain_params)):
+                np.testing.assert_array_equal(x, y)
+
     def test_dumped_seed_is_the_seed_that_trained(self, tmp_path, capsys):
         """seed = -1 is resolved before args.txt is written: a run with the
         dumped seed ends bit-equal."""

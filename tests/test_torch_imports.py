@@ -1,8 +1,9 @@
 """Guards of the port's rules.
 
 - No file of `nonrigid_nerf_torch/`, nor `chip_smoke.py`, nor the GPU tests
-  (which run where JAX is not installed), imports `jax` or
-  `nonrigid_nerf_tpu` (the JAX package is the reference, not a dependency).
+  (which run where JAX is not installed), imports `jax`,
+  `nonrigid_nerf_tpu`, `llff_preprocessing` or `tools` (the JAX package is
+  the reference, not a dependency; the port keeps its own copies).
 - Entry points default to CUDA: with no device argument they ask for
   `cuda`, and on a box without a GPU they raise instead of running on the
   CPU.
@@ -30,7 +31,7 @@ from nonrigid_nerf_torch.weights import params_from_jax
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE_FILES = sorted((REPO / "nonrigid_nerf_torch").rglob("*.py"))
 PORT_FILES = PACKAGE_FILES + [REPO / "chip_smoke.py", REPO / "chip_quality.py",
-                              REPO / "chip_parallel.py",
+                              REPO / "chip_parallel.py", REPO / "chip_probes.py",
                               REPO / "tests" / "test_torch_kernels_cuda.py",
                               REPO / "tests" / "torch_ranks.py"]
 # the files this round of the port added: a rename or a removal must be
@@ -68,7 +69,15 @@ FVR_FILES = ["cli/free_viewpoint_rendering.py", "utils/metrics.py",
 # data parallelism over GPUs: the process group, the step and the renderers
 PARALLEL_FILES = ["parallel/__init__.py", "parallel/multihost.py",
                   "parallel/mesh.py"]
-FORBIDDEN = ("jax", "jaxlib", "nonrigid_nerf_tpu")
+# the backward in pieces, bf16's product, serving, preprocessing and the
+# interop / serving / preprocessing command lines
+LATER_FILES = ["ops/kernels/pieces.py", "models/mlp.py", "serving.py",
+               "preprocessing/__init__.py", "preprocessing/colmap_model.py",
+               "preprocessing/poses.py", "cli/export_serving.py",
+               "cli/import_reference_checkpoint.py",
+               "cli/export_reference_checkpoint.py", "cli/preprocess.py"]
+FORBIDDEN = ("jax", "jaxlib", "nonrigid_nerf_tpu", "llff_preprocessing",
+             "tools")
 
 
 def _imported_modules(path):
@@ -101,6 +110,7 @@ def test_training_files_are_under_the_import_rule():
     assert set(CLI_FILES) <= covered
     assert set(FVR_FILES) <= covered
     assert set(PARALLEL_FILES) <= covered
+    assert set(LATER_FILES) <= covered
     assert (REPO / "nonrigid_nerf_torch" / "ops" / "kernels" / "csrc"
             / "mlp_bwd.cu").exists()
 

@@ -1382,3 +1382,209 @@ def test_bend_bwd_on_the_sm90_kernel_at_the_grid_edges(sm90_bend_reference, cuda
     again = BB.bend_bwd(pts, lat, ref["w"], *cots)
     assert all(torch.equal(a, b) for a, b in zip([got[0], got[1], *got[2]],
                                                   [again[0], again[1], *again[2]]))
+
+
+# ---- the backward past one launch, bf16, serving
+
+PAST_ONE_LAUNCH = (1 << 18) + 129     # a ragged second piece
+
+
+def _pieced_autograd_case(name, model, model_v, device):
+    """(fn(*inputs) -> outputs, per-point inputs, parameters, cotangents,
+    the packed weights) of one autograd function at PAST_ONE_LAUNCH points
+    on `device`, on a copy of the model there."""
+    import copy
+    n = PAST_ONE_LAUNCH
+    gen = torch.Generator(device=device).manual_seed(21)
+
+    def randn(cols, scale=1.0):
+        return scale * torch.randn((n, cols), generator=gen, device=device)
+
+    def uniform(cols):
+        return torch.rand((n, cols), generator=gen, device=device) * 2 - 1
+
+    pts = uniform(3) * 0.8
+    lat = randn(32, 0.1)
+    if name == "mlpv":
+        net = copy.deepcopy(model_v.coarse).to(device)
+        packed = KV.pack_viewdirs_mlp_weights(net)
+        emb, embv = uniform(64), uniform(32)
+        emb[:, 63:] = 0
+        embv[:, 27:] = 0
+        return (lambda e, ev: (KVB.MLPVCore.apply(e, ev, *packed),),
+                (emb, embv), list(net.parameters()), (randn(8),), packed)
+    m = copy.deepcopy(model).to(device)
+    if name in ("mlp", "mlpe"):
+        packed = K.pack_mlp_weights(m.fine)
+        params = list(m.fine.parameters())
+        if name == "mlp":
+            emb = uniform(64)
+            emb[:, 63:] = 0
+            return (lambda e: (KB.MLPCore.apply(e, *packed),), (emb,), params,
+                    (randn(8),), packed)
+        return (lambda p: (KEB.MLPECore.apply(p, *packed),), (pts,), params,
+                (randn(8),), packed)
+    if name == "bend":
+        packed = BF.pack_bend_weights(m.bender)
+        return (lambda p, la: BB.BendCore.apply(p, la, *packed), (pts, lat),
+                list(m.bender.parameters()),
+                (randn(64, 0.1), randn(3), randn(1)), packed)
+    packed = FQ.pack_fused_weights(m, network="fine")
+    return (lambda p, la: FB.FusedCore.apply(p, la, *packed), (pts, lat),
+            list(m.bender.parameters()) + list(m.fine.parameters()),
+            (randn(8), randn(3), randn(1)), packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mlp", "mlpv", "mlpe", "bend", "fused"])
+def test_autograd_functions_take_a_backward_past_one_launch(
+        model, model_v, cuda_device, name):
+    """Each autograd function's backward at 2^18 + 129 points: two pieces,
+    two launches, bit-equal on relaunch; and the kernels in those pieces
+    against the plain versions in the same pieces, within the backward's
+    tolerances."""
+    from nonrigid_nerf_torch.ops.kernels.pieces import backward_in_pieces
+    fn, inputs, params, cots, packed = _pieced_autograd_case(
+        name, model, model_v, cuda_device)
+    wrapper, plain, agree, cast = {
+        "mlp": (KB.mlp_bwd, KB.mlp_bwd_plain, KB.bwd_agreement,
+                K.cast_mlp_weights),
+        "mlpv": (KVB.mlpv_bwd, KVB.mlpv_bwd_plain, KVB.bwd_agreement,
+                 KV.cast_mlpv_weights),
+        "mlpe": (KEB.mlpe_bwd, KEB.mlpe_bwd_plain, KEB.bwd_agreement,
+                 K.cast_mlp_weights),
+        "bend": (BB.bend_bwd, BB.bend_bwd_plain, BB.bend_bwd_agreement,
+                 BF.cast_bend_weights),
+        "fused": (FB.fused_bwd, FB.fused_bwd_plain, FB.fused_bwd_agreement,
+                  FF.cast_fused_weights)}[name]
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    outs = fn(*leaves)
+    before = wrapper.launches
+    grads = torch.autograd.grad(outs, leaves + params, cots,
+                                retain_graph=True)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    again = torch.autograd.grad(outs, leaves + params, cots)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    w = tuple(t.detach() for t in cast(packed))
+    k = len(inputs)
+    rows = [t.to(torch.bfloat16) for t in inputs] if name in ("mlp", "mlpv") \
+        else list(inputs)
+    with torch.no_grad():
+        got = backward_in_pieces(
+            lambda *r: wrapper(*r[:k], w, *r[k:]), *rows, *cots)
+        ref = backward_in_pieces(
+            lambda *r: plain(*r[:k], w, *r[k:]), *rows, *cots)
+    if name in ("bend", "fused"):
+        # the rigidity head's one-channel bias (`rob`): a sum of n
+        # cotangent entries that can cancel, held by its error over its
+        # own magnitude (bend_bwd.ROB_TOL says why)
+        assert BB.rob_rel_err(got[-1], ref[-1]) <= BB.ROB_TOL
+        ref = (*ref[:-1], [*ref[-1][:BB.ROB], got[-1][BB.ROB],
+                           *ref[-1][BB.ROB + 1:]])
+    stats = agree(got, ref)
+    assert stats["ok"], stats
+
+
+@pytest.mark.cuda
+def test_bf16_flagship_step_on_cuda_runs_the_kernels(model, cuda_device):
+    """compute_dtype="bfloat16" on the card: one flagship training step on a
+    small ray batch runs `mlp_fwd` twice and `mlp_bwd` twice (no test
+    split), with finite losses and gradients; the bender's products are
+    f32 products of bf16-rounded operands, so the step's loss is close to
+    the same step at f32 (the same draws)."""
+    import dataclasses
+
+    import copy
+
+    from nonrigid_nerf_torch.config import TrainConfig
+    from nonrigid_nerf_torch.engine.train_step import losses_and_grads
+    m = copy.deepcopy(model).to(cuda_device)
+    rs = RenderSettings(N_samples=16, N_importance=16, near=0.1, far=1.6,
+                        perturb=1.0, raw_noise_std=1.0)
+    tc = TrainConfig(N_rand=64, offsets_loss_weight=60.0,
+                     divergence_loss_weight=3.0, rigidity_loss_weight=5e-4)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    batch = {"rays_o": torch.zeros(64, 3, device=cuda_device),
+             "rays_d": torch.cat([0.3 * torch.randn(64, 2, generator=gen,
+                                                    device=cuda_device),
+                                  -torch.ones(64, 1, device=cuda_device)], 1),
+             "target_rgb": torch.rand(64, 3, generator=gen, device=cuda_device),
+             "timestep_ids": torch.zeros(64, dtype=torch.int64,
+                                         device=cuda_device),
+             "train_indicator": torch.ones(64, device=cuda_device),
+             "test_indicator": torch.zeros(64, device=cuda_device)}
+    results = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(CFG, compute_dtype=dtype, N_samples=16,
+                                  N_importance=16)
+        before = (K.mlp_fwd.launches, KB.mlp_bwd.launches)
+        losses, _, grads = losses_and_grads(
+            m, 0, batch, cfg=cfg, tc=tc, rs=rs, has_test_split=False,
+            n_rand=64, generator=torch.Generator(
+                device=cuda_device).manual_seed(4))
+        torch.cuda.synchronize()
+        assert (K.mlp_fwd.launches, KB.mlp_bwd.launches) == (
+            before[0] + 2, before[1] + 2)
+        assert bool(torch.isfinite(losses).all())
+        assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+        results[dtype] = float(losses.mean())
+    assert abs(results["bfloat16"] - results["float32"]) <= \
+        0.05 * abs(results["float32"])
+    assert results["bfloat16"] != results["float32"]     # bf16 ran
+
+
+@pytest.mark.cuda
+def test_bf16_bender_on_cuda_is_the_cpu_dense_apply(model, cuda_device):
+    """The bender's offsets and mask at compute_dtype="bfloat16" on the
+    card against the CPU (whose `dense_apply` tests/test_torch_bf16.py holds
+    bitwise against JAX's) on the same weights, every bias drawn at random:
+    at most 1e-2 of the entries not bit-equal and 1e-3 beyond one bf16 ulp
+    (the f32 sums run in another order; a rounding before the bias moves
+    0.15-0.25 of them past one ulp)."""
+    import copy
+    gen = torch.Generator().manual_seed(6)
+    bender = copy.deepcopy(model.bender).cpu()
+    with torch.no_grad():
+        for layer in (*bender.bend, *bender.rigidity):
+            if layer.bias is not None:
+                layer.bias.uniform_(-layer.in_features ** -0.5,
+                                    layer.in_features ** -0.5, generator=gen)
+    pts = 2 * torch.rand(8192, 3, generator=gen) - 1
+    lat = 0.1 * torch.randn(8192, CFG.ray_bending_latent_size, generator=gen)
+    on_card = copy.deepcopy(bender).to(cuda_device)
+    with torch.no_grad():
+        _, want = bender(pts, lat, compute_dtype=torch.bfloat16)
+        _, got = on_card(pts.to(cuda_device), lat.to(cuda_device),
+                         compute_dtype=torch.bfloat16)
+    for key in ("unmasked_offsets", "rigidity_mask"):
+        g, w = got[key].cpu().double(), want[key].double()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            w.abs().clamp_min(torch.finfo(torch.float32).tiny))) - 7)
+        assert float((g != w).double().mean()) <= 1e-2, key
+        assert float(((g - w).abs() > ulp).double().mean()) <= 1e-3, key
+
+
+@pytest.mark.cuda
+def test_cuda_serving_artifact_equals_the_live_renderer(model, cuda_device,
+                                                        tmp_path):
+    from nonrigid_nerf_torch import serving
+    rs = RenderSettings(N_samples=16, N_importance=16, near=0.1, far=1.6)
+    blob, meta = serving.export_renderer(model, CFG, rs, chunk=256,
+                                         device=cuda_device)
+    assert meta["device"] == "cuda"
+    path = str(tmp_path / "m.pt2")
+    serving.save_exported(path, blob, meta)
+    render, _ = serving.load_exported(path)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    ro = torch.zeros(256, 3, device=cuda_device)
+    rd = torch.cat([0.3 * torch.randn(256, 2, generator=gen,
+                                      device=cuda_device),
+                    -torch.ones(256, 1, device=cuda_device)], 1)
+    lat = torch.zeros(256, 32, device=cuda_device)
+    got = render(ro, rd, lat)
+    import copy
+    live = serving.make_serving_fn(copy.deepcopy(model).to(cuda_device), CFG,
+                                   rs)(ro, rd, lat)
+    assert all(torch.equal(got[k], live[k]) for k in live)

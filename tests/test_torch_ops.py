@@ -195,3 +195,23 @@ def test_math_helpers():
     close(n, j_math.safe_norm(jnp.asarray(v.detach().numpy())))
     n.sum().backward()
     assert torch.isfinite(v.grad).all() and torch.all(v.grad[0] == 0)
+
+
+def test_ndc_rays_matches_jax():
+    """API parity (the reference keeps NDC off): rays in front of a camera
+    at the origin looking down -z, projected with the package-level export
+    of both."""
+    import nonrigid_nerf_torch.ops as t_ops
+    import nonrigid_nerf_tpu.ops as j_ops
+    rng = np.random.RandomState(5)
+    o = (0.2 * rng.randn(64, 3)).astype(np.float32)
+    d = np.concatenate([0.5 * rng.randn(64, 2), -np.ones((64, 1))],
+                       1).astype(np.float32)
+    got = t_ops.ndc_rays(48, 64, 50.0, 52.0, 1.0, torch.from_numpy(o),
+                         torch.from_numpy(d))
+    want = j_ops.ndc_rays(48, 64, 50.0, 52.0, 1.0, jnp.asarray(o),
+                          jnp.asarray(d))
+    assert t_ops.ndc_rays is t_rays.ndc_rays
+    for a, b in zip(got, want):
+        assert a.shape == (64, 3)
+        close(a, b)

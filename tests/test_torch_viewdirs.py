@@ -259,9 +259,20 @@ def test_what_is_still_not_ported_raises():
     check_nerf_supported(baseline)
     assert not t_query.use_fused_kernel(baseline, t_config.EditConfig(),
                                         torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
+    # compute_dtype="bfloat16" is ported: a view-direction model constructs
+    # and runs its MLP in bf16 (raw in f32); an unknown dtype name raises
+    bf16 = t_config.ModelConfig(use_viewdirs=True, compute_dtype="bfloat16",
+                                netwidth=32, netwidth_fine=32, bending_width=16,
+                                rigidity_width=8, ray_bending_latent_size=8)
+    check_nerf_supported(bf16)
+    net = NRNeRF(bf16, 2, generator=torch.Generator().manual_seed(0),
+                 device="cpu").coarse
+    raw = net(torch.randn(5, 63), torch.randn(5, 27),
+              compute_dtype=torch.bfloat16)
+    assert raw.dtype == torch.float32 and raw.shape == (5, 4)
+    with pytest.raises(ValueError, match="compute_dtype"):
         check_nerf_supported(t_config.ModelConfig(use_viewdirs=True,
-                                                  compute_dtype="bfloat16"))
+                                                  compute_dtype="float16"))
     # the two opt-in modes are ported for the single-head MLP only: with
     # view directions "pts" raises and "int8" takes the plain f32 MLP
     with pytest.raises(ValueError, match="outside the kernel's support"):
