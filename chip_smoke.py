@@ -151,7 +151,13 @@ renders F, V, P, B and I at compute_dtype="bfloat16" against phase 3's f32
 "off" frames and trains F and B; phase 5b runs the CLI presampled
 (--sampling_prefetch 16) against the plain run; phase 6b exports the
 serving artifact on the card and loads it in a process that imports torch
-alone.
+alone. Phase 4d runs the bench (`python3 -m nonrigid_nerf_torch.cli.bench`'s
+`run_bench`) at full width, every mode at 30 steps and 2 windows (the CLI:
+400 / 300 steps, 2-6 windows), with each mode's launches counted from 0
+and its line's keys, rates and MFU checked, then `profile_step` at 5
+iterations a stage; phase 6c renders phase 5's experiment through the
+free-viewpoint CLI in a subprocess, which hands it to the experiment's
+backup/ snapshot of the port (its first frame equal to phase 6's).
 """
 
 import copy
@@ -236,6 +242,14 @@ R3_EVAL_LATENTS = (0, 43)        # the timesteps of its two frames
 # parameters. Measured after 50 steps on the H100: 5.6e-4 relative and
 # 0.29 lrate; held to 2e-3 and 1 lrate.
 DP_STEPS = 50
+# the bench phase: run_bench at full width, every mode, with short windows
+# (the CLI's protocol: 400 / 300 steps, 2-6 windows), and profile_step
+BENCH_STEPS = 30
+BENCH_WINDOWS = (2, 2)
+PROFILE_STEP_ITERS = 5
+# the snapshot render: every 30th of the 60 frames (2 frames; frame 0 is
+# phase 6's first frame too)
+SNAPSHOT_STRIDE = 30
 DP_FIRST_LOSS_RTOL = 2e-5
 DP_LOSS_RTOL = 2e-3
 DP_PARAM_ATOL_LRATE = 1.0
@@ -2944,6 +2958,139 @@ def presample_phase(root, smi, tmp):
             "wall_s_presampled": out["presampled"][2], "gpu": smi}
 
 
+def bench_phase(root, device, smi):
+    """Phase 4d: the bench (`cli/bench.py:run_bench`) at the flagship's full
+    width on its synthetic 86 x 384 x 512 stack, every mode, with short
+    windows (BENCH_STEPS steps, BENCH_WINDOWS windows), launch counts set to
+    0 just before and read just after each mode: the line's keys (the JAX
+    bench's recorded line and the port's four), finite rates, 0 < mfu < 1
+    for every training mode, no errors, and each mode's kernels exactly:
+    2 `mlp_fwd` and 2 `mlp_bwd` a step (default, bf16; block_split 4
+    `mlp_bwd`: two cotangents), 2 `mlpv_fwd` and 2 `mlpv_bwd` a step with
+    view directions, 12 `mlp_fwd` a rendered frame. Then `profile_step` at
+    PROFILE_STEP_ITERS iterations a stage: the JAX tool's 13 stage names,
+    finite times, and the full step's device ms."""
+    import contextlib
+
+    from nonrigid_nerf_torch.cli import bench, profile_step
+    from nonrigid_nerf_torch.config import ModelConfig
+
+    ds = bench.build_dataset(None, device)
+    launches = {}
+
+    @contextlib.contextmanager
+    def count(name):
+        reset_launch_counts()
+        yield
+        torch.cuda.synchronize()
+        launches[name] = {k: v for k, v in launch_counts().items() if v}
+
+    t0 = time.perf_counter()
+    line = bench.run_bench(ModelConfig(), bench.flagship_train_config(), ds,
+                           steps=BENCH_STEPS, windows=BENCH_WINDOWS,
+                           device=device, on_mode=count,
+                           data="on the synthetic 86 x 384 x 512 stack")
+    wall = time.perf_counter() - t0
+    del ds
+    with open(os.path.join(root, "results", "r5_bench", "bench.json")) as f:
+        recorded = json.load(f)
+    want_keys = set(recorded) | {"N_rand", "medians", "power_limit_w",
+                                 "errors"}
+    want = {}
+    for mode in bench.MODES:
+        n = len(line["windows"].get(mode, ()))
+        if mode == "render":
+            want[mode] = {"mlp_fwd": 12 * (1 + n * bench.RENDER_FRAMES)}
+            continue
+        steps = 1 + bench.WARMUP_STEPS + n * BENCH_STEPS
+        fwd, bwd = ("mlpv_fwd", "mlpv_bwd") if "viewdirs" in mode \
+            else ("mlp_fwd", "mlp_bwd")
+        want[mode] = {fwd: 2 * steps,
+                      bwd: (4 if mode == "block_split" else 2) * steps}
+    rates = [line[k] for k in ("value", "render_rays_per_sec",
+                               "train_rays_per_sec_bf16",
+                               "train_rays_per_sec_viewdirs",
+                               "train_rays_per_sec_viewdirs_exact",
+                               "train_rays_per_sec_block_split")]
+    log(f"bench ({wall:.1f} s, {BENCH_STEPS} steps a window, windows "
+        f"{BENCH_WINDOWS}): default {line['steps_per_sec']} steps/s, "
+        f"rays/s default / bf16 / viewdirs / viewdirs_exact / block_split / "
+        f"render {rates[0]} / {rates[2]} / {rates[3]} / {rates[4]} / "
+        f"{rates[5]} / {rates[1]}; mfu {line['mfu']}; launches {launches} "
+        f"(expected {want}); {smi}")
+    ok = (set(line) == want_keys and not line["errors"]
+          and all(r is not None and math.isfinite(r) and r > 0 for r in rates)
+          and set(line["mfu"]) == set(bench.TRAIN_MODES)
+          and all(m is not None and 0.0 < m < 1.0
+                  for m in line["mfu"].values())
+          and line["mfu_vs_bf16_peak"] is not None
+          and 0.0 < line["mfu_vs_bf16_peak"] < 1.0
+          and line["value"] == line["steps_per_sec"] * line["N_rand"]
+          and line["model_flops_per_train_ray"] == 590610432
+          and launches == want)
+    if not ok:
+        raise AssertionError(f"bench phase: {json.dumps(line)}")
+
+    t0 = time.perf_counter()
+    prof = profile_step.run_profile(iters=PROFILE_STEP_ITERS, warmup=2,
+                                    device=device)
+    prof_wall = time.perf_counter() - t0
+    for k, v in sorted(prof["stages"].items()):
+        log(f"profile_step {k:28s} {v['mean_ms']:8.3f} ms (median "
+            f"{v['median_ms']:.3f})")
+    log(f"profile_step ({prof_wall:.1f} s, {PROFILE_STEP_ITERS} iterations a "
+        "stage): train_step under torch.profiler " + ", ".join(
+            f"{m}: {p['wall_ms']:.3f} ms a step, device {p['device_ms']:.3f} "
+            f"ms, host share {p['host_share']:.3f}"
+            for m, p in prof["train_step_profile"].items()) + f"; {smi}")
+    if len(prof["stages"]) != 13 or not all(
+            math.isfinite(v["mean_ms"]) and v["mean_ms"] > 0
+            for v in prof["stages"].values()) \
+            or set(prof["train_step_profile"]) != {"auto", "off"}:
+        raise AssertionError(f"profile_step: {json.dumps(prof)}")
+    return {"line": line, "launches": launches, "wall_s": wall,
+            "profile_step": prof, "profile_step_wall_s": prof_wall}
+
+
+def snapshot_render_phase(root, exp, smi):
+    """Phase 6c: `python3 -m nonrigid_nerf_torch.cli.free_viewpoint_rendering`
+    in a subprocess on phase 5's experiment, whose backup/ holds the
+    training CLI's snapshot of the port: the CLI hands the render to the
+    snapshot's code, which builds its own `mlp_fwd` into the snapshot's
+    _build/ and writes the frames; its first frame equals phase 6's render of
+    the same frame by the checkout's code, byte for byte."""
+    from nonrigid_nerf_torch.utils.image_io import imread
+
+    backup = os.path.join(exp, "backup")
+    snapshot_build = os.path.join(backup, "nonrigid_nerf_torch", "_build")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nonrigid_nerf_torch.cli.free_viewpoint_rendering",
+         "--input", exp, "--deformations", "train", "--camera_path",
+         "input_reconstruction", "--view_stride", str(SNAPSHOT_STRIDE)],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    print(proc.stdout[-3000:], proc.stderr[-3000:], sep="\n", flush=True)
+    built = sorted(f for f in os.listdir(snapshot_build)) \
+        if os.path.isdir(snapshot_build) else []
+    out = os.path.join(exp, "output",
+                       f"train_input_reconstruction_stride{SNAPSHOT_STRIDE}")
+    ref = os.path.join(exp, "output",
+                       f"train_input_reconstruction_stride{FVR_STRIDE}")
+    same = proc.returncode == 0 and np.array_equal(
+        imread(os.path.join(out, "rgb_000000.png")),
+        imread(os.path.join(ref, "rgb_000000.png")))
+    log(f"snapshot render: exit {proc.returncode} in {wall:.2f} s, "
+        f"built into the snapshot {built}, first frame equal to the "
+        f"checkout's render: {same}; {smi}")
+    if (f"rendering with the experiment's code snapshot {backup}"
+            not in proc.stdout or not same
+            or not any(f.startswith("libmlp_fwd_") for f in built)):
+        raise AssertionError("the experiment's snapshot did not render")
+    return {"exit": proc.returncode, "wall_s": wall, "built": built,
+            "first_frame_equal": same}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -3066,6 +3213,9 @@ def main() -> int:
         device, smi)
     log(f"big step and bf16 done: {time.perf_counter() - t_start:.1f} s "
         "since the start")
+    # ---- phase 4d: the bench, every mode at short windows, and profile_step
+    bench_results = bench_phase(root, device, smi)
+    log(f"bench done: {time.perf_counter() - t_start:.1f} s since the start")
 
     # ---- phase 5: the training CLI on a real dataset
     with tempfile.TemporaryDirectory() as tmp:
@@ -3077,6 +3227,8 @@ def main() -> int:
         fvr_results = fvr_phase(cli_exp, smi)
         # ---- phase 6b: the serving export
         serving_results = serving_phase(cfg_plain, args, device, smi, tmp)
+        # ---- phase 6c: the free-viewpoint CLI on the experiment's backup/
+        snapshot_results = snapshot_render_phase(root, cli_exp, smi)
     log(f"fvr done: {time.perf_counter() - t_start:.1f} s since the start")
     # ---- phase 7: the trained r3_eval checkpoint, every mode against off
     trained_results = trained_weights_phase(root, device, smi)
@@ -3197,6 +3349,10 @@ def main() -> int:
     log(json.dumps({"bfloat16": bf16_results}))
     log(json.dumps({"serving": serving_results}))
     log(json.dumps({"presampled": presample_results}))
+    log(json.dumps({"snapshot_render": snapshot_results}))
+    log(json.dumps({"profile_step": bench_results["profile_step"]}))
+    log(json.dumps({"bench_launches": bench_results["launches"]}))
+    log(json.dumps(bench_results["line"]))
     log(smi)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

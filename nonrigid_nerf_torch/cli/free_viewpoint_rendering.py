@@ -32,13 +32,16 @@ sample of each pixel. The reference hauls the (H, W, samples, 3) details to
 the host; here `_surface_post` reduces each ray block on the device inside
 the renderer's block loop, so only (H, W, 3) maps leave it.
 
-One deviation from the JAX CLI: that one renders an experiment with the
-code snapshot in its `backup/` folder when there is one, by putting the
-snapshot first on sys.path before it imports its package. Run as
-`python3 -m nonrigid_nerf_torch.cli...`, this module is part of the
-package it would have to replace, which Python has imported from the
-checkout by then; the checkout's code renders every experiment. The
-package's imports stay inside the functions all the same.
+An experiment renders with the code that trained it, as in the JAX CLI:
+when `<input>/backup/nonrigid_nerf_torch` exists (the training CLI's
+snapshot) and this module was not loaded from it, `main` runs the
+snapshot's own CLI in a child process with the same arguments, the
+snapshot first on the child's sys.path (`python3 -P`, so that the working
+directory does not put the checkout ahead of it), and returns the child's
+exit code. The child carries `SNAPSHOT_ENV` so that it does not hand on
+again, and builds the snapshot's kernels into the snapshot's own `_build/`.
+Without a snapshot, or when the functions below are called directly, the
+checkout's code renders.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -54,6 +58,10 @@ import torch
 
 from nonrigid_nerf_torch.device import DeviceLike, resolve_device
 from nonrigid_nerf_torch.parallel import multihost
+
+
+# set in the child that renders with an experiment's code snapshot
+SNAPSHOT_ENV = "NRNERF_TORCH_SNAPSHOT"
 
 
 def create_folder(folder):
@@ -608,8 +616,36 @@ def build_parser():
     return parser
 
 
+# the child's program: the snapshot first on sys.path, then its CLI
+SNAPSHOT_STUB = ("import sys; sys.path.insert(0, sys.argv.pop(1)); "
+                 "from nonrigid_nerf_torch.cli.free_viewpoint_rendering "
+                 "import main; sys.exit(main(sys.argv[1:]))")
+
+
+def snapshot_dir(input_folder: str):
+    """The experiment's backup/ folder where its code snapshot renders, or
+    None where the checkout's code does: no snapshot, this module loaded
+    from it, or already handed on to it."""
+    backup = os.path.abspath(os.path.join(input_folder, "backup"))
+    package = os.path.join(backup, "nonrigid_nerf_torch")
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if (not os.path.isdir(package) or os.environ.get(SNAPSHOT_ENV)
+            or os.path.realpath(package) == os.path.realpath(here)):
+        return None
+    return backup
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     fvr_args = build_parser().parse_args(argv)
+    resolve_device(fvr_args.device)       # no GPU: raise here, in any case
+    backup = snapshot_dir(fvr_args.input)
+    if backup is not None:
+        print(f"rendering with the experiment's code snapshot {backup}",
+              flush=True)
+        return subprocess.run(
+            [sys.executable, "-P", "-c", SNAPSHOT_STUB, backup, *argv],
+            env=dict(os.environ, **{SNAPSHOT_ENV: backup})).returncode
     multihost.maybe_initialize(fvr_args.device)     # before any tensor
     free_viewpoint_rendering(fvr_args)
     return 0

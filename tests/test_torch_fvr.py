@@ -314,3 +314,67 @@ def test_setup_namespace_renders_as_in_jax(experiment):
         np.testing.assert_allclose(rgb, np.asarray(j_rgb), rtol=0, atol=1e-4)
         np.testing.assert_allclose(disp, np.asarray(j_disp), rtol=1e-3,
                                    atol=0)
+
+
+# planted at the end of the snapshot's CLI module: its `main` leaves a mark
+# in the experiment folder before it renders
+SNAPSHOT_MARKER = '''
+
+_snapshot_main = main
+
+
+def main(argv=None):
+    exp = argv[argv.index("--input") + 1]
+    with open(os.path.join(exp, "snapshot_marker.txt"), "w") as f:
+        f.write(os.path.abspath(__file__))
+    return _snapshot_main(argv)
+'''
+
+
+@pytest.mark.parametrize("with_backup", [True, False])
+def test_renders_with_the_experiment_snapshot(experiment, tmp_path,
+                                             monkeypatch, with_backup):
+    """With backup/nonrigid_nerf_torch the CLI hands the render to the
+    snapshot's code (a child process; the planted mark shows whose code
+    ran), and returns its exit code; without backup/ the checkout's code
+    renders in this process."""
+    exp = str(tmp_path / "exp")
+    shutil.copytree(experiment, exp)
+    snapshot_cli = os.path.join(exp, "backup", "nonrigid_nerf_torch", "cli",
+                                "free_viewpoint_rendering.py")
+    assert os.path.exists(snapshot_cli)     # the training CLI's snapshot
+    if with_backup:
+        with open(snapshot_cli, "a") as f:
+            f.write(SNAPSHOT_MARKER)
+    else:
+        shutil.rmtree(os.path.join(exp, "backup"))
+    in_process = []
+    real = t_fvr.free_viewpoint_rendering
+    monkeypatch.setattr(t_fvr, "free_viewpoint_rendering",
+                        lambda a: in_process.append(a) or real(a))
+    monkeypatch.delenv(t_fvr.SNAPSHOT_ENV, raising=False)
+    # one intra-op thread here and in the child: the suite runs several
+    # workers on the same cores
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    argv = ["--input", exp, "--deformations", "train", "--camera_path",
+            "input_reconstruction", "--view_stride", "2", "--device", "cpu"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert t_fvr.main(argv) == 0
+    finally:
+        torch.set_num_threads(threads)
+    marker = os.path.join(exp, "snapshot_marker.txt")
+    output = os.path.join(exp, "output", "train_input_reconstruction_stride2")
+    assert len(files(output, "rgb_*.png")) == 2
+    if with_backup:
+        assert not in_process
+        with open(marker) as f:
+            assert f.read() == os.path.realpath(snapshot_cli)
+    else:
+        assert len(in_process) == 1 and not os.path.exists(marker)
+    # the child carries the marker and does not hand on again
+    assert t_fvr.snapshot_dir(exp) == (
+        os.path.join(os.path.abspath(exp), "backup") if with_backup else None)
+    monkeypatch.setenv(t_fvr.SNAPSHOT_ENV, "1")
+    assert t_fvr.snapshot_dir(exp) is None

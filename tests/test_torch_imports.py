@@ -2,8 +2,9 @@
 
 - No file of `nonrigid_nerf_torch/`, nor `chip_smoke.py`, nor the GPU tests
   (which run where JAX is not installed), imports `jax`,
-  `nonrigid_nerf_tpu`, `llff_preprocessing` or `tools` (the JAX package is
-  the reference, not a dependency; the port keeps its own copies).
+  `nonrigid_nerf_tpu`, `llff_preprocessing`, `tools`, the root `bench.py`
+  or `__graft_entry__` (the JAX package is the reference, not a
+  dependency; the port keeps its own copies).
 - Entry points default to CUDA: with no device argument they ask for
   `cuda`, and on a box without a GPU they raise instead of running on the
   CPU.
@@ -76,8 +77,12 @@ LATER_FILES = ["ops/kernels/pieces.py", "models/mlp.py", "serving.py",
                "preprocessing/poses.py", "cli/export_serving.py",
                "cli/import_reference_checkpoint.py",
                "cli/export_reference_checkpoint.py", "cli/preprocess.py"]
+# the bench, its FLOP count and the measuring tools
+MEASURE_FILES = ["utils/flops.py", "cli/bench.py", "cli/batch_scaling.py",
+                 "cli/profile_step.py", "cli/probe_offsets.py",
+                 "cli/gather_microbench.py", "cli/scale_bisect.py"]
 FORBIDDEN = ("jax", "jaxlib", "nonrigid_nerf_tpu", "llff_preprocessing",
-             "tools")
+             "tools", "bench", "__graft_entry__")
 
 
 def _imported_modules(path):
@@ -111,6 +116,7 @@ def test_training_files_are_under_the_import_rule():
     assert set(FVR_FILES) <= covered
     assert set(PARALLEL_FILES) <= covered
     assert set(LATER_FILES) <= covered
+    assert set(MEASURE_FILES) <= covered
     assert (REPO / "nonrigid_nerf_torch" / "ops" / "kernels" / "csrc"
             / "mlp_bwd.cu").exists()
 
@@ -222,7 +228,8 @@ def test_package_imports_without_jax_or_kernels():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'nonrigid_nerf_tpu', 'triton')]\n"
+            "('jax', 'jaxlib', 'nonrigid_nerf_tpu', 'triton', 'bench', "
+            "'__graft_entry__')]\n"
             "assert not bad, bad\n"
             "from nonrigid_nerf_torch.ops.kernels import build\n"
             "assert not build.BUILD_INFO\n")
@@ -275,6 +282,20 @@ def test_training_cli_raises_without_gpu(monkeypatch, tmp_path):
         capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and "device='cpu'" in proc.stderr
     assert not (tmp_path / "exp").exists()
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("bench", []), ("batch_scaling", []), ("profile_step", []),
+    ("probe_offsets", ["missing_experiment"]), ("gather_microbench", []),
+    ("scale_bisect", [])])
+def test_measuring_clis_raise_without_gpu(monkeypatch, module, argv):
+    """The bench and the measuring tools ask for cuda without `--device`:
+    on a box without a GPU they raise before they build or read anything."""
+    import importlib
+    cli = importlib.import_module(f"nonrigid_nerf_torch.cli.{module}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv)
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):
