@@ -1,0 +1,8 @@
+"""Device kernels a training step in the traced window (torch.profiler;
+copies and sets not counted)."""
+
+
+def read(run):
+    if run.kind != "train" or run.trace is None:
+        return None
+    return run.trace.kernel_count() / run.trace_units
