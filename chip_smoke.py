@@ -154,8 +154,7 @@ serving artifact on the card and loads it in a process that imports torch
 alone. Phase 4d runs the bench (`python3 -m nonrigid_nerf_torch.cli.bench`'s
 `run_bench`) at full width, every mode at 30 steps and 2 windows (the CLI:
 400 / 300 steps, 2-6 windows), with each mode's launches counted from 0
-and its line's keys, rates and MFU checked, then `profile_step` at 5
-iterations a stage; phase 6c renders phase 5's experiment through the
+and its line's keys, rates and MFU checked; phase 6c renders phase 5's experiment through the
 free-viewpoint CLI in a subprocess, which hands it to the experiment's
 backup/ snapshot of the port (its first frame equal to phase 6's).
 """
@@ -243,10 +242,9 @@ R3_EVAL_LATENTS = (0, 43)        # the timesteps of its two frames
 # 0.29 lrate; held to 2e-3 and 1 lrate.
 DP_STEPS = 50
 # the bench phase: run_bench at full width, every mode, with short windows
-# (the CLI's protocol: 400 / 300 steps, 2-6 windows), and profile_step
+# (the CLI's protocol: 400 / 300 steps, 2-6 windows)
 BENCH_STEPS = 30
 BENCH_WINDOWS = (2, 2)
-PROFILE_STEP_ITERS = 5
 # the snapshot render: every 30th of the 60 frames (2 frames; frame 0 is
 # phase 6's first frame too)
 SNAPSHOT_STRIDE = 30
@@ -2967,12 +2965,10 @@ def bench_phase(root, device, smi):
     for every training mode, no errors, and each mode's kernels exactly:
     2 `mlp_fwd` and 2 `mlp_bwd` a step (default, bf16; block_split 4
     `mlp_bwd`: two cotangents), 2 `mlpv_fwd` and 2 `mlpv_bwd` a step with
-    view directions, 12 `mlp_fwd` a rendered frame. Then `profile_step` at
-    PROFILE_STEP_ITERS iterations a stage: the JAX tool's 13 stage names,
-    finite times, and the full step's device ms."""
+    view directions, 12 `mlp_fwd` a rendered frame."""
     import contextlib
 
-    from nonrigid_nerf_torch.cli import bench, profile_step
+    from nonrigid_nerf_torch.cli import bench
     from nonrigid_nerf_torch.config import ModelConfig
 
     ds = bench.build_dataset(None, device)
@@ -3030,26 +3026,7 @@ def bench_phase(root, device, smi):
           and launches == want)
     if not ok:
         raise AssertionError(f"bench phase: {json.dumps(line)}")
-
-    t0 = time.perf_counter()
-    prof = profile_step.run_profile(iters=PROFILE_STEP_ITERS, warmup=2,
-                                    device=device)
-    prof_wall = time.perf_counter() - t0
-    for k, v in sorted(prof["stages"].items()):
-        log(f"profile_step {k:28s} {v['mean_ms']:8.3f} ms (median "
-            f"{v['median_ms']:.3f})")
-    log(f"profile_step ({prof_wall:.1f} s, {PROFILE_STEP_ITERS} iterations a "
-        "stage): train_step under torch.profiler " + ", ".join(
-            f"{m}: {p['wall_ms']:.3f} ms a step, device {p['device_ms']:.3f} "
-            f"ms, host share {p['host_share']:.3f}"
-            for m, p in prof["train_step_profile"].items()) + f"; {smi}")
-    if len(prof["stages"]) != 13 or not all(
-            math.isfinite(v["mean_ms"]) and v["mean_ms"] > 0
-            for v in prof["stages"].values()) \
-            or set(prof["train_step_profile"]) != {"auto", "off"}:
-        raise AssertionError(f"profile_step: {json.dumps(prof)}")
-    return {"line": line, "launches": launches, "wall_s": wall,
-            "profile_step": prof, "profile_step_wall_s": prof_wall}
+    return {"line": line, "launches": launches, "wall_s": wall}
 
 
 def snapshot_render_phase(root, exp, smi):
@@ -3213,7 +3190,7 @@ def main() -> int:
         device, smi)
     log(f"big step and bf16 done: {time.perf_counter() - t_start:.1f} s "
         "since the start")
-    # ---- phase 4d: the bench, every mode at short windows, and profile_step
+    # ---- phase 4d: the bench, every mode at short windows
     bench_results = bench_phase(root, device, smi)
     log(f"bench done: {time.perf_counter() - t_start:.1f} s since the start")
 
@@ -3350,7 +3327,6 @@ def main() -> int:
     log(json.dumps({"serving": serving_results}))
     log(json.dumps({"presampled": presample_results}))
     log(json.dumps({"snapshot_render": snapshot_results}))
-    log(json.dumps({"profile_step": bench_results["profile_step"]}))
     log(json.dumps({"bench_launches": bench_results["launches"]}))
     log(json.dumps(bench_results["line"]))
     log(smi)

@@ -28,6 +28,7 @@ from nonrigid_nerf_torch.ops.rays import get_rays
 from nonrigid_nerf_torch.parallel import multihost
 from nonrigid_nerf_torch.parallel.mesh import make_auto_renderer
 from nonrigid_nerf_torch.utils.image_io import imwrite
+from nonrigid_nerf_torch.utils.spans import span
 from nonrigid_nerf_torch.utils.viz import (disparity_to_blinn_phong,
                                            disparity_to_jet)
 
@@ -74,53 +75,61 @@ def render_path(model, cfg: ModelConfig, rs: RenderSettings, render_poses,
     renderer_cache = {}
     t0 = time.time()
     for i, (c2w, intrin) in enumerate(zip(render_poses, intrinsics)):
-        H, W = int(intrin["height"]), int(intrin["width"])
-        if renderer is None:
-            if (H, W) not in renderer_cache:
-                renderer_cache[(H, W)] = make_auto_renderer(
-                    cfg, rs, edit=edit, chunk=chunk, device=device,
-                    detailed=detailed, n_rays_hint=H * W)
-            render_fn = renderer_cache[(H, W)]
-        else:
-            render_fn = renderer
+        with span("frame"):
+            H, W = int(intrin["height"]), int(intrin["width"])
+            with span("frame_rays"):
+                if renderer is None:
+                    if (H, W) not in renderer_cache:
+                        renderer_cache[(H, W)] = make_auto_renderer(
+                            cfg, rs, edit=edit, chunk=chunk, device=device,
+                            detailed=detailed, n_rays_hint=H * W)
+                    render_fn = renderer_cache[(H, W)]
+                else:
+                    render_fn = renderer
 
-        c2w = torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4],
-                              device=device)
-        rays_o, rays_d = get_rays(c2w, intrin)
-        rays_o = rays_o.reshape(-1, 3)
-        rays_d = rays_d.reshape(-1, 3)
-        frame_latents = latents[i].reshape(1, -1).expand(H * W, -1)
+                c2w = torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4],
+                                      device=device)
+                rays_o, rays_d = get_rays(c2w, intrin)
+                rays_o = rays_o.reshape(-1, 3)
+                rays_d = rays_d.reshape(-1, 3)
+                frame_latents = latents[i].reshape(1, -1).expand(H * W, -1)
 
-        out = render_fn(model, rays_o, rays_d, frame_latents)
-        rgb = out["rgb_map"].reshape(H, W, 3).cpu().numpy()
-        disp = out["disp_map"].reshape(H, W).cpu().numpy()
-        rgbs.append(rgb)
-        disps.append(disp)
-        if detailed:
-            all_details.append({
-                k: v.reshape((H, W) + v.shape[1:]).cpu().numpy()
-                for k, v in out.items() if k not in ("rgb_map", "disp_map")})
-        if verbose:
-            print(f"render_path frame {i}: {time.time() - t0:.2f}s",
-                  flush=True)
-            t0 = time.time()
+            with span("blocks"):
+                out = render_fn(model, rays_o, rays_d, frame_latents)
+            with span("readback"):
+                rgb = out["rgb_map"].reshape(H, W, 3).cpu().numpy()
+                disp = out["disp_map"].reshape(H, W).cpu().numpy()
+                if detailed:
+                    all_details.append({
+                        k: v.reshape((H, W) + v.shape[1:]).cpu().numpy()
+                        for k, v in out.items()
+                        if k not in ("rgb_map", "disp_map")})
+            rgbs.append(rgb)
+            disps.append(disp)
+            if verbose:
+                print(f"render_path frame {i}: {time.time() - t0:.2f}s",
+                      flush=True)
+                t0 = time.time()
 
-        if savedir is not None:
-            imwrite(os.path.join(savedir, f"{i:03d}.png"), to8b(rgb))
-            raw_disp = disp / max(float(disp.max()), 1e-10)
-            imwrite(os.path.join(savedir, f"disp_{i:03d}.png"), to8b(raw_disp))
-            imwrite(os.path.join(savedir, f"disp_jet_{i:03d}.png"),
-                    to8b(disparity_to_jet(raw_disp)))
-            imwrite(os.path.join(savedir, f"disp_phong_{i:03d}.png"),
-                    to8b(disparity_to_blinn_phong(raw_disp)))
-            if gt_imgs is not None:
-                gt = np.asarray(gt_imgs[i])
-                if render_factor:
-                    gt = gt[::render_factor, ::render_factor][:H, :W]
-                error = np.linalg.norm(gt - rgb, axis=-1) / np.sqrt(3.0)
-                error = np.clip(error * 10.0, 0.0, 1.0)  # exaggerate
-                imwrite(os.path.join(savedir, f"error_{i:03d}.png"),
-                        to8b(disparity_to_jet(error)))
+            if savedir is not None:
+                with span("write"):
+                    imwrite(os.path.join(savedir, f"{i:03d}.png"), to8b(rgb))
+                    raw_disp = disp / max(float(disp.max()), 1e-10)
+                    imwrite(os.path.join(savedir, f"disp_{i:03d}.png"),
+                            to8b(raw_disp))
+                    imwrite(os.path.join(savedir, f"disp_jet_{i:03d}.png"),
+                            to8b(disparity_to_jet(raw_disp)))
+                    imwrite(os.path.join(savedir, f"disp_phong_{i:03d}.png"),
+                            to8b(disparity_to_blinn_phong(raw_disp)))
+                    if gt_imgs is not None:
+                        gt = np.asarray(gt_imgs[i])
+                        if render_factor:
+                            gt = gt[::render_factor, ::render_factor][:H, :W]
+                        error = (np.linalg.norm(gt - rgb, axis=-1)
+                                 / np.sqrt(3.0))
+                        error = np.clip(error * 10.0, 0.0, 1.0)  # exaggerate
+                        imwrite(os.path.join(savedir, f"error_{i:03d}.png"),
+                                to8b(disparity_to_jet(error)))
 
     rgbs = np.stack(rgbs, 0)
     disps = np.stack(disps, 0)

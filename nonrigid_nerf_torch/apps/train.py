@@ -11,8 +11,10 @@ at its last step, and calls `on_step(i, state)` after each step's save (the
 CLI's validation images, videos and test-set renders). `die_at_step` kills
 the process after that step's save in a fresh run (fault injection);
 `profile_steps` traces that many steps after the first 50 with
-torch.profiler into `<logdir>/profile/`. On a GPU the run ends with its
-peak device memory, `peak_device_bytes` in metrics.jsonl.
+torch.profiler into `<logdir>/profile/`; the trace carries the step's
+named spans (`nrnerf/step`, `nrnerf/adam`, ...: `utils/spans.py`). On a
+GPU the run ends with its peak device memory, `peak_device_bytes` in
+metrics.jsonl.
 
 Under a process group of more than one rank (`parallel/multihost.py`) the
 loop runs the data-parallel step (`parallel/mesh.py`) on every rank, from

@@ -45,6 +45,7 @@ from nonrigid_nerf_torch.ops.kernels.mlpv_fwd import (
 from nonrigid_nerf_torch.ops.kernels.quant_mlp import (mlp_i8,
                                                        packed_int8_weights)
 from nonrigid_nerf_torch.ops.math import safe_norm
+from nonrigid_nerf_torch.utils.spans import spanned
 
 FUSED_KERNEL_MODES = ("auto", "on", "off", "pts", "int8")
 
@@ -183,6 +184,7 @@ def embed_for_mlp(cfg: ModelConfig, bent_pts, fused: bool):
     return embedded
 
 
+@spanned("stage1")
 def bend_encode_stage(model, cfg: ModelConfig, pts, latents,
                       edit: EditConfig = EditConfig(), fused: bool = False,
                       detailed: bool = False, embed: bool = True):
@@ -230,6 +232,7 @@ def bend_encode_stage(model, cfg: ModelConfig, pts, latents,
             "latents_per_pt": latents_per_pt, "details": details}
 
 
+@spanned("stage2")
 def canonical_mlp_stage(model, cfg: ModelConfig, network: str, stage1,
                         embedded_views=None, edit: EditConfig = EditConfig(),
                         fused: bool = False):

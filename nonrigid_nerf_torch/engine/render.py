@@ -29,11 +29,13 @@ from nonrigid_nerf_torch.engine.query import (_embed_views, bend_encode_stage,
 from nonrigid_nerf_torch.models.nerf import check_nerf_supported
 from nonrigid_nerf_torch.ops.compositing import raw2outputs
 from nonrigid_nerf_torch.ops.sampling import sample_pdf, stratified_z_vals
+from nonrigid_nerf_torch.utils.spans import span, spanned
 
 
 DRAW_KEYS = ("t_rand", "noise0", "u", "noise1")
 
 
+@spanned("sort")
 def sort_merge(z, *payloads):
     """Sort z (R, S) ascending and permute every payload (R, S, C) alike.
     Stable, so equal depths keep their [coarse..., new...] order, as in the
@@ -105,15 +107,18 @@ def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
         out = query_points(model, cfg, pts, viewdirs, latents, edit, "coarse",
                            detailed)
         raw, details = out if detailed else (out, None)
-    coarse = raw2outputs(raw, z_vals, rays_d, rs.raw_noise_std,
-                         rs.white_bkgd, generator=generator,
-                         noise=draws.get("noise0"))
+    with span("composite"):
+        coarse = raw2outputs(raw, z_vals, rays_d, rs.raw_noise_std,
+                             rs.white_bkgd, generator=generator,
+                             noise=draws.get("noise0"))
 
     if rs.N_importance > 0:
-        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-        z_samples = sample_pdf(z_mid, coarse.visibility_weights[..., 1:-1],
-                               rs.N_importance, det=(rs.perturb == 0.0),
-                               generator=generator, u=draws.get("u"))
+        with span("importance"):
+            z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+            z_samples = sample_pdf(z_mid,
+                                   coarse.visibility_weights[..., 1:-1],
+                                   rs.N_importance, det=(rs.perturb == 0.0),
+                                   generator=generator, u=draws.get("u"))
         z_cat = torch.cat([z_vals, z_samples], -1)
         fine_details = None
         if reuse:
@@ -127,16 +132,18 @@ def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
             def cat(a, b):
                 return torch.cat([a, b], dim=-2)
 
-            # the per-ray latents for every sample of the union: the
-            # time-conditioned baseline's fine MLP reads them
-            latents_cat = (latents[:, None, :].expand(
-                z_cat.shape + (latents.shape[-1],))
-                if st["latents_per_pt"] is not None else None)
-            bent_cat = cat(st["bent_pts"], st_new["bent_pts"])
-            rigidity_cat = (cat(st["rigidity"], st_new["rigidity"])
-                            if st["rigidity"] is not None else None)
-            keys = sorted(st_new["details"]) if fine_detailed else []
-            det_cat = [cat(details[k], st_new["details"][k]) for k in keys]
+            with span("union"):
+                # the per-ray latents for every sample of the union: the
+                # time-conditioned baseline's fine MLP reads them
+                latents_cat = (latents[:, None, :].expand(
+                    z_cat.shape + (latents.shape[-1],))
+                    if st["latents_per_pt"] is not None else None)
+                bent_cat = cat(st["bent_pts"], st_new["bent_pts"])
+                rigidity_cat = (cat(st["rigidity"], st_new["rigidity"])
+                                if st["rigidity"] is not None else None)
+                keys = sorted(st_new["details"]) if fine_detailed else []
+                det_cat = [cat(details[k], st_new["details"][k])
+                           for k in keys]
 
             if fd_nonrigid:
                 # the SORT comes first: bent points, rigidity and any detail
@@ -172,9 +179,11 @@ def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
                     dirs_new = sample_viewdirs(model, cfg, pts_new, st_new,
                                                viewdirs, edit)
                     ev_cat = _embed_views(cfg, cat(dirs_coarse, dirs_new))
-                st_cat = {"embedded": cat(st["embedded"], st_new["embedded"]),
-                          "bent_pts": bent_cat, "rigidity": rigidity_cat,
-                          "latents_per_pt": latents_cat}
+                with span("union"):
+                    st_cat = {"embedded": cat(st["embedded"],
+                                              st_new["embedded"]),
+                              "bent_pts": bent_cat, "rigidity": rigidity_cat,
+                              "latents_per_pt": latents_cat}
                 raw_cat = canonical_mlp_stage(model, cfg, "fine", st_cat,
                                               ev_cat, edit, fused)
                 merged = sort_merge(z_cat, raw_cat, *det_cat)
@@ -184,14 +193,16 @@ def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
         else:
             # the reference's way: sort the depths, then bend and encode the
             # coarse samples a second time with the new ones
-            z_all = torch.sort(z_cat, dim=-1).values
+            with span("sort"):
+                z_all = torch.sort(z_cat, dim=-1).values
             pts_fine = rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]
             out = query_points(model, cfg, pts_fine, viewdirs, latents, edit,
                                "fine", fine_detailed)
             raw_fine, fine_details = out if fine_detailed else (out, None)
-        fine = raw2outputs(raw_fine, z_all, rays_d, rs.raw_noise_std,
-                           rs.white_bkgd, generator=generator,
-                           noise=draws.get("noise1"))
+        with span("composite"):
+            fine = raw2outputs(raw_fine, z_all, rays_d, rs.raw_noise_std,
+                               rs.white_bkgd, generator=generator,
+                               noise=draws.get("noise1"))
         ret = dict(rgb_map=fine.rgb_map, disp_map=fine.disp_map,
                    acc_map=fine.acc_map, depth_map=fine.depth_map,
                    rgb0=coarse.rgb_map, disp0=coarse.disp_map,
@@ -264,12 +275,13 @@ def make_ray_renderer(cfg: ModelConfig, rs: RenderSettings,
         outs = []
         with torch.no_grad():
             for b in range(n_blocks):
-                sl = slice(b * chunk, (b + 1) * chunk)
-                out = render_rays(model, cfg, rs, ro[sl], rd[sl], lat[sl],
-                                  generator=generator, edit=edit,
-                                  detailed=detailed)
-                outs.append(postprocess(out) if postprocess is not None
-                            else out)
+                with span("block"):
+                    sl = slice(b * chunk, (b + 1) * chunk)
+                    out = render_rays(model, cfg, rs, ro[sl], rd[sl],
+                                      lat[sl], generator=generator,
+                                      edit=edit, detailed=detailed)
+                    outs.append(postprocess(out) if postprocess is not None
+                                else out)
         return {k: torch.cat([o[k] for o in outs], 0)[:n] for k in outs[0]}
 
     return render

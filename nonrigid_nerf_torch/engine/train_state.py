@@ -16,6 +16,7 @@ import torch
 from nonrigid_nerf_torch.config import ModelConfig, TrainConfig
 from nonrigid_nerf_torch.device import DeviceLike, resolve_device
 from nonrigid_nerf_torch.models.model import NRNeRF
+from nonrigid_nerf_torch.utils.spans import spanned
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -71,6 +72,7 @@ def create_train_state(cfg: ModelConfig, tc: TrainConfig, num_timesteps: int,
 
 
 @torch.no_grad()
+@spanned("adam")
 def adam_update(state: TrainState, grads: Dict[str, torch.Tensor],
                 tc: TrainConfig) -> None:
     """One Adam step in place, in optax's form: the moments are updated,

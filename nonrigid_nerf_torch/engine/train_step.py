@@ -35,6 +35,7 @@ from nonrigid_nerf_torch.engine.losses import (needs_bending_losses,
 from nonrigid_nerf_torch.engine.render import render_rays
 from nonrigid_nerf_torch.engine.train_state import TrainState, adam_update
 from nonrigid_nerf_torch.ops.math import mse2psnr
+from nonrigid_nerf_torch.utils.spans import span
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -67,25 +68,29 @@ def losses_and_grads(model, step: int, batch, *, cfg: ModelConfig,
                           latents, generator=generator,
                           detailed=needs_bending_losses(cfg, tc),
                           fine_detailed=False, draws=draws)
-        losses, aux = per_ray_losses(model, cfg, tc, out, batch["target_rgb"],
-                                     latents, step, e=e, generator=generator)
+        with span("losses"):
+            losses, aux = per_ray_losses(model, cfg, tc, out,
+                                         batch["target_rgb"], latents, step,
+                                         e=e, generator=generator)
 
     # phase 1 (always): training rays -> gradients for everything; the mean
     # runs over the FULL batch with the indicator as a mask, as the
     # reference's mean(indicator * losses) (train.py:1604-1607)
     inv_n = 1.0 / float(n_rand)
-    grads = torch.autograd.grad(
-        losses, params,
-        grad_outputs=batch["train_indicator"].to(losses.dtype) * inv_n,
-        retain_graph=has_test_split, allow_unused=True)
+    with span("backward"):
+        grads = torch.autograd.grad(
+            losses, params,
+            grad_outputs=batch["train_indicator"].to(losses.dtype) * inv_n,
+            retain_graph=has_test_split, allow_unused=True)
     grads = {name: torch.zeros_like(p) if g is None else g
              for name, p, g in zip(names, params, grads)}
     if has_test_split:
         # phase 2: test rays -> latent-table gradients only
-        test_grad, = torch.autograd.grad(
-            losses, [model.latents],
-            grad_outputs=batch["test_indicator"].to(losses.dtype) * inv_n,
-            allow_unused=True)
+        with span("backward"):
+            test_grad, = torch.autograd.grad(
+                losses, [model.latents],
+                grad_outputs=batch["test_indicator"].to(losses.dtype) * inv_n,
+                allow_unused=True)
         if test_grad is not None:
             grads["latents"] = grads["latents"] + test_grad
     aux = {k: v.detach() for k, v in aux.items()}
@@ -129,10 +134,13 @@ def train_step(state: TrainState, ds: RayDataset, *, cfg: ModelConfig,
                n_rand: int, generator: Optional[torch.Generator] = None,
                debug_metrics: bool = False):
     """One optimization step on a fresh random batch of `ds`."""
-    batch = sample_ray_batch(ds, n_rand, generator=generator)
-    return train_step_from_batch(
-        state, batch, cfg=cfg, tc=tc, rs=rs, has_test_split=has_test_split,
-        n_rand=n_rand, generator=generator, debug_metrics=debug_metrics)
+    with span("step"):
+        with span("sample"):
+            batch = sample_ray_batch(ds, n_rand, generator=generator)
+        return train_step_from_batch(
+            state, batch, cfg=cfg, tc=tc, rs=rs,
+            has_test_split=has_test_split, n_rand=n_rand,
+            generator=generator, debug_metrics=debug_metrics)
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, rs: RenderSettings,
@@ -192,10 +200,13 @@ def make_prefetch_train_step(cfg: ModelConfig, tc: TrainConfig,
         return {"rays": rays, "generators": generators, "step0": int(step0)}
 
     def step_fn(state: TrainState, batches, i: int):
-        batch = {k: v[i * nr:(i + 1) * nr] for k, v in batches["rays"].items()}
-        return train_step_from_batch(
-            state, batch, cfg=cfg, tc=tc, rs=rs,
-            has_test_split=has_test_split, n_rand=nr,
-            generator=batches["generators"][i], debug_metrics=debug_metrics)
+        with span("step"):
+            batch = {k: v[i * nr:(i + 1) * nr]
+                     for k, v in batches["rays"].items()}
+            return train_step_from_batch(
+                state, batch, cfg=cfg, tc=tc, rs=rs,
+                has_test_split=has_test_split, n_rand=nr,
+                generator=batches["generators"][i],
+                debug_metrics=debug_metrics)
 
     return presample_fn, step_fn

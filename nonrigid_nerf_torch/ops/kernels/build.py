@@ -30,6 +30,10 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # per library: the nvcc/ptxas report and the build time in seconds (0 when
 # the library was already on disk)
 BUILD_INFO: Dict[str, dict] = {}
+# this process's wall seconds spent building and loading kernel libraries,
+# and the number of libraries it compiled (more than once per source: a
+# kernel was built again)
+KERNEL_LOAD = {"seconds": 0.0, "compiled": 0}
 
 
 def find_nvcc() -> str:
@@ -56,7 +60,11 @@ def _library_path(source: str) -> str:
 
 def load_kernel_libraries(sources: Sequence[str]) -> List[ctypes.CDLL]:
     """Compile each `csrc/<source>` that is not built yet, one nvcc per
-    source and all started together, and load them."""
+    source and all started together, and load them. The wall time of a
+    call that loads anything adds to `KERNEL_LOAD["seconds"]`."""
+    if all(source in _LIBS for source in sources):
+        return [_LIBS[source] for source in sources]
+    start = time.perf_counter()
     running = []
     for source in sources:
         if source in _LIBS:
@@ -81,11 +89,13 @@ def load_kernel_libraries(sources: Sequence[str]) -> List[ctypes.CDLL]:
             failed.append(f"nvcc failed on {src_path}:\n{info['log']}")
         else:
             os.replace(tmp, info["path"])
+            KERNEL_LOAD["compiled"] += 1
     if failed:
         raise RuntimeError("\n".join(failed))
     for source in sources:
         if source not in _LIBS:
             _LIBS[source] = ctypes.CDLL(BUILD_INFO[source]["path"])
+    KERNEL_LOAD["seconds"] += time.perf_counter() - start
     return [_LIBS[source] for source in sources]
 
 

@@ -23,6 +23,8 @@ from typing import Callable, List, Sequence
 
 import torch
 
+from nonrigid_nerf_torch.utils.spans import span
+
 # the largest piece: every backward kernel's MAX_POINTS_PER_LAUNCH
 PIECE_POINTS = 1 << 18
 
@@ -35,18 +37,21 @@ def backward_in_pieces(bwd: Callable, *per_point: torch.Tensor):
     n = per_point[0].shape[0]
     piece = PIECE_POINTS
     if n <= piece:
-        return bwd(*per_point)
+        with span("bwd_piece"):
+            return bwd(*per_point)
     outs: List[torch.Tensor] = []
     grads: Sequence[torch.Tensor] = []
     for start in range(0, n, piece):
-        *rows, piece_grads = bwd(*(t[start:start + piece] for t in per_point))
-        if start == 0:
-            outs = [torch.empty((n,) + r.shape[1:], dtype=r.dtype,
-                                device=r.device) for r in rows]
-            grads = [g.float() for g in piece_grads]
-        else:
-            for acc, g in zip(grads, piece_grads):
-                acc.add_(g)
-        for out, r in zip(outs, rows):
-            out[start:start + r.shape[0]] = r
+        with span("bwd_piece"):
+            *rows, piece_grads = bwd(*(t[start:start + piece]
+                                       for t in per_point))
+            if start == 0:
+                outs = [torch.empty((n,) + r.shape[1:], dtype=r.dtype,
+                                    device=r.device) for r in rows]
+                grads = [g.float() for g in piece_grads]
+            else:
+                for acc, g in zip(grads, piece_grads):
+                    acc.add_(g)
+            for out, r in zip(outs, rows):
+                out[start:start + r.shape[0]] = r
     return (*outs, list(grads))

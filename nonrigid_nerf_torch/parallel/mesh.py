@@ -44,6 +44,7 @@ from nonrigid_nerf_torch.engine.train_state import TrainState, adam_update
 from nonrigid_nerf_torch.engine.train_step import losses_and_grads
 from nonrigid_nerf_torch.ops.math import mse2psnr
 from nonrigid_nerf_torch.parallel import multihost
+from nonrigid_nerf_torch.utils.spans import span
 
 METRIC_PARTS = ("img_loss0", "offsets_loss", "divergence_loss")
 
@@ -168,11 +169,13 @@ def make_parallel_train_step(cfg: ModelConfig, tc: TrainConfig,
                 generator: Optional[torch.Generator] = None):
         # topology-invariant pixels: every rank samples the GLOBAL batch
         # with the step's generator, as the single-device step does
-        gbatch = sample_ray_batch(ds, n_rand, generator=generator)
-        return parallel_train_step_from_batch(
-            state, gbatch, cfg=cfg, tc=tc, rs=rs,
-            has_test_split=has_test_split, generator=generator,
-            debug_metrics=debug_metrics)
+        with span("step"):
+            with span("sample"):
+                gbatch = sample_ray_batch(ds, n_rand, generator=generator)
+            return parallel_train_step_from_batch(
+                state, gbatch, cfg=cfg, tc=tc, rs=rs,
+                has_test_split=has_test_split, generator=generator,
+                debug_metrics=debug_metrics)
 
     return step_fn
 

@@ -79,8 +79,8 @@ LATER_FILES = ["ops/kernels/pieces.py", "models/mlp.py", "serving.py",
                "cli/export_reference_checkpoint.py", "cli/preprocess.py"]
 # the bench, its FLOP count and the measuring tools
 MEASURE_FILES = ["utils/flops.py", "cli/bench.py", "cli/batch_scaling.py",
-                 "cli/profile_step.py", "cli/probe_offsets.py",
-                 "cli/gather_microbench.py", "cli/scale_bisect.py"]
+                 "cli/probe_offsets.py", "cli/gather_microbench.py",
+                 "cli/scale_bisect.py", "utils/spans.py"]
 FORBIDDEN = ("jax", "jaxlib", "nonrigid_nerf_tpu", "llff_preprocessing",
              "tools", "bench", "__graft_entry__")
 
@@ -285,7 +285,7 @@ def test_training_cli_raises_without_gpu(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("module,argv", [
-    ("bench", []), ("batch_scaling", []), ("profile_step", []),
+    ("bench", []), ("batch_scaling", []),
     ("probe_offsets", ["missing_experiment"]), ("gather_microbench", []),
     ("scale_bisect", [])])
 def test_measuring_clis_raise_without_gpu(monkeypatch, module, argv):

@@ -1588,3 +1588,67 @@ def test_cuda_serving_artifact_equals_the_live_renderer(model, cuda_device,
     live = serving.make_serving_fn(copy.deepcopy(model).to(cuda_device), CFG,
                                    rs)(ro, rd, lat)
     assert all(torch.equal(got[k], live[k]) for k in live)
+
+
+@pytest.mark.cuda
+def test_spans_put_nothing_on_the_device_timeline(cuda_device, monkeypatch):
+    """A traced flagship training step: no program span
+    (`nonrigid_nerf_torch/utils/spans.py`) among the profiler's device
+    events, and as many device events as with every span a no-op."""
+    import sys
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nonrigid_nerf_torch.config import TrainConfig
+    from nonrigid_nerf_torch.data.dataset import build_ray_dataset
+    from nonrigid_nerf_torch.engine import train_step as t_step
+    from nonrigid_nerf_torch.engine.train_state import create_train_state
+    from nonrigid_nerf_torch.utils import spans
+
+    n, h, w = 4, 48, 64
+    poses = np.tile(np.eye(4, dtype=np.float32)[:3], (n, 1, 1))
+    poses[:, 2, 3] = 4.0
+    ds = build_ray_dataset(
+        np.random.default_rng(0).random((n, h, w, 3), dtype=np.float32),
+        poses, {0: dict(focal_x=50.0, focal_y=50.0, center_x=w / 2.0,
+                        center_y=h / 2.0)},
+        {"imageid_to_viewid": [0] * n,
+         "imageid_to_timestepid": list(range(n)),
+         "raw_timesteps": list(range(n))},
+        list(range(n)), [], 2.0, 6.0, device=cuda_device)
+    tc = TrainConfig(N_rand=1024)
+    rs = RenderSettings(N_samples=CFG.N_samples,
+                        N_importance=CFG.N_importance, near=2.0, far=6.0)
+    state = create_train_state(CFG, tc, n, device=cuda_device)
+    step_fn = t_step.make_train_step(CFG, tc, rs, ds.has_test_split)
+
+    def traced_step():
+        step_fn(state, ds, t_step.step_generator(0, state.step, cuda_device))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step_fn(state, ds, t_step.step_generator(0, state.step,
+                                                     cuda_device))
+            torch.cuda.synchronize()
+        device = [ev.name for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA]
+        host = {ev.name for ev in prof.events()
+                if ev.name.startswith(spans.PREFIX)}
+        return device, host
+
+    with_spans, host = traced_step()
+    assert {"nrnerf/step", "nrnerf/adam", "nrnerf/bwd_piece"} <= host
+    assert not [e for e in with_spans if e.startswith(spans.PREFIX)]
+    span = spans.span
+    for name, module in list(sys.modules.items()):
+        if name.startswith("nonrigid_nerf_torch") \
+                and getattr(module, "span", None) is span:
+            monkeypatch.setattr(module, "span", lambda stage: spans._OFF)
+    without, host = traced_step()
+    assert not host
+    assert len(with_spans) == len(without) > 0, (
+        sorted(set(with_spans) ^ set(without)),
+        {n: (with_spans.count(n), without.count(n))
+         for n in set(with_spans) | set(without)
+         if with_spans.count(n) != without.count(n)})

@@ -1,8 +1,8 @@
 """The port's measuring tools under `nonrigid_nerf_torch/cli/` held against
 the JAX package's `tools/`: `probe_offsets` against
 `tools/probe_offsets.py` on one tiny experiment (every statistic within
-1e-5); `profile_step`, `batch_scaling`, `gather_microbench` and
-`scale_bisect` at tiny sizes on the CPU, each with the JAX tool's stage
+1e-5); `batch_scaling`, `gather_microbench` and `scale_bisect` at tiny
+sizes on the CPU, each with the JAX tool's stage
 names or row keys; the three gather forms returning identical pixels."""
 
 import dataclasses
@@ -18,8 +18,7 @@ import torch
 import tests.test_cli as jax_cli_tests
 from nonrigid_nerf_torch import config as t_config
 from nonrigid_nerf_torch.cli import (batch_scaling, bench, gather_microbench,
-                                     probe_offsets, profile_step,
-                                     scale_bisect)
+                                     probe_offsets, scale_bisect)
 from nonrigid_nerf_torch.cli import train as t_train_cli
 from nonrigid_nerf_tpu import config as j_config
 from nonrigid_nerf_tpu.utils import flops as j_flops
@@ -104,30 +103,6 @@ def test_probe_offsets_equals_jax(experiment, tmp_path, checkpoint):
 def test_probe_offsets_missing_checkpoint(experiment):
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         probe_offsets.probe(experiment, 4, "logs/999999.npz", device="cpu")
-
-
-def jax_stage_names():
-    """The stage names the JAX tool prints, its modes filled in."""
-    keys = re.findall(r'results\[f?"([^"]+)"\]', tool_source("profile_step"))
-    return {k.replace("{mode}", m) for k in keys for m in profile_step.MODES}
-
-
-def test_profile_step_stages(capsys):
-    out = profile_step.main(["--rays", "2", "--iters", "1", "--warmup", "0",
-                             "--device", "cpu"])
-    names = jax_stage_names()
-    assert len(names) == 13 and "train_step[off]" in names
-    assert set(out["stages"]) == names
-    for v in out["stages"].values():
-        assert v["mean_ms"] > 0 and v["median_ms"] > 0
-    assert out["points"] == 2 * (64 + 128)
-    printed = capsys.readouterr().out
-    assert "host clock (CPU)" in printed and "not measured" in printed
-    for name in names:
-        assert re.search(rf"^{re.escape(name)}\s+[0-9.]+ ms \(median",
-                         printed, re.M), name
-    assert json.loads(printed.strip().splitlines()[-1])["stages"] \
-        == out["stages"]
 
 
 def test_batch_scaling_rows(capsys):
