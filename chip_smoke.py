@@ -588,6 +588,49 @@ def check_fwd(fam, model, n_points, device, network="coarse"):
                 share_of_bound=bound_ms / ms, matmul_chain_bf16_ms=chain_ms)
 
 
+def check_fwd_points(fam, model, n_points, samples, device):
+    """`mlp_fwd`'s points input, the render path's, at n_points (rays of
+    `samples` points, at 128 lanes each ray with a latent): bit for bit
+    `mlp_fwd` on the encoding the engine builds (`points_encoding`), and its
+    time beside that encoding input's on the same points. The bound counts
+    the points, latents, raw and weights it reads and writes."""
+    K = fam.K
+    mw = fam.weights(model.network("coarse"), device)
+    gen = torch.Generator(device=device).manual_seed(SEED + n_points + samples)
+    lo = torch.tensor([-0.8, -0.8, -1.0], device=device)
+    hi = torch.tensor([0.8, 0.8, 0.5], device=device)
+    pts = lo + (hi - lo) * torch.rand((n_points, 3), generator=gen,
+                                      device=device)
+    lat = None
+    if fam.kind == "baseline":
+        lat = BASELINE_LATENT_SCALE * torch.randn(
+            (-(-n_points // samples), 32), generator=gen, device=device)
+    emb = K.points_encoding(pts, fam.emb_width, lat, samples)
+    out = K.mlp_fwd_points(pts, mw, lat, samples)
+    if not torch.equal(out, K.mlp_fwd(emb, mw)):
+        raise AssertionError("mlp_fwd_points differs from mlp_fwd on the "
+                             "engine's encoding")
+    if not torch.equal(out, K.mlp_fwd_points(pts, mw, lat, samples)):
+        raise AssertionError("mlp_fwd_points is not deterministic")
+    ms = cuda_time_ms(lambda: K.mlp_fwd_points(pts, mw, lat, samples), 10)
+    kernel_device_ms = device_ms(lambda: K.mlp_fwd_points(pts, mw, lat,
+                                                          samples))
+    enc_ms = cuda_time_ms(lambda: K.mlp_fwd(emb, mw), 10)
+    enc_device_ms = device_ms(lambda: K.mlp_fwd(emb, mw))
+    flops = 2.0 * fam.macs * n_points
+    inputs = (pts,) if lat is None else (pts, lat)
+    bound_ms, bound_by = roofline(flops, tensor_bytes(*inputs, out, *mw))
+    log(f"mlp_fwd_points ({fam.emb_width} lanes) n={n_points}: bit-equal to "
+        f"mlp_fwd on the encoding; kernel {ms:.4f} ms (device time "
+        f"{kernel_device_ms:.4f} ms), on the encoding {enc_ms:.4f} ms "
+        f"(device {enc_device_ms:.4f} ms), bound {bound_ms:.4f} ms "
+        f"({bound_by}), {bound_ms / ms:.3f} of it")
+    return dict(ms=ms, device_ms=kernel_device_ms, encoding_ms=enc_ms,
+                encoding_device_ms=enc_device_ms, bound_ms=bound_ms,
+                bound_by=bound_by, share_of_bound=bound_ms / ms,
+                samples_per_ray=samples)
+
+
 def check_bwd(fam, model, n_points, device):
     """The family's backward kernel against its plain version at n_points,
     with timings."""
@@ -3153,6 +3196,11 @@ def main() -> int:
                           check_bwd(fam, model, n_bwd_fine, device)]
             # past one launch: the autograd function's pieces
             piece_checks = family_bwd_in_pieces(fam, model, device)
+            # row 1's points input at a render block's two passes
+            points_checks = ([{"points": n, **check_fwd_points(
+                fam, model, n, s, device)} for n, s in
+                ((n_coarse, 64), (n_fine, 128))]
+                if fam.kind in ("plain", "baseline") else [])
         del model
         # ---- phase 3: render through render_path, kernel vs off ("pts"
         # against the first family's "off" frames: the same parameters)
@@ -3172,6 +3220,8 @@ def main() -> int:
                                render_launches, train_counts)
         fam_rows[1]["split_ms_per_launch"] = train_results["bwd_split_ms_per_launch"]
         fam_rows[1]["other_sizes"] = piece_checks
+        if points_checks:
+            fam_rows[0]["points_input"] = points_checks
         if fam.kind == "baseline":
             add_width_rows(rows[:2], fam_rows)
         else:
@@ -3284,13 +3334,19 @@ def main() -> int:
                               ("fine_pass", "train_pass", "train_fine_pass")
                               if k in r] + [("", p) for p in
                                             r.get("other_sizes", ())]
+        passes += [("on points ", p) for p in r.get("points_input", ())]
         if "lanes_128" in r:
             passes += [("128 lanes ", r["lanes_128"])] + [
                 (f"128 lanes {k} ", r["lanes_128"][k]) for k in
                 ("fine_pass", "train_pass", "train_fine_pass")
-                if k in r["lanes_128"]]
+                if k in r["lanes_128"]] + [
+                ("128 lanes on points ", p)
+                for p in r["lanes_128"].get("points_input", ())]
 
         def detail(p):
+            if "encoding_ms" in p:
+                return (f"; the encoding input {p['encoding_ms']:.4f} ms "
+                        f"(device {p['encoding_device_ms']:.4f} ms)")
             if "scratch_floor_ms" not in p:
                 return ""
             return (f"; two-pass floor {p['scratch_floor_ms']:.4f} ms, "

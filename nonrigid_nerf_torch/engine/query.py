@@ -8,13 +8,20 @@ dense_apply`), in the jvp of exact view directions too. With view
 directions, `sample_viewdirs` gives every sample the direction of the BENT
 ray there. Stage 2 (`canonical_mlp_stage`) runs the
 coarse or fine MLP, as the CUDA kernels when `use_fused_kernel` says so:
-`mlp_fwd` (with view directions `mlpv_fwd`) alone where no gradient is
-recorded (rendering), and the autograd function `MLPCore` (`MLPVCore`),
-whose backward is `mlp_bwd` (`mlpv_bwd`), where one is (training).
+`mlp_fwd` on points (`mlp_fwd_points`; with view directions `mlpv_fwd` on
+the encodings) alone where no gradient is recorded (rendering), and the
+autograd function `MLPCore` (`MLPVCore`), whose backward is `mlp_bwd`
+(`mlpv_bwd`), where one is (training).
 
 For the time-conditioned baseline (no bender) stage 1 hands each sample
 its ray's latent, and stage 2 concatenates it to the encoding: the kernels
 then run at a 128-lane input, the plain path takes it through `NeRF`.
+
+Where no gradient is recorded under "auto" or "on" without view
+directions (rendering), stage 1 hands over the bent points in place of the
+encoding, and stage 2 hands them with the rays' latents to `mlp_fwd_points`,
+which builds the same bf16 encoding (and the baseline's latent lanes) in the
+kernel, bit for bit (`points_to_mlp_fwd`).
 
 Two opt-in modes of `fused_kernel` take other kernels. "pts": stage 1 hands
 over the f32 bent points in place of the encoding, and `mlpe_fwd` /
@@ -36,7 +43,7 @@ from nonrigid_nerf_torch.models.mlp import compute_dtype_of
 from nonrigid_nerf_torch.ops.embedding import fourier_embed
 from nonrigid_nerf_torch.ops.kernels.mlp_bwd import MLPCore
 from nonrigid_nerf_torch.ops.kernels.mlp_fwd import (
-    OUT_PAD, cast_mlp_weights, mlp_fwd, pack_mlp_weights, pad_lanes)
+    OUT_PAD, cast_mlp_weights, mlp_fwd_points, pack_mlp_weights, pad_lanes)
 from nonrigid_nerf_torch.ops.kernels.mlpe_bwd import MLPECore
 from nonrigid_nerf_torch.ops.kernels.mlpe_fwd import MULTIRES, mlpe_fwd
 from nonrigid_nerf_torch.ops.kernels.mlpv_bwd import MLPVCore
@@ -84,6 +91,18 @@ def encode_in_kernel(cfg: ModelConfig) -> bool:
     return (cfg.fused_kernel == "pts" and not cfg.use_viewdirs
             and not cfg.time_conditioned_baseline
             and cfg.i_embed == 0 and cfg.multires == MULTIRES)
+
+
+def points_to_mlp_fwd(cfg: ModelConfig, fused: bool) -> bool:
+    """Whether stage 1 hands stage 2 the bent points for `mlp_fwd_points`
+    in place of the encoding: on the kernel path (`fused`) under "auto" or
+    "on", where no gradient is recorded and without view directions. The
+    kernel then builds the encoding that `embed_for_mlp` would give (and the
+    time-conditioned baseline's latent lanes) bit for bit, so the output is
+    the encoding route's. Training, "pts", "int8" and view directions keep
+    their routes."""
+    return (fused and cfg.fused_kernel in ("auto", "on")
+            and not cfg.use_viewdirs and not torch.is_grad_enabled())
 
 
 def use_fused_kernel(cfg: ModelConfig, edit: EditConfig,
@@ -192,9 +211,9 @@ def bend_encode_stage(model, cfg: ModelConfig, pts, latents,
 
     pts (R, S, 3); latents (R, L) per ray. Returns a dict with
     embedded (R, S, input_ch) as `embed_for_mlp` gives it (with `fused` in
-    "pts" mode: the f32 bent points (R, S, 3), which the kernel encodes), or
-    None with `embed=False` (for a caller that encodes in another sample
-    order),
+    "pts" mode or on `points_to_mlp_fwd`'s route: the f32 bent points (R, S,
+    3), which the kernel encodes), or None with `embed=False` (for a caller
+    that encodes in another sample order),
     bent_pts (R, S, 3), rigidity (R, S, 1) or None, latents_per_pt (R, S, L)
     or None without bending and without the time-conditioned input, and
     details: None, or with `detailed` the
@@ -222,7 +241,7 @@ def bend_encode_stage(model, cfg: ModelConfig, pts, latents,
         details["input_pts"] = bent_pts.detach()
     if not embed:
         embedded = None
-    elif fused and encode_in_kernel(cfg):
+    elif (fused and encode_in_kernel(cfg)) or points_to_mlp_fwd(cfg, fused):
         # the MLP kernel encodes on the chip: the bent points go over as
         # they are, and no (R, S, 63) encoding is ever written
         embedded = bent_pts
@@ -237,14 +256,26 @@ def canonical_mlp_stage(model, cfg: ModelConfig, network: str, stage1,
                         embedded_views=None, edit: EditConfig = EditConfig(),
                         fused: bool = False):
     """Stage 2: the coarse or fine canonical MLP on stage 1's encoding (in
-    "pts" mode: on its bent points; for the time-conditioned baseline with
-    its latents concatenated, in the encoding's dtype on the kernel path)
-    and, with view directions, on embedded_views (R, S, input_ch_views),
-    then the foreground-removal edit. Returns raw (R, S, 4) f32."""
+    "pts" mode and on `points_to_mlp_fwd`'s route: on its bent points; for
+    the time-conditioned baseline with its latents concatenated, in the
+    encoding's dtype on the kernel path, or, on that route, handed to the
+    kernel per ray) and, with view directions, on embedded_views (R, S,
+    input_ch_views), then the foreground-removal edit. Returns raw (R, S, 4)
+    f32."""
     embedded = stage1["embedded"]
     latents_per_pt = stage1["latents_per_pt"]
     net = model.network(network)
-    if fused and encode_in_kernel(cfg):
+    if points_to_mlp_fwd(cfg, fused):
+        # stage 1 handed over the bent points; every sample of a ray has the
+        # ray's latent, so the kernel reads (R, L) and the ray of a point
+        R, S, _ = embedded.shape
+        latents = (latents_per_pt[:, 0] if cfg.time_conditioned_baseline
+                   else None)
+        raw = mlp_fwd_points(embedded.reshape(R * S, 3),
+                             cast_mlp_weights(pack_mlp_weights(net)),
+                             latents, S)
+        raw = raw.reshape(R, S, OUT_PAD)[..., :4]
+    elif fused and encode_in_kernel(cfg):
         # stage 1 handed over the raw bent points (see bend_encode_stage)
         R, S, _ = embedded.shape
         pts_flat = embedded.reshape(R * S, 3)
@@ -283,12 +314,8 @@ def canonical_mlp_stage(model, cfg: ModelConfig, network: str, stage1,
                 raw = MLPVCore.apply(emb_flat, embv_flat, *packed)
             else:
                 raw = mlpv_fwd(emb_flat, embv_flat, cast_mlpv_weights(packed))
-        else:
-            packed = pack_mlp_weights(net)
-            if grad:
-                raw = MLPCore.apply(emb_flat, *packed)
-            else:
-                raw = mlp_fwd(emb_flat, cast_mlp_weights(packed))
+        else:   # training: without a gradient the points route is taken
+            raw = MLPCore.apply(emb_flat, *pack_mlp_weights(net))
         raw = raw.reshape(R, S, OUT_PAD)[..., :4]
     else:
         raw = net(embedded, embedded_views,

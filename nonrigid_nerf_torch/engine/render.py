@@ -5,12 +5,14 @@
 samples' stage-1 results (bend + encode), runs stage 1 on the importance
 samples only, runs the fine MLP on the UNSORTED union [coarse..., new...]
 (the MLP is pointwise), and sorts only the compact raw outputs by depth for
-compositing. Finite-difference view directions depend on the sample order,
-so that fine pass sorts the bent points first and encodes and runs the MLP
-in sorted order. With `stage1_reuse=False` the depths are sorted first and
-all of them queried again, as the reference does. `make_ray_renderer`
-streams any number of rays through `render_rays` in fixed `chunk`-sized
-blocks.
+compositing. Without a gradient (and without view directions) that union is
+one of bent points, which `mlp_fwd_points` encodes
+(`query.points_to_mlp_fwd`). Finite-difference view directions depend on
+the sample order, so that fine pass sorts the bent points first and encodes
+and runs the MLP in sorted order. With `stage1_reuse=False` the depths are
+sorted first and all of them queried again, as the reference does.
+`make_ray_renderer` streams any number of rays through `render_rays` in
+fixed `chunk`-sized blocks.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from nonrigid_nerf_torch.config import EditConfig, ModelConfig, RenderSettings
 from nonrigid_nerf_torch.device import DeviceLike, resolve_device
 from nonrigid_nerf_torch.engine.query import (_embed_views, bend_encode_stage,
                                               canonical_mlp_stage,
-                                              embed_for_mlp, query_points,
+                                              embed_for_mlp,
+                                              points_to_mlp_fwd, query_points,
                                               sample_viewdirs,
                                               use_fused_kernel)
 from nonrigid_nerf_torch.models.nerf import check_nerf_supported
@@ -180,8 +183,10 @@ def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
                                                viewdirs, edit)
                     ev_cat = _embed_views(cfg, cat(dirs_coarse, dirs_new))
                 with span("union"):
-                    st_cat = {"embedded": cat(st["embedded"],
-                                              st_new["embedded"]),
+                    # on the points route stage 2 reads the bent points
+                    emb_cat = (bent_cat if points_to_mlp_fwd(cfg, fused)
+                               else cat(st["embedded"], st_new["embedded"]))
+                    st_cat = {"embedded": emb_cat,
                               "bent_pts": bent_cat, "rigidity": rigidity_cat,
                               "latents_per_pt": latents_cat}
                 raw_cat = canonical_mlp_stage(model, cfg, "fine", st_cat,

@@ -53,6 +53,13 @@
 // products before its epilogue, and the two warpgroups tend to drain
 // together.
 //
+// A second input, for the render path (`mlp_fwd_points`): the points (n, 3)
+// f32 and, at 128 lanes, each ray's latent (R, L) f32, from which the
+// producer warpgroup's three idle warps build the encoding tile, bit for bit
+// the tile of the encoding input (mlp_sm90.cuh's `PointsFwdIn<E>`, row 5's
+// handshake). The caller then writes, joins and pads no encoding; the kernel
+// moves 44 B per point (12 B of points in, the latents from L2, 32 B out).
+//
 // Plain C interface, bound with ctypes (see ../mlp_fwd.py).
 
 #include "mlp_sm90.cuh"
@@ -65,6 +72,16 @@ template <int E>
 int launch_mlp_fwd(const void* emb, int n, const void* image, const void* const* mats,
                    const void* const* biases, void* out, void* stream) {
   const EncodingIn<E> in{static_cast<const bf16*>(emb), nullptr};
+  return launch_fwd<E>(in, n, image, mats, biases, static_cast<float*>(out),
+                       static_cast<cudaStream_t>(stream));
+}
+
+template <int E>
+int launch_mlp_fwd_points(const void* pts, const void* lat, int lat_width, int samples, int n,
+                          const void* image, const void* const* mats, const void* const* biases,
+                          void* out, void* stream) {
+  const PointsFwdIn<E> in{static_cast<const float*>(pts), static_cast<const float*>(lat),
+                          lat_width, samples};
   return launch_fwd<E>(in, n, image, mats, biases, static_cast<float*>(out),
                        static_cast<cudaStream_t>(stream));
 }
@@ -86,6 +103,30 @@ extern "C" int nrnerf_mlp_fwd(const void* emb, int n, int emb_width, const void*
       return launch_mlp_fwd<64>(emb, n, image, mats, biases, out, stream);
     case 128:
       return launch_mlp_fwd<128>(emb, n, image, mats, biases, out, stream);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
+// pts (n, 3) f32; lat (R, lat_width) f32 with R * samples >= n, or nullptr with
+// lat_width 0; emb_width 64 (lat_width 0) or 128 (63 + lat_width <= 128);
+// image, mats, biases and out as nrnerf_mlp_fwd takes them.
+// Returns the CUDA error code of the launch (0 on success).
+extern "C" int nrnerf_mlp_fwd_points(const void* pts, const void* lat, int lat_width,
+                                     int samples, int n, int emb_width, const void* image,
+                                     const void* const* mats, const void* const* biases,
+                                     void* out, void* stream) {
+  if (samples <= 0 || lat_width < 0 || 63 + lat_width > emb_width ||
+      (lat_width > 0) != (lat != nullptr)) {
+    return int(cudaErrorInvalidValue);
+  }
+  switch (emb_width) {
+    case 64:
+      return launch_mlp_fwd_points<64>(pts, lat, lat_width, samples, n, image, mats, biases,
+                                       out, stream);
+    case 128:
+      return launch_mlp_fwd_points<128>(pts, lat, lat_width, samples, n, image, mats, biases,
+                                        out, stream);
     default:
       return int(cudaErrorInvalidValue);
   }

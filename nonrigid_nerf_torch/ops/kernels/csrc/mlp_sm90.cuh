@@ -39,10 +39,11 @@
 // - The next tile's encoding is loaded with cp.async (zero-filled past n) as
 //   soon as the current tile has read its own (after layer 5 in the forward,
 //   at the last step of the backward's dh chain), so the load overlaps the
-//   tile's last products. Row 5 computes its encoding from the points on the
-//   producer warpgroup's three idle warps instead, into two encoding tiles
-//   in turn, and row 9 the deformation field and the encoding of the bent
-//   points there; row 6 on the consumers, when its tile starts.
+//   tile's last products. Row 5, and row 1 on points (the render path),
+//   compute their encoding from the points on the producer warpgroup's three
+//   idle warps instead, into two encoding tiles in turn, and row 9 the
+//   deformation field and the encoding of the bent points there; row 6 on
+//   the consumers, when its tile starts.
 // - The backward keeps each layer's ReLU gates as bits, moves its bf16
 //   scratch (the encoding copy, nh and dh) between the swizzled tiles and
 //   global memory with TMA bulk tensor copies in boxes of 64 rows x 64
@@ -108,8 +109,9 @@ template <int E> constexpr int n_fwd_chunks = 2 * (E / KC) + 7 * (NW / KC);
 template <int E> constexpr int n_bwd_chunks = 7 * (NW / KC) + 2 * (E / KC);
 template <int E> constexpr int n_chain_chunks = n_fwd_chunks<E> + n_bwd_chunks<E>;
 
-// the forward: the activation tile, TILES encoding tiles (2: row 5's double
-// buffer, or row 3's emb and embv), a ring of S stages
+// the forward: the activation tile, TILES encoding tiles (2: the double
+// buffer of rows 1 (on points) and 5, or row 3's emb and embv), a ring of S
+// stages (row 1 on points at 128 lanes, and row 9: 2; FwdPlan)
 template <int E, int TILES = 1, int S = FWD_STAGES>
 constexpr size_t fwd_smem_bytes = SMEM_ALIGN + ACT_BYTES + TILES * emb_tile_bytes<E> +
                                   S * CHUNK_BYTES + BAR_BYTES;
@@ -117,7 +119,8 @@ constexpr size_t fwd_smem_bytes = SMEM_ALIGN + ACT_BYTES + TILES * emb_tile_byte
 constexpr size_t BWD_SMEM_BYTES =
     SMEM_ALIGN + 2 * ACT_BYTES + BWD_STAGES * CHUNK_BYTES + BAR_BYTES;
 static_assert(fwd_smem_bytes<64> <= SMEM_LIMIT && fwd_smem_bytes<128> <= SMEM_LIMIT &&
-                  fwd_smem_bytes<64, 2> <= SMEM_LIMIT,
+                  fwd_smem_bytes<64, 2> <= SMEM_LIMIT && fwd_smem_bytes<128, 2> == 230528 &&
+                  fwd_smem_bytes<128, 2> <= SMEM_LIMIT && fwd_smem_bytes<128, 2, 2> == 197760,
               "the forward fits one Hopper CTA at both widths and with two encoding tiles");
 static_assert(BWD_SMEM_BYTES <= SMEM_LIMIT, "the backward fits one Hopper CTA");
 static_assert(emb_tile_bytes<128> <= ACT_BYTES,
@@ -1310,6 +1313,130 @@ struct PtsFwdIn {
   }
 };
 
+// One row of the encoding tile, lane by lane in order into a 128-bit shift
+// register of 8 bf16 lanes, each full register stored as the row's 16-byte
+// piece (`push`); lanes from `lanes` on stay as they are.
+struct RowPieces {
+  uint32_t tile;   // the encoding tile
+  int r;           // the row
+  int c = 0;       // lanes pushed
+  uint32_t w0 = 0u, w1 = 0u, w2 = 0u, w3 = 0u;
+
+  // the next lane: bf16(y), rounded to nearest even
+  __device__ __forceinline__ void push(float y) {
+    const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(y));
+    w0 = __funnelshift_r(w0, w1, 16);
+    w1 = __funnelshift_r(w1, w2, 16);
+    w2 = __funnelshift_r(w2, w3, 16);
+    w3 = (w3 >> 16) | (h << 16);
+    if ((++c & 7) == 0) st_shared16(tile + tile_offset(r, c - 8), make_uint4(w0, w1, w2, w3));
+  }
+};
+
+// mlp_fwd.cu's input on the render path (`mlp_fwd_points`): the points (n, 3)
+// f32 and, at 128 lanes, each ray's latent lat (R, L) f32, the ray of point p
+// being p / S (the row-major order of (R, S, 3)). PtsFwdIn's handshake and
+// two encoding tiles, here of E lanes: the producer's three idle warps build
+// the tile EncodingIn<E> would load from F.pad(cat([fourier_embed(x, 10),
+// lat[p / S]], -1).to(bfloat16)), bit for bit, each value rounded to bf16
+// to nearest even:
+//   lanes 0 .. 2                x
+//   lane 3 + 6k + j, k < 10     sinf(x_j * 2^k)   (the exact product, no
+//   lane 6 + 6k + j             cosf(x_j * 2^k)    phase)
+//   lanes 63 .. 62 + L          lat[p / S]
+//   every other lane, and every row past n, zero.
+// One `sincosf` a product: CUDA's full-precision sine and cosine, the
+// functions PyTorch's CUDA sin and cos call, from one range reduction; the
+// library is built without fast math (build.NVCC_FLAGS). Encoder e builds
+// rows e and e + 96 of each tile, lane by lane (`RowPieces`), so a warp's
+// threads compute the same lane in step. The lanes past the last piece
+// that holds data (96 .. 127 at L = 32) are zeroed once, when the kernel
+// starts.
+template <int E>
+struct PointsFwdIn {
+  static constexpr int FWD_TILES = 2;
+  static constexpr int ENCODERS = 96;
+  static constexpr int MULTIRES = 10;
+  const float* pts;
+  const float* lat;   // nullptr where L = 0 (64 lanes)
+  int lat_width;      // L, with 63 + L <= E
+  int samples;        // S, the samples of a ray
+
+  // bars: full[0], full[1], empty[0], empty[1]
+  __device__ __forceinline__ void init(uint32_t bars) const {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(bars + 8 * b, ENCODERS);
+      mbar_init(bars + 8 * (2 + b), CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  // the lanes a row's pieces with data cover, a whole number of pieces
+  __device__ __forceinline__ int data_lanes() const { return (3 + 6 * MULTIRES + lat_width + 7) & ~7; }
+  // row r of the tile that starts at point row0
+  __device__ __forceinline__ void row(uint32_t embt, long row0, int n, int r) const {
+    const long p = row0 + r;
+    RowPieces out{embt, r};
+    if (p >= n) {
+      while (out.c < data_lanes()) out.push(0.0f);
+      return;
+    }
+    float x[3];
+    load_point(pts, p, n, x);
+    out.push(x[0]);
+    out.push(x[1]);
+    out.push(x[2]);
+#pragma unroll 1
+    for (int k = 0; k < MULTIRES; ++k) {
+      const float scale = __int_as_float((127 + k) << 23);   // 2^k
+      float cs[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        float sn;
+        sincosf(x[j] * scale, &sn, &cs[j]);
+        out.push(sn);
+      }
+      out.push(cs[0]);
+      out.push(cs[1]);
+      out.push(cs[2]);
+    }
+    const float* lat_row = lat + size_t(uint32_t(p) / uint32_t(samples)) * lat_width;
+#pragma unroll 1
+    for (int m = 0; m < lat_width; ++m) out.push(__ldg(lat_row + m));
+    while (out.c & 7) out.push(0.0f);
+  }
+  // encoder e (0 .. 95): zeroes the lanes past data_lanes() of both tiles,
+  // then builds its rows of every tile of this CTA; the i-th tile goes to
+  // tile i % 2 once the consumers are done with what it held
+  __device__ __forceinline__ void encode(uint32_t emb0, uint32_t bars, uint32_t, int n,
+                                         int n_tiles, int e) const {
+    const int zero_pieces = TM * (E - data_lanes()) / 8;
+    for (int q = e; q < 2 * zero_pieces; q += ENCODERS) {
+      const int b = q / zero_pieces, z = q % zero_pieces;
+      st_shared16(emb0 + uint32_t(b) * uint32_t(emb_tile_bytes<E>) +
+                      tile_offset(z % TM, data_lanes() + (z / TM) * 8),
+                  make_uint4(0u, 0u, 0u, 0u));
+    }
+    int i = 0;
+#pragma unroll 1
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+      const int b = i % 2;
+      const uint32_t embt = emb0 + uint32_t(b) * uint32_t(emb_tile_bytes<E>);
+      mbar_wait(bars + 8 * (2 + b), ((i / 2) & 1) ^ 1);
+#pragma unroll 1
+      for (int r = e; r < TM; r += ENCODERS) row(embt, long(tile) * TM, n, r);
+      fence_proxy_async();
+      mbar_arrive(bars + 8 * b);
+    }
+  }
+  __device__ __forceinline__ void first(uint32_t, long, int, int, int) {}
+  __device__ __forceinline__ void wait(uint32_t bars, int i) {
+    mbar_wait(bars + 8 * (i % 2), (i / 2) & 1);
+  }
+  __device__ __forceinline__ void done(uint32_t, uint32_t bars, int i, long, int, int, int t) {
+    if (t == 0) mbar_arrive(bars + 8 * (2 + i % 2));
+  }
+};
+
 // mlpe_bwd.cu's input: the points, encoded (encode_rows) at the start of
 // their tile from the point loaded into registers one tile ahead. demb
 // never reaches HBM: each value of the two products the dh chain hands over
@@ -2019,8 +2146,21 @@ struct FwdPlan<FusedFwdIn> {
   static constexpr bool AHEAD = true;
 };
 
-// ---- the forward's chain kernel: mlp_fwd.cu (row 1) on the encoding,
-// mlpe_fwd.cu (row 5) on points, fused_fwd.cu (row 9) on points and latents
+// Row 1 on points at 128 lanes: a 2-stage ring. With 3 stages its two
+// 128-lane encoding tiles take 230,528 B of shared memory and leave the SM
+// 28 KB of L1 for the epilogues' bias loads and the points, and it ran 6-8 %
+// slower than on the encoding; with 2 (197,760 B, row 5's and row 9's
+// size) 0-1.3 % (PERF.md).
+template <>
+struct FwdPlan<PointsFwdIn<128>> {
+  static constexpr int STAGES = 2;
+  static constexpr size_t EXTRA_BYTES = 0;
+  static constexpr bool AHEAD = false;
+};
+
+// ---- the forward's chain kernel: mlp_fwd.cu (row 1) on the encoding or on
+// points and latents, mlpe_fwd.cu (row 5) on points, fused_fwd.cu (row 9) on
+// points and latents
 
 struct FwdArgs {
   const float* bias[N_LAYERS];   // (256,) f32 per hidden layer
@@ -2096,8 +2236,8 @@ mlp_fwd_kernel(const In in_args, int n, int n_tiles, const bf16* __restrict__ im
   }
 }
 
-// Rows 1, 5 and 9: the forward on the input `in` (EncodingIn<E>, PtsFwdIn or
-// FusedFwdIn).
+// Rows 1, 5 and 9: the forward on the input `in` (EncodingIn<E> or
+// PointsFwdIn<E>, PtsFwdIn, FusedFwdIn).
 // image: the chain's forward chunks (pack_chain_image(mw, ("fwd",)),
 // n_fwd_chunks<E> x 32 KB); mats: n0w .. n7w, ow as nrnerf_mlp_fwd lists
 // them (only ow is read: the image holds the chain's weights); biases: n0b

@@ -11,6 +11,10 @@ and of its weight packing `pack_mlp_weights` (fused_query.py:120-153).
 - `mlp_fwd(emb, mw)` runs the kernel (`csrc/mlp_fwd.cu`) on a CUDA tensor and
   the plain version `mlp_fwd_plain` on a CPU tensor. It never falls back: a
   CUDA tensor either launches the kernel or raises.
+- `mlp_fwd_points(pts, mw, latents, samples_per_ray)` is the same kernel on
+  its second input, the render path's: the points and each ray's latent, from
+  which the kernel builds the encoding `points_encoding` gives, bit for bit,
+  so no encoding tensor is written; on a CPU tensor `mlp_fwd_points_plain`.
 
 The encoding has 64 lanes (the 63-channel Fourier encoding) or 128 (the
 time-conditioned baseline's input: the encoding and the latent, 63 + 32
@@ -26,11 +30,12 @@ the kernel streams (`mlp_sm90.pack_chain_image`, one gather).
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from nonrigid_nerf_torch.ops.embedding import fourier_embed
 from nonrigid_nerf_torch.ops.kernels.build import load_kernel_library
 from nonrigid_nerf_torch.ops.kernels.mlp_sm90 import pack_chain_image
 
@@ -39,6 +44,8 @@ EMB = 64          # 63 encoding channels padded to 64
 EMB_TC = 128      # the time-conditioned input, 63 + 32 channels, padded to 128
 EMB_WIDTHS = (EMB, EMB_TC)
 OUT_PAD = 8       # raw output (4 channels consumed) padded to 8
+MULTIRES = 10     # the octaves of the encoding the points input builds
+FOURIER_CH = 3 * (1 + 2 * MULTIRES)   # its 63 channels
 N_MLP_W = 19
 
 
@@ -153,21 +160,25 @@ def mlp_fwd_plain(emb: torch.Tensor, mw: Sequence[torch.Tensor]) -> torch.Tensor
     return mm_bf16(nh8, mw[17]) + mw[18]
 
 
-def _check_args(emb, mw):
-    if emb.dim() != 2 or emb.shape[1] not in EMB_WIDTHS:
-        raise ValueError(f"emb must be (n, 64) or (n, 128), got "
-                         f"{tuple(emb.shape)}")
+def _check_weights(mw, width: int, device: torch.device):
     if len(mw) != N_MLP_W:
         raise ValueError(f"expected {N_MLP_W} packed weights, got {len(mw)}")
     for i, w in enumerate(mw):
         want = torch.bfloat16 if i in _MATRIX_IDX else torch.float32
-        if w.dtype != want or w.device != emb.device:
+        if w.dtype != want or w.device != device:
             raise ValueError(f"packed weight {i} must be {want} on "
-                             f"{emb.device}, got {w.dtype} on {w.device}")
+                             f"{device}, got {w.dtype} on {w.device}")
     for i in (0, 10):
-        if mw[i].dim() != 2 or mw[i].shape[0] != emb.shape[1]:
-            raise ValueError(f"packed weight {i} must have {emb.shape[1]} "
-                             f"rows, as emb has lanes, got {tuple(mw[i].shape)}")
+        if mw[i].dim() != 2 or mw[i].shape[0] != width:
+            raise ValueError(f"packed weight {i} must have {width} rows, as "
+                             f"the input has lanes, got {tuple(mw[i].shape)}")
+
+
+def _check_args(emb, mw):
+    if emb.dim() != 2 or emb.shape[1] not in EMB_WIDTHS:
+        raise ValueError(f"emb must be (n, 64) or (n, 128), got "
+                         f"{tuple(emb.shape)}")
+    _check_weights(mw, emb.shape[1], emb.device)
 
 
 def check_kernel_weights(mw, expected_shape, what: str):
@@ -229,6 +240,113 @@ def mlp_fwd(emb: torch.Tensor, mw: Sequence[torch.Tensor]) -> torch.Tensor:
 
 mlp_fwd.launches = 0
 mlp_fwd.launches_by_width = dict.fromkeys(EMB_WIDTHS, 0)
+mlp_fwd.points_launches = 0   # of them, on the points input (mlp_fwd_points)
+
+
+def points_encoding(pts: torch.Tensor, width: int,
+                    latents: Optional[torch.Tensor] = None,
+                    samples_per_ray: int = 1) -> torch.Tensor:
+    """The bf16 encoding (n, width) of points (n, 3) f32 that
+    `mlp_fwd_points` builds in the kernel: the 10-octave `fourier_embed` in
+    f32, then (with latents (R, L), R * samples_per_ray >= n) the latent of
+    each point's ray (point p's is latents[p // samples_per_ray]), zero lanes
+    up to `width`, rounded to bf16. The render path's encoding route builds
+    this tensor in the same order of operations."""
+    emb = fourier_embed(pts.float(), MULTIRES).to(torch.bfloat16)
+    if latents is not None:
+        emb = torch.cat([emb, latents.to(torch.bfloat16).repeat_interleave(
+            samples_per_ray, dim=0)[:emb.shape[0]]], dim=-1)
+    return F.pad(emb, (0, width - emb.shape[-1]))
+
+
+def mlp_fwd_points_plain(pts: torch.Tensor, mw: Sequence[torch.Tensor],
+                         latents: Optional[torch.Tensor] = None,
+                         samples_per_ray: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of the kernel on points: `mlp_fwd_plain` on
+    `points_encoding`. Returns (n, 8) f32."""
+    return mlp_fwd_plain(points_encoding(pts, mw[0].shape[0], latents,
+                                         samples_per_ray), mw)
+
+
+def _check_points_args(pts, mw, latents, samples_per_ray):
+    if pts.dim() != 2 or pts.shape[1] != 3 or pts.dtype != torch.float32:
+        raise ValueError(f"pts must be (n, 3) f32, got {tuple(pts.shape)} "
+                         f"{pts.dtype}")
+    width = mw[0].shape[0] if len(mw) == N_MLP_W else None
+    if width not in EMB_WIDTHS:
+        raise ValueError(f"expected {N_MLP_W} packed weights, the first of "
+                         f"{EMB_WIDTHS} rows")
+    _check_weights(mw, width, pts.device)
+    if samples_per_ray <= 0:
+        raise ValueError(f"samples_per_ray must be positive, got "
+                         f"{samples_per_ray}")
+    if latents is None:
+        if width != EMB:
+            raise ValueError(f"the {width}-lane input takes latents")
+        return width
+    if (latents.dim() != 2 or latents.dtype != torch.float32
+            or latents.device != pts.device):
+        raise ValueError(f"latents must be (R, L) f32 on {pts.device}, got "
+                         f"{tuple(latents.shape)} {latents.dtype} on "
+                         f"{latents.device}")
+    if width != EMB_TC or FOURIER_CH + latents.shape[1] > width:
+        raise ValueError(f"{FOURIER_CH} + {latents.shape[1]} latent lanes do "
+                         f"not fit the {width}-lane input")
+    if latents.shape[0] * samples_per_ray < pts.shape[0]:
+        raise ValueError(f"{latents.shape[0]} rays of {samples_per_ray} "
+                         f"samples do not cover {pts.shape[0]} points")
+    return width
+
+
+def mlp_fwd_points(pts: torch.Tensor, mw: Sequence[torch.Tensor],
+                   latents: Optional[torch.Tensor] = None,
+                   samples_per_ray: int = 1) -> torch.Tensor:
+    """raw (n, 8) f32 = the canonical MLP on the encoding of pts (n, 3) f32
+    (`points_encoding`: with latents (R, L) f32, R * samples_per_ray >= n,
+    point p on ray p // samples_per_ray, at the 128-lane input; without, at
+    64), bit-equal to `mlp_fwd` on that encoding.
+
+    On a CPU tensor this is `mlp_fwd_points_plain`. On a CUDA tensor it
+    launches `mlp_fwd`'s kernel on its points input on the current stream
+    and counts the launch in `mlp_fwd.launches`, `mlp_fwd.launches_by_width`
+    and `mlp_fwd.points_launches`, or raises."""
+    width = _check_points_args(pts, mw, latents, samples_per_ray)
+    if pts.device.type == "cpu":
+        return mlp_fwd_points_plain(pts, mw, latents, samples_per_ray)
+    if pts.device.type != "cuda":
+        raise ValueError(f"mlp_fwd_points runs on cpu or cuda, not "
+                         f"{pts.device}")
+    pts = pts.contiguous()
+    lat = latents.contiguous() if latents is not None else None
+    check_kernel_weights(mw, lambda i: _expected_shape(i, width),
+                         "mlp_fwd_points")
+    for t in mw:     # points and latents are read one f32 at a time
+        if t.data_ptr() % 16:
+            raise ValueError("mlp_fwd_points needs 16-byte aligned weights")
+    n = pts.shape[0]
+    if n >= 2 ** 31:
+        raise ValueError(f"mlp_fwd_points takes fewer than 2^31 points, "
+                         f"got {n}")
+    out = torch.empty((n, OUT_PAD), dtype=torch.float32, device=pts.device)
+    if n == 0:      # nothing to launch, nothing to count
+        return out
+    lib = _library()
+    image = pack_chain_image(mw, ("fwd",))
+    mats, biases = weight_pointers(mw, _MATRIX_IDX, _BIAS_IDX)
+    lat_width = lat.shape[1] if lat is not None else 0
+    with torch.cuda.device(pts.device):
+        stream = torch.cuda.current_stream(pts.device).cuda_stream
+        err = lib.nrnerf_mlp_fwd_points(
+            pts.data_ptr(), lat.data_ptr() if lat_width else None, lat_width,
+            samples_per_ray, n, width, image.data_ptr(), mats, biases,
+            out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"mlp_fwd_points kernel launch failed: CUDA error "
+                           f"{err}")
+    mlp_fwd.launches += 1
+    mlp_fwd.launches_by_width[width] += 1
+    mlp_fwd.points_launches += 1
+    return out
 
 
 def _expected_shape(i: int, emb_width: int = EMB):
@@ -250,5 +368,10 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ptrs, ptrs, ctypes.c_void_p,
                    ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.nrnerf_mlp_fwd_points
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ptrs, ptrs, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

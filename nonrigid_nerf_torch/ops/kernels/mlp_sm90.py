@@ -558,6 +558,84 @@ def encode_tile(pts: torch.Tensor, P: torch.Tensor, phase: torch.Tensor,
     return out
 
 
+def points_data_lanes(lat_width: int) -> int:
+    """The lanes of a row of `mlp_fwd_points`' input that its encoders
+    write tile by tile: the 63 of the encoding and the latent's, to a whole
+    number of 8-lane pieces; the kernel zeroes the rest once."""
+    return -(-(63 + lat_width) // 8) * 8
+
+
+def points_pieces(e: int, lat_width: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The writers of a 128 x e tile of `mlp_fwd_points`' input
+    (`PointsFwdIn<E>`), as (row pieces, zero pieces), each (96, steps, 2):
+    the (row, first lane) of the 8-lane piece encoder k stores at each step
+    (-1 rows pad). Row pieces: encoder k builds rows k and k + 96 (< 128) in
+    turn, lane by lane, a piece each 8 lanes up to `points_data_lanes`, so
+    at each step a warp's threads store the same lanes of distinct rows.
+    Zero pieces: this tile's share of the pieces past the data that encoder
+    k zeroes when the kernel starts (piece q of both tiles' 2 x 128 x (e -
+    data) / 8, q = k, k + 96, ...; tile q // that count)."""
+    data = points_data_lanes(lat_width)
+    per_row = data // 8
+    rows = [[r for r in (k, k + ENCODERS) if r < TM] for k in range(ENCODERS)]
+    steps = max(len(rs) for rs in rows) * per_row
+    row_pieces = -np.ones((ENCODERS, steps, 2), np.int64)
+    for k, rs in enumerate(rows):
+        for i, (r, c) in enumerate((r, 8 * c) for r in rs
+                                   for c in range(per_row)):
+            row_pieces[k, i] = (r, c)
+    zero = TM * (e - data) // 8
+    zero_pieces = -np.ones((ENCODERS, -(-2 * zero // ENCODERS), 2), np.int64)
+    for k in range(ENCODERS):
+        for i, q in enumerate(range(k, 2 * zero, ENCODERS)):
+            if q < zero:        # this tile's; q - zero are the other's
+                zero_pieces[k, i] = (q % TM, data + (q // TM) * 8)
+    return row_pieces, zero_pieces
+
+
+def points_lane(x: torch.Tensor, lat: torch.Tensor, c: int) -> torch.Tensor:
+    """Lane c of `PointsFwdIn`'s input for points x (r, 3) f32 and their
+    rays' latents lat (r, L) f32, in f32, as `PointsFwdIn::row` computes
+    it: x_c for c < 3; for octave k = (c - 3) // 6 and w = (c -
+    3) % 6, sin (w < 3) or cos of x_(w % 3) * 2^k; lat[:, c - 63] for 63 <= c
+    < 63 + L; else 0."""
+    if c < 3:
+        return x[:, c]
+    if c < 63:
+        k, w = divmod(c - 3, 6)
+        v = x[:, w % 3] * float(2 ** k)
+        return torch.sin(v) if w < 3 else torch.cos(v)
+    if c - 63 < lat.shape[1]:
+        return lat[:, c - 63]
+    return torch.zeros(x.shape[0])
+
+
+def points_tile(pts: torch.Tensor, lat: torch.Tensor, rows: int,
+                e: int) -> torch.Tensor:
+    """The encoding tile of `mlp_fwd_points` as its 96 encoders write it:
+    the pieces of `points_pieces(e, L)`, lane by lane (`points_lane`),
+    rounded to bf16, zero from row `rows` on, each 8-lane piece at
+    `tile_offset`, the zero pieces zero: pts (128, 3) f32, lat (128, L) f32
+    the latent of each row's ray (L = 0 at 64 lanes). Every element is
+    written once. Returns the flat bf16 tile (128 x e)."""
+    lanes = torch.stack([points_lane(pts, lat, c) for c in range(e)], 1)
+    lanes = lanes.to(torch.bfloat16)
+    lanes[rows:] = 0
+    row_pieces, zero_pieces = points_pieces(e, lat.shape[1])
+    pieces = np.concatenate([row_pieces.reshape(-1, 2),
+                             zero_pieces.reshape(-1, 2)])
+    pieces = pieces[pieces[:, 0] >= 0]
+    r = np.repeat(pieces[:, :1], 8, axis=1)
+    cols = pieces[:, 1:] + np.arange(8)
+    offsets = tile_offset(r, cols).ravel()
+    if len(set(offsets.tolist())) != TM * e or len(offsets) != TM * e:
+        raise AssertionError("the pieces do not cover the tile once")
+    out = torch.zeros(TM * e, dtype=torch.bfloat16)
+    out[torch.from_numpy(offsets)] = \
+        lanes[torch.from_numpy(r.ravel()), torch.from_numpy(cols.ravel())]
+    return out
+
+
 def fold_tile(products: Sequence[torch.Tensor], pts: torch.Tensor,
               P: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
     """dpts (128, 3) of one tile as `mlpe_bwd` folds demb onto its points.

@@ -26,7 +26,7 @@ from nonrigid_nerf_torch.apps.render_path import render_path as t_render_path
 from nonrigid_nerf_torch.engine import query as t_query
 from nonrigid_nerf_torch.engine.render import render_rays as t_render_rays
 from nonrigid_nerf_torch.ops.kernels import mlp_fwd as K
-from nonrigid_nerf_torch.ops.kernels.mlp_fwd import mlp_fwd
+from nonrigid_nerf_torch.ops.kernels.mlp_fwd import mlp_fwd_points
 from nonrigid_nerf_torch.weights import params_from_jax
 from nonrigid_nerf_tpu.apps.render_path import render_path as j_render_path
 from nonrigid_nerf_tpu.engine import query as j_query
@@ -120,19 +120,22 @@ def test_renderer_in_test_mode_matches_jax(interpret_pallas):
 
 
 def test_fused_path_reaches_mlp_fwd_at_128_lanes(monkeypatch):
+    """Rendering reaches `mlp_fwd`'s kernel on its points input at 128
+    lanes: the points and each ray's latent (R, 32), which the kernel places
+    in lanes 63-94."""
     calls = []
 
-    def spy(emb, mw):
-        calls.append((tuple(emb.shape), emb.dtype, tuple(mw[0].shape)))
-        return mlp_fwd(emb, mw)
+    def spy(pts, mw, latents=None, samples_per_ray=1):
+        calls.append((tuple(pts.shape), pts.dtype, tuple(latents.shape),
+                      samples_per_ray, tuple(mw[0].shape)))
+        return mlp_fwd_points(pts, mw, latents, samples_per_ray)
 
-    monkeypatch.setattr(t_query, "mlp_fwd", spy)
+    monkeypatch.setattr(t_query, "mlp_fwd_points", spy)
     render_port(FLAGSHIP_TC, RS, n=6, chunk=4)
-    # 2 blocks x (coarse 4 x 8 points, fine 4 x 16 points), the encoding and
-    # the latent in bf16 padded to 128 lanes
-    bf16 = torch.bfloat16
-    assert calls == [((32, 128), bf16, (128, 256)),
-                     ((64, 128), bf16, (128, 256))] * 2
+    # 2 blocks x (coarse 4 x 8 points, fine 4 x 16 points)
+    f32 = torch.float32
+    assert calls == [((32, 3), f32, (4, 32), 8, (128, 256)),
+                     ((64, 3), f32, (4, 32), 16, (128, 256))] * 2
 
 
 def test_training_render_sends_the_latents_gradient_through_mlp_core(

@@ -997,6 +997,151 @@ def test_mlp_fwd_on_the_sm90_chain_at_the_grid_edges(sm90_fwd_reference,
     assert torch.equal(out, K.mlp_fwd(emb, mw))
 
 
+# ---- row 1 on its points input (`mlp_fwd_points`, the render path): bit for
+# bit `mlp_fwd` on the encoding the engine builds, at the grid's edges
+
+
+def _points_input(width, n, samples, device, seed):
+    """Bent points as `_bent_pts` makes them and, at 128 lanes, a latent
+    (0.3 * randn, 32 lanes) for each of the ceil(n / samples) rays."""
+    pts = torch.from_numpy(_bent_pts(n, seed)).to(device)
+    if width == 64:
+        return pts, None
+    rays = -(-n // samples)
+    lat = 0.3 * np.random.RandomState(seed + 1).randn(rays, 32)
+    return pts, torch.from_numpy(lat.astype(np.float32)).to(device)
+
+
+def _counters():
+    return (K.mlp_fwd.launches, dict(K.mlp_fwd.launches_by_width),
+            K.mlp_fwd.points_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("samples", [64, 128])
+@pytest.mark.parametrize("n", SM90_FWD_SIZES)
+@pytest.mark.parametrize("width", [64, 128])
+def test_mlp_fwd_points_is_mlp_fwd_on_the_engines_encoding(
+        request, cuda_device, width, n, samples):
+    """raw from the points (and the rays' latents) equals, bit for bit,
+    `mlp_fwd` on the encoding the render path's encoding route builds on
+    the card (`points_encoding`: PyTorch's sin and cos in f32, bf16); a
+    relaunch is bit-equal; each launch counts once in `mlp_fwd.launches`,
+    `launches_by_width` and `points_launches`."""
+    mw = _width_weights(request, width, cuda_device, "fine")
+    pts, lat = _points_input(width, n, samples, cuda_device, 40 + samples)
+    emb = K.points_encoding(pts, width, lat, samples)
+    assert emb.shape == (n, width) and emb.dtype == torch.bfloat16
+    before = _counters()
+    out = K.mlp_fwd_points(pts, mw, lat, samples)
+    torch.cuda.synchronize()
+    launches, by_width, on_points = before
+    by_width[width] += n > 0
+    assert _counters() == (launches + (n > 0), by_width, on_points + (n > 0))
+    assert out.shape == (n, K.OUT_PAD) and bool(torch.isfinite(out).all())
+    assert torch.equal(out, K.mlp_fwd(emb, mw))
+    assert torch.equal(out, K.mlp_fwd_points(pts, mw, lat, samples))
+
+
+@pytest.mark.cuda
+def test_mlp_fwd_points_refuses_what_it_cannot_place(model, model_tc,
+                                                     cuda_device):
+    mw64 = _model_weights(model, cuda_device, "coarse")
+    mw128 = _model_weights(model_tc, cuda_device, "coarse")
+    pts, lat = _points_input(128, 256, 64, cuda_device, 3)
+    with pytest.raises(ValueError, match="takes latents"):
+        K.mlp_fwd_points(pts, mw128)
+    with pytest.raises(ValueError, match="do not fit"):
+        K.mlp_fwd_points(pts, mw64, lat, 64)
+    with pytest.raises(ValueError, match="do not cover"):
+        K.mlp_fwd_points(pts, mw128, lat[:3], 64)
+    with pytest.raises(ValueError, match="do not fit"):
+        K.mlp_fwd_points(pts, mw128, torch.zeros(4, 66, device=cuda_device),
+                         64)
+
+
+@pytest.mark.cuda
+def test_mlp_fwd_kernels_in_the_trace_are_the_counted_launches(
+        request, cuda_device):
+    """Under torch.profiler, the device events named `mlp_fwd_kernel` of
+    both inputs at both widths are the launches `mlp_fwd.launches` counts
+    (what the benchmark's `mlp_fwd_roofline` holds them to)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = []
+    for width in (64, 128):
+        mw = _width_weights(request, width, cuda_device, "coarse")
+        pts, lat = _points_input(width, 4096, 64, cuda_device, width)
+        emb = K.points_encoding(pts, width, lat, 64)
+        calls += [lambda mw=mw, emb=emb: K.mlp_fwd(emb, mw),
+                  lambda mw=mw, pts=pts, lat=lat: K.mlp_fwd_points(
+                      pts, mw, lat, 64)]
+    for call in calls:     # built and warm before the trace
+        call()
+    torch.cuda.synchronize()
+    before = _counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for call in calls * 2:
+            call()
+        torch.cuda.synchronize()
+    kernels = [ev.name for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA
+               and "mlp_fwd_kernel" in ev.name]
+    assert len(kernels) == K.mlp_fwd.launches - before[0] == 8
+    assert K.mlp_fwd.points_launches - before[2] == 4
+    assert sum("PointsFwdIn" in name for name in kernels) == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["flagship", "baseline"])
+def test_render_block_on_points_is_bit_equal_to_the_encoding_route(
+        request, cuda_device, monkeypatch, which):
+    """A 32,768-ray block (64 + 64 samples) of each configuration through
+    `render_rays` under "auto" on the card: the points route (12 launches a
+    384 x 512 frame come from 2 a block) gives the encoding route's outputs
+    bit for bit."""
+    from nonrigid_nerf_torch.engine import query as t_query
+    from nonrigid_nerf_torch.engine import render as t_render
+
+    cfg, cpu_model = ((CFG, request.getfixturevalue("model"))
+                      if which == "flagship"
+                      else (CFG_TC, request.getfixturevalue("model_tc")))
+    gpu_model = NRNeRF(cfg, num_timesteps=cpu_model.latents.shape[0],
+                       device=cuda_device)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    rs = RenderSettings(N_samples=64, N_importance=64, near=0.1,
+                        far=1.6).test_mode()
+    rng = np.random.RandomState(7)
+    n = 32768
+    ro = torch.from_numpy(np.tile([[0.0, 0.0, 0.6]], (n, 1)).astype(
+        np.float32)).to(cuda_device)
+    rd = torch.from_numpy(np.concatenate(
+        [rng.uniform(-0.4, 0.4, (n, 2)), -np.ones((n, 1))], 1).astype(
+        np.float32)).to(cuda_device)
+    lat = gpu_model.latents.detach()[torch.arange(n, device=cuda_device)
+                                     % gpu_model.latents.shape[0]]
+    with torch.no_grad():
+        before = _counters()
+        got = t_render.render_rays(gpu_model, cfg, rs, ro, rd, lat,
+                                   retraw=True)
+        torch.cuda.synchronize()
+        assert K.mlp_fwd.points_launches == before[2] + 2
+        assert K.mlp_fwd.launches == before[0] + 2
+        for module in (t_query, t_render):
+            monkeypatch.setattr(module, "points_to_mlp_fwd",
+                                lambda cfg, fused: False)
+        want = t_render.render_rays(gpu_model, cfg, rs, ro, rd, lat,
+                                    retraw=True)
+        torch.cuda.synchronize()
+    assert K.mlp_fwd.points_launches == before[2] + 2
+    assert K.mlp_fwd.launches == before[0] + 4
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", SM90_BWD_SIZES)
 @pytest.mark.parametrize("width", [64, 128])

@@ -278,6 +278,18 @@ def test_header_budgets_fit_one_hopper_cta():
     two_atoms = align + act + 2 * atom + fwd * chunk + bars
     assert two_atoms == 197760 <= 232448
     assert "fwd_smem_bytes<64, 2> <= SMEM_LIMIT" in src
+    # row 1 on points at 128 lanes: two 128-lane encoding tiles fit beside
+    # a 3-stage ring (1,024 + 65,536 + 2 x 32,768 + 3 x 32,768 + 128, the
+    # backward's own figure), and the kernel runs a 2-stage ring (197,760 B)
+    # so that the SM keeps 60 KB of L1
+    two_tiles_128 = align + act + 2 * (2 * atom) + fwd * chunk + bars
+    assert two_tiles_128 == 230528 <= 232448
+    assert two_tiles_128 == align + 2 * act + bwd * chunk + bars
+    assert two_tiles_128 - chunk == 197760
+    assert "fwd_smem_bytes<128, 2> == 230528" in src
+    assert "fwd_smem_bytes<128, 2, 2> == 197760" in src
+    assert re.search(r"struct FwdPlan<PointsFwdIn<128>> \{\n  static constexpr "
+                     r"int STAGES = 2;", src)
     # the ring's full and empty barriers and the forward input's four
     assert 2 * 8 * max(fwd, bwd) + 4 * 8 <= bars
     assert align + 2 * act + bwd * chunk + bars <= 232448
@@ -302,6 +314,10 @@ def test_header_budgets_fit_one_hopper_cta():
     assert ("constexpr size_t smem =\n      fwd_smem_bytes<E, In::FWD_TILES, "
             "FwdPlan<In>::STAGES> + FwdPlan<In>::EXTRA_BYTES;") in src
     assert "static constexpr int FWD_TILES = 2;" in src    # PtsFwdIn
+    # row 1's points input runs the same plan on its two tiles
+    assert "struct PointsFwdIn {" in src
+    with open(os.path.join(csrc, "mlp_fwd.cu")) as f:
+        assert "const PointsFwdIn<E> in{" in f.read()
 
 
 # ---- row 4: mlpv_bwd's image and its backward read from it
@@ -626,3 +642,65 @@ def test_encoding_pieces_cover_the_tile_once(writer):
         assert all((pieces[t, :, 0] // 64 == t // 128).all() for t in range(256))
     with pytest.raises(ValueError, match="writer"):
         S.encoding_pieces("warps")
+
+
+# ---- row 1 on its points input (`mlp_fwd_points`): the tile its encoders
+# write is the tile of the engine's encoding
+
+
+@pytest.mark.parametrize("e,lat_width", [(64, 0), (128, 32), (128, 8)])
+def test_points_pieces_cover_the_tile_once_a_lane_column_a_warp(e, lat_width):
+    """Every (row, 8-lane piece) of the 128 x e tile once, by the encoder
+    that builds its row or, past the data, zeroes it when the kernel
+    starts; at each step an aligned warp of 32 encoders stores the same
+    lanes of 32 distinct rows (its threads compute the same lane in step)."""
+    row_pieces, zero_pieces = S.points_pieces(e, lat_width)
+    data = S.points_data_lanes(lat_width)
+    assert data == {0: 64, 32: 96, 8: 72}[lat_width]
+    flat = np.concatenate([row_pieces.reshape(-1, 2),
+                           zero_pieces.reshape(-1, 2)])
+    flat = flat[flat[:, 0] >= 0]
+    assert sorted(map(tuple, flat)) == [(r, c) for r in range(S.TM)
+                                        for c in range(0, e, 8)]
+    assert not (zero_pieces[..., 1][zero_pieces[..., 0] >= 0] < data).any()
+    assert not (row_pieces[..., 1][row_pieces[..., 0] >= 0] >= data).any()
+    for warp in range(3):
+        step = row_pieces[32 * warp:32 * (warp + 1)]
+        for i in range(step.shape[1]):
+            valid = step[:, i, 0] >= 0
+            assert len(set(step[valid, i, 1].tolist())) <= 1
+            assert len(set(step[valid, i, 0].tolist())) == valid.sum()
+
+
+@pytest.mark.parametrize("e,samples", [(64, 1), (128, 64), (128, 3)])
+def test_points_tile_is_the_engines_encoding(e, samples):
+    """The tile `PointsFwdIn<E>` writes (lane by lane: the sines and
+    cosines of x * 2^k on the exact product, the rays' latents in lanes
+    63-94, zeros) is `swizzle_tile` of `points_encoding`, the bf16 tensor
+    the render path's encoding route builds (fourier_embed, the latent cat,
+    F.pad), bit for bit, for a tile with a ragged end; at 64 lanes lane 63
+    and at 128 lanes 95-127 are zero."""
+    n = 300
+    rng = np.random.RandomState(e + samples)
+    pts = torch.from_numpy((rng.randn(n, 3) * 1.5).astype(np.float32))
+    rays = -(-n // samples)
+    lat = (torch.from_numpy((0.3 * rng.randn(rays, 32)).astype(np.float32))
+           if e == 128 else None)
+    want = K.points_encoding(pts, e, lat, samples)
+    assert want.shape == (n, e) and want.dtype == torch.bfloat16
+    if e == 64:
+        assert not want[:, 63].any()
+    else:
+        assert not want[:, 95:].any() and want[:, 63:95].any()
+    lat_rows = (lat.repeat_interleave(samples, 0)[:n] if lat is not None
+                else torch.zeros(n, 0))
+    for k in range(-(-n // S.TM)):
+        sl = slice(k * S.TM, (k + 1) * S.TM)
+        rows = min(S.TM, n - k * S.TM)
+        tile_pts = torch.nn.functional.pad(pts[sl], (0, 0, 0, S.TM - rows))
+        tile_lat = torch.nn.functional.pad(lat_rows[sl],
+                                           (0, 0, 0, S.TM - rows))
+        got = S.points_tile(tile_pts, tile_lat, rows, e)
+        ref = S.swizzle_tile(torch.nn.functional.pad(
+            want[sl], (0, 0, 0, S.TM - rows)))
+        assert torch.equal(got.view(torch.int16), ref.view(torch.int16)), k

@@ -186,12 +186,18 @@ def test_stage_1_hands_over_raw_points_in_pts_mode(weights):
         st_off = t_query.bend_encode_stage(model, torch_cfg(CFG_PTS),
                                            torch.from_numpy(pts),
                                            torch.from_numpy(lat), fused=False)
+    # "auto" under autograd: the encoding, in f32 for `MLPCore`
+    st_grad = t_query.bend_encode_stage(model, torch_cfg(CFG),
+                                        torch.from_numpy(pts),
+                                        torch.from_numpy(lat), fused=True)
     # raw bent points in f32, not the 63-channel encoding
     assert st["embedded"].shape == (4, 8, 3)
     assert st["embedded"].dtype == torch.float32
     assert torch.equal(st["embedded"], st["bent_pts"])
-    assert st_enc["embedded"].shape == (4, 8, 63)
-    assert st_enc["embedded"].dtype == torch.bfloat16
+    # "auto" without a gradient: the bent points too, for `mlp_fwd_points`
+    assert torch.equal(st_enc["embedded"], st_enc["bent_pts"])
+    assert st_grad["embedded"].shape == (4, 8, 63)
+    assert st_grad["embedded"].dtype == torch.float32
     assert st_off["embedded"].shape == (4, 8, 63)    # not fused: the encoding
     jst = j_query.bend_encode_stage(tree, CFG_PTS, jnp.asarray(pts),
                                     jnp.asarray(lat), fused=True)

@@ -28,7 +28,7 @@ from nonrigid_nerf_torch.apps.render_path import render_path as t_render_path
 from nonrigid_nerf_torch.engine import query as t_query
 from nonrigid_nerf_torch.engine.render import make_ray_renderer as t_renderer
 from nonrigid_nerf_torch.engine.render import render_rays as t_render_rays
-from nonrigid_nerf_torch.ops.kernels.mlp_fwd import mlp_fwd
+from nonrigid_nerf_torch.ops.kernels.mlp_fwd import mlp_fwd_points
 from nonrigid_nerf_torch.weights import params_from_jax
 from nonrigid_nerf_tpu.apps.render_path import render_path as j_render_path
 from nonrigid_nerf_tpu.config import EditConfig, ModelConfig, RenderSettings
@@ -124,16 +124,21 @@ def test_flagship_kernel_path_matches_pallas_interpret(interpret_pallas):
 
 
 def test_fused_path_reaches_mlp_fwd(monkeypatch):
+    """Rendering (no gradient) reaches `mlp_fwd`'s kernel on its points
+    input: the bent points, no latents, at 64 lanes."""
     calls = []
 
-    def spy(emb, mw):
-        calls.append(tuple(emb.shape))
-        return mlp_fwd(emb, mw)
+    def spy(pts, mw, latents=None, samples_per_ray=1):
+        calls.append((tuple(pts.shape), pts.dtype, latents, samples_per_ray,
+                      tuple(mw[0].shape)))
+        return mlp_fwd_points(pts, mw, latents, samples_per_ray)
 
-    monkeypatch.setattr(t_query, "mlp_fwd", spy)
+    monkeypatch.setattr(t_query, "mlp_fwd_points", spy)
     render_port(FLAGSHIP, RS, n=6, chunk=4)
     # 2 blocks x (coarse 4 x 8 points, fine 4 x 16 points)
-    assert calls == [(32, 64), (64, 64)] * 2
+    f32 = torch.float32
+    assert calls == [((32, 3), f32, None, 8, (64, 256)),
+                     ((64, 3), f32, None, 16, (64, 256))] * 2
 
 
 def test_render_path_matches_jax(tmp_path):
@@ -401,14 +406,14 @@ def test_draws_replace_the_generator_and_unknown_keys_raise():
 
 def test_fused_training_render_goes_through_mlp_core(monkeypatch):
     """Under autograd the fused path calls `MLPCore` (f32 encoding in), with
-    no gradient recorded it calls `mlp_fwd` (bf16 encoding in)."""
+    no gradient recorded it calls `mlp_fwd_points` (f32 bent points in)."""
     from nonrigid_nerf_torch.ops.kernels.mlp_bwd import MLPCore
     seen = []
     orig_apply = MLPCore.apply
     monkeypatch.setattr(t_query.MLPCore, "apply", staticmethod(
         lambda emb, *w: seen.append(("core", emb.dtype)) or orig_apply(emb, *w)))
-    monkeypatch.setattr(t_query, "mlp_fwd", lambda emb, mw: seen.append(
-        ("fwd", emb.dtype)) or mlp_fwd(emb, mw))
+    monkeypatch.setattr(t_query, "mlp_fwd_points", lambda pts, mw, *a: (
+        seen.append(("fwd", pts.dtype)) or mlp_fwd_points(pts, mw, *a)))
     tree = jax_params(FLAGSHIP)
     model = params_from_jax(tree, torch_cfg(FLAGSHIP), device="cpu")
     o, d, lat = (torch.from_numpy(a) for a in _rays(3, 32))
@@ -421,4 +426,4 @@ def test_fused_training_render_goes_through_mlp_core(monkeypatch):
     seen.clear()
     with torch.no_grad():
         t_render_rays(*args)
-    assert seen == [("fwd", torch.bfloat16)] * 2
+    assert seen == [("fwd", torch.float32)] * 2

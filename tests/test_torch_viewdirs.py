@@ -227,7 +227,7 @@ def test_fused_path_reaches_mlpv_fwd(monkeypatch, mode):
         raise AssertionError("a view-direction model went through mlp_fwd")
 
     monkeypatch.setattr(t_query, "mlpv_fwd", spy)
-    monkeypatch.setattr(t_query, "mlp_fwd", no_mlp_fwd)
+    monkeypatch.setattr(t_query, "mlp_fwd_points", no_mlp_fwd)
     assert mlp_fwd is not no_mlp_fwd
     render_port(_cfg(FLAGSHIP_V, mode), RS, n=6, chunk=4)
     bf16 = torch.bfloat16

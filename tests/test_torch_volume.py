@@ -93,20 +93,20 @@ def test_probe_does_not_depend_on_the_weights(cameras):
 def test_probe_renders_all_corners_in_one_batch_through_mlp_fwd(cameras,
                                                                 monkeypatch):
     """One render of the 240 corner rays: the canonical MLP's kernel wrapper
-    twice (coarse and fine pass), which on a CUDA model launches
-    `mlp_fwd`."""
+    twice (coarse and fine pass), on the bent points, which on a CUDA model
+    launches `mlp_fwd`'s kernel on its points input."""
     poses, intrinsics = cameras
     # the kernel's architecture: the flagship's widths
     tcfg = torch_cfg(ModelConfig(N_samples=16, N_importance=8,
                                  fused_kernel="on"))
     calls = []
-    real = t_query.mlp_fwd
+    real = t_query.mlp_fwd_points
 
-    def spy(emb, mw):
-        calls.append(tuple(emb.shape))
-        return real(emb, mw)
+    def spy(pts, mw, *args):
+        calls.append(tuple(pts.shape))
+        return real(pts, mw, *args)
 
-    monkeypatch.setattr(t_query, "mlp_fwd", spy)
+    monkeypatch.setattr(t_query, "mlp_fwd_points", spy)
     determine_nerf_volume_extent(NRNeRF(tcfg, 20, device="cpu"), tcfg, T_RS,
                                  poses, intrinsics)
     assert [c[0] for c in calls] == [240 * 16, 240 * 24]
