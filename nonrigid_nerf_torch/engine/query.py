@@ -52,7 +52,7 @@ from nonrigid_nerf_torch.ops.kernels.mlpv_fwd import (
 from nonrigid_nerf_torch.ops.kernels.quant_mlp import (mlp_i8,
                                                        packed_int8_weights)
 from nonrigid_nerf_torch.ops.math import safe_norm
-from nonrigid_nerf_torch.utils.spans import spanned
+from nonrigid_nerf_torch.utils.spans import span, spanned
 
 FUSED_KERNEL_MODES = ("auto", "on", "off", "pts", "int8")
 
@@ -335,8 +335,9 @@ def query_points(model, cfg: ModelConfig, pts, viewdirs, latents,
     st = bend_encode_stage(model, cfg, pts, latents, edit, fused, detailed)
     embedded_views = None
     if cfg.use_viewdirs:
-        embedded_views = _embed_views(
-            cfg, sample_viewdirs(model, cfg, pts, st, viewdirs, edit))
+        with span("viewdirs"):
+            embedded_views = _embed_views(
+                cfg, sample_viewdirs(model, cfg, pts, st, viewdirs, edit))
     raw = canonical_mlp_stage(model, cfg, network, st, embedded_views, edit,
                               fused)
     return (raw, st["details"]) if detailed else raw

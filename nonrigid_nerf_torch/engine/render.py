@@ -101,8 +101,10 @@ def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
         if cfg.use_viewdirs:
             # the coarse depths ascend by construction, so the
             # finite-difference variant holds on the coarse bent points
-            dirs_coarse = sample_viewdirs(model, cfg, pts, st, viewdirs, edit)
-            ev_coarse = _embed_views(cfg, dirs_coarse)
+            with span("viewdirs"):
+                dirs_coarse = sample_viewdirs(model, cfg, pts, st, viewdirs,
+                                              edit)
+                ev_coarse = _embed_views(cfg, dirs_coarse)
         raw = canonical_mlp_stage(model, cfg, "coarse", st, ev_coarse, edit,
                                   fused)
         details = st["details"]
@@ -162,15 +164,16 @@ def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
                     else None
                 if fine_detailed:
                     fine_details = dict(zip(keys, rest))
-                st_sorted = {"embedded": embed_for_mlp(cfg, bent_sorted, fused),
-                             "bent_pts": bent_sorted,
+                with span("stage1"):    # the encoding, in sorted order
+                    embedded = embed_for_mlp(cfg, bent_sorted, fused)
+                st_sorted = {"embedded": embedded, "bent_pts": bent_sorted,
                              "rigidity": rigidity_sorted,
                              "latents_per_pt": latents_cat}
-                dirs = sample_viewdirs(model, cfg, bent_sorted, st_sorted,
-                                       viewdirs, edit)
+                with span("viewdirs"):
+                    ev_sorted = _embed_views(cfg, sample_viewdirs(
+                        model, cfg, bent_sorted, st_sorted, viewdirs, edit))
                 raw_fine = canonical_mlp_stage(model, cfg, "fine", st_sorted,
-                                               _embed_views(cfg, dirs), edit,
-                                               fused)
+                                               ev_sorted, edit, fused)
             else:
                 # the fine MLP runs on the UNSORTED union [coarse..., new...]
                 # (it is pointwise, and exact or straight view directions
@@ -179,9 +182,10 @@ def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
                 # compositing
                 ev_cat = None
                 if cfg.use_viewdirs:
-                    dirs_new = sample_viewdirs(model, cfg, pts_new, st_new,
-                                               viewdirs, edit)
-                    ev_cat = _embed_views(cfg, cat(dirs_coarse, dirs_new))
+                    with span("viewdirs"):
+                        dirs_new = sample_viewdirs(model, cfg, pts_new, st_new,
+                                                   viewdirs, edit)
+                        ev_cat = _embed_views(cfg, cat(dirs_coarse, dirs_new))
                 with span("union"):
                     # on the points route stage 2 reads the bent points
                     emb_cat = (bent_cat if points_to_mlp_fwd(cfg, fused)

@@ -6,6 +6,8 @@ kernel-load counter (`ops/kernels/build.py:KERNEL_LOAD`).
 - Under torch.profiler on the CPU, a tiny training step and a
   `render_path` frame record every span their path runs, each a host event
   that is not a user annotation, nested as the step and the frame nest.
+- With view directions every pass opens one `viewdirs` span, on every
+  route, in training and in rendering, and none without a profiler.
 - `backward_in_pieces` opens one `bwd_piece` span a piece.
 - `KERNEL_LOAD` adds up the seconds of every build and load and counts the
   libraries compiled.
@@ -14,6 +16,7 @@ On the card, `tests/test_torch_kernels_cuda.py` holds that the spans put
 nothing on the device's timeline.
 """
 
+import dataclasses
 import os
 import sys
 import time
@@ -162,6 +165,63 @@ def test_render_path_frame_records_its_spans(tmp_path, one_thread):
                  "sort"):
         assert inside(events, name, "block"), name
     assert os.path.exists(tmp_path / "000.png")
+
+
+def view_cfg(approx=True, reuse=True):
+    return dataclasses.replace(CFG, use_viewdirs=True,
+                               approx_nonrigid_viewdirs=approx,
+                               stage1_reuse=reuse)
+
+
+def render_view_frame(cfg, tmp_path):
+    """One 6 x 8 frame through `render_path` in blocks of 32 rays (2)."""
+    model = create_train_state(cfg, TC, 4, device="cpu").model
+    intrin = dict(height=6, width=8, focal_x=8.0, focal_y=8.0, center_x=4.0,
+                  center_y=3.0)
+    pose = np.eye(4, dtype=np.float32)[:3]
+    pose[2, 3] = 4.0
+    render_path(model, cfg, RS, pose[None], [intrin],
+                model.latents.detach().numpy()[:1], chunk=32,
+                savedir=str(tmp_path), verbose=False, device="cpu")
+
+
+# the routes: the sort-first fine pass of approximate bent directions,
+# the unsorted union of exact ones, and the reference's second query
+@pytest.mark.parametrize("approx, reuse", [(True, True), (False, True),
+                                           (True, False)])
+def test_view_directions_open_a_viewdirs_span_a_pass(tmp_path, one_thread,
+                                                     approx, reuse):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        render_view_frame(view_cfg(approx, reuse), tmp_path)
+    events = program_events(prof)
+    assert {"frame", "block", "stage1", "stage2", "viewdirs"} <= set(events)
+    assert len(events["block"]) == 2
+    assert len(events["viewdirs"]) == len(events["composite"]) == 4
+    assert inside(events, "viewdirs", "block")
+    # stage 1 twice a block, and the sort-first pass's encoding once more
+    assert len(events["stage1"]) == (6 if approx and reuse else 4)
+
+
+def test_training_step_with_view_directions_opens_viewdirs(one_thread):
+    cfg = view_cfg()
+    ds = make_dataset()
+    state = create_train_state(cfg, TC, ds.num_timesteps, device="cpu")
+    step_fn = t_step.make_train_step(cfg, TC, RS, ds.has_test_split)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step_fn(state, ds, t_step.step_generator(TC.seed, 0, "cpu"))
+    events = program_events(prof)
+    assert set(events) == TRAIN_SPANS | {"viewdirs"}
+    assert len(events["viewdirs"]) == len(events["composite"]) >= 2
+    assert inside(events, "viewdirs", "step")
+
+
+def test_view_path_spans_are_no_ops_without_a_profiler(monkeypatch,
+                                                       tmp_path):
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast",
+                        CountingRange)
+    CountingRange.made = 0
+    render_view_frame(view_cfg(), tmp_path)
+    assert CountingRange.made == 0
 
 
 @pytest.mark.parametrize("n,count", [(3, 1), (8, 2), (10, 3)])
