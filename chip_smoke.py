@@ -39,7 +39,10 @@ result line is printed):
    N_importance) (2^22) points of a render block, and N_rand x N_samples
    (65,536) and N_rand x (N_samples + N_importance) (131,072) points of a
    training step, for B at 128 lanes as well as at 64. Backward kernels:
-   the training step's two sizes (`mlp_i8`: the render sizes only).
+   the training step's two sizes (`mlp_i8`: the render sizes only). The
+   render path's points inputs (`mlp_fwd_points` of F and B,
+   `mlpv_fwd_points` of V) at the render sizes: bit for bit the kernel on
+   the encodings the engine builds, timed beside it.
 3. Per family and mode, render frames at 384 x 512 through `render_path`,
    parameters from a seed, with the launch counts set to 0 just before and
    read just after (12 launches of the family's forward kernel per frame,
@@ -589,11 +592,14 @@ def check_fwd(fam, model, n_points, device, network="coarse"):
 
 
 def check_fwd_points(fam, model, n_points, samples, device):
-    """`mlp_fwd`'s points input, the render path's, at n_points (rays of
-    `samples` points, at 128 lanes each ray with a latent): bit for bit
-    `mlp_fwd` on the encoding the engine builds (`points_encoding`), and its
-    time beside that encoding input's on the same points. The bound counts
-    the points, latents, raw and weights it reads and writes."""
+    """The family's forward kernel on its points input, the render path's,
+    at n_points: `mlp_fwd_points` (rays of `samples` points, at 128 lanes
+    each ray with a latent) or, with view directions, `mlpv_fwd_points`
+    (each point with a unit direction): bit for bit the kernel on the
+    encodings the engine builds (`points_encoding`, `views_encoding`), and
+    its time beside that encoding input's on the same points. The bound
+    counts the points, latents or directions, raw and weights it reads and
+    writes."""
     K = fam.K
     mw = fam.weights(model.network("coarse"), device)
     gen = torch.Generator(device=device).manual_seed(SEED + n_points + samples)
@@ -601,30 +607,41 @@ def check_fwd_points(fam, model, n_points, samples, device):
     hi = torch.tensor([0.8, 0.8, 0.5], device=device)
     pts = lo + (hi - lo) * torch.rand((n_points, 3), generator=gen,
                                       device=device)
-    lat = None
-    if fam.kind == "baseline":
-        lat = BASELINE_LATENT_SCALE * torch.randn(
-            (-(-n_points // samples), 32), generator=gen, device=device)
-    emb = K.points_encoding(pts, fam.emb_width, lat, samples)
-    out = K.mlp_fwd_points(pts, mw, lat, samples)
-    if not torch.equal(out, K.mlp_fwd(emb, mw)):
-        raise AssertionError("mlp_fwd_points differs from mlp_fwd on the "
-                             "engine's encoding")
-    if not torch.equal(out, K.mlp_fwd_points(pts, mw, lat, samples)):
-        raise AssertionError("mlp_fwd_points is not deterministic")
-    ms = cuda_time_ms(lambda: K.mlp_fwd_points(pts, mw, lat, samples), 10)
-    kernel_device_ms = device_ms(lambda: K.mlp_fwd_points(pts, mw, lat,
-                                                          samples))
-    enc_ms = cuda_time_ms(lambda: K.mlp_fwd(emb, mw), 10)
-    enc_device_ms = device_ms(lambda: K.mlp_fwd(emb, mw))
+    if fam.viewdirs:
+        d = torch.randn((n_points, 3), generator=gen, device=device)
+        extra = (d / torch.linalg.vector_norm(d, dim=-1, keepdim=True),)
+        enc = (K.points_encoding(pts, K.EMB), K.views_encoding(*extra))
+
+        def on_points():
+            return K.mlpv_fwd_points(pts, *extra, mw)
+    else:
+        extra = ()
+        if fam.kind == "baseline":
+            extra = (BASELINE_LATENT_SCALE * torch.randn(
+                (-(-n_points // samples), 32), generator=gen, device=device),)
+        lat = extra[0] if extra else None
+        enc = (K.points_encoding(pts, fam.emb_width, lat, samples),)
+
+        def on_points():
+            return K.mlp_fwd_points(pts, mw, lat, samples)
+    out = on_points()
+    if not torch.equal(out, fam.fwd(*enc, mw)):
+        raise AssertionError(f"{fam.fwd_name} on points differs from "
+                             f"{fam.fwd_name} on the engine's encoding")
+    if not torch.equal(out, on_points()):
+        raise AssertionError(f"{fam.fwd_name} on points is not "
+                             "deterministic")
+    ms = cuda_time_ms(on_points, 10)
+    kernel_device_ms = device_ms(on_points)
+    enc_ms = cuda_time_ms(lambda: fam.fwd(*enc, mw), 10)
+    enc_device_ms = device_ms(lambda: fam.fwd(*enc, mw))
     flops = 2.0 * fam.macs * n_points
-    inputs = (pts,) if lat is None else (pts, lat)
-    bound_ms, bound_by = roofline(flops, tensor_bytes(*inputs, out, *mw))
-    log(f"mlp_fwd_points ({fam.emb_width} lanes) n={n_points}: bit-equal to "
-        f"mlp_fwd on the encoding; kernel {ms:.4f} ms (device time "
-        f"{kernel_device_ms:.4f} ms), on the encoding {enc_ms:.4f} ms "
-        f"(device {enc_device_ms:.4f} ms), bound {bound_ms:.4f} ms "
-        f"({bound_by}), {bound_ms / ms:.3f} of it")
+    bound_ms, bound_by = roofline(flops, tensor_bytes(pts, *extra, out, *mw))
+    log(f"{fam.fwd_name}_points ({fam.emb_width} lanes) n={n_points}: "
+        f"bit-equal to {fam.fwd_name} on the encoding; kernel {ms:.4f} ms "
+        f"(device time {kernel_device_ms:.4f} ms), on the encoding "
+        f"{enc_ms:.4f} ms (device {enc_device_ms:.4f} ms), bound "
+        f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.3f} of it")
     return dict(ms=ms, device_ms=kernel_device_ms, encoding_ms=enc_ms,
                 encoding_device_ms=enc_device_ms, bound_ms=bound_ms,
                 bound_by=bound_by, share_of_bound=bound_ms / ms,
@@ -3196,11 +3213,11 @@ def main() -> int:
                           check_bwd(fam, model, n_bwd_fine, device)]
             # past one launch: the autograd function's pieces
             piece_checks = family_bwd_in_pieces(fam, model, device)
-            # row 1's points input at a render block's two passes
+            # rows 1's and 3's points input at a render block's two passes
             points_checks = ([{"points": n, **check_fwd_points(
                 fam, model, n, s, device)} for n, s in
                 ((n_coarse, 64), (n_fine, 128))]
-                if fam.kind in ("plain", "baseline") else [])
+                if fam.kind in ("plain", "baseline", "viewdirs") else [])
         del model
         # ---- phase 3: render through render_path, kernel vs off ("pts"
         # against the first family's "off" frames: the same parameters)

@@ -9,19 +9,21 @@ directions, `sample_viewdirs` gives every sample the direction of the BENT
 ray there. Stage 2 (`canonical_mlp_stage`) runs the
 coarse or fine MLP, as the CUDA kernels when `use_fused_kernel` says so:
 `mlp_fwd` on points (`mlp_fwd_points`; with view directions `mlpv_fwd` on
-the encodings) alone where no gradient is recorded (rendering), and the
-autograd function `MLPCore` (`MLPVCore`), whose backward is `mlp_bwd`
-(`mlpv_bwd`), where one is (training).
+points and directions, `mlpv_fwd_points`) alone where no gradient is
+recorded (rendering), and the autograd function `MLPCore` (`MLPVCore`),
+whose backward is `mlp_bwd` (`mlpv_bwd`), where one is (training).
 
 For the time-conditioned baseline (no bender) stage 1 hands each sample
 its ray's latent, and stage 2 concatenates it to the encoding: the kernels
 then run at a 128-lane input, the plain path takes it through `NeRF`.
 
-Where no gradient is recorded under "auto" or "on" without view
-directions (rendering), stage 1 hands over the bent points in place of the
-encoding, and stage 2 hands them with the rays' latents to `mlp_fwd_points`,
+Where no gradient is recorded under "auto" or "on" (rendering), stage 1
+hands over the bent points in place of the encoding. Without view
+directions stage 2 hands them with the rays' latents to `mlp_fwd_points`,
 which builds the same bf16 encoding (and the baseline's latent lanes) in the
-kernel, bit for bit (`points_to_mlp_fwd`).
+kernel, bit for bit (`points_to_mlp_fwd`); with view directions it hands
+them with each sample's direction to `mlpv_fwd_points`, which builds both
+encodings in the kernel, bit for bit (`points_to_mlpv_fwd`).
 
 Two opt-in modes of `fused_kernel` take other kernels. "pts": stage 1 hands
 over the f32 bent points in place of the encoding, and `mlpe_fwd` /
@@ -48,7 +50,7 @@ from nonrigid_nerf_torch.ops.kernels.mlpe_bwd import MLPECore
 from nonrigid_nerf_torch.ops.kernels.mlpe_fwd import MULTIRES, mlpe_fwd
 from nonrigid_nerf_torch.ops.kernels.mlpv_bwd import MLPVCore
 from nonrigid_nerf_torch.ops.kernels.mlpv_fwd import (
-    VEMB, cast_mlpv_weights, mlpv_fwd, pack_viewdirs_mlp_weights)
+    VEMB, cast_mlpv_weights, mlpv_fwd_points, pack_viewdirs_mlp_weights)
 from nonrigid_nerf_torch.ops.kernels.quant_mlp import (mlp_i8,
                                                        packed_int8_weights)
 from nonrigid_nerf_torch.ops.math import safe_norm
@@ -105,6 +107,19 @@ def points_to_mlp_fwd(cfg: ModelConfig, fused: bool) -> bool:
             and not cfg.use_viewdirs and not torch.is_grad_enabled())
 
 
+def points_to_mlpv_fwd(cfg: ModelConfig, fused: bool) -> bool:
+    """Whether stage 1 hands stage 2 the bent points, and the view step the
+    samples' directions, for `mlpv_fwd_points` in place of the two
+    encodings: on the kernel path (`fused`) under "auto" or "on", where no
+    gradient is recorded and with view directions. The kernel then builds
+    the encodings that `embed_for_mlp` and `_embed_views` would give bit for
+    bit, so the output is the encoding route's. Training (`MLPVCore`) and
+    scene edits keep their routes ("pts" and "int8" take no view
+    directions)."""
+    return (fused and cfg.fused_kernel in ("auto", "on")
+            and cfg.use_viewdirs and not torch.is_grad_enabled())
+
+
 def use_fused_kernel(cfg: ModelConfig, edit: EditConfig,
                      device: torch.device) -> bool:
     """Whether stage 2 runs through the kernels' wrappers.
@@ -141,6 +156,13 @@ def use_fused_kernel(cfg: ModelConfig, edit: EditConfig,
 def _embed_views(cfg: ModelConfig, dirs):
     return dirs if cfg.i_embed == -1 else fourier_embed(dirs,
                                                         cfg.multires_views)
+
+
+def views_for_mlp(cfg: ModelConfig, dirs, fused: bool):
+    """The samples' view directions (R, S, 3) as stage 2 reads them: on
+    `points_to_mlpv_fwd`'s route as they are (the kernel encodes them), else
+    their encoding (`_embed_views`)."""
+    return dirs if points_to_mlpv_fwd(cfg, fused) else _embed_views(cfg, dirs)
 
 
 def _finite_difference_viewdirs(bent_pts, eps: float = 1e-6):
@@ -211,8 +233,9 @@ def bend_encode_stage(model, cfg: ModelConfig, pts, latents,
 
     pts (R, S, 3); latents (R, L) per ray. Returns a dict with
     embedded (R, S, input_ch) as `embed_for_mlp` gives it (with `fused` in
-    "pts" mode or on `points_to_mlp_fwd`'s route: the f32 bent points (R, S,
-    3), which the kernel encodes), or None with `embed=False` (for a caller
+    "pts" mode or on `points_to_mlp_fwd`'s or `points_to_mlpv_fwd`'s route:
+    the f32 bent points (R, S, 3), which the kernel encodes), or None with
+    `embed=False` (for a caller
     that encodes in another sample order),
     bent_pts (R, S, 3), rigidity (R, S, 1) or None, latents_per_pt (R, S, L)
     or None without bending and without the time-conditioned input, and
@@ -241,7 +264,8 @@ def bend_encode_stage(model, cfg: ModelConfig, pts, latents,
         details["input_pts"] = bent_pts.detach()
     if not embed:
         embedded = None
-    elif (fused and encode_in_kernel(cfg)) or points_to_mlp_fwd(cfg, fused):
+    elif ((fused and encode_in_kernel(cfg)) or points_to_mlp_fwd(cfg, fused)
+          or points_to_mlpv_fwd(cfg, fused)):
         # the MLP kernel encodes on the chip: the bent points go over as
         # they are, and no (R, S, 63) encoding is ever written
         embedded = bent_pts
@@ -256,12 +280,13 @@ def canonical_mlp_stage(model, cfg: ModelConfig, network: str, stage1,
                         embedded_views=None, edit: EditConfig = EditConfig(),
                         fused: bool = False):
     """Stage 2: the coarse or fine canonical MLP on stage 1's encoding (in
-    "pts" mode and on `points_to_mlp_fwd`'s route: on its bent points; for
-    the time-conditioned baseline with its latents concatenated, in the
-    encoding's dtype on the kernel path, or, on that route, handed to the
-    kernel per ray) and, with view directions, on embedded_views (R, S,
-    input_ch_views), then the foreground-removal edit. Returns raw (R, S, 4)
-    f32."""
+    "pts" mode and on `points_to_mlp_fwd`'s and `points_to_mlpv_fwd`'s
+    routes: on its bent points; for the time-conditioned baseline with its
+    latents concatenated, in the encoding's dtype on the kernel path, or, on
+    that route, handed to the kernel per ray) and, with view directions, on
+    embedded_views (R, S, input_ch_views; on `points_to_mlpv_fwd`'s route
+    the directions, R, S, 3), then the foreground-removal edit. Returns raw
+    (R, S, 4) f32."""
     embedded = stage1["embedded"]
     latents_per_pt = stage1["latents_per_pt"]
     net = model.network(network)
@@ -274,6 +299,13 @@ def canonical_mlp_stage(model, cfg: ModelConfig, network: str, stage1,
         raw = mlp_fwd_points(embedded.reshape(R * S, 3),
                              cast_mlp_weights(pack_mlp_weights(net)),
                              latents, S)
+        raw = raw.reshape(R, S, OUT_PAD)[..., :4]
+    elif points_to_mlpv_fwd(cfg, fused):
+        # stage 1 handed over the bent points, the view step the directions
+        R, S, _ = embedded.shape
+        raw = mlpv_fwd_points(embedded.reshape(R * S, 3),
+                              embedded_views.reshape(R * S, 3),
+                              cast_mlpv_weights(pack_viewdirs_mlp_weights(net)))
         raw = raw.reshape(R, S, OUT_PAD)[..., :4]
     elif fused and encode_in_kernel(cfg):
         # stage 1 handed over the raw bent points (see bend_encode_stage)
@@ -294,7 +326,6 @@ def canonical_mlp_stage(model, cfg: ModelConfig, network: str, stage1,
         R, S, in_ch = embedded.shape
         emb_flat = F.pad(embedded.reshape(R * S, in_ch),
                          (0, pad_lanes(in_ch) - in_ch))
-        grad = torch.is_grad_enabled()
         if cfg.fused_kernel == "int8":
             key = "fine" if network == "fine" and model.fine is not None \
                 else "coarse"
@@ -304,16 +335,12 @@ def canonical_mlp_stage(model, cfg: ModelConfig, network: str, stage1,
                     "model; run quantize_for_inference() first")
             raw = mlp_i8(emb_flat, packed_int8_weights(model.quant[key], net))
         elif cfg.use_viewdirs:
-            if not grad:      # as the point encoding: bf16 between the stages
-                embedded_views = embedded_views.to(torch.bfloat16)
+            # training: without a gradient the points route is taken
             v_ch = embedded_views.shape[-1]
             embv_flat = F.pad(embedded_views.reshape(R * S, v_ch),
                               (0, VEMB - v_ch))
-            packed = pack_viewdirs_mlp_weights(net)
-            if grad:
-                raw = MLPVCore.apply(emb_flat, embv_flat, *packed)
-            else:
-                raw = mlpv_fwd(emb_flat, embv_flat, cast_mlpv_weights(packed))
+            raw = MLPVCore.apply(emb_flat, embv_flat,
+                                 *pack_viewdirs_mlp_weights(net))
         else:   # training: without a gradient the points route is taken
             raw = MLPCore.apply(emb_flat, *pack_mlp_weights(net))
         raw = raw.reshape(R, S, OUT_PAD)[..., :4]
@@ -336,8 +363,9 @@ def query_points(model, cfg: ModelConfig, pts, viewdirs, latents,
     embedded_views = None
     if cfg.use_viewdirs:
         with span("viewdirs"):
-            embedded_views = _embed_views(
-                cfg, sample_viewdirs(model, cfg, pts, st, viewdirs, edit))
+            embedded_views = views_for_mlp(
+                cfg, sample_viewdirs(model, cfg, pts, st, viewdirs, edit),
+                fused)
     raw = canonical_mlp_stage(model, cfg, network, st, embedded_views, edit,
                               fused)
     return (raw, st["details"]) if detailed else raw

@@ -5,11 +5,13 @@
 samples' stage-1 results (bend + encode), runs stage 1 on the importance
 samples only, runs the fine MLP on the UNSORTED union [coarse..., new...]
 (the MLP is pointwise), and sorts only the compact raw outputs by depth for
-compositing. Without a gradient (and without view directions) that union is
-one of bent points, which `mlp_fwd_points` encodes
-(`query.points_to_mlp_fwd`). Finite-difference view directions depend on
-the sample order, so that fine pass sorts the bent points first and encodes
-and runs the MLP in sorted order. With `stage1_reuse=False` the depths are
+compositing. Without a gradient that union is one of bent points, which
+`mlp_fwd_points` encodes (`query.points_to_mlp_fwd`), or with view
+directions `mlpv_fwd_points` with the union's directions
+(`query.points_to_mlpv_fwd`). Finite-difference view directions depend on
+the sample order, so that fine pass sorts the bent points first and takes
+the directions, encodes and runs the MLP in sorted order (without a
+gradient the kernel encodes). With `stage1_reuse=False` the depths are
 sorted first and all of them queried again, as the reference does.
 `make_ray_renderer` streams any number of rays through `render_rays` in
 fixed `chunk`-sized blocks.
@@ -23,12 +25,13 @@ import torch
 
 from nonrigid_nerf_torch.config import EditConfig, ModelConfig, RenderSettings
 from nonrigid_nerf_torch.device import DeviceLike, resolve_device
-from nonrigid_nerf_torch.engine.query import (_embed_views, bend_encode_stage,
+from nonrigid_nerf_torch.engine.query import (bend_encode_stage,
                                               canonical_mlp_stage,
                                               embed_for_mlp,
-                                              points_to_mlp_fwd, query_points,
+                                              points_to_mlp_fwd,
+                                              points_to_mlpv_fwd, query_points,
                                               sample_viewdirs,
-                                              use_fused_kernel)
+                                              use_fused_kernel, views_for_mlp)
 from nonrigid_nerf_torch.models.nerf import check_nerf_supported
 from nonrigid_nerf_torch.ops.compositing import raw2outputs
 from nonrigid_nerf_torch.ops.sampling import sample_pdf, stratified_z_vals
@@ -104,7 +107,7 @@ def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
             with span("viewdirs"):
                 dirs_coarse = sample_viewdirs(model, cfg, pts, st, viewdirs,
                                               edit)
-                ev_coarse = _embed_views(cfg, dirs_coarse)
+                ev_coarse = views_for_mlp(cfg, dirs_coarse, fused)
         raw = canonical_mlp_stage(model, cfg, "coarse", st, ev_coarse, edit,
                                   fused)
         details = st["details"]
@@ -164,14 +167,18 @@ def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
                     else None
                 if fine_detailed:
                     fine_details = dict(zip(keys, rest))
-                with span("stage1"):    # the encoding, in sorted order
-                    embedded = embed_for_mlp(cfg, bent_sorted, fused)
+                if points_to_mlpv_fwd(cfg, fused):   # the kernel encodes
+                    embedded = bent_sorted
+                else:
+                    with span("stage1"):    # the encoding, in sorted order
+                        embedded = embed_for_mlp(cfg, bent_sorted, fused)
                 st_sorted = {"embedded": embedded, "bent_pts": bent_sorted,
                              "rigidity": rigidity_sorted,
                              "latents_per_pt": latents_cat}
                 with span("viewdirs"):
-                    ev_sorted = _embed_views(cfg, sample_viewdirs(
-                        model, cfg, bent_sorted, st_sorted, viewdirs, edit))
+                    ev_sorted = views_for_mlp(cfg, sample_viewdirs(
+                        model, cfg, bent_sorted, st_sorted, viewdirs, edit),
+                        fused)
                 raw_fine = canonical_mlp_stage(model, cfg, "fine", st_sorted,
                                                ev_sorted, edit, fused)
             else:
@@ -185,10 +192,12 @@ def render_rays(model, cfg: ModelConfig, rs: RenderSettings, rays_o, rays_d,
                     with span("viewdirs"):
                         dirs_new = sample_viewdirs(model, cfg, pts_new, st_new,
                                                    viewdirs, edit)
-                        ev_cat = _embed_views(cfg, cat(dirs_coarse, dirs_new))
+                        ev_cat = views_for_mlp(cfg, cat(dirs_coarse, dirs_new),
+                                               fused)
                 with span("union"):
-                    # on the points route stage 2 reads the bent points
+                    # on the points routes stage 2 reads the bent points
                     emb_cat = (bent_cat if points_to_mlp_fwd(cfg, fused)
+                               or points_to_mlpv_fwd(cfg, fused)
                                else cat(st["embedded"], st_new["embedded"]))
                     st_cat = {"embedded": emb_cat,
                               "bent_pts": bent_cat, "rigidity": rigidity_cat,

@@ -39,9 +39,9 @@
 // - The next tile's encoding is loaded with cp.async (zero-filled past n) as
 //   soon as the current tile has read its own (after layer 5 in the forward,
 //   at the last step of the backward's dh chain), so the load overlaps the
-//   tile's last products. Row 5, and row 1 on points (the render path),
-//   compute their encoding from the points on the producer warpgroup's three
-//   idle warps instead, into two encoding tiles in turn, and row 9 the
+//   tile's last products. Row 5, and rows 1 and 3 on points (the render
+//   path), compute their encodings from the points on the producer
+//   warpgroup's three idle warps instead, into two tiles in turn, and row 9 the
 //   deformation field and the encoding of the bent points there; row 6 on
 //   the consumers, when its tile starts.
 // - The backward keeps each layer's ReLU gates as bits, moves its bf16
@@ -1333,6 +1333,32 @@ struct RowPieces {
   }
 };
 
+// The Fourier encoding of x with `multires` octaves, lane by lane into `out`
+// (fourier_embed's order): x_0 .. x_2, then for each k < multires
+// sinf(x_j * 2^k) for j = 0 .. 2 and cosf of the same. One `sincosf` a
+// product, on the exact product (no phase): CUDA's full-precision sine and
+// cosine, the functions PyTorch's CUDA sin and cos call, from one range
+// reduction; the libraries are built without fast math (build.NVCC_FLAGS).
+__device__ __forceinline__ void push_fourier(RowPieces& out, const float (&x)[3], int multires) {
+  out.push(x[0]);
+  out.push(x[1]);
+  out.push(x[2]);
+#pragma unroll 1
+  for (int k = 0; k < multires; ++k) {
+    const float scale = __int_as_float((127 + k) << 23);   // 2^k
+    float cs[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      float sn;
+      sincosf(x[j] * scale, &sn, &cs[j]);
+      out.push(sn);
+    }
+    out.push(cs[0]);
+    out.push(cs[1]);
+    out.push(cs[2]);
+  }
+}
+
 // mlp_fwd.cu's input on the render path (`mlp_fwd_points`): the points (n, 3)
 // f32 and, at 128 lanes, each ray's latent lat (R, L) f32, the ray of point p
 // being p / S (the row-major order of (R, S, 3)). PtsFwdIn's handshake and
@@ -1345,9 +1371,7 @@ struct RowPieces {
 //   lane 6 + 6k + j             cosf(x_j * 2^k)    phase)
 //   lanes 63 .. 62 + L          lat[p / S]
 //   every other lane, and every row past n, zero.
-// One `sincosf` a product: CUDA's full-precision sine and cosine, the
-// functions PyTorch's CUDA sin and cos call, from one range reduction; the
-// library is built without fast math (build.NVCC_FLAGS). Encoder e builds
+// The encoding lanes come from `push_fourier`. Encoder e builds
 // rows e and e + 96 of each tile, lane by lane (`RowPieces`), so a warp's
 // threads compute the same lane in step. The lanes past the last piece
 // that holds data (96 .. 127 at L = 32) are zeroed once, when the kernel
@@ -1382,23 +1406,7 @@ struct PointsFwdIn {
     }
     float x[3];
     load_point(pts, p, n, x);
-    out.push(x[0]);
-    out.push(x[1]);
-    out.push(x[2]);
-#pragma unroll 1
-    for (int k = 0; k < MULTIRES; ++k) {
-      const float scale = __int_as_float((127 + k) << 23);   // 2^k
-      float cs[3];
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        float sn;
-        sincosf(x[j] * scale, &sn, &cs[j]);
-        out.push(sn);
-      }
-      out.push(cs[0]);
-      out.push(cs[1]);
-      out.push(cs[2]);
-    }
+    push_fourier(out, x, MULTIRES);
     const float* lat_row = lat + size_t(uint32_t(p) / uint32_t(samples)) * lat_width;
 #pragma unroll 1
     for (int m = 0; m < lat_width; ++m) out.push(__ldg(lat_row + m));

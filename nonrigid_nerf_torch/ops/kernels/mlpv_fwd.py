@@ -15,12 +15,17 @@ Counterpart of the Pallas kernel `_mlpv_core` (forward `_mlpv_pallas_fwd` /
 - `mlpv_fwd(emb, embv, mw)` runs the kernel (`csrc/mlpv_fwd.cu`) on CUDA
   tensors and the plain version `mlpv_fwd_plain` on CPU tensors. It never
   falls back: a CUDA tensor either launches the kernel or raises.
+- `mlpv_fwd_points(pts, dirs, mw)` is the same kernel on its second input,
+  the render path's: the bent points and their view directions, from which
+  the kernel builds both encodings (`points_encoding`, `views_encoding`) bit
+  for bit, so no encoding tensor is written; on CPU tensors
+  `mlpv_fwd_points_plain`.
 
 The kernel is bound by the tensor cores (1.194 MFLOP per point against
-224 B of HBM traffic); see the source for its design. On CUDA tensors the
-wrapper first packs the chain's and the heads' weights into the swizzled
-image the kernel streams (`mlp_sm90.pack_views_image(mw, ("fwd",))`, one
-gather).
+224 B of HBM traffic on the encodings, 56 B on points); see the source for
+its design. On CUDA tensors the wrapper first packs the chain's and the
+heads' weights into the swizzled image the kernel streams
+(`mlp_sm90.pack_views_image(mw, ("fwd",))`, one gather).
 """
 
 from __future__ import annotations
@@ -31,13 +36,16 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from nonrigid_nerf_torch.ops.embedding import fourier_embed
 from nonrigid_nerf_torch.ops.kernels.build import load_kernel_library
 from nonrigid_nerf_torch.ops.kernels.mlp_fwd import (
     BF16_TOL_MAX, BF16_TOL_MEAN, EMB, NW, OUT_PAD, _pad_b, _pad_w, chain_plain,
-    check_kernel_weights, mm_bf16, pack_chain_weights, weight_pointers)
+    check_kernel_weights, mm_bf16, pack_chain_weights, points_encoding,
+    weight_pointers)
 from nonrigid_nerf_torch.ops.kernels.mlp_sm90 import pack_views_image
 
 VEMB = 32         # 27 view-encoding channels (multires_views = 4) padded
+MULTIRES_VIEWS = 4   # the octaves of the view encoding the points input builds
 VW = 128          # width of the view-conditioned layer = netwidth // 2
 N_MLPV_W = 26
 # MACs per point: the chain's 2*64*256 + 7*256*256, the feature head's
@@ -53,7 +61,8 @@ MACS_PER_POINT = (2 * EMB * NW + 7 * NW * NW + NW * NW + NW * OUT_PAD
 # (kernel vs plain).
 __all__ = ["BF16_TOL_MAX", "BF16_TOL_MEAN", "MACS_PER_POINT", "N_MLPV_W",
            "VEMB", "VW", "cast_mlpv_weights", "heads_plain", "mlpv_fwd",
-           "mlpv_fwd_plain", "pack_viewdirs_mlp_weights"]
+           "mlpv_fwd_plain", "mlpv_fwd_points", "mlpv_fwd_points_plain",
+           "pack_viewdirs_mlp_weights", "views_encoding"]
 
 # n0w..n4w, n5e, n5h, n6w, n7w, fw, aw, vwf, vwv, rw
 _MATRIX_IDX = (0, 2, 4, 6, 8, 10, 11, 13, 15, 17, 19, 21, 22, 24)
@@ -120,6 +129,16 @@ def _expected_shape(i: int):
     return torch.Size((NW, NW) if i in _MATRIX_IDX else (1, NW))
 
 
+def _check_weights(mw, device: torch.device):
+    if len(mw) != N_MLPV_W:
+        raise ValueError(f"expected {N_MLPV_W} packed weights, got {len(mw)}")
+    for i, w in enumerate(mw):
+        want = torch.bfloat16 if i in _MATRIX_IDX else torch.float32
+        if w.dtype != want or w.device != device:
+            raise ValueError(f"packed weight {i} must be {want} on "
+                             f"{device}, got {w.dtype} on {w.device}")
+
+
 def _check_args(emb, embv, mw):
     if emb.dim() != 2 or emb.shape[1] != EMB:
         raise ValueError(f"emb must be (n, {EMB}), got {tuple(emb.shape)}")
@@ -127,13 +146,7 @@ def _check_args(emb, embv, mw):
         raise ValueError(f"embv must be ({emb.shape[0]}, {VEMB}) on "
                          f"{emb.device}, got {tuple(embv.shape)} on "
                          f"{embv.device}")
-    if len(mw) != N_MLPV_W:
-        raise ValueError(f"expected {N_MLPV_W} packed weights, got {len(mw)}")
-    for i, w in enumerate(mw):
-        want = torch.bfloat16 if i in _MATRIX_IDX else torch.float32
-        if w.dtype != want or w.device != emb.device:
-            raise ValueError(f"packed weight {i} must be {want} on "
-                             f"{emb.device}, got {w.dtype} on {w.device}")
+    _check_weights(mw, emb.device)
 
 
 def mlpv_fwd(emb: torch.Tensor, embv: torch.Tensor,
@@ -175,12 +188,90 @@ def mlpv_fwd(emb: torch.Tensor, embv: torch.Tensor,
 
 
 mlpv_fwd.launches = 0
+mlpv_fwd.points_launches = 0   # of them, on the points input (mlpv_fwd_points)
+
+
+def views_encoding(dirs: torch.Tensor) -> torch.Tensor:
+    """The bf16 view encoding (n, 32) of directions (n, 3) f32 that
+    `mlpv_fwd_points` builds in the kernel: the 4-octave `fourier_embed` in
+    f32 (27 channels), rounded to bf16, zero lanes up to 32. The render
+    path's encoding route builds this tensor in the same order of
+    operations."""
+    embv = fourier_embed(dirs.float(), MULTIRES_VIEWS).to(torch.bfloat16)
+    return F.pad(embv, (0, VEMB - embv.shape[-1]))
+
+
+def mlpv_fwd_points_plain(pts: torch.Tensor, dirs: torch.Tensor,
+                          mw: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Plain PyTorch version of the kernel on points: `mlpv_fwd_plain` on
+    `points_encoding` and `views_encoding`. Returns (n, 8) f32."""
+    return mlpv_fwd_plain(points_encoding(pts, EMB), views_encoding(dirs), mw)
+
+
+def _check_points_args(pts, dirs, mw):
+    for name, x in (("pts", pts), ("dirs", dirs)):
+        if x.dim() != 2 or x.shape[1] != 3 or x.dtype != torch.float32:
+            raise ValueError(f"{name} must be (n, 3) f32, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+    if dirs.shape[0] != pts.shape[0] or dirs.device != pts.device:
+        raise ValueError(f"dirs must be ({pts.shape[0]}, 3) on {pts.device}, "
+                         f"got {tuple(dirs.shape)} on {dirs.device}")
+    _check_weights(mw, pts.device)
+
+
+def mlpv_fwd_points(pts: torch.Tensor, dirs: torch.Tensor,
+                    mw: Sequence[torch.Tensor]) -> torch.Tensor:
+    """raw (n, 8) f32 = the view-direction MLP on the encodings of the
+    points pts (n, 3) and of their view directions dirs (n, 3), both f32
+    (`points_encoding`, `views_encoding`), bit-equal to `mlpv_fwd` on them.
+
+    On CPU tensors this is `mlpv_fwd_points_plain`. On CUDA tensors it
+    launches `mlpv_fwd`'s kernel on its points input on the current stream
+    and counts the launch in `mlpv_fwd.launches` and
+    `mlpv_fwd.points_launches`, or raises."""
+    _check_points_args(pts, dirs, mw)
+    if pts.device.type == "cpu":
+        return mlpv_fwd_points_plain(pts, dirs, mw)
+    if pts.device.type != "cuda":
+        raise ValueError(f"mlpv_fwd_points runs on cpu or cuda, not "
+                         f"{pts.device}")
+    pts, dirs = pts.contiguous(), dirs.contiguous()
+    check_kernel_weights(mw, _expected_shape, "mlpv_fwd_points")
+    for t in mw:     # points and directions are read one f32 at a time
+        if t.data_ptr() % 16:
+            raise ValueError("mlpv_fwd_points needs 16-byte aligned weights")
+    n = pts.shape[0]
+    if n >= 2 ** 31:
+        raise ValueError(f"mlpv_fwd_points takes fewer than 2^31 points, "
+                         f"got {n}")
+    out = torch.empty((n, OUT_PAD), dtype=torch.float32, device=pts.device)
+    if n == 0:      # nothing to launch, nothing to count
+        return out
+    lib = _library()
+    image = pack_views_image(mw, ("fwd",))
+    mats, biases = weight_pointers(mw, _MATRIX_IDX, _BIAS_IDX)
+    with torch.cuda.device(pts.device):
+        stream = torch.cuda.current_stream(pts.device).cuda_stream
+        err = lib.nrnerf_mlpv_fwd_points(pts.data_ptr(), dirs.data_ptr(), n,
+                                         image.data_ptr(), mats, biases,
+                                         out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"mlpv_fwd_points kernel launch failed: CUDA "
+                           f"error {err}")
+    mlpv_fwd.launches += 1
+    mlpv_fwd.points_launches += 1
+    return out
 
 
 def _library() -> ctypes.CDLL:
     lib = load_kernel_library("mlpv_fwd.cu")
     fn = lib.nrnerf_mlpv_fwd
     ptrs = ctypes.POINTER(ctypes.c_void_p)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ptrs, ptrs, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.nrnerf_mlpv_fwd_points
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ptrs, ptrs, ctypes.c_void_p,
                    ctypes.c_void_p]

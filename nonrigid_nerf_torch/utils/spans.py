@@ -30,7 +30,7 @@ pieces of a fused backward, `bwd_piece`) lie inside the calling thread's
 | `sample` | the pixel draw and the rays of a step |
 | `stage1` | `engine/query.py:bend_encode_stage`: bender, rigidity, encoding |
 | | (also the sort-first fine pass's encoding of the sorted union) |
-| `viewdirs` | `sample_viewdirs` + `_embed_views`, on every route |
+| `viewdirs` | `sample_viewdirs` (+ `_embed_views` off the points route), on every route |
 | `stage2` | `engine/query.py:canonical_mlp_stage`: the canonical MLP |
 | `composite` | each `raw2outputs` of `engine/render.py` |
 | `importance` | `sample_pdf`, the importance draws |

@@ -1142,6 +1142,135 @@ def test_render_block_on_points_is_bit_equal_to_the_encoding_route(
         assert torch.equal(got[key], want[key]), key
 
 
+# ---- row 3 on its points input (`mlpv_fwd_points`, the view render path):
+# bit for bit `mlpv_fwd` on the encodings the engine builds, at the grid's
+# edges
+
+
+def _view_points_input(n, device, seed):
+    """Bent points as `_bent_pts` makes them and a unit direction a point."""
+    d = np.random.RandomState(seed + 1).randn(n, 3)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (torch.from_numpy(_bent_pts(n, seed)).to(device),
+            torch.from_numpy(d.astype(np.float32)).to(device))
+
+
+def _view_counters():
+    return KV.mlpv_fwd.launches, KV.mlpv_fwd.points_launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SM90_FWD_SIZES)
+def test_mlpv_fwd_points_is_mlpv_fwd_on_the_engines_encodings(
+        model_v, cuda_device, n):
+    """raw from the points and their directions equals, bit for bit,
+    `mlpv_fwd` on the encodings the render path's encoding route builds on
+    the card (`points_encoding`, `views_encoding`: PyTorch's sin and cos in
+    f32, bf16); a relaunch is bit-equal; each launch counts once in
+    `mlpv_fwd.launches` and `mlpv_fwd.points_launches`."""
+    mw = _mlpv_weights(model_v.coarse, cuda_device)
+    pts, dirs = _view_points_input(n, cuda_device, 50)
+    emb, embv = K.points_encoding(pts, K.EMB), KV.views_encoding(dirs)
+    assert emb.shape == (n, 64) and embv.shape == (n, 32)
+    launches, on_points = _view_counters()
+    out = KV.mlpv_fwd_points(pts, dirs, mw)
+    torch.cuda.synchronize()
+    assert _view_counters() == (launches + (n > 0), on_points + (n > 0))
+    assert out.shape == (n, K.OUT_PAD) and bool(torch.isfinite(out).all())
+    assert torch.equal(out, KV.mlpv_fwd(emb, embv, mw))
+    assert torch.equal(out, KV.mlpv_fwd_points(pts, dirs, mw))
+
+
+@pytest.mark.cuda
+def test_mlpv_fwd_points_refuses_what_it_cannot_take(model_v, cuda_device):
+    mw = _mlpv_weights(model_v.coarse, cuda_device)
+    pts, dirs = _view_points_input(256, cuda_device, 3)
+    with pytest.raises(ValueError, match=r"dirs must be \(256, 3\)"):
+        KV.mlpv_fwd_points(pts, dirs[:255], mw)
+    with pytest.raises(ValueError, match=r"dirs must be \(256, 3\) on"):
+        KV.mlpv_fwd_points(pts, dirs.cpu(), mw)
+    with pytest.raises(ValueError, match="packed weight 0 must be"):
+        KV.mlpv_fwd_points(pts, dirs, (mw[0].cpu(), *mw[1:]))
+
+
+@pytest.mark.cuda
+def test_mlpv_fwd_kernels_in_the_trace_are_the_counted_launches(
+        model_v, cuda_device):
+    """Under torch.profiler, the device events named `mlpv_fwd_kernel` of
+    both inputs are the launches `mlpv_fwd.launches` counts (what the
+    benchmark's `mlpv_fwd_roofline` holds them to)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    mw = _mlpv_weights(model_v.coarse, cuda_device)
+    pts, dirs = _view_points_input(4096, cuda_device, 5)
+    emb, embv = K.points_encoding(pts, K.EMB), KV.views_encoding(dirs)
+    calls = [lambda: KV.mlpv_fwd(emb, embv, mw),
+             lambda: KV.mlpv_fwd_points(pts, dirs, mw)]
+    for call in calls:     # built and warm before the trace
+        call()
+    torch.cuda.synchronize()
+    launches, on_points = _view_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for call in calls * 2:
+            call()
+        torch.cuda.synchronize()
+    kernels = [ev.name for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA
+               and "mlpv_fwd_kernel" in ev.name]
+    assert len(kernels) == KV.mlpv_fwd.launches - launches == 4
+    assert KV.mlpv_fwd.points_launches - on_points == 2
+    assert sum("ViewPointsIn" in name for name in kernels) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fd", "exact"])
+def test_view_render_block_on_points_is_bit_equal_to_the_encoding_route(
+        model_v, cuda_device, monkeypatch, mode):
+    """A 32,768-ray block (64 + 64 samples) of the view-direction model
+    through `render_rays` under "auto" on the card, with finite-difference
+    directions (the sort-first fine pass) and exact ones (the unsorted
+    union): the points route (2 launches a block, 12 a 384 x 512 frame)
+    gives the encoding route's outputs bit for bit."""
+    import dataclasses
+
+    from nonrigid_nerf_torch.engine import query as t_query
+    from nonrigid_nerf_torch.engine import render as t_render
+
+    cfg = dataclasses.replace(CFG_V, approx_nonrigid_viewdirs=mode == "fd")
+    gpu_model = NRNeRF(cfg, num_timesteps=model_v.latents.shape[0],
+                       device=cuda_device)
+    gpu_model.load_state_dict(model_v.state_dict())
+    rs = RenderSettings(N_samples=64, N_importance=64, near=0.1,
+                        far=1.6).test_mode()
+    rng = np.random.RandomState(8)
+    n = 32768
+    ro = torch.from_numpy(np.tile([[0.0, 0.0, 0.6]], (n, 1)).astype(
+        np.float32)).to(cuda_device)
+    rd = torch.from_numpy(np.concatenate(
+        [rng.uniform(-0.4, 0.4, (n, 2)), -np.ones((n, 1))], 1).astype(
+        np.float32)).to(cuda_device)
+    lat = gpu_model.latents.detach()[torch.arange(n, device=cuda_device)
+                                     % gpu_model.latents.shape[0]]
+    with torch.no_grad():
+        launches, on_points = _view_counters()
+        got = t_render.render_rays(gpu_model, cfg, rs, ro, rd, lat,
+                                   retraw=True)
+        torch.cuda.synchronize()
+        assert _view_counters() == (launches + 2, on_points + 2)
+        for module in (t_query, t_render):
+            monkeypatch.setattr(module, "points_to_mlpv_fwd",
+                                lambda cfg, fused: False)
+        want = t_render.render_rays(gpu_model, cfg, rs, ro, rd, lat,
+                                    retraw=True)
+        torch.cuda.synchronize()
+    assert _view_counters() == (launches + 4, on_points + 2)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", SM90_BWD_SIZES)
 @pytest.mark.parametrize("width", [64, 128])

@@ -5,8 +5,9 @@ to it, on the CPU.
   builds (`fourier_embed` in f32, the latent lanes at 128, bf16), bit for
   bit.
 - The route (`query.points_to_mlp_fwd`): the kernel path under "auto" or
-  "on" with no gradient recorded and no view directions; training, view
-  directions, "pts", "int8", "off" and scene edits keep their routes.
+  "on" with no gradient recorded and no view directions; training, "pts",
+  "int8", "off" and scene edits keep their routes, and view directions take
+  `mlpv_fwd_points` (tests/test_torch_mlpv_fwd_points.py).
 - `render_rays` renders the same outputs, bit for bit, on the points route
   and with the encoding route forced.
 
@@ -104,22 +105,23 @@ def test_points_entry_refuses_what_it_cannot_place():
 
 
 ROUTES = {
-    # name: (cfg, edit, grad, points route)
-    "on": (FLAGSHIP, EditConfig(), False, True),
+    # name: (cfg, edit, grad, points route, stage 1 hands over points)
+    "on": (FLAGSHIP, EditConfig(), False, True, True),
     "auto": (dataclasses.replace(FLAGSHIP, fused_kernel="auto"),
-             EditConfig(), False, False),     # a CPU device: not fused
-    "on-baseline": (BASELINE, EditConfig(), False, True),
-    "on-training": (FLAGSHIP, EditConfig(), True, False),
+             EditConfig(), False, False, False),   # a CPU device: not fused
+    "on-baseline": (BASELINE, EditConfig(), False, True, True),
+    "on-training": (FLAGSHIP, EditConfig(), True, False, False),
+    # view directions: `mlpv_fwd_points`' route, which takes points too
     "viewdirs": (dataclasses.replace(FLAGSHIP, use_viewdirs=True),
-                 EditConfig(), False, False),
+                 EditConfig(), False, False, True),
     "pts": (dataclasses.replace(FLAGSHIP, fused_kernel="pts"), EditConfig(),
-            False, False),
+            False, False, True),
     "int8": (dataclasses.replace(FLAGSHIP, fused_kernel="int8"),
-             EditConfig(), False, False),
+             EditConfig(), False, False, False),
     "off": (dataclasses.replace(FLAGSHIP, fused_kernel="off"), EditConfig(),
-            False, False),
+            False, False, False),
     "auto-edit": (dataclasses.replace(FLAGSHIP, fused_kernel="auto"),
-                  EditConfig(render_canonical=True), False, False),
+                  EditConfig(render_canonical=True), False, False, False),
 }
 
 
@@ -127,8 +129,9 @@ ROUTES = {
 def test_route_follows_what_the_code_observes(name):
     """Stage 1 hands over the bent points exactly where the route applies,
     and stage 2 then calls `mlp_fwd_points`; elsewhere stage 1 gives what it
-    gave before (the encoding, or "pts"'s points for `mlpe_fwd`)."""
-    cfg, edit, grad, points = ROUTES[name]
+    gave before (the encoding, or the points for "pts"'s `mlpe_fwd` and for
+    `mlpv_fwd_points`)."""
+    cfg, edit, grad, points, hands_points = ROUTES[name]
     fused = t_query.use_fused_kernel(cfg, edit, CPU)
     model = _model(cfg)
     pts = torch.randn(4, 8, 3, generator=torch.Generator().manual_seed(1))
@@ -136,7 +139,7 @@ def test_route_follows_what_the_code_observes(name):
     with torch.set_grad_enabled(grad):
         assert t_query.points_to_mlp_fwd(cfg, fused) == points
         st = t_query.bend_encode_stage(model, cfg, pts, lat, edit, fused)
-    if points or cfg.fused_kernel == "pts":
+    if hands_points:
         assert st["embedded"] is st["bent_pts"]
     else:
         assert st["embedded"].shape == (4, 8, 63)

@@ -290,8 +290,15 @@ def test_header_budgets_fit_one_hopper_cta():
     assert "fwd_smem_bytes<128, 2, 2> == 197760" in src
     assert re.search(r"struct FwdPlan<PointsFwdIn<128>> \{\n  static constexpr "
                      r"int STAGES = 2;", src)
-    # the ring's full and empty barriers and the forward input's four
+    # row 3 on points: emb and embv double-buffered (four k-atoms) beside a
+    # 2-stage ring, the encoding input's size; one embv atom beside a
+    # 3-stage ring (the plan measured and left) would take 214,144 B
+    assert align + act + 4 * atom + 2 * chunk + bars == 197760
+    assert align + act + 3 * atom + fwd * chunk + bars == 214144
+    # the ring's full and empty barriers and the forward input's four (row
+    # 3's points input: eight)
     assert 2 * 8 * max(fwd, bwd) + 4 * 8 <= bars
+    assert 2 * 8 * fwd + 8 * 8 <= bars
     assert align + 2 * act + bwd * chunk + bars <= 232448
     assert fwd >= 3 and bwd >= 3
     # row 4's encodings (64 + 32 lanes, padded) share the second tile
@@ -307,6 +314,8 @@ def test_header_budgets_fit_one_hopper_cta():
     # the kernels that run these plans launch with them
     csrc = os.path.dirname(HEADER)
     for name, budget in (("mlpv_fwd.cu", "SMEM_BYTES = fwd_smem_bytes<EMB, 2>;"),
+                         ("mlpv_fwd.cu",
+                          "POINTS_SMEM_BYTES = fwd_smem_bytes<EMB, 4, 2>;"),
                          ("mlpe_fwd.cu", "launch_fwd<sm90::EMB>"),
                          ("mlp_fwd.cu", "launch_fwd<E>")):
         with open(os.path.join(csrc, name)) as f:

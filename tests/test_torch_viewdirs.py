@@ -33,7 +33,7 @@ from nonrigid_nerf_torch.engine import train_state as t_state
 from nonrigid_nerf_torch.models.model import NRNeRF
 from nonrigid_nerf_torch.models.nerf import check_nerf_supported
 from nonrigid_nerf_torch.ops.kernels.mlp_fwd import mlp_fwd
-from nonrigid_nerf_torch.ops.kernels.mlpv_fwd import mlpv_fwd
+from nonrigid_nerf_torch.ops.kernels.mlpv_fwd import mlpv_fwd_points
 from nonrigid_nerf_torch.weights import (params_from_jax, params_to_jax,
                                          tree_from_named)
 from nonrigid_nerf_tpu import checkpoints as j_ckpt
@@ -216,24 +216,26 @@ def test_flagship_kernel_path_matches_pallas_interpret(mode, interpret_pallas):
 
 @pytest.mark.parametrize("mode", ["fd", "exact", "plain"])
 def test_fused_path_reaches_mlpv_fwd(monkeypatch, mode):
+    """Rendering takes `mlpv_fwd`'s points input: the bent points and the
+    samples' directions, f32, 3 lanes each."""
     calls = []
 
-    def spy(emb, embv, mw):
-        calls.append((tuple(emb.shape), tuple(embv.shape), emb.dtype,
-                      embv.dtype))
-        return mlpv_fwd(emb, embv, mw)
+    def spy(pts, dirs, mw):
+        calls.append((tuple(pts.shape), tuple(dirs.shape), pts.dtype,
+                      dirs.dtype))
+        return mlpv_fwd_points(pts, dirs, mw)
 
     def no_mlp_fwd(*args):
         raise AssertionError("a view-direction model went through mlp_fwd")
 
-    monkeypatch.setattr(t_query, "mlpv_fwd", spy)
+    monkeypatch.setattr(t_query, "mlpv_fwd_points", spy)
     monkeypatch.setattr(t_query, "mlp_fwd_points", no_mlp_fwd)
     assert mlp_fwd is not no_mlp_fwd
     render_port(_cfg(FLAGSHIP_V, mode), RS, n=6, chunk=4)
-    bf16 = torch.bfloat16
+    f32 = torch.float32
     # 2 blocks x (coarse 4 x 8 points, fine 4 x 16 points)
-    assert calls == [((32, 64), (32, 32), bf16, bf16),
-                     ((64, 64), (64, 32), bf16, bf16)] * 2
+    assert calls == [((32, 3), (32, 3), f32, f32),
+                     ((64, 3), (64, 3), f32, f32)] * 2
 
 
 def test_supports_fused_query_with_viewdirs():
